@@ -29,12 +29,14 @@ kernels from csrc/, and runs, in order:
   7. K4 (csrc/quant_matmul.cu) against its plain version at every packed
      single-row shape of the 0.6B path (talker q/k/v/o/gate/up/down, the
      codec head on an f32 row, the CP layers and lm_head), for int4 group
-     64, int4 group 32 and int8 group 64: scaled error and us per call;
+     64, int4 group 32 and int8 group 64: scaled error and us per call,
+     timed over 64 MB of copies of the weight in turn;
   8. K3 (csrc/decode_attention.cu) against its plain version at pos 40 and
      4000 of a 4096-row cache, 6000 of 6144 and on a chunk boundary, in both
-     cache layouts: scaled error and ms per call (K3's and K4's times are
-     device time per call from torch.profiler, beside the time per call of
-     back-to-back calls from Python, which the host bounds);
+     cache layouts: scaled error and ms per call, timed over the 28 layers'
+     caches in turn (K3's and K4's times are device time per call from
+     torch.profiler, beside the time per call of back-to-back calls from
+     Python, which the host bounds; neither finds its inputs in the L2);
   9. the packed main path: a 0.6B int4 (group 64) MLX checkpoint written to
      a temporary directory by tests/synthetic_ckpt.py's numpy functions, then
      ``Qwen3TTSModel.from_pretrained(dir, keep_packed=True).generate()``:
@@ -48,7 +50,20 @@ kernels from csrc/, and runs, in order:
      decode step, ms per talker step with K3 beside the plain masked
      attention over all 4096 rows; then one torch.profiler window over 5
      packed frames: device busy share, device ms per frame in K4, K3 and
-     the rest.
+     the rest;
+  a. K1 at B = 8 and 64 rows at ragged offsets against its plain version,
+     both modes, on prefilled 128-row bf16 and 512-row int8 caches (within
+     the bf16 bound), and at B=64 on a random 512-row int8 cache, where
+     both are held against a float64 step written from the model's maths;
+  b. K2 at B = 8 and 64 against its plain version;
+  c. ``generate_batch`` of 8 texts on a bf16 and an int8 cache, one K1 and
+     one K2 per lockstep frame;
+  d. the batched grid: ``generate_codes_batch``, 66 frames, B in {8, 16,
+     32, 48, 64} x {128-row bf16, 512-row int8}: ms per lockstep frame,
+     codec tokens/s, per-sequence RTF; K1/K2 device time per frame beside
+     the bounds; the plain path at B=8; a profiled window at B=64;
+  e. ``generate()`` on an int8 cache: launches, the 66-frame RTF beside
+     phase 6's, and K1's device time and the decode loop on each cache.
 
 Any failure raises and exits non-zero. The last lines are the card's name
 and power limit, one JSON object describing the kernels, and
@@ -247,6 +262,17 @@ def main() -> None:
     def scaled(a, b):
         a, b = a.float(), b.float()
         return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+
+    # the least time the card could take: bytes over the HBM rate, operations
+    # over the bf16 dense tensor rate (H100 SXM data sheet, 700 W)
+    HBM_BYTES_S, PEAK_FLOP_S = 3.35e12, 989e12
+
+    def bound(n_bytes, flops):
+        t_b, t_o = n_bytes / HBM_BYTES_S * 1e3, flops / PEAK_FLOP_S * 1e3
+        return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
     g = torch.Generator(device=dev).manual_seed(7)
     H, V = cfg.hidden_size, cfg.vocab_size
@@ -487,9 +513,9 @@ def main() -> None:
         talker_p, cp_p, **run, cache=tk.make_cache(cfg, 1, cache_len, torch.bfloat16, dev), seed=9))
     vocoder_ms = stage_ms(lambda: vc.decode(voc_p, dec_cfg, codes66[None, :72], frames))
 
-    def decode_ms(plain: bool) -> float:
+    def decode_ms(plain: bool, quantized: bool = False) -> float:
         """ms per frame of the decode loop after the first frame."""
-        cache = tk.make_cache(cfg, 1, cache_len, torch.bfloat16, dev)
+        cache = tk.make_cache(cfg, 1, cache_len, torch.bfloat16, dev, quantized=quantized)
         c = gen.prefill_start(talker_p, cp_p, **run, cache=cache, seed=9)
         steps = 20 if plain else frames - 1
         torch.cuda.synchronize()
@@ -540,7 +566,7 @@ def main() -> None:
         (V, H, torch.float32, "codec head"),
         (cpc.vocab_size, cpc.hidden_size, torch.float32, "CP lm_head"),
     ]
-    k4_err, k4_abs, k4_times = 0.0, 0.0, {}
+    k4_err, k4_abs, k4_times, k4_io = 0.0, 0.0, {}, {}
     for bits, group in ((4, 64), (4, 32), (8, 64)):
         for O, I, xdt, where in shapes:
             w = rs.standard_normal((O, I), dtype=np.float32) / np.float32(np.sqrt(I))
@@ -551,16 +577,30 @@ def main() -> None:
             torch.cuda.synchronize()
             err = scaled(yk, yr)
             k4_err, k4_abs = max(k4_err, err), max(k4_abs, float((yk - yr).abs().max()))
-            us_k = 1000 * timed(lambda: tq.quant_gemv(xq, *args), 200)
-            us_p = 1000 * timed(lambda: tq.quant_matmul(xq, *args), 50)
-            dev_k = device_ms(lambda: tq.quant_gemv(xq, *args), 50)
-            dev_p = device_ms(lambda: tq.quant_matmul(xq, *args), 10)
+            # timed over copies of the weight that hold 64 MB in all, in
+            # turn: no call finds its weight in the 50 MB L2
+            n_cp = -(-(64 << 20) // nbytes(pw.q, pw.scales, pw.biases))
+            copies = [(pw.q.clone(), pw.scales.clone(), pw.biases.clone(), bits, group)
+                      for _ in range(n_cp)]
+            turn = iter(range(1 << 30))
+
+            def run_k():
+                return tq.quant_gemv(xq, *copies[next(turn) % n_cp])
+
+            def run_p():
+                return tq.quant_matmul(xq, *copies[next(turn) % n_cp])
+
+            us_k, us_p = 1000 * timed(run_k, 200), 1000 * timed(run_p, 50)
+            dev_k, dev_p = device_ms(run_k, 2 * n_cp), device_ms(run_p, 10)
+            del copies
             k4_times[(bits, group, O, I, xdt)] = (dev_k, dev_p)
+            k4_io[(bits, group, O, I, xdt)] = (nbytes(pw.q, pw.scales, pw.biases, xq, yk), 2 * O * I)
             log(f"[7] K4 bits {bits} group {group} [{O} x {I}] {str(xdt)[6:]} x ({where}): "
                 f"scaled err {err:.3g}; device {1000 * dev_k:.2f} us/call, plain "
                 f"{1000 * dev_p:.2f}; back to back {us_k:.2f} us/call, plain {us_p:.2f}")
             check(err <= 1e-4, f"K4 outside the 1e-4 bound at bits {bits} group {group} [{O}x{I}]")
     k4_ms, k4_plain_ms = k4_times[(4, 64, 3072, 1024, torch.bfloat16)]
+    k4_bound = bound(*k4_io[(4, 64, 3072, 1024, torch.bfloat16)])
     log(f"    K4 max scaled err {k4_err:.3g} (max abs {k4_abs:.3g})  [{smi}]")
 
     # ---- 8. K3 against its plain version ----
@@ -568,6 +608,14 @@ def main() -> None:
 
     L, NKV, D = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
     k3_err, k3_abs, k3_times = 0.0, 0.0, {}
+
+    def rotating(fn):
+        """fn(layer) over the L layers in turn, as a decode step calls K3:
+        at pos 4000 the 28 prefixes hold 459 MB, so no call finds the
+        previous call's bytes in the 50 MB L2."""
+        calls = iter(range(1 << 30))
+        return lambda: fn(next(calls) % L)
+
     for T_c, pos_c in ((4096, 40), (4096, 4000), (6144, 6000), (4096, 127), (4096, 128)):
         kv = torch.randn(2, L, 1, NKV, T_c, D, generator=g, device=dev).to(torch.bfloat16)
         qv = torch.randn(1, cfg.num_attention_heads, 1, D, generator=g, device=dev).to(torch.bfloat16)
@@ -578,19 +626,33 @@ def main() -> None:
             torch.cuda.synchronize()
             err = scaled(ok_, or_)
             k3_err, k3_abs = max(k3_err, err), max(k3_abs, float((ok_.float() - or_.float()).abs().max()))
-            ms_k = timed(lambda: attn.decode_attention_inner(*a, layer=layer), 100)
-            ms_p = timed(lambda: attn.decode_attention_ref(*a, layer=layer), 20)
-            dev_k = device_ms(lambda: attn.decode_attention_inner(*a, layer=layer), 50)
-            dev_p = device_ms(lambda: attn.decode_attention_ref(*a, layer=layer), 10)
+            if layer is None:  # one layer's cache
+                run_k = rotating(lambda l: attn.decode_attention_inner(qv, kv[0, l], kv[1, l], pos_c, D**-0.5))
+                run_p = rotating(lambda l: attn.decode_attention_ref(qv, kv[0, l], kv[1, l], pos_c, D**-0.5))
+            else:  # the layered cache with a layer index
+                run_k = rotating(lambda l: attn.decode_attention_inner(*a, layer=l))
+                run_p = rotating(lambda l: attn.decode_attention_ref(*a, layer=l))
+            ms_k, ms_p = timed(run_k, 100), timed(run_p, 20)
+            dev_k, dev_p = device_ms(run_k, 56), device_ms(run_p, 28)
             k3_times[(T_c, pos_c, layer)] = (dev_k, dev_p)
+            if (T_c, pos_c, layer) == (4096, 4000, L - 1):
+                # the yardstick: one library call over the valid prefix,
+                # never called by the port, over the layers in turn too
+                k3_lib_ms = device_ms(rotating(lambda l: torch.nn.functional.scaled_dot_product_attention(
+                    qv, kc[l, :, :, : pos_c + 1], vc[l, :, :, : pos_c + 1], scale=D**-0.5,
+                    enable_gqa=True)), 56)
+                k3_bound = bound(nbytes(qv, kc[layer, :, :, : pos_c + 1], vc[layer, :, :, : pos_c + 1], ok_),
+                                 4 * cfg.num_attention_heads * D * (pos_c + 1))
             log(f"[8] K3 pos {pos_c} of {T_c} ({'layer index' if layer is not None else 'one layer'}): "
                 f"scaled err {err:.3g}; device {dev_k:.4f} ms/call, plain {dev_p:.4f}; "
-                f"back to back {ms_k:.4f} ms/call, plain {ms_p:.4f}")
+                f"back to back {ms_k:.4f} ms/call, plain {ms_p:.4f} (the {L} layers in turn)")
             check(err <= 1e-2, f"K3 outside the 1e-2 bound at pos {pos_c} of {T_c}")
         del kv
     k3_ms, k3_plain_ms = k3_times[(4096, 4000, L - 1)]
     log(f"    K3 max scaled err {k3_err:.3g} (max abs {k3_abs:.3g}); at pos 4000 "
-        f"x {L} layers: device {k3_ms * L:.3f} ms/step, plain {k3_plain_ms * L:.3f}  [{smi}]")
+        f"x {L} layers: device {k3_ms * L:.3f} ms/step, plain {k3_plain_ms * L:.3f}; one call "
+        f"{k3_ms:.4f} ms against its bound {k3_bound[0]:.4f} ms ({k3_bound[1]}) and "
+        f"scaled_dot_product_attention {k3_lib_ms:.4f} ms  [{smi}]")
 
     # ---- 9. the packed main path: from_pretrained(keep_packed=True) ----
     talker_json = dict(
@@ -826,23 +888,489 @@ def main() -> None:
             f"{k} {ms:.3f} ({n // 5} kernels, {1000 * ms * 5 / max(n, 1):.2f} us each)"
             for k, (ms, n) in dev_ms.items()) + f"  [{smi}]")
 
+    # ==== the lockstep batch and the int8 KV cache (phases a-e) ====
+    from qwen3tts_tpu_torch.models import batch_generate as bg
+
+    NQ = cfg.num_attention_heads
+    lay, head = talker_p["layers"], talker_p["codec_head"]
+    fused = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
+    norms = ("input_layernorm", "post_attention_layernorm", "q_norm", "k_norm")
+    k1_w_bytes = nbytes(*(lay[k].q for k in fused), *(lay[k].scale for k in fused),
+                        *(lay[k] for k in norms), talker_p["norm"])
+    k1_w_elems = sum(lay[k].q.numel() for k in fused)
+
+    def k1_io(B, prefix_rows, kv_quant, sample, logits=False):
+        """(bytes, flops) of one K1 call: weights once, x, each row's prefix
+        read and new row written, the hidden out; the head, seen, mask, codes
+        and logits in sample mode."""
+        per_row = L * NKV * D * 2 * (1 if kv_quant else 2) + (L * NKV * 2 * 4 if kv_quant else 0)
+        n = k1_w_bytes + 2 * B * H * 2 + (prefix_rows + B) * per_row
+        flops = 2 * B * k1_w_elems + 4 * L * NQ * D * (prefix_rows + B)
+        if sample:
+            n += nbytes(head.q, head.scale) + B * V + V * 4 + B * 4 + (B * V * 4 if logits else 0)
+            flops += 2 * B * head.q.numel()
+        return n, flops
+
+    cpl = cp_p["layers"]
+    k2_w_bytes = nbytes(*(cpl[k].q for k in fused), *(cpl[k].scale for k in fused),
+                        *(cpl[k] for k in norms), cp_p["norm"], cp_p["lm_head"].q,
+                        cp_p["lm_head"].scale)
+    k2_w_elems = sum(cpl[k].q.numel() for k in fused)
+    # what the design moves: the stack re-read at each of 16 positions and
+    # one head per sampled position
+    k2_reread = (16 * nbytes(*(cpl[k].q for k in fused), *(cpl[k].scale for k in fused))
+                 + 15 * nbytes(cp_p["lm_head"].q[0], cp_p["lm_head"].scale[0]))
+
+    def k2_io(B):
+        """(bytes, flops) of one K2 call, each input read once: the stack and
+        the 15 heads, x0, the 15 sampled embedding rows per row, codes and
+        esum out; 16 positions through the stack and 15 heads per row."""
+        NCB, Vc = cpc.num_code_groups - 1, cpc.vocab_size
+        n = k2_w_bytes + B * 2 * H * 2 + NCB * B * H * 2 + B * NCB * 4 + B * H * 4
+        flops = (2 * B * (16 * k2_w_elems + NCB * H * Vc)
+                 + 16 * 4 * cpc.num_hidden_layers * cpc.num_attention_heads * D * 16)
+        return n, flops
+
+    k1_bound = bound(*k1_io(1, pos, False, True))
+    k2_bound = bound(*k2_io(1))
+
+    def batch_case(B, T, kv_quant, lo, hi, seed, prefill=False):
+        """x, a cache of T rows, ragged offsets in [lo, hi), rope rows and
+        seen sets. ``prefill``: the cache rows come from the model's own
+        prefill of ``hi`` random prompt rows (the comparisons); otherwise
+        they are random (the timings)."""
+        gb = torch.Generator(device=dev).manual_seed(seed)
+        cache = tk.make_cache(cfg, B, T, torch.bfloat16, dev, quantized=kv_quant)
+        if prefill:
+            pre = torch.randn(B, hi, H, generator=gb, device=dev).mul(0.05).to(torch.bfloat16)
+            tk.forward(talker_p, cfg, pre, cache, 0)
+            del pre
+        elif kv_quant:  # random int8 rows with scales of a bf16 cache of the same spread
+            cache.k.copy_(torch.randint(-127, 128, cache.k.shape, generator=gb, device=dev))
+            cache.v.copy_(torch.randint(-127, 128, cache.v.shape, generator=gb, device=dev))
+            cache.ks.copy_(torch.rand(cache.ks.shape, generator=gb, device=dev).mul(0.03))
+            cache.vs.copy_(torch.rand(cache.vs.shape, generator=gb, device=dev).mul(0.015))
+        else:
+            cache.k.copy_(torch.randn(cache.k.shape, generator=gb, device=dev))
+            cache.v.copy_(torch.randn(cache.v.shape, generator=gb, device=dev).mul(0.5))
+        offs = torch.randint(lo, hi, (B,), generator=gb, device=dev, dtype=torch.int32)
+        xb = torch.randn(B, 1, H, generator=gb, device=dev).mul(0.05).to(torch.bfloat16)
+        rope = mrope_cos_sin(torch.arange(T, device=dev)[None], D, cfg.rope_theta,
+                             cfg.mrope_section, torch.bfloat16)
+        seen_b = torch.rand(B, V, generator=gb, device=dev) < 0.005
+        return cache, offs, xb, rope[0][0][offs.long()], rope[1][0][offs.long()], seen_b
+
+    def clone(c):
+        return type(c)(*(a.clone() for a in c))
+
+    def pen_b(logits, seen_b):
+        return torch.where(seen_b, torch.where(logits < 0, logits * 1.05, logits / 1.05), logits)
+
+    def k1_wide(x, cache, offs, cos, sin):
+        """K1's non-sample step in float64, written from the model's maths
+        and not from K1's plain version: the same int8 weights, bf16 inputs,
+        cache rows and rope rows, the prefix dequantized (rows times scales),
+        the current token's own unquantized k/v, and no rounding between
+        operations. Returns the post-norm hidden [B, H]."""
+        f, B, G, eps = torch.float64, x.shape[0], NQ // NKV, cfg.rms_norm_eps
+
+        def mv(a, w):
+            return (a @ w.q.to(f)) * w.scale.reshape(-1).to(f)
+
+        def norm(a, w):
+            return a * torch.rsqrt(a.pow(2).mean(-1, keepdim=True) + eps) * w.to(f)
+
+        c, s = cos.to(f)[:, None], sin.to(f)[:, None]
+
+        def rot(a):
+            return a * c + torch.cat([-a[..., D // 2:], a[..., : D // 2]], -1) * s
+
+        h = x.reshape(B, H).to(f)
+        prefix = torch.arange(cache.max_len, device=dev)[None] < offs.long()[:, None]  # [B, T]
+        for l in range(L):
+            qkv = mv(norm(h, lay["input_layernorm"][l]), lay["qkv_proj"][l])
+            q = rot(norm(qkv[:, : NQ * D].reshape(B, NQ, D), lay["q_norm"][l])).reshape(B, NKV, G, D)
+            k = rot(norm(qkv[:, NQ * D : (NQ + NKV) * D].reshape(B, NKV, D), lay["k_norm"][l]))
+            v = qkv[:, (NQ + NKV) * D :].reshape(B, NKV, D)
+            kc, vc = cache.k[l].to(f), cache.v[l].to(f)  # [B, NKV, T, D]
+            if cache.quantized:
+                kc, vc = kc * cache.ks[l].to(f)[..., None], vc * cache.vs[l].to(f)[..., None]
+            sc = torch.einsum("bhgd,bhtd->bhgt", q, kc) * D**-0.5
+            sc = sc.masked_fill(~prefix[:, None, None], float("-inf"))
+            cur = torch.einsum("bhgd,bhd->bhg", q, k)[..., None] * D**-0.5
+            p = torch.softmax(torch.cat([sc, cur], -1), -1)
+            o = torch.einsum("bhgt,bhtd->bhgd", p[..., :-1], vc) + p[..., -1:] * v[:, :, None]
+            h = h + mv(o.reshape(B, NQ * D), lay["o_proj"][l])
+            gu = mv(norm(h, lay["post_attention_layernorm"][l]), lay["gate_up_proj"][l])
+            gate, up = gu.chunk(2, -1)
+            h = h + mv(gate * torch.sigmoid(gate) * up, lay["down_proj"][l])
+        return norm(h, talker_p["norm"])
+
+    # ---- a. K1 at B = 8 and 64 against its plain version ----
+    # On caches that the model's own prefill wrote, within the bf16 bound
+    # (0.05) of each other. On a random 512-row int8 cache at B=64 both are
+    # held against the float64 step instead: K1 within 1.5x (+ 0.005) of
+    # the plain version's distance to it, and that distance under 0.1.
+    k1b = {}
+    for B in (8, 64):
+        cases = [(False, 128, 20, 120, True), (True, 512, 100, 500, True)]
+        if B == 64:
+            cases.append((True, 512, 100, 500, False))
+        for kv_quant, T, lo, hi, prefilled in cases:
+            cache, offs, xb, cos_b, sin_b, seen_b = batch_case(B, T, kv_quant, lo, hi, B + T,
+                                                               prefill=prefilled)
+
+            def k1b_call(fn, c, temperature=0.0, seed=(1, 2), sample=True, logits=True):
+                kw = dict(temperature=temperature, top_k=50, rep_penalty=1.05, eos_id=-1,
+                          seed=seed, suppress_add=supp, seen=seen_b, return_logits=logits)
+                if not sample:
+                    kw = dict(sample=False)
+                return fn(talker_p, cfg, xb, c, offs, cos_b, sin_b, **kw)
+
+            ck, cr = clone(cache), clone(cache)
+            hk, codek, lk = k1b_call(tkk.talker_decode_step, ck)
+            hr, coder, lr = k1b_call(tkk.talker_decode_step_ref, cr)
+            torch.cuda.synchronize()
+            rows, posb = torch.arange(B, device=dev), offs.long()
+            new = []
+            for i in range(2):  # the new k, v rows (dequantized for an int8 cache)
+                a, b = ck[i][:, rows, :, posb], cr[i][:, rows, :, posb]
+                if kv_quant:
+                    a = tk.dequantize_kv(a, ck[2 + i][:, rows, :, posb])
+                    b = tk.dequantize_kv(b, cr[2 + i][:, rows, :, posb])
+                new.append(scaled(a, b))
+            errs = dict(h=scaled(hk, hr), logits=scaled(lk, lr), k=new[0], v=new[1])
+            abs_err = float((lk - lr).abs().max())
+            z = pen_b(lr, seen_b) + supp
+            flips = 0
+            for b in range(B):
+                a_, b_ = int(codek[b]), int(coder[b])
+                if a_ != b_:
+                    flips += 1
+                    check(near_tie(z[b], a_, b_, abs_err),
+                          f"K1 B={B} greedy code0 row {b} differs beyond a near-tie")
+            hn = k1b_call(tkk.talker_decode_step, clone(cache), sample=False)
+            hn_r = k1b_call(tkk.talker_decode_step_ref, clone(cache), sample=False)
+            errs["h non-sample"] = scaled(hn, hn_r)
+            check(torch.equal(hn, hk), "K1 non-sample hidden differs from the sample mode's")
+            h64 = k1_wide(xb, cache, offs, cos_b, sin_b)
+            wide = (scaled(hn, h64), scaled(hn_r, h64))
+            del h64
+            mism = 0
+            for s in range(4):  # sampled code0 over seeds, every row
+                seed = (6000 + s, 13 * s + 1)
+                _, a_s, la = k1b_call(tkk.talker_decode_step, clone(cache), 0.9, seed)
+                _, b_s, lb = k1b_call(tkk.talker_decode_step_ref, clone(cache), 0.9, seed)
+                for b in range(B):
+                    a_, b_ = int(a_s[b]), int(b_s[b])
+                    if a_ != b_:
+                        mism += 1
+                        delta = 1.05 * float((la[b] - lb[b]).abs().max())
+                        noise = gumbel_noise(seed[0], seed[1], 16 * b, V, dev)
+                        check(sampled_flip_explained(pen_b(lb[b], seen_b[b]) + supp, a_, b_,
+                                                     delta, noise),
+                              f"K1 B={B} sampled code0 row {b} differs beyond a near-tie")
+            if kv_quant:  # layer 0's rows depend on x alone: bit-equal to quantize_kv_rows
+                cb = tk.make_cache(cfg, B, T, torch.bfloat16, dev)
+                cq = clone(cache)
+                k1b_call(tkk.talker_decode_step, cq, sample=False)
+                k1b_call(tkk.talker_decode_step, cb, sample=False)
+                for qc, sc, bc in ((cq.k, cq.ks, cb.k), (cq.v, cq.vs, cb.v)):
+                    q_ref, s_ref = tk.quantize_kv_rows(bc[0, rows, :, posb])
+                    check(torch.equal(qc[0, rows, :, posb], q_ref)
+                          and torch.equal(sc[0, rows, :, posb], s_ref),
+                          f"K1 B={B}: int8 rows or scales written in place differ")
+            if prefilled:
+                check(max(errs.values()) < 0.05, f"K1 B={B} outside the bf16 bound: {errs}")
+            log(f"[a] K1 B={B} {'int8' if kv_quant else 'bf16'} cache of {T}, "
+                f"{'prefilled' if prefilled else 'random'} (offsets "
+                f"{int(offs.min())}..{int(offs.max())}): scaled err " + ", ".join(
+                    f"{k} {v:.3g}" for k, v in errs.items()) + f" (logits max abs {abs_err:.3g}); "
+                f"hidden against the float64 step: kernel {wide[0]:.4g}, plain {wide[1]:.4g}; "
+                f"greedy code0 {B - flips}/{B} equal, {flips} near-ties; sampled 4 seeds x {B} rows: "
+                f"{4 * B - mism}/{4 * B} equal, {mism} near-ties"
+                + ("; int8 rows and scales written in place bit-equal" if kv_quant else ""))
+            check(prefilled or (wide[0] <= 1.5 * wide[1] + 0.005 and wide[1] < 0.1),
+                  f"K1 B={B} against the float64 step: kernel {wide[0]:.3g}, plain {wide[1]:.3g}")
+            if prefilled:
+                t_k = timed(lambda: k1b_call(tkk.talker_decode_step, ck, 0.9, (3, 4), logits=False), 20)
+                t_p = timed(lambda: k1b_call(tkk.talker_decode_step_ref, cr, 0.9, (3, 4), logits=False), 2)
+                t_d = device_ms(lambda: k1b_call(tkk.talker_decode_step, ck, 0.9, (3, 4), logits=False), 10)
+                bnd = bound(*k1_io(B, int(offs.sum()), kv_quant, True))
+                k1b[(B, kv_quant)] = dict(abs=abs_err, ms=t_k, plain_ms=t_p, dev_ms=t_d, bound=bnd)
+                log(f"    K1 B={B}: {t_k:.3f} ms/step back to back, device {t_d:.3f} ms, bound "
+                    f"{bnd[0]:.3f} ms ({bnd[1]}), plain {t_p:.3f} ms  [{smi}]")
+            del cache, ck, cr
+
+    # ---- b. K2 at B = 8 and 64 against its plain version ----
+    k2b = {}
+    for B in (8, 64):
+        gb = torch.Generator(device=dev).manual_seed(B)
+        hb = torch.randn(B, H, generator=gb, device=dev).mul(0.3).to(torch.bfloat16)
+        c0b = torch.randint(0, 2048, (B,), generator=gb, device=dev, dtype=torch.int32)
+
+        def k2b_call(fn, temperature, seed, **kw):
+            return fn(cp_p, cpc, talker_p, hb, c0b, seed, temperature=temperature, top_k=50, **kw)
+
+        cr_, er_, lr_ = k2b_call(cpk.predict_codes_fused_ref, 0.0, (5, 6), return_logits=True)
+        ck_, ek_, lk_ = k2b_call(cpk.predict_codes_fused, 0.0, (5, 6), force_codes=cr_,
+                                 return_logits=True)
+        torch.cuda.synchronize()
+        abs_err = float((lk_ - lr_).abs().max())
+        err_lg = scaled(lk_, lr_)
+        check(err_lg < 0.05, f"K2 B={B} logits outside the bound")
+        check(torch.equal(ek_, er_), f"K2 B={B} esum differs (same rows, same order)")
+        flips = 0
+        for b in range(B):
+            for j in range(15):
+                a_, c_ = int(ck_[b, j]), int(cr_[b, j])
+                if a_ != c_:
+                    flips += 1
+                    check(near_tie(lr_[j, b], a_, c_, abs_err), f"K2 B={B} code ({b}, {j}) beyond a near-tie")
+        mism = 0
+        for s in range(3):
+            seed = (7000 + s, 17 * s + 3)
+            ca, _, la = k2b_call(cpk.predict_codes_fused, 0.9, seed, return_logits=True)
+            cb_, _, lb = k2b_call(cpk.predict_codes_fused_ref, 0.9, seed, return_logits=True)
+            for b in range(B):
+                diff = (ca[b] != cb_[b]).nonzero()
+                if len(diff):
+                    mism += 1
+                    j = int(diff[0, 0])  # later positions follow different inputs
+                    a_, c_ = int(ca[b, j]), int(cb_[b, j])
+                    delta = float((la[j, b] - lb[j, b]).abs().max())
+                    noise = gumbel_noise(seed[0], seed[1], j + 1 + 16 * b, cpc.vocab_size, dev)
+                    check(sampled_flip_explained(lb[j, b], a_, c_, delta, noise),
+                          f"K2 B={B} sampled code ({b}, {j}) beyond a near-tie")
+        t_k = timed(lambda: k2b_call(cpk.predict_codes_fused, 0.9, (3, 4)), 10)
+        t_p = timed(lambda: k2b_call(cpk.predict_codes_fused_ref, 0.9, (3, 4)), 1)
+        t_d = device_ms(lambda: k2b_call(cpk.predict_codes_fused, 0.9, (3, 4)), 5)
+        bnd = bound(*k2_io(B))
+        k2b[B] = dict(abs=abs_err, ms=t_k, plain_ms=t_p, dev_ms=t_d, bound=bnd)
+        log(f"[b] K2 B={B} (teacher-forced greedy): scaled logits err {err_lg:.3g} (max abs "
+            f"{abs_err:.3g}), esum bit-equal, codes {15 * B - flips}/{15 * B} equal, {flips} "
+            f"near-ties; sampled 3 seeds x {B} rows: {3 * B - mism}/{3 * B} rows equal, {mism} "
+            f"explained by near-ties")
+        log(f"    K2 B={B}: {t_k:.3f} ms/frame back to back, device {t_d:.3f} ms, bound "
+            f"{bnd[0]:.3f} ms ({bnd[1]}; the design's re-read of the stack at 16 positions: "
+            f"{k2_reread / HBM_BYTES_S * 1e3:.3f} ms), plain {t_p:.3f} ms  [{smi}]")
+
+    # ---- c. generate_batch(8 texts) on a bf16 and an int8 cache ----
+    texts = ["Hello from the batched decode.", "The second voice reads a longer sentence here.",
+             "Three.", "Batch lane four speaks.", "Lockstep frames for every row.",
+             "An int8 cache halves the bytes.", "Seven texts and then", "one more to make eight."]
+    gb_frames = {}
+    for kv in ("bf16", "int8"):
+        mb = Qwen3TTSModel(
+            C.ModelConfig(talker_config=cfg, tts_model_type="custom_voice", tts_model_size="0b6"),
+            talker_p, cp_p, voc_p, tokenizer_config=C.TokenizerConfig(decoder_config=dec_cfg),
+            tokenizer=StubTokenizer(cfg.text_vocab_size), dtype=torch.bfloat16, device=dev,
+            kv_cache_dtype=kv)
+        tkk.talker_decode_step.launches = 0
+        cpk.predict_codes_fused.launches = 0
+        t0 = time.time()
+        wavs = mb.generate_batch(texts, speakers=["aiden", "vivian"] * 4, language="english",
+                                 seed=0)
+        wall_c = time.time() - t0
+        n1c, n2c = tkk.talker_decode_step.launches, cpk.predict_codes_fused.launches
+        n_tot = mb.last_info.generation_token_count
+        lens = [len(w) for w in wavs]
+        log(f"[c] generate_batch(8 texts), {kv} cache: {n_tot} frames in all, per-row samples "
+            f"{lens}, {wall_c:.2f} s; launches K1 {n1c} (lockstep frames after the first), "
+            f"K2 {n2c} (every lockstep frame)")
+        check(n1c >= 1 and n2c == n1c + 1, f"K1 {n1c} / K2 {n2c} launches for the lockstep frames")
+        check(n1c + 1 >= max(lens) // 1920, "fewer lockstep frames than the longest row's")
+        check(all(bool(np.isfinite(w).all()) and len(w) > 0 and len(w) % 1920 == 0 for w in wavs)
+              and sum(lens) <= n_tot * 1920, "batched waveforms malformed")
+        gb_frames[kv] = (n1c, n2c)
+        del mb
+
+    # ---- d. the batched headline: 66 frames, forbid_eos, B x cache grid ----
+    grid = {}
+
+    def batch_run(B, kv_quant, T, seed, steps=frames):
+        gb = torch.Generator(device=dev).manual_seed(seed)
+        pre = torch.randn(B, p_bucket, H, generator=gb, device=dev).mul(0.05).to(torch.bfloat16)
+        trail = torch.randn(B, 64, H, generator=gb, device=dev).mul(0.05).to(torch.bfloat16)
+        lens_p = torch.full((B,), p_len, dtype=torch.int32, device=dev)
+        lens_t = torch.full((B,), 12, dtype=torch.int32, device=dev)
+        caps = torch.full((B,), steps, dtype=torch.int32, device=dev)
+        common = dict(talker_cfg=cfg, cp_cfg=cpc, sampling=sampling, trailing_embeds=trail,
+                      trailing_lens=lens_t, tts_pad_embed=pad)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        c = bg.prefill_start_batch(
+            talker_p, cp_p, **common, prefill_embeds=pre, prefill_lens=lens_p,
+            cache=tk.make_cache(cfg, B, T, torch.bfloat16, dev, quantized=kv_quant),
+            max_frames=72, seed=seed)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        c = bg.generate_chunk_batch(talker_p, cp_p, c, **common, max_steps=caps, until_step=72)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        check(c.frames.tolist() == [steps] * B, f"batched run B={B}: frames {c.frames.tolist()}")
+        return t2 - t0, (t2 - t1) * 1000 / (steps - 1)
+
+    for kv_quant, T in ((False, 128), (True, 512)):
+        for B in (8, 16, 32, 48, 64):
+            batch_run(B, kv_quant, T, 0)  # warm-up
+            if B == 64:
+                tkk.talker_decode_step.launches = 0
+                cpk.predict_codes_fused.launches = 0
+            runs = [batch_run(B, kv_quant, T, s) for s in (1, 2, 3)]
+            if B == 64:
+                grid_launches = (tkk.talker_decode_step.launches // 3,
+                                 cpk.predict_codes_fused.launches // 3)
+                check(grid_launches == (frames - 1, frames),
+                      f"B=64 launches {grid_launches} for {frames} frames")
+            wall_d = statistics.median(r[0] for r in runs)
+            ms_d = statistics.median(r[1] for r in runs)
+            grid[(B, kv_quant)] = (ms_d, B * 16 * frames / wall_d, wall_d / (frames / 12.5), wall_d)
+            log(f"[d] B={B:2d} {'512-slot int8' if kv_quant else '128-slot bf16'}: "
+                f"{ms_d:.2f} ms/lockstep frame, {B * 16 * frames / wall_d:.0f} codec tokens/s, "
+                f"per-sequence RTF {wall_d / (frames / 12.5):.4f} (wall {wall_d:.3f} s, median of 3; "
+                f"runs {', '.join(f'{r[0]:.3f}' for r in runs)})  [{smi}]")
+    # K1 and K2 device time per frame at the main path's shapes (offsets 57,
+    # mid-run) beside their bounds, and the plain path at B=8
+    for B in (8, 64):
+        for kv_quant, T in ((False, 128), (True, 512)):
+            cache, _, xb, _, _, seen_b = batch_case(B, T, kv_quant, 56, 58, 5)
+            offs = torch.full((B,), 57, dtype=torch.int32, device=dev)
+            rope = mrope_cos_sin(offs.long()[None], D, cfg.rope_theta, cfg.mrope_section,
+                                 torch.bfloat16)
+            d1 = device_ms(lambda: tkk.talker_decode_step(
+                talker_p, cfg, xb, cache, offs, rope[0][0], rope[1][0], temperature=0.9,
+                top_k=50, rep_penalty=1.05, eos_id=-1, seed=(1, 2), suppress_add=supp,
+                seen=seen_b), 10)
+            b1 = bound(*k1_io(B, 57 * B, kv_quant, True))
+            log(f"    B={B} {'int8' if kv_quant else 'bf16'}: K1 device {d1:.3f} ms/frame "
+                f"(bound {b1[0]:.3f} ms, {b1[1]}), K2 device {k2b[B]['dev_ms']:.3f} ms/frame "
+                f"(bound {k2b[B]['bound'][0]:.3f} ms, {k2b[B]['bound'][1]})  [{smi}]")
+            del cache
+    real_k1, real_k2 = tkk.talker_decode_step, cpk.predict_codes_fused
+    tkk.talker_decode_step, cpk.predict_codes_fused = tkk.talker_decode_step_ref, cpk.predict_codes_fused_ref
+    try:
+        _, plain_ms8 = batch_run(8, False, 128, 9, steps=11)
+    finally:
+        tkk.talker_decode_step, cpk.predict_codes_fused = real_k1, real_k2
+    log(f"    B=8 plain path (the kernels' plain versions in the same loop): "
+        f"{plain_ms8:.2f} ms/lockstep frame over 10 frames  [{smi}]")
+    # one profiler window over 5 lockstep frames at B=64 on the int8 cache
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    gb = torch.Generator(device=dev).manual_seed(4)
+    B = 64
+    common = dict(talker_cfg=cfg, cp_cfg=cpc, sampling=sampling,
+                  trailing_embeds=torch.zeros(B, 64, H, dtype=torch.bfloat16, device=dev),
+                  trailing_lens=torch.full((B,), 12, dtype=torch.int32, device=dev),
+                  tts_pad_embed=pad)
+    c = bg.prefill_start_batch(
+        talker_p, cp_p, **common,
+        prefill_embeds=torch.randn(B, p_bucket, H, generator=gb, device=dev).mul(0.05).to(torch.bfloat16),
+        prefill_lens=torch.full((B,), p_len, dtype=torch.int32, device=dev),
+        cache=tk.make_cache(cfg, B, 512, torch.bfloat16, dev, quantized=True), max_frames=72, seed=4)
+    caps = torch.full((B,), 72, dtype=torch.int32, device=dev)
+    c = bg.generate_chunk_batch(talker_p, cp_p, c, **common, max_steps=caps, until_step=4)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    prof.start()
+    c = bg.generate_chunk_batch(talker_p, cp_p, c, **common, max_steps=caps, until_step=9)
+    torch.cuda.synchronize()
+    prof.stop()
+    win_ms = (time.time() - t0) * 1000 / 5
+    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in iv:
+        if b > end:
+            busy, end = busy + b - max(a, end), b
+    log(f"    B=64 int8 profiler window (5 lockstep frames): wall {win_ms:.2f} ms/frame with the "
+        f"profiler on, device busy {busy / 1000 / 5:.2f} ms/frame = {busy / 1000 / 5 / win_ms:.3f} "
+        f"of it  [{smi}]")
+
+    # ---- e. generate() on an int8 KV cache at B=1 ----
+    mq = Qwen3TTSModel(
+        C.ModelConfig(talker_config=cfg, tts_model_type="custom_voice", tts_model_size="0b6"),
+        talker_p, cp_p, voc_p, tokenizer_config=C.TokenizerConfig(decoder_config=dec_cfg),
+        tokenizer=StubTokenizer(cfg.text_vocab_size), dtype=torch.bfloat16, device=dev,
+        kv_cache_dtype="int8")
+    tkk.talker_decode_step.launches = 0
+    cpk.predict_codes_fused.launches = 0
+    wav_e, info_e = mq.generate("Hello from the H100 port of the talker.", speaker="aiden",
+                                language="english", seed=0, return_info=True)
+    ne, n1e, n2e = info_e.generation_token_count, tkk.talker_decode_step.launches, cpk.predict_codes_fused.launches
+    check(n2e == ne and n1e == ne - 1 + int(ne < max_steps), f"int8 generate: K1 {n1e} K2 {n2e} for {ne} frames")
+    check(bool(np.isfinite(wav_e).all()) and len(wav_e) % 1920 == 0 and 0 < len(wav_e) <= ne * 1920,
+          "int8 generate waveform")
+
+    def e2e_q(seed):
+        torch.cuda.synchronize()
+        t = time.time()
+        _c, nf, w, _ = _generate_and_decode(talker_p, cp_p, voc_p, dec_cfg=dec_cfg, **run,
+                                            max_steps=frames, seed=seed, cache_len=cache_len,
+                                            kv_quant=True)
+        torch.cuda.synchronize()
+        check(nf == frames and bool(torch.isfinite(w).all()), "int8 headline run malformed")
+        return time.time() - t
+
+    e2e_q(0)
+    tkk.talker_decode_step.launches = 0
+    walls_e = [e2e_q(s) for s in (1, 2, 3)]
+    k1_int8_launches = tkk.talker_decode_step.launches
+    check(k1_int8_launches == 3 * (frames - 1), f"K1 ran {k1_int8_launches} times on the int8 headline")
+    wall_e = statistics.median(walls_e)
+    log(f"[e] generate() on an int8 cache: {ne} frames, K1 {n1e}, K2 {n2e}; 66-frame headline "
+        f"wall {wall_e:.3f} s (runs {', '.join(f'{w:.3f}' for w in walls_e)}), RTF "
+        f"{wall_e / (frames / 12.5):.4f} against the bf16 headline's {rtf:.4f} (phase 6)  [{smi}]")
+    # where the int8 cache's B=1 difference lies: K1's device time at the
+    # headline's mid-run offset on each cache, and the decode loop's ms per
+    # frame on each, in the order bf16, int8, int8, bf16
+    k1_dev_b1 = {}
+    for quant in (False, True):
+        c1 = tk.make_cache(cfg, 1, cache_len, torch.bfloat16, dev, quantized=quant)
+        tk.forward(talker_p, cfg, prefill[:, :57], c1, 0)
+        r57 = mrope_cos_sin(torch.full((1, 1), 57, device=dev), D, cfg.rope_theta,
+                            cfg.mrope_section, torch.bfloat16)
+        k1_dev_b1[quant] = device_ms(lambda: tkk.talker_decode_step(
+            talker_p, cfg, x, c1, 57, r57[0][0, 0], r57[1][0, 0], temperature=0.9, top_k=50,
+            rep_penalty=1.05, eos_id=-1, seed=(3, 4), suppress_add=supp, seen=seen), 20)
+        del c1
+    loop_ms = [decode_ms(False, q) for q in (False, True, True, False)]
+    log(f"    B=1 at offset 57: K1 device {k1_dev_b1[False]:.4f} ms/step on the bf16 cache, "
+        f"{k1_dev_b1[True]:.4f} on the int8; decode loop (bf16, int8, int8, bf16) "
+        f"{', '.join(f'{m:.3f}' for m in loop_ms)} ms/frame  [{smi}]")
+
     print(smi, flush=True)
+    k1_64, k2_64 = k1b[(64, True)], k2b[64]
     kernels = [
         dict(name="talker_decode_step", route="cuda",
              source="qwen3tts_tpu_torch/csrc/talker_step.cu",
              replaces="qwen3tts_tpu/ops/talker_kernel.py:656", launches=n1,
-             max_abs_err=k1_abs, ms=k1_ms, plain_ms=k1_plain_ms),
+             max_abs_err=k1_abs, ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound[0],
+             bound_by=k1_bound[1], library_ms=None),
         dict(name="predict_codes_fused", route="cuda",
              source="qwen3tts_tpu_torch/csrc/cp_loop.cu",
              replaces="qwen3tts_tpu/ops/cp_kernel.py:619", launches=n2,
-             max_abs_err=k2_abs, ms=k2_ms, plain_ms=k2_plain_ms),
+             max_abs_err=k2_abs, ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound[0],
+             bound_by=k2_bound[1], library_ms=None),
         dict(name="decode_attention_inner", route="cuda",
              source="qwen3tts_tpu_torch/csrc/decode_attention.cu",
              replaces="qwen3tts_tpu/ops/attention.py:141", launches=k3_launches,
-             max_abs_err=k3_abs, ms=k3_ms, plain_ms=k3_plain_ms),
+             max_abs_err=k3_abs, ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound[0],
+             bound_by=k3_bound[1], library_ms=k3_lib_ms),
         dict(name="quant_gemv", route="cuda", source="qwen3tts_tpu_torch/csrc/quant_matmul.cu",
              replaces="qwen3tts_tpu/ops/quant.py:134", launches=k4_launches,
-             max_abs_err=k4_abs, ms=k4_ms, plain_ms=k4_plain_ms),
+             max_abs_err=k4_abs, ms=k4_ms, plain_ms=k4_plain_ms, bound_ms=k4_bound[0],
+             bound_by=k4_bound[1], library_ms=None),
+        dict(name="talker_decode_step (B=64, int8 KV)", route="cuda",
+             source="qwen3tts_tpu_torch/csrc/talker_step.cu",
+             replaces="qwen3tts_tpu/ops/talker_kernel.py:656", launches=grid_launches[0],
+             max_abs_err=k1_64["abs"], ms=k1_64["ms"], plain_ms=k1_64["plain_ms"],
+             bound_ms=k1_64["bound"][0], bound_by=k1_64["bound"][1], library_ms=None),
+        dict(name="predict_codes_fused (B=64)", route="cuda",
+             source="qwen3tts_tpu_torch/csrc/cp_loop.cu",
+             replaces="qwen3tts_tpu/ops/cp_kernel.py:619", launches=grid_launches[1],
+             max_abs_err=k2_64["abs"], ms=k2_64["ms"], plain_ms=k2_64["plain_ms"],
+             bound_ms=k2_64["bound"][0], bound_by=k2_64["bound"][1], library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

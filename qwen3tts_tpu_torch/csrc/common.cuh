@@ -2,18 +2,30 @@
 // cp_loop.cu: K2). Each has a plain PyTorch twin in
 // qwen3tts_tpu_torch/ops/decode_blocks.py with the same rounding points.
 //
-// All kernels assume batch 1, head_dim 128 and bf16 activations, and are
-// launched on the caller's stream by the host loops of the two .cu files.
-// The bound at the 0.6B shapes is device-memory bandwidth on the int8
-// weights (every byte is used once per token), so the GEMV reads 16 bytes
-// per thread with neighbouring threads on neighbouring columns and splits
-// the reduction dimension across blocks to put ~2 blocks on every SM.
+// Every kernel here takes a batch of B rows (1 <= B <= MAX_BATCH), head_dim
+// 128 and bf16 activations, and is launched on the caller's stream by the
+// host loops of the two .cu files. Row b's activations sit at b * width.
+//
+// The weight GEMV is the bound. At B=1 it is device-memory bandwidth on the
+// int8 weights (every byte is used once per token): ``gemv_i8_partial``
+// reads 16 bytes per thread with neighbouring threads on neighbouring
+// columns and splits the reduction dimension across blocks to put ~2 blocks
+// on every SM. At B>1 the same weight stream serves every row: the batched
+// GEMV (``gemv_i8_batched``) stages each block's weight tile in shared
+// memory once, from device memory, and multiplies it into all B rows from
+// there, with the rows tiled 8 at a time so the accumulators stay in
+// registers. Its arithmetic (2 x B flops per weight byte, f32 FMA on the
+// CUDA cores) overtakes the memory time near B = 8; at B = 64 a 0.6B talker
+// step is ~57 GFLOP, ~0.85 ms of FMA at the card's f32 peak against a
+// ~0.13 ms memory floor, so tensor cores are the later step.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "reduce.cuh"
 
@@ -31,14 +43,25 @@ namespace qt {
 namespace {
 
 constexpr int HEAD_DIM = 128;
+constexpr int MAX_BATCH = 64;
 constexpr int GEMV_THREADS = 256;           // 8 warps split the rows
-constexpr int GEMV_COLS = 512;              // columns per block: 32 lanes x 16 B
-constexpr int GEMV_MAX_SPLIT = 64;          // the caller's workspace holds 64 x O floats
+constexpr int GEMV_COLS = 512;              // columns per block (B=1): 32 lanes x 16 B
+constexpr int GEMV_MAX_SPLIT = 64;          // B=1: at most 64 splits
+constexpr int GEMV_MAX_PARTS = 512;         // B>1: splits x B <= 512 (the workspace holds 512 x O floats)
+constexpr int BG_COLS = 128;                // batched GEMV: columns per block, 16 groups of 8
+constexpr int BG_ROWS = 128;                // batched GEMV: weight rows staged per pass
+constexpr int BG_XS = BG_ROWS + 2;          // x row stride in shared memory (odd words: no conflicts)
+constexpr int BG_SMEM = 64 * 1024;          // batched GEMV: dynamic shared memory per block
 constexpr int SAMPLE_THREADS = 1024;
 constexpr int SAMPLE_PER_THREAD = 4;        // vocabularies up to 4096
 constexpr float NEG_BIG = -1e30f;
 
+static_assert(BG_ROWS * BG_COLS + MAX_BATCH * BG_XS * 2 <= BG_SMEM, "batched GEMV staging");
+static_assert(16 * 8 * BG_COLS * 4 <= BG_SMEM, "batched GEMV reduction");
+
 __device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 // round an f32 value to bf16 and back (a bf16 "store" kept in a register)
 __device__ __forceinline__ float rbf(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
@@ -67,10 +90,14 @@ __host__ __device__ inline uint32_t stream_key(uint32_t s0, uint32_t s1, uint32_
   return mix32(s0 ^ mix32(s1 + stream * 0x9E3779B9u));
 }
 
+// Row b of a batched call draws from stream ``stream + STREAMS_PER_ROW * b``
+// (row 0 keeps the single-sequence streams).
+constexpr uint32_t STREAMS_PER_ROW = 16;
+
 // ---------------------------------------------------------------------------
-// int8 weight-only GEMV, first pass: part[split, o] = sum over this split's
-// rows r of x[r] * W[r, o] in f32. W is int8 [I, O] row-major (O % 16 == 0).
-// Grid (ceil(O / 512), splits); each warp walks every 8th row of the split.
+// int8 weight-only GEMV at B=1, first pass: part[split, o] = sum over this
+// split's rows r of x[r] * W[r, o] in f32. W is int8 [I, O] row-major
+// (O % 16 == 0). Grid (ceil(O / 512), splits); each warp walks every 8th row.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(GEMV_THREADS)
 gemv_i8_partial(const int8_t* __restrict__ W, const bf16* __restrict__ x,
@@ -108,36 +135,144 @@ gemv_i8_partial(const int8_t* __restrict__ W, const bf16* __restrict__ x,
   }
 }
 
-// Launch the first pass; returns the number of splits written to ``part``.
-inline int gemv(const int8_t* W, const bf16* x, float* part, int I, int O,
-                cudaStream_t st) {
-  static int num_sms = 0;
-  if (num_sms == 0) {
+// ---------------------------------------------------------------------------
+// int8 weight-only GEMV at B>1, first pass: part[split, b, o] = sum over this
+// split's rows r of x[b, r] * W[r, o] in f32. Grid (ceil(O / 128), splits).
+// A block owns 128 columns and one split of the rows; it walks the split in
+// passes of 128 rows, staging the weight tile (16-byte loads, each weight
+// byte read from device memory by this block only, once) and x[:, rows] in
+// shared memory. Thread = (column group of 8, slot of 16): the slots take
+// (row tile of 8 batch rows, row group) pairs, so at small B the rows of the
+// split are spread over up to 16 groups and at B=64 over 2. A thread keeps
+// 8 x 8 f32 accumulators; the row groups are summed through shared memory.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(GEMV_THREADS)
+gemv_i8_batched(const int8_t* __restrict__ W, const bf16* __restrict__ x, int B,
+                float* __restrict__ part, int I, int O, int rows_per_split) {
+  extern __shared__ __align__(16) unsigned char bg_smem[];
+  int8_t* ws = reinterpret_cast<int8_t*>(bg_smem);                    // [BG_ROWS][BG_COLS]
+  bf16* xs = reinterpret_cast<bf16*>(bg_smem + BG_ROWS * BG_COLS);     // [B][BG_XS]
+  float* red = reinterpret_cast<float*>(bg_smem);                      // [KG][Bp][BG_COLS], at the end
+  const int tid = threadIdx.x;
+  const int NBT = (B + 7) / 8, Bp = NBT * 8, KG = 16 / NBT;
+  const int cg = tid & 15, slot = tid >> 4;
+  const int bt = slot % NBT, kg = slot / NBT;
+  const bool active = kg < KG;
+  const int c0 = blockIdx.x * BG_COLS;
+  const int r0 = blockIdx.y * rows_per_split;
+  const int r1 = min(I, r0 + rows_per_split);
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  for (int rc = r0; rc < r1; rc += BG_ROWS) {
+    const int nr = min(BG_ROWS, r1 - rc);
+    for (int i = tid; i < nr * (BG_COLS / 16); i += GEMV_THREADS) {
+      const int r = i / (BG_COLS / 16), ch = i % (BG_COLS / 16);
+      const int c = c0 + ch * 16;
+      int4 w = make_int4(0, 0, 0, 0);
+      if (c < O) w = __ldg(reinterpret_cast<const int4*>(W + (size_t)(rc + r) * O + c));
+      *reinterpret_cast<int4*>(ws + r * BG_COLS + ch * 16) = w;
+    }
+    for (int i = tid; i < B * nr; i += GEMV_THREADS) {
+      const int b = i / nr, r = i % nr;
+      xs[b * BG_XS + r] = x[(size_t)b * I + rc + r];
+    }
+    __syncthreads();
+    if (active) {
+      for (int r = kg; r < nr; r += KG) {
+        const int2 wv = *reinterpret_cast<const int2*>(ws + r * BG_COLS + cg * 8);
+        const int8_t* wb = reinterpret_cast<const int8_t*>(&wv);
+        float w[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) w[j] = (float)wb[j];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int b = bt * 8 + i;
+          const float xi = b < B ? bf(xs[b * BG_XS + r]) : 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xi, w[j], acc[i][j]);
+        }
+      }
+    }
+    __syncthreads();  // the next pass (or the reduction) overwrites the tiles
+  }
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) red[(kg * Bp + bt * 8 + i) * BG_COLS + cg * 8 + j] = acc[i][j];
+  }
+  __syncthreads();
+  for (int o = tid; o < B * BG_COLS; o += GEMV_THREADS) {
+    const int b = o / BG_COLS, c = o % BG_COLS;
+    if (c0 + c >= O) continue;
+    float s = 0.f;
+    for (int k = 0; k < KG; ++k) s += red[(k * Bp + b) * BG_COLS + c];
+    part[((size_t)blockIdx.y * B + b) * O + c0 + c] = s;
+  }
+}
+
+inline int num_sms() {
+  static int n = 0;
+  if (n == 0) {
     int dev = 0;
     cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, dev);
-    if (num_sms <= 0) num_sms = 132;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
   }
-  const int col_blocks = (O + GEMV_COLS - 1) / GEMV_COLS;
-  int splits = (2 * num_sms) / col_blocks;
-  splits = max(1, min(min(splits, GEMV_MAX_SPLIT), (I + 7) / 8));
+  return n;
+}
+
+// Launch the first pass of y[B, O] = x[B, I] @ W; returns the number of
+// splits written to ``part`` ([splits][B][O] f32).
+inline int gemv(const int8_t* W, const bf16* x, int B, float* part, int I, int O,
+                cudaStream_t st) {
+  if (B == 1) {
+    const int col_blocks = (O + GEMV_COLS - 1) / GEMV_COLS;
+    int splits = (2 * num_sms()) / col_blocks;
+    splits = max(1, min(min(splits, GEMV_MAX_SPLIT), (I + 7) / 8));
+    int rows = (I + splits - 1) / splits;
+    rows = (rows + 7) / 8 * 8;
+    splits = (I + rows - 1) / rows;
+    gemv_i8_partial<<<dim3(col_blocks, splits), GEMV_THREADS, 0, st>>>(W, x, part, I, O, rows);
+    return splits;
+  }
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaFuncSetAttribute(gemv_i8_batched, cudaFuncAttributeMaxDynamicSharedMemorySize, BG_SMEM);
+    smem_set = true;
+  }
+  const int col_blocks = (O + BG_COLS - 1) / BG_COLS;
+  int splits = (2 * num_sms() + col_blocks - 1) / col_blocks;
+  splits = max(1, min(min(splits, GEMV_MAX_PARTS / B), (I + 15) / 16));
   int rows = (I + splits - 1) / splits;
-  rows = (rows + 7) / 8 * 8;
+  rows = (rows + 15) / 16 * 16;
   splits = (I + rows - 1) / rows;
-  gemv_i8_partial<<<dim3(col_blocks, splits), GEMV_THREADS, 0, st>>>(W, x, part, I, O, rows);
+  gemv_i8_batched<<<dim3(col_blocks, splits), GEMV_THREADS, BG_SMEM, st>>>(W, x, B, part, I, O,
+                                                                            rows);
   return splits;
 }
 
-__device__ __forceinline__ float split_sum(const float* part, int splits, int O, int c) {
+// Sum of the splits of output ``idx``; consecutive splits lie ``stride``
+// apart (an int: splits x B x O < 2^31, and a 32-bit stride keeps the
+// address a single wide multiply).
+__device__ __forceinline__ float split_sum(const float* part, int splits, int stride, int idx) {
   float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += part[(size_t)k * O + c];
+  for (int k = 0; k < splits; ++k) s += __ldg(part + (size_t)k * stride + idx);
   return s;
 }
 
-// xn = rms(x, nw) and, if hres != nullptr, hres = x. One block.
-__global__ void rms_copy(const bf16* __restrict__ x, const float* __restrict__ nw,
+// xn = rms(x, nw) and, if hres != nullptr, hres = x. One block per row;
+// row b of x at x + b * x_stride, of xn/hres at b * H.
+__global__ void rms_copy(const bf16* __restrict__ x, int x_stride, const float* __restrict__ nw,
                          bf16* __restrict__ xn, bf16* __restrict__ hres, int H, float eps) {
   __shared__ float red[32];
+  const int b = blockIdx.x;
+  x += (size_t)b * x_stride;
+  xn += (size_t)b * H;
+  if (hres) hres += (size_t)b * H;
   float ss = 0.f;
   for (int c = threadIdx.x; c < H; c += blockDim.x) {
     const float v = bf(x[c]);
@@ -152,80 +287,115 @@ __global__ void rms_copy(const bf16* __restrict__ x, const float* __restrict__ n
 }
 
 // Second pass of a GEMV whose output joins the residual stream:
-// h = bf16(h + bf16(sum * scale)); xn = rms(h, nw). One block.
+// h = bf16(h + bf16(sum * scale)); xn = rms(h, nw). One block per row.
 __global__ void finish_residual_norm(const float* __restrict__ part, int splits,
                                      const float* __restrict__ scale, bf16* __restrict__ h,
                                      const float* __restrict__ nw, bf16* __restrict__ xn,
                                      int H, float eps) {
   __shared__ float red[32];
+  const int row = blockIdx.x * H;
+  const int stride = gridDim.x * H;
   float ss = 0.f;
   for (int c = threadIdx.x; c < H; c += blockDim.x) {
-    const float y = rbf(__fmul_rn(split_sum(part, splits, H, c), scale[c]));
-    const float hv = rbf(__fadd_rn(bf(h[c]), y));
-    h[c] = __float2bfloat16_rn(hv);
+    const float y = rbf(__fmul_rn(split_sum(part, splits, stride, row + c), scale[c]));
+    const float hv = rbf(__fadd_rn(bf(h[row + c]), y));
+    h[row + c] = __float2bfloat16_rn(hv);
     ss = fmaf(hv, hv, ss);
   }
   const float r = 1.0f / sqrtf(__fdiv_rn(block_sum(ss, red), (float)H) + eps);
   for (int c = threadIdx.x; c < H; c += blockDim.x)
-    xn[c] = __float2bfloat16_rn(__fmul_rn(__fmul_rn(bf(h[c]), r), nw[c]));
+    xn[row + c] = __float2bfloat16_rn(__fmul_rn(__fmul_rn(bf(h[row + c]), r), nw[c]));
 }
 
 // Second pass of the gate_up GEMV: gated = bf16(g * sigmoid(g) * u) with
-// g, u the bf16-rounded halves.
+// g, u the bf16-rounded halves. Grid (ceil(I / 256), B).
 __global__ void finish_swiglu(const float* __restrict__ part, int splits,
                               const float* __restrict__ scale, int I, bf16* __restrict__ gated) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = blockIdx.y;
   if (c >= I) return;
   const int O = 2 * I;
-  const float g = rbf(__fmul_rn(split_sum(part, splits, O, c), scale[c]));
-  const float u = rbf(__fmul_rn(split_sum(part, splits, O, I + c), scale[I + c]));
+  const int stride = gridDim.y * O;
+  const float g = rbf(__fmul_rn(split_sum(part, splits, stride, b * O + c), scale[c]));
+  const float u = rbf(__fmul_rn(split_sum(part, splits, stride, b * O + I + c), scale[I + c]));
   const float sig = 1.0f / (1.0f + expf(-g));
-  gated[c] = __float2bfloat16_rn(__fmul_rn(__fmul_rn(g, sig), u));
+  gated[(size_t)b * I + c] = __float2bfloat16_rn(__fmul_rn(__fmul_rn(g, sig), u));
 }
 
 // ---------------------------------------------------------------------------
-// Attention for one new token, one block per kv head (GQA group).
-// Finishes the qkv GEMV for the group, applies QK-RMSNorm and rope, writes
-// the new k/v row at ``pos`` of this layer's cache [NKV, T, D] in place, and
-// attends over rows [0, pos]. CP selects the code predictor's form (scores
-// scaled after the dot, probabilities rounded to bf16 before PV); otherwise
-// the talker's (q scaled first, f32 probabilities, one division at the end).
-// The rows go in tiles of ATTN_TILE with an online softmax (running max and
-// sum per q head, the PV sums rescaled as the max grows), so the cache
-// length has no limit. The CP form rounds normalised probabilities, which
-// needs the final sum before PV: it takes one tile (pos < ATTN_TILE).
-// Dynamic shared memory: G * min(pos + 1, ATTN_TILE) floats of scores. (A
-// static 4 KB tile measured 3-4 us slower per call on an H100 at the short
-// caches of the main path.)
+// Attention for one new token of each row, one block per (kv head, row).
+// Finishes the qkv GEMV for the group, applies QK-RMSNorm and rope at the
+// row's position ``pos`` (``offs[b]`` when given, else the scalar), writes
+// the new k/v row at ``pos`` of this layer's cache [B, NKV, T, D] in place
+// and attends.
+//
+// The talker form (CP = false): q scaled first, f32 probabilities, one
+// division at the end. It walks the rows in tiles of ATTN_TILE with an
+// online softmax (running max and sum per q head, the PV sums rescaled as
+// the max grows), so the cache length has no limit. On a bf16 cache the
+// rows are [0, pos], the new row read back from the cache. With KVQ the
+// cache is int8 with one f32 scale per row ([B, NKV, T]): the new row is
+// quantized in place (scale = max(amax / 127, 1e-12), round half to even),
+// the prefix [0, pos) is read as int8 with the K scale folded into the
+// scores and the V scale into the probabilities, and the current token
+// joins with its own unquantized k/v as a final virtual block, as the TPU
+// kernel does.
+//
+// The code predictor's form (CP = true, bf16 cache): scores scaled after the
+// dot, probabilities normalised and rounded to bf16 before PV, over rows
+// [0, pos] with the new row read back from the cache; the final sum must be
+// known before PV, so it takes one tile (pos < ATTN_TILE).
+//
+// Dynamic shared memory: G * tile floats of scores, tile = min(prefix rows,
+// ATTN_TILE) at B=1 and ATTN_TILE when the positions come from ``offs``. (A
+// static 4 KB tile measured 3-4 us slower per call on an H100 at B=1 at the
+// short caches of the main path.)
 // ---------------------------------------------------------------------------
 constexpr int ATTN_THREADS = 256;
 constexpr int ATTN_MAX_GROUP = 4;
 constexpr int ATTN_TILE = 256;
 constexpr int ATTN_OWN = ATTN_MAX_GROUP * HEAD_DIM / ATTN_THREADS;  // outputs per thread
 
-template <bool CP>
+struct AttnCache {
+  void *k, *v;      // this layer's [B, NKV, T, D]: bf16, or int8 with KVQ
+  float *ks, *vs;   // KVQ: this layer's row scales [B, NKV, T]
+  int T;
+};
+
+// kc/vc: this layer's cache rows (int8 with KVQ, else bf16), ksc/vsc their
+// scales (KVQ), as in AttnCache
+template <bool CP, bool KVQ, typename KV = typename std::conditional<KVQ, int8_t, bf16>::type>
 __global__ void __launch_bounds__(ATTN_THREADS)
 attn_step(const float* __restrict__ part, int splits, const float* __restrict__ qkv_scale,
           const float* __restrict__ qn, const float* __restrict__ kn, float eps,
-          const bf16* __restrict__ cosr, const bf16* __restrict__ sinr,
-          bf16* __restrict__ kc, bf16* __restrict__ vc, int T, int pos, int NQ, int NKV,
-          float scale, bf16* __restrict__ out) {
+          const bf16* __restrict__ cosr, const bf16* __restrict__ sinr, int rope_stride,
+          KV* __restrict__ kc, KV* __restrict__ vc, float* __restrict__ ksc,
+          float* __restrict__ vsc, int T, int pos_all, const int* __restrict__ offs, int NQ,
+          int NKV, float scale, bf16* __restrict__ out) {
   constexpr int D = HEAD_DIM;
   __shared__ float raw[ATTN_MAX_GROUP + 2][D];  // q heads..., k, v (bf16 values)
   __shared__ float qk[ATTN_MAX_GROUP + 1][D];   // normed + roped q heads..., k
   __shared__ float rn[ATTN_MAX_GROUP + 1];
+  __shared__ float qscale[2];                   // KVQ: the new k and v rows' scales
   extern __shared__ float sc[];  // [G][TS]: one tile of scores / weights
   __shared__ float m_run[ATTN_MAX_GROUP], l_run[ATTN_MAX_GROUP], alpha[ATTN_MAX_GROUP];
-  const int G = NQ / NKV, kvh = blockIdx.x, tid = threadIdx.x;
+  __shared__ float p_cur[ATTN_MAX_GROUP];
+  const int G = NQ / NKV, kvh = blockIdx.x, b = blockIdx.y, B = gridDim.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int OQKV = (NQ + 2 * NKV) * D;
+  const int pos = offs ? offs[b] : pos_all;
+  const bool in_range = pos >= 0 && pos < T;
+  const int stride = B * OQKV;
+  part += (size_t)b * OQKV;
+  cosr += (size_t)b * rope_stride;
+  sinr += (size_t)b * rope_stride;
 
   for (int i = tid; i < (G + 2) * D; i += blockDim.x) {
     const int which = i / D, d = i % D;
     const int col = which < G ? (kvh * G + which) * D + d
                     : which == G ? (NQ + kvh) * D + d
                                  : (NQ + NKV + kvh) * D + d;
-    raw[which][d] = rbf(__fmul_rn(split_sum(part, splits, OQKV, col), qkv_scale[col]));
+    raw[which][d] = rbf(__fmul_rn(split_sum(part, splits, stride, col), qkv_scale[col]));
   }
   __syncthreads();
   if (warp <= G) {  // one warp per vector to normalise
@@ -248,12 +418,34 @@ attn_step(const float* __restrict__ part, int splits, const float* __restrict__ 
     qk[which][d] = (!CP && which < G) ? __fmul_rn(y, scale) : y;
   }
   __syncthreads();
-  bf16* kbase = kc + (size_t)kvh * T * D;
-  bf16* vbase = vc + (size_t)kvh * T * D;
-  for (int d = tid; d < D; d += blockDim.x) {
-    // k is stored after rope (its unscaled value sits in qk[G])
-    kbase[(size_t)pos * D + d] = __float2bfloat16_rn(qk[G][d]);
-    vbase[(size_t)pos * D + d] = __float2bfloat16_rn(raw[G + 1][d]);
+  const size_t head = ((size_t)b * NKV + kvh) * T;  // this (row, kv head)'s first cache row
+  KV* kbase = kc + head * D;
+  KV* vbase = vc + head * D;
+  if (KVQ) {
+    if (warp < 2) {  // warp 0: the k row's scale, warp 1: the v row's
+      const float* src = warp == 0 ? qk[G] : raw[G + 1];
+      float m = 0.f;
+      for (int d = lane; d < D; d += 32) m = fmaxf(m, fabsf(src[d]));
+      m = warp_max(m);
+      if (lane == 0) qscale[warp] = fmaxf(__fmul_rn(m, 1.0f / 127.0f), 1e-12f);
+    }
+    __syncthreads();
+    if (in_range) {
+      for (int d = tid; d < D; d += blockDim.x) {
+        kbase[(size_t)pos * D + d] = (int8_t)__float2int_rn(__fdiv_rn(qk[G][d], qscale[0]));
+        vbase[(size_t)pos * D + d] = (int8_t)__float2int_rn(__fdiv_rn(raw[G + 1][d], qscale[1]));
+      }
+      if (tid == 0) {
+        ksc[head + pos] = qscale[0];
+        vsc[head + pos] = qscale[1];
+      }
+    }
+  } else if (in_range) {
+    for (int d = tid; d < D; d += blockDim.x) {
+      // k is stored after rope (its unscaled value sits in qk[G])
+      kbase[(size_t)pos * D + d] = __float2bfloat16_rn(qk[G][d]);
+      vbase[(size_t)pos * D + d] = __float2bfloat16_rn(raw[G + 1][d]);
+    }
   }
   if (tid < G) {
     m_run[tid] = -CUDART_INF_F;
@@ -261,17 +453,20 @@ attn_step(const float* __restrict__ part, int splits, const float* __restrict__ 
   }
   __syncthreads();  // the new row is visible to the whole block
 
+  const float* ksr = KVQ ? ksc + head : nullptr;
+  const float* vsr = KVQ ? vsc + head : nullptr;
   // thread tid owns outputs i = tid + j * ATTN_THREADS of the [G, D] block
   float acc[ATTN_OWN];
 #pragma unroll
   for (int j = 0; j < ATTN_OWN; ++j) acc[j] = 0.f;
-  const int n = pos + 1;
+  // rows read from the cache: the prefix, and the new row but on an int8 cache
+  const int n = !in_range ? 0 : KVQ ? pos : pos + 1;
   const int TS = min(n, ATTN_TILE);
   for (int t0 = 0; t0 < n; t0 += ATTN_TILE) {
     const int nt = min(ATTN_TILE, n - t0);
     for (int t = warp; t < nt; t += ATTN_THREADS / 32) {
-      const bf16* kr = kbase + (size_t)(t0 + t) * D + lane * 4;
-      const float k0 = bf(kr[0]), k1 = bf(kr[1]), k2 = bf(kr[2]), k3 = bf(kr[3]);
+      const KV* kr = kbase + (size_t)(t0 + t) * D + lane * 4;
+      const float k0 = to_f(kr[0]), k1 = to_f(kr[1]), k2 = to_f(kr[2]), k3 = to_f(kr[3]);
       for (int g = 0; g < G; ++g) {
         const float* q = qk[g] + lane * 4;
         float a = q[0] * k0;
@@ -279,7 +474,7 @@ attn_step(const float* __restrict__ part, int splits, const float* __restrict__ 
         a = fmaf(q[2], k2, a);
         a = fmaf(q[3], k3, a);
         a = warp_sum(a);
-        if (lane == 0) sc[g * TS + t] = CP ? __fmul_rn(a, scale) : a;
+        if (lane == 0) sc[g * TS + t] = CP ? __fmul_rn(a, scale) : KVQ ? __fmul_rn(a, ksr[t0 + t]) : a;
       }
     }
     __syncthreads();
@@ -291,7 +486,7 @@ attn_step(const float* __restrict__ part, int splits, const float* __restrict__ 
       float l = 0.f;
       for (int t = lane; t < nt; t += 32) {
         const float e = expf(s[t] - m_new);
-        s[t] = e;
+        s[t] = KVQ ? __fmul_rn(e, vsr[t0 + t]) : e;  // int8: the V scale joins the weights
         l += e;
       }
       l = warp_sum(l);
@@ -311,12 +506,42 @@ attn_step(const float* __restrict__ part, int splits, const float* __restrict__ 
       if (i < G * D) {
         const int g = i / D, d = i % D;
         float a = acc[j] * alpha[g];
-        for (int t = 0; t < nt; ++t) a = fmaf(sc[g * TS + t], bf(vbase[(size_t)(t0 + t) * D + d]), a);
+        for (int t = 0; t < nt; ++t) a = fmaf(sc[g * TS + t], to_f(vbase[(size_t)(t0 + t) * D + d]), a);
         acc[j] = a;
       }
     }
     __syncthreads();  // the next tile overwrites sc
   }
+  if (KVQ) {  // the current token, with its own (unquantized) k and v
+    if (warp < G) {
+      const float* q = qk[warp] + lane * 4;
+      const float* k = qk[G] + lane * 4;
+      float a = q[0] * k[0];
+      a = fmaf(q[1], k[1], a);
+      a = fmaf(q[2], k[2], a);
+      a = fmaf(q[3], k[3], a);
+      a = warp_sum(a);
+      if (lane == 0) {
+        const float m_f = fmaxf(m_run[warp], a);
+        const float al = expf(m_run[warp] - m_f);
+        const float p = expf(a - m_f);
+        alpha[warp] = al;
+        p_cur[warp] = p;
+        l_run[warp] = fmaf(l_run[warp], al, p);
+        m_run[warp] = m_f;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < ATTN_OWN; ++j) {
+      const int i = tid + j * ATTN_THREADS;
+      if (i < G * D) {
+        const int g = i / D, d = i % D;
+        acc[j] = fmaf(p_cur[g], raw[G + 1][d], acc[j] * alpha[g]);
+      }
+    }
+  }
+  out += (size_t)b * NQ * D;
 #pragma unroll
   for (int j = 0; j < ATTN_OWN; ++j) {
     const int i = tid + j * ATTN_THREADS;
@@ -328,13 +553,14 @@ attn_step(const float* __restrict__ part, int splits, const float* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
-// The sampler: one block over a vocabulary of up to 4096 ids. Finishes the
-// head GEMV (logits = sum * scale, f32), then: + suppress mask, repetition
-// penalty (l < 0 ? l * rep : l / rep over ``seen``), and either argmax
-// (greedy) or EOS save, exact top-k (radix select on the ordered float
-// bits), EOS restore, z * inv_t + Gumbel noise, argmax. Ties go to the
-// lowest id. With ``emb`` the block then copies row ``code`` (or the forced
-// code) of emb [V, H] to x_next and adds it to esum (f32).
+// The sampler: one block per row, over a vocabulary of up to 4096 ids.
+// Finishes the head GEMV (logits = sum * scale, f32), then: + suppress mask
+// (shared by the rows), repetition penalty (l < 0 ? l * rep : l / rep over
+// the row's ``seen``), and either argmax (greedy) or EOS save, exact top-k
+// (radix select on the ordered float bits), EOS restore, z * inv_t + Gumbel
+// noise on the row's stream, argmax. Ties go to the lowest id. With ``emb``
+// the block then copies row ``code`` (or the forced code) of emb [V, H] to
+// the row's x_next and adds it to its esum (f32).
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ uint32_t float_key(float f) {
   const uint32_t u = __float_as_uint(f);
@@ -349,20 +575,41 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
+struct SampleArgs {
+  const float* supp;     // [V] additive mask, or null
+  const uint8_t* seen;   // [B, V], or null
+  float rep;
+  int greedy;
+  float inv_t;
+  int top_k, eos_id;
+  uint32_t seed0, seed1, stream;  // row b draws from stream + STREAMS_PER_ROW * b
+  int* code_out;         // row b's code at code_out[b * code_stride]
+  int code_stride;
+  float* logits_out;     // row b's logits at logits_out + b * logits_stride, or null
+  int logits_stride;
+  const int* force_code; // row b's forced code at force_code[b * force_stride], or null
+  int force_stride;
+  const bf16* emb;       // [V, H] table whose sampled row feeds the next position, or null
+  int H;
+  bf16* x_next;          // [B, H]
+  float* esum;           // [B, H]
+};
+
 __global__ void __launch_bounds__(SAMPLE_THREADS)
 sample_kernel(const float* __restrict__ part, int splits, const float* __restrict__ scale, int V,
-              const float* __restrict__ supp, const uint8_t* __restrict__ seen, float rep,
-              int greedy, float inv_t, int top_k, int eos_id, uint32_t key,
-              int* __restrict__ code_out, float* __restrict__ logits_out,
-              const int* __restrict__ force_code, const bf16* __restrict__ emb, int H,
-              bf16* __restrict__ x_next, float* __restrict__ esum) {
+              SampleArgs a) {
   __shared__ float redf[32];
   __shared__ int redi[32];
   __shared__ uint32_t hist[256];
   __shared__ uint32_t sel[2];
   __shared__ float eos_logit;
   __shared__ int code_sh;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, b = blockIdx.x;
+  const int stride = gridDim.x * V;
+  const int prow = b * V;
+  const uint8_t* seen = a.seen ? a.seen + (size_t)b * V : nullptr;
+  float* logits_out = a.logits_out ? a.logits_out + (size_t)b * a.logits_stride : nullptr;
+  const uint32_t key = stream_key(a.seed0, a.seed1, a.stream + STREAMS_PER_ROW * (uint32_t)b);
   float z[SAMPLE_PER_THREAD];
   bool valid[SAMPLE_PER_THREAD];
 #pragma unroll
@@ -371,23 +618,23 @@ sample_kernel(const float* __restrict__ part, int splits, const float* __restric
     valid[i] = c < V;
     float v = -CUDART_INF_F;
     if (valid[i]) {
-      v = __fmul_rn(split_sum(part, splits, V, c), scale[c]);
+      v = __fmul_rn(split_sum(part, splits, stride, prow + c), scale[c]);
       if (logits_out) logits_out[c] = v;
-      if (supp) v = __fadd_rn(v, supp[c]);
-      if (seen && rep != 1.0f && seen[c]) v = v < 0.f ? __fmul_rn(v, rep) : __fdiv_rn(v, rep);
-      if (c == eos_id) eos_logit = v;
+      if (a.supp) v = __fadd_rn(v, a.supp[c]);
+      if (seen && a.rep != 1.0f && seen[c]) v = v < 0.f ? __fmul_rn(v, a.rep) : __fdiv_rn(v, a.rep);
+      if (c == a.eos_id) eos_logit = v;
     }
     z[i] = v;
   }
-  if (!greedy) {
-    if (top_k > 0 && top_k < V) {
+  if (!a.greedy) {
+    if (a.top_k > 0 && a.top_k < V) {
       uint32_t keys[SAMPLE_PER_THREAD];
 #pragma unroll
       for (int i = 0; i < SAMPLE_PER_THREAD; ++i) keys[i] = float_key(z[i]);
       uint32_t prefix = 0, mask = 0;
-      int kk = top_k;
+      int kk = a.top_k;
       for (int shift = 24; shift >= 0; shift -= 8) {
-        for (int b = tid; b < 256; b += blockDim.x) hist[b] = 0;
+        for (int bin = tid; bin < 256; bin += blockDim.x) hist[bin] = 0;
         __syncthreads();
 #pragma unroll
         for (int i = 0; i < SAMPLE_PER_THREAD; ++i)
@@ -418,12 +665,12 @@ sample_kernel(const float* __restrict__ part, int splits, const float* __restric
     for (int i = 0; i < SAMPLE_PER_THREAD; ++i) {
       const int c = tid + i * blockDim.x;
       if (!valid[i]) continue;
-      if (c == eos_id) z[i] = eos_logit;
+      if (c == a.eos_id) z[i] = eos_logit;
       const uint32_t bits = mix32(mix32((uint32_t)c) ^ key);
       const float u = __fadd_rn(__fmul_rn((float)(bits & 0xFFFFFFu), 5.9604644775390625e-08f),
                                 2.98023223876953125e-08f);
       const float gumbel = -logf(-logf(u));
-      z[i] = __fadd_rn(__fmul_rn(z[i], inv_t), gumbel);
+      z[i] = __fadd_rn(__fmul_rn(z[i], a.inv_t), gumbel);
     }
   }
   float bv = -CUDART_INF_F;
@@ -464,51 +711,58 @@ sample_kernel(const float* __restrict__ part, int splits, const float* __restric
       }
     }
     if (tid == 0) {
-      code_out[0] = bi;
-      code_sh = force_code ? force_code[0] : bi;
+      a.code_out[(size_t)b * a.code_stride] = bi;
+      code_sh = a.force_code ? a.force_code[(size_t)b * a.force_stride] : bi;
     }
   }
-  if (emb == nullptr) return;
+  if (a.emb == nullptr) return;
   __syncthreads();
-  const bf16* row = emb + (size_t)code_sh * H;
-  for (int c = tid; c < H; c += blockDim.x) {
+  const bf16* row = a.emb + (size_t)code_sh * a.H;
+  bf16* x_next = a.x_next + (size_t)b * a.H;
+  float* esum = a.esum + (size_t)b * a.H;
+  for (int c = tid; c < a.H; c += blockDim.x) {
     const bf16 e = row[c];
     x_next[c] = e;
     esum[c] = __fadd_rn(esum[c], bf(e));
   }
 }
 
-// One transformer layer of a single token through the kernels above; the
-// residual stream is ``h`` and ``xn`` holds rms(h, input_layernorm) on entry
-// and rms(h, next_norm) on return.
+// One transformer layer of one token per row through the kernels above; the
+// residual stream is ``h`` [B, H] and ``xn`` holds rms(h, input_layernorm)
+// on entry and rms(h, next_norm) on return.
 struct LayerW {
   const int8_t *qkv_w, *o_w, *gu_w, *d_w;
   const float *qkv_s, *o_s, *gu_s, *d_s, *pln, *qn, *kn;
 };
 
-template <bool CP>
-inline int layer_step(const LayerW& w, const float* next_norm, int H, int NQ, int NKV, int I,
-                      float eps, float scale, const bf16* cosr, const bf16* sinr, bf16* kc,
-                      bf16* vc, int T, int pos, bf16* h, bf16* xn, bf16* attn, bf16* gated,
-                      float* ws, cudaStream_t st) {
+template <bool CP, bool KVQ>
+inline int layer_step(const LayerW& w, const float* next_norm, int B, int H, int NQ, int NKV,
+                      int I, float eps, float scale, const bf16* cosr, const bf16* sinr,
+                      int rope_stride, const AttnCache& cache, int pos, const int* offs,
+                      bf16* h, bf16* xn, bf16* attn, bf16* gated, float* ws, cudaStream_t st) {
   const int D = HEAD_DIM;
-  int s = gemv(w.qkv_w, xn, ws, H, (NQ + 2 * NKV) * D, st);
+  int s = gemv(w.qkv_w, xn, B, ws, H, (NQ + 2 * NKV) * D, st);
   QT_CHECK_LAUNCH();
-  const int tile = min(pos + 1, ATTN_TILE);
-  attn_step<CP><<<NKV, ATTN_THREADS, (NQ / NKV) * tile * sizeof(float), st>>>(
-      ws, s, w.qkv_s, w.qn, w.kn, eps, cosr, sinr, kc, vc, T, pos, NQ, NKV, scale, attn);
+  // score tile: the rows read from the cache, up to ATTN_TILE (all of it
+  // when the rows' positions live on the device)
+  const int rows = offs ? ATTN_TILE : min(max(KVQ ? pos : pos + 1, 1), ATTN_TILE);
+  attn_step<CP, KVQ><<<dim3(NKV, B), ATTN_THREADS, (NQ / NKV) * rows * sizeof(float), st>>>(
+      ws, s, w.qkv_s, w.qn, w.kn, eps, cosr, sinr, rope_stride,
+      (typename std::conditional<KVQ, int8_t, bf16>::type*)cache.k,
+      (typename std::conditional<KVQ, int8_t, bf16>::type*)cache.v, cache.ks, cache.vs, cache.T,
+      pos, offs, NQ, NKV, scale, attn);
   QT_CHECK_LAUNCH();
-  s = gemv(w.o_w, attn, ws, NQ * D, H, st);
+  s = gemv(w.o_w, attn, B, ws, NQ * D, H, st);
   QT_CHECK_LAUNCH();
-  finish_residual_norm<<<1, 1024, 0, st>>>(ws, s, w.o_s, h, w.pln, xn, H, eps);
+  finish_residual_norm<<<B, 1024, 0, st>>>(ws, s, w.o_s, h, w.pln, xn, H, eps);
   QT_CHECK_LAUNCH();
-  s = gemv(w.gu_w, xn, ws, H, 2 * I, st);
+  s = gemv(w.gu_w, xn, B, ws, H, 2 * I, st);
   QT_CHECK_LAUNCH();
-  finish_swiglu<<<(I + 255) / 256, 256, 0, st>>>(ws, s, w.gu_s, I, gated);
+  finish_swiglu<<<dim3((I + 255) / 256, B), 256, 0, st>>>(ws, s, w.gu_s, I, gated);
   QT_CHECK_LAUNCH();
-  s = gemv(w.d_w, gated, ws, I, H, st);
+  s = gemv(w.d_w, gated, B, ws, I, H, st);
   QT_CHECK_LAUNCH();
-  finish_residual_norm<<<1, 1024, 0, st>>>(ws, s, w.d_s, h, next_norm, xn, H, eps);
+  finish_residual_norm<<<B, 1024, 0, st>>>(ws, s, w.d_s, h, next_norm, xn, H, eps);
   QT_CHECK_LAUNCH();
   return 0;
 }

@@ -1,28 +1,37 @@
-// K2: the code predictor's whole inner loop for one frame (B=1), for
-// Hopper (sm_90a).
+// K2: the code predictor's whole inner loop for one frame of B rows
+// (1 <= B <= 64), for Hopper (sm_90a).
 //
 // Replaces qwen3tts_tpu/ops/cp_kernel.py::predict_codes_fused (body
 // _cp_kernel): a 2-token prefill of [talker hidden, embed(code0)], then 14
-// autoregressive positions through the int8 stack over a 16-slot cache;
-// positions 1..15 apply lm_head[j], exact top-k and Gumbel-max, and feed
-// the sampled code's codec_embedding[j] row to the next position.
+// autoregressive positions through the int8 stack over a 16-slot cache per
+// row; positions 1..15 apply lm_head[j], exact top-k and Gumbel-max, and feed
+// the sampled code's codec_embedding[j] row to the next position. The TPU
+// kernel ran the B rows as one flat cache with a block-diagonal mask; here
+// each row attends over its own 16 slots (one attention block per
+// (kv head, row)).
 //
-// Bound on the H100: device-memory bandwidth. The TPU kernel kept the whole
-// 5-layer int8 stack (~78.6 MB at the 0.6B shapes) resident in VMEM across
-// the 16 positions; an H100 block has at most 227 KB of shared memory and
-// the L2 holds 50 MB, so that premise fails here. This simple port
-// re-reads the stack at every position: 16 x 78.6 MB + 15 x 2 MB of heads
-// ~ 1.29 GB per frame. It fetches the sampled code's embedding row by index
-// (2 KB) instead of the TPU kernel's one-hot matmul over the 4 MB table,
-// inside the sampler block. Layers run through the same GEMV, attention and
-// sampler kernels as K1 (common.cuh); the 16 positions are one host loop
-// of launches with no host synchronisation (one ctypes call per frame).
+// Bound on the H100: device-memory bandwidth at small B. The TPU kernel kept
+// the whole 5-layer int8 stack (~78.6 MB at the 0.6B shapes) resident in VMEM
+// across the 16 positions; an H100 block has at most 227 KB of shared memory
+// and the L2 holds 50 MB, so that premise fails here. This simple port
+// re-reads the stack at every position, once for all B rows (the batched
+// GEMV of common.cuh): 16 x 78.6 MB + 15 x 2 MB of heads ~ 1.29 GB per
+// frame, a 0.385 ms floor at any B. At larger B the f32 FMA work of the
+// GEMVs (2 x B flops per weight byte) takes over from the bytes. It fetches
+// the sampled code's embedding row by index (2 KB) instead of the TPU
+// kernel's one-hot matmul over the 4 MB table, inside the sampler block.
+// Layers run through the same GEMV, attention and sampler kernels as K1
+// (common.cuh); the 16 positions are one host loop of launches with no
+// host synchronisation (one ctypes call per frame).
 #include "common.cuh"
 
 using namespace qt;
 
+// x0 [B, 2, H]; k/v_cache scratch [L, B, NKV, NCB + 1, D] bf16; force_codes,
+// codes_out [B, NCB]; esum [B, H]; logits_out [NCB, B, V]. Row b draws its
+// codebook j from stream j + 1 + 16 b.
 extern "C" int qt_cp_loop(
-    int L, int H, int NQ, int NKV, int D, int I, int V, int NCB, float eps, float scale,
+    int L, int H, int NQ, int NKV, int D, int I, int V, int NCB, int B, float eps, float scale,
     const void* x0,
     const void* qkv_w, const void* qkv_s, const void* o_w, const void* o_s,
     const void* gu_w, const void* gu_s, const void* d_w, const void* d_s,
@@ -33,20 +42,23 @@ extern "C" int qt_cp_loop(
     const void* force_codes,
     void* hres, void* xn, void* attn, void* gated, void* ws, void* xbuf,
     void* codes_out, void* esum, void* logits_out, void* stream) {
-  if (D != HEAD_DIM || NQ % NKV != 0 || NQ / NKV > ATTN_MAX_GROUP ||
+  if (D != HEAD_DIM || NQ % NKV != 0 || NQ / NKV > ATTN_MAX_GROUP || B < 1 || B > MAX_BATCH ||
       V > SAMPLE_THREADS * SAMPLE_PER_THREAD || NCB + 1 > ATTN_TILE)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int SLOTS = NCB + 1;
-  const size_t layer_kv = (size_t)NKV * SLOTS * D;
+  const size_t layer_kv = (size_t)B * NKV * SLOTS * D;
   bf16* h = (bf16*)hres;
   bf16* xnb = (bf16*)xn;
   bf16* xb = (bf16*)xbuf;
-  cudaMemsetAsync(esum, 0, sizeof(float) * H, st);
+  cudaMemsetAsync(esum, 0, sizeof(float) * B * H, st);
   QT_CHECK_LAUNCH();
   for (int p = 0; p < SLOTS; ++p) {
-    const bf16* xin = p < 2 ? (const bf16*)x0 + (size_t)p * H : xb;
-    rms_copy<<<1, 1024, 0, st>>>(xin, (const float*)iln, xnb, h, H, eps);
+    if (p < 2)
+      rms_copy<<<B, 1024, 0, st>>>((const bf16*)x0 + (size_t)p * H, 2 * H, (const float*)iln,
+                                   xnb, h, H, eps);
+    else
+      rms_copy<<<B, 1024, 0, st>>>(xb, H, (const float*)iln, xnb, h, H, eps);
     QT_CHECK_LAUNCH();
     const bf16* cosr = (const bf16*)cos_tab + (size_t)p * D;
     const bf16* sinr = (const bf16*)sin_tab + (size_t)p * D;
@@ -55,22 +67,43 @@ extern "C" int qt_cp_loop(
                                      d_s, pln, qn, kn);
       const float* next_norm = l + 1 < L ? (const float*)iln + (size_t)(l + 1) * H
                                          : (const float*)fnorm;
-      const int err = layer_step<true>(
-          w, next_norm, H, NQ, NKV, I, eps, scale, cosr, sinr,
-          (bf16*)k_cache + l * layer_kv, (bf16*)v_cache + l * layer_kv, SLOTS, p, h, xnb,
+      AttnCache cache;
+      cache.k = (bf16*)k_cache + l * layer_kv;
+      cache.v = (bf16*)v_cache + l * layer_kv;
+      cache.ks = cache.vs = nullptr;
+      cache.T = SLOTS;
+      const int err = layer_step<true, false>(
+          w, next_norm, B, H, NQ, NKV, I, eps, scale, cosr, sinr, 0, cache, p, nullptr, h, xnb,
           (bf16*)attn, (bf16*)gated, (float*)ws, st);
       if (err) return err;
     }
     if (p == 0) continue;  // position 0 only fills the cache
     const int j = p - 1;  // head / embedding table of this position
-    const int s = gemv((const int8_t*)lm_w + (size_t)j * H * V, xnb, (float*)ws, H, V, st);
+    const int s = gemv((const int8_t*)lm_w + (size_t)j * H * V, xnb, B, (float*)ws, H, V, st);
     QT_CHECK_LAUNCH();
-    sample_kernel<<<1, SAMPLE_THREADS, 0, st>>>(
-        (const float*)ws, s, (const float*)lm_s + (size_t)j * V, V, nullptr, nullptr, 1.0f,
-        greedy, inv_t, top_k, -1, stream_key(seed0, seed1, (uint32_t)(j + 1)),
-        (int*)codes_out + j, logits_out ? (float*)logits_out + (size_t)j * V : nullptr,
-        force_codes ? (const int*)force_codes + j : nullptr,
-        (const bf16*)emb + (size_t)j * V * H, H, xb, (float*)esum);
+    SampleArgs a;
+    a.supp = nullptr;
+    a.seen = nullptr;
+    a.rep = 1.0f;
+    a.greedy = greedy;
+    a.inv_t = inv_t;
+    a.top_k = top_k;
+    a.eos_id = -1;
+    a.seed0 = seed0;
+    a.seed1 = seed1;
+    a.stream = (uint32_t)(j + 1);
+    a.code_out = (int*)codes_out + j;
+    a.code_stride = NCB;
+    a.logits_out = logits_out ? (float*)logits_out + (size_t)j * B * V : nullptr;
+    a.logits_stride = V;
+    a.force_code = force_codes ? (const int*)force_codes + j : nullptr;
+    a.force_stride = NCB;
+    a.emb = (const bf16*)emb + (size_t)j * V * H;
+    a.H = H;
+    a.x_next = xb;
+    a.esum = (float*)esum;
+    sample_kernel<<<B, SAMPLE_THREADS, 0, st>>>((const float*)ws, s,
+                                                (const float*)lm_s + (size_t)j * V, V, a);
     QT_CHECK_LAUNCH();
   }
   return 0;

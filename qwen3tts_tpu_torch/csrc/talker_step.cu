@@ -1,19 +1,29 @@
-// K1: one talker decode step (B=1) with the codec head and the code0
-// sampler, for Hopper (sm_90a).
+// K1: one talker decode step for B rows (1 <= B <= 64), with the codec head
+// and the code0 sampler (sample mode) or without them, for Hopper (sm_90a).
 //
-// Replaces qwen3tts_tpu/ops/talker_kernel.py::talker_decode_step in sample
-// mode (body _talker_step_kernel), the TPU kernel that ran all L layers as
-// one Pallas grid program with double-buffered int8 weight streaming.
+// Replaces qwen3tts_tpu/ops/talker_kernel.py::talker_decode_step (body
+// _talker_step_kernel), the TPU kernel that ran all L layers as one Pallas
+// grid program with double-buffered int8 weight streaming, for any static
+// B at per-sequence cache offsets, on a bf16 cache or an int8 cache with
+// per-row f32 scales, in sample or non-sample mode.
 //
-// Bound on the H100: device-memory bandwidth on the weights. At the 0.6B
-// shapes one step reads 28 x 15.7 MB of int8 layer weights plus the 3.1 MB
-// codec head (~443 MB) and ~2 x 28 x 8 x pos x 256 B of KV cache; the
-// arithmetic is one multiply-add per weight byte. The design streams each
-// weight matrix once with 16-byte loads over ~2 blocks per SM (split-K GEMV,
-// common.cuh) and keeps everything else small: the GEMV's second pass is
-// fused with the residual add and the next RMSNorm (or SwiGLU), and the
-// attention block finishes the qkv GEMV, applies QK-norm and rope, appends
-// k/v to the cache in place and attends over the valid prefix only. The
+// Bound on the H100. At B=1: device-memory bandwidth on the weights. At the
+// 0.6B shapes one step reads 28 x 15.7 MB of int8 layer weights plus the
+// 3.1 MB codec head (~443.5 MB), plus the KV prefix of every row:
+// 114,688 B per cached position in bf16, 57,344 B + 1,792 B of scales in
+// int8; the floor at 3.35 TB/s is 0.132 ms plus the cache. At B>1 the
+// weights are still read once per step for the whole batch (the batched
+// GEMV of common.cuh stages each weight tile in shared memory once and
+// multiplies it into every row), so the bytes barely grow with B but the
+// f32 FMA work does: 2 x B flops per weight byte, ~57 GFLOP at B=64, which
+// is above the memory floor from B of about 8 on.
+//
+// Design: split-K GEMVs whose second pass is fused with the residual add
+// and the next RMSNorm (or SwiGLU); an attention block per (kv head, row)
+// that finishes the qkv GEMV, applies QK-norm and rope at the row's own
+// position, writes the new k/v row into the cache in place (quantized, with
+// its scale, for an int8 cache) and attends over the row's valid prefix with
+// the current token joining unquantized; one sampler block per row. The
 // steps run as a fixed sequence of ~200 launches from the host loop below
 // (one ctypes call per step); a persistent kernel or a CUDA graph that
 // removes the launch gaps is later work.
@@ -21,44 +31,81 @@
 
 using namespace qt;
 
+// Row positions: ``offs`` (device int32 [B]) when given, else ``pos`` for
+// every row. Caches [L, B, NKV, T, D] (bf16, or int8 with kv_quant and
+// scales [L, B, NKV, T]); rope rows cos/sin at ``cosr + b * rope_stride``.
+// Sample mode when ``head_w`` is given: code_out [B], logits_out [B, V].
+// On return xn holds rms(h, final norm) [B, H], the hidden the CP consumes.
 extern "C" int qt_talker_step(
-    int L, int H, int NQ, int NKV, int D, int I, int V, int T, int pos, float eps, float scale,
+    int L, int H, int NQ, int NKV, int D, int I, int V, int T, int B, int pos, const void* offs,
+    int kv_quant, float eps, float scale,
     const void* x,
     const void* qkv_w, const void* qkv_s, const void* o_w, const void* o_s,
     const void* gu_w, const void* gu_s, const void* d_w, const void* d_s,
     const void* iln, const void* pln, const void* qn, const void* kn, const void* fnorm,
-    void* k_cache, void* v_cache, const void* cosr, const void* sinr,
+    void* k_cache, void* v_cache, void* k_scale, void* v_scale,
+    const void* cosr, const void* sinr, int rope_stride,
     const void* head_w, const void* head_s, const void* supp, const void* seen,
-    float rep, int greedy, float inv_t, int top_k, int eos_id, uint32_t key,
+    float rep, int greedy, float inv_t, int top_k, int eos_id, uint32_t seed0, uint32_t seed1,
     void* hres, void* xn, void* attn, void* gated, void* ws,
     void* code_out, void* logits_out, void* stream) {
-  if (D != HEAD_DIM || NQ % NKV != 0 || NQ / NKV > ATTN_MAX_GROUP ||
-      V > SAMPLE_THREADS * SAMPLE_PER_THREAD || pos < 0 || pos >= T)
+  if (D != HEAD_DIM || NQ % NKV != 0 || NQ / NKV > ATTN_MAX_GROUP || B < 1 || B > MAX_BATCH ||
+      V > SAMPLE_THREADS * SAMPLE_PER_THREAD || (offs == nullptr && (pos < 0 || pos >= T)) ||
+      (kv_quant && (k_scale == nullptr || v_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t layer_kv = (size_t)NKV * T * D;
+  const size_t layer_rows = (size_t)B * NKV * T;  // cache rows of one layer
+  const size_t esz = kv_quant ? 1 : 2;
   bf16* h = (bf16*)hres;
   bf16* xnb = (bf16*)xn;
-  rms_copy<<<1, 1024, 0, st>>>((const bf16*)x, (const float*)iln, xnb, h, H, eps);
+  const int* offs_p = (const int*)offs;
+  rms_copy<<<B, 1024, 0, st>>>((const bf16*)x, H, (const float*)iln, xnb, h, H, eps);
   QT_CHECK_LAUNCH();
   for (int l = 0; l < L; ++l) {
     const LayerW w = layer_weights(l, H, NQ, NKV, I, qkv_w, qkv_s, o_w, o_s, gu_w, gu_s, d_w,
                                    d_s, pln, qn, kn);
     const float* next_norm = l + 1 < L ? (const float*)iln + (size_t)(l + 1) * H
                                        : (const float*)fnorm;
-    const int err = layer_step<false>(
-        w, next_norm, H, NQ, NKV, I, eps, scale, (const bf16*)cosr, (const bf16*)sinr,
-        (bf16*)k_cache + l * layer_kv, (bf16*)v_cache + l * layer_kv, T, pos, h, xnb,
-        (bf16*)attn, (bf16*)gated, (float*)ws, st);
+    AttnCache cache;
+    cache.k = (char*)k_cache + l * layer_rows * D * esz;
+    cache.v = (char*)v_cache + l * layer_rows * D * esz;
+    cache.ks = kv_quant ? (float*)k_scale + l * layer_rows : nullptr;
+    cache.vs = kv_quant ? (float*)v_scale + l * layer_rows : nullptr;
+    cache.T = T;
+    const int err = kv_quant
+        ? layer_step<false, true>(w, next_norm, B, H, NQ, NKV, I, eps, scale, (const bf16*)cosr,
+                                  (const bf16*)sinr, rope_stride, cache, pos, offs_p, h, xnb,
+                                  (bf16*)attn, (bf16*)gated, (float*)ws, st)
+        : layer_step<false, false>(w, next_norm, B, H, NQ, NKV, I, eps, scale, (const bf16*)cosr,
+                                   (const bf16*)sinr, rope_stride, cache, pos, offs_p, h, xnb,
+                                   (bf16*)attn, (bf16*)gated, (float*)ws, st);
     if (err) return err;
   }
-  // xn now holds rms(h, final norm): the post-norm hidden the CP consumes
-  const int s = gemv((const int8_t*)head_w, xnb, (float*)ws, H, V, st);
+  if (head_w == nullptr) return 0;  // non-sample mode: the post-norm hidden only
+  const int s = gemv((const int8_t*)head_w, xnb, B, (float*)ws, H, V, st);
   QT_CHECK_LAUNCH();
-  sample_kernel<<<1, SAMPLE_THREADS, 0, st>>>(
-      (const float*)ws, s, (const float*)head_s, V, (const float*)supp,
-      (const uint8_t*)seen, rep, greedy, inv_t, top_k, eos_id, key, (int*)code_out,
-      (float*)logits_out, nullptr, nullptr, H, nullptr, nullptr);
+  SampleArgs a;
+  a.supp = (const float*)supp;
+  a.seen = (const uint8_t*)seen;
+  a.rep = rep;
+  a.greedy = greedy;
+  a.inv_t = inv_t;
+  a.top_k = top_k;
+  a.eos_id = eos_id;
+  a.seed0 = seed0;
+  a.seed1 = seed1;
+  a.stream = 0;
+  a.code_out = (int*)code_out;
+  a.code_stride = 1;
+  a.logits_out = (float*)logits_out;
+  a.logits_stride = V;
+  a.force_code = nullptr;
+  a.force_stride = 0;
+  a.emb = nullptr;
+  a.H = H;
+  a.x_next = nullptr;
+  a.esum = nullptr;
+  sample_kernel<<<B, SAMPLE_THREADS, 0, st>>>((const float*)ws, s, (const float*)head_s, V, a);
   QT_CHECK_LAUNCH();
   return 0;
 }

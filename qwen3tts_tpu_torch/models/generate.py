@@ -17,7 +17,9 @@ codes row, generation stops, and ``n_frames`` counts the frames before EOS.
 On CUDA, with the fused int8 weights and top_p == 1, every frame after the
 first runs the talker step through K1 (ops/talker_kernel.py) and every frame
 runs the code predictor through K2 (ops/cp_kernel.py); otherwise the plain
-path runs (talker.forward + codec_logits + the sampler, cp.predict_codes).
+path runs (talker.forward + codec_logits + the sampler, cp.predict_codes),
+in which a fused int8 talker step on CUDA is still K1, in its non-sample
+mode. The cache is bf16 or int8 (``kv_quant``); K1 takes both.
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ class GenCarry(NamedTuple):
     step: int  # frames completed
     eos: bool  # EOS sampled
     cur_input: torch.Tensor  # [1, 1, h] next talker input
-    cache: tk.KVCache
+    cache: tk.KVCache | tk.KVCacheQ
     offset: int  # valid cache length
     seen: torch.Tensor  # [vocab] bool, repetition-penalty set
     codes: torch.Tensor  # [max_frames, 16] int32
@@ -77,20 +79,25 @@ def _fused_ok(sampling: SamplingConfig, device: torch.device) -> bool:
     return device.type == "cuda" and sampling.top_p >= 1.0
 
 
-def _use_cp_kernel(cp_params, cp_cfg, talker_cfg, sampling, device) -> bool:
-    """Gate for K2: CUDA tensors, fused int8 weights, top_p == 1."""
+def _use_cp_kernel(cp_params, cp_cfg, talker_cfg, sampling, device, batch: int = 1) -> bool:
+    """Gate for K2: CUDA tensors, fused int8 weights, top_p == 1, 1..64 rows."""
     from ..ops.cp_kernel import kernel_supported
 
     return _fused_ok(sampling, device) and kernel_supported(
-        cp_params, cp_cfg, talker_cfg.hidden_size
+        cp_params, cp_cfg, talker_cfg.hidden_size, batch
     )
 
 
-def _use_talker_sample_kernel(talker_params, talker_cfg, sampling, device) -> bool:
-    """Gate for K1: CUDA tensors, fused int8 weights and head, top_p == 1."""
+def _use_talker_sample_kernel(
+    talker_params, talker_cfg, sampling, device, batch: int = 1, kv_quant: bool = False
+) -> bool:
+    """Gate for K1 in sample mode: CUDA tensors, fused int8 weights and head,
+    top_p == 1, 1..64 rows, a bf16 or an int8 cache."""
     from ..ops.talker_kernel import step_supported
 
-    return _fused_ok(sampling, device) and step_supported(talker_params, talker_cfg)
+    return _fused_ok(sampling, device) and step_supported(
+        talker_params, talker_cfg, batch, kv_quant
+    )
 
 
 def _frame_seeds(seed_words: tuple[int, int], step: int):
@@ -202,7 +209,7 @@ def prefill_start(
     trailing_embeds: torch.Tensor,  # [T_trail, h]
     trailing_len: int,
     tts_pad_embed: torch.Tensor,  # [h]
-    cache: tk.KVCache,
+    cache: tk.KVCache | tk.KVCacheQ,
     max_frames: int,
     seed: int,
 ) -> GenCarry:
@@ -266,7 +273,9 @@ def generate_chunk(
     suppress_mask = _code0_mask(talker_cfg, sampling, dev)
     limit = min(until_step, carry.codes.shape[0])
     eos_id = talker_cfg.codec_eos_token_id
-    use_tks = _use_talker_sample_kernel(talker_params, talker_cfg, sampling, dev)
+    use_tks = _use_talker_sample_kernel(
+        talker_params, talker_cfg, sampling, dev, kv_quant=carry.cache.quantized
+    )
     if use_tks:
         suppress_add = torch.zeros(talker_cfg.vocab_size, device=dev).masked_fill_(
             suppress_mask, -1e30
@@ -333,14 +342,17 @@ def generate_codes(
     max_steps: int,
     max_frames: int,
     seed: int,
-    cache: tk.KVCache | None = None,
+    cache: tk.KVCache | tk.KVCacheQ | None = None,
     cache_len: int = 0,
+    kv_quant: bool = False,
 ) -> GenResult:
     """The full AR synthesis loop for one utterance; returns codec codes.
-    With ``cache=None`` a bf16 cache of ``cache_len`` rows is allocated."""
+    With ``cache=None`` a cache of ``cache_len`` rows is allocated: bf16, or
+    int8 with row scales when ``kv_quant``."""
     if cache is None:
         cache = tk.make_cache(
-            talker_cfg, 1, cache_len, prefill_embeds.dtype, prefill_embeds.device
+            talker_cfg, 1, cache_len, prefill_embeds.dtype, prefill_embeds.device,
+            quantized=kv_quant,
         )
     common = dict(talker_cfg=talker_cfg, cp_cfg=cp_cfg, sampling=sampling)
     stream = dict(

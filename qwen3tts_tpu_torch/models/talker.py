@@ -4,11 +4,21 @@
 Parameters are plain dicts of tensors with the layers stacked on a leading
 axis; linear weights are [in, out] (y = x @ w), ``Int8Linear`` or, in the
 low-memory mode, ``PackedLinear`` (MLX layout [out, in/pw]). The KV cache is a
-preallocated static-shape buffer [L, B, H_kv, T_max, D]; validity is handled
-by masking, never by dynamic shapes. Unlike the JAX code, which returns a new
+preallocated static-shape buffer [L, B, H_kv, T_max, D], bf16 (``KVCache``)
+or int8 with one f32 scale per row (``KVCacheQ``); validity is handled by
+masking, never by dynamic shapes. Unlike the JAX code, which returns a new
 cache from every call, the port writes new k/v rows into the cache IN PLACE
-at ``offset`` and returns the same cache object; K1 writes its row in place
-too, so the JAX package's ``_append_cache_rows`` has no counterpart here.
+(at ``offset``, or at ``offsets[b]`` for row b of a batched step) and returns
+the same cache object; K1 writes its rows in place too, so the JAX
+package's ``_append_cache_rows`` has no counterpart here.
+
+On CUDA a single-token step of fused int8 weights runs through K1
+(ops/talker_kernel.py), or raises where K1 does not take it: ``forward``
+and ``forward_batched_step`` in its non-sample mode, ``forward_step_sample``
+and ``forward_batched_step_sample`` in its sample mode. On an int8 cache the
+kernel lets the current token attend with its own unquantized k/v, while
+the plain path here quantizes the new row before attending, as the JAX
+package's XLA path does.
 """
 
 from __future__ import annotations
@@ -36,15 +46,100 @@ class KVCache(NamedTuple):
     def max_len(self) -> int:
         return self.k.shape[3]
 
+    @property
+    def quantized(self) -> bool:
+        return False
+
+
+class KVCacheQ(NamedTuple):
+    """int8 KV cache with per-row (per head per slot) f32 scales.
+
+    k/v: int8 [L, B, H_kv, T_max, D]; ks/vs: f32 [L, B, H_kv, T_max], row
+    scale = amax/127 at append time. Half the bytes of a bf16 cache for the
+    attention to read; ``kv_cache_dtype="int8"`` opts in."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    ks: torch.Tensor
+    vs: torch.Tensor
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[3]
+
+    @property
+    def quantized(self) -> bool:
+        return True
+
+
+def quantize_kv_rows(x: torch.Tensor):
+    """Per-row symmetric int8: x [..., D] -> (int8 [..., D], f32 scale [...]).
+    scale = max(amax / 127, 1e-12); ``torch.round`` rounds half to even, as
+    ``jnp.round`` and K1's ``__float2int_rn`` do."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1) * (1.0 / 127.0), 1e-12)
+    return torch.round(xf / scale[..., None]).to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv_rows` (q [..., D], scale [...])."""
+    return (q.float() * scale[..., None].float()).to(dtype)
+
 
 def make_cache(
-    cfg: TalkerConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None
-) -> KVCache:
+    cfg: TalkerConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None, *,
+    quantized: bool = False,
+) -> KVCache | KVCacheQ:
     shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, cfg.head_dim)
+    if quantized:
+        return KVCacheQ(
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        )
     return KVCache(
         torch.zeros(shape, dtype=dtype, device=device),
         torch.zeros(shape, dtype=dtype, device=device),
     )
+
+
+def _put_rows(cache, index: tuple, k, v) -> None:
+    """Write k/v rows at ``index`` (an index into the cache's first four
+    dims) in place; an int8 cache takes them quantized, with their scales
+    at the same index."""
+    if cache.quantized:
+        (kq, ksc), (vq, vsc) = quantize_kv_rows(k), quantize_kv_rows(v)
+        cache.k[index], cache.v[index], cache.ks[index], cache.vs[index] = kq, vq, ksc, vsc
+    else:
+        cache.k[index], cache.v[index] = k.to(cache.k.dtype), v.to(cache.v.dtype)
+
+
+def _scatter_append_batched(cache, idx: int, k_new, v_new, offsets) -> None:
+    """Write layer ``idx``'s new row of each sequence ([B, H_kv, D]) at its
+    own cache offset ``offsets[b]``, in place. The JAX package appends all
+    layers' rows after the step; the port's plain batched step writes each
+    layer's rows as it goes."""
+    rows = torch.arange(k_new.shape[0], device=k_new.device)
+    _put_rows(cache, (idx, rows, slice(None), offsets.long()), k_new, v_new)
+
+
+def _layer_kv(cache, idx: int):
+    """Layer ``idx``'s k/v rows to attend over: an int8 cache dequantized to
+    bf16 (as the JAX package does, whatever the model's dtype)."""
+    if cache.quantized:
+        return dequantize_kv(cache.k[idx], cache.ks[idx]), dequantize_kv(cache.v[idx], cache.vs[idx])
+    return cache.k[idx], cache.v[idx]
+
+
+def _k1_gate(params, x: torch.Tensor) -> bool:
+    """Whether a single-token step runs through K1: a CUDA tensor and the
+    fused int8 layout. K1 raises on what it does not take (more than
+    MAX_BATCH rows, activations not bf16), so such a step never runs the
+    plain loop on the card."""
+    from ..ops.talker_kernel import fused_layout
+
+    return x.device.type == "cuda" and x.shape[1] == 1 and fused_layout(params)
 
 
 def _dense(x: torch.Tensor, w) -> torch.Tensor:
@@ -180,10 +275,13 @@ def forward(
     """Run the talker trunk, writing the new k/v rows into ``cache``.
 
     Prefill (S > 1, right-padded: padded rows land past the valid length and
-    stay masked until overwritten) and single-token decode (S == 1), whose
-    attention runs through K3 over rows [0, offset] where
-    :func:`attention_kernel_gate` holds. Returns (hidden [B, S, h] after the
-    final norm, cache).
+    stay masked until overwritten) and single-token decode (S == 1). On CUDA
+    a single-token step with fused int8 weights runs through K1 in its
+    non-sample mode (the JAX package's talker.py:403-421); the other
+    decode steps attend through K3 over rows [0, offset] where
+    :func:`attention_kernel_gate` holds. An int8 cache takes the new rows
+    quantized and is attended dequantized to bf16. Returns (hidden [B, S, h]
+    after the final norm, cache).
     """
     B, S, _ = inputs_embeds.shape
     dev = inputs_embeds.device
@@ -192,6 +290,13 @@ def forward(
     cos, sin = mrope_cos_sin(
         positions, cfg.head_dim, cfg.rope_theta, cfg.mrope_section, inputs_embeds.dtype
     )
+    if _k1_gate(params, inputs_embeds):
+        from ..ops.talker_kernel import talker_decode_step
+
+        offs = offset if B == 1 else torch.full((B,), offset, dtype=torch.int32, device=dev)
+        h = talker_decode_step(params, cfg, inputs_embeds, cache, offs, cos[:, 0], sin[:, 0],
+                               sample=False)
+        return h.reshape(B, 1, -1), cache
     t_idx = torch.arange(T_max, device=dev)
     q_pos = offset + torch.arange(S, device=dev)
     mask = (t_idx[None, :] <= q_pos[:, None])[None].expand(B, S, T_max)
@@ -207,12 +312,11 @@ def forward(
         x = rms_norm(h, p["input_layernorm"], eps)
         q, k, v = _project_qkv(p, x, B, S, nq, nkv, hd, eps)
         q, k = apply_rotary(q, k, cos, sin)
-        cache.k[idx, :, :, offset : offset + S] = k.to(cache.k.dtype)
-        cache.v[idx, :, :, offset : offset + S] = v.to(cache.v.dtype)
+        _put_rows(cache, (idx, slice(None), slice(None), slice(offset, offset + S)), k, v)
         if use_k3:
             attn = decode_attention_inner(q, cache.k, cache.v, offset, scale, layer=idx)
         else:
-            attn = _attend(q, cache.k[idx], cache.v[idx], mask, scale)
+            attn = _attend(q, *_layer_kv(cache, idx), mask, scale)
         attn = attn.transpose(1, 2).reshape(B, S, nq * hd)
         h = h + _dense(attn, p["o_proj"])
         x = rms_norm(h, p["post_attention_layernorm"], eps)
@@ -237,9 +341,9 @@ def forward_step_sample(
     rope: tuple[torch.Tensor, torch.Tensor],
 ):
     """Decode step + codec head + code0 sampler through K1
-    (ops/talker_kernel.py). ``rope``: the cos/sin tables [T_max, D] (bf16)
-    of every cache position. Returns (hidden [1, 1, h] post-final-norm,
-    cache, code0 [1] int32)."""
+    (ops/talker_kernel.py), on a bf16 or an int8 cache. ``rope``: the cos/sin
+    tables [T_max, D] (bf16) of every cache position. Returns (hidden
+    [1, 1, h] post-final-norm, cache, code0 [1] int32)."""
     from ..ops.talker_kernel import talker_decode_step
 
     cos, sin = rope[0][offset], rope[1][offset]
@@ -254,6 +358,91 @@ def forward_step_sample(
         seen=seen,
     )
     return h.reshape(1, 1, -1), cache, code0
+
+
+def forward_batched_step_sample(
+    params: Params,
+    cfg: TalkerConfig,
+    inputs_embeds: torch.Tensor,  # [B, 1, h]
+    cache,
+    offsets: torch.Tensor,  # [B] int32 on the device: per-sequence cache positions
+    *,
+    seen: torch.Tensor,  # [B, vocab] bool
+    suppress_add: torch.Tensor,  # [vocab] f32 additive mask (-1e30 suppressed)
+    seed: tuple[int, int],  # the sampler's two seed words (row b: stream 16 b)
+    temperature: float,
+    top_k: int,
+    repetition_penalty: float,
+    eos_token_id: int | None,
+    rope: tuple[torch.Tensor, torch.Tensor],
+):
+    """Batched decode step + codec head + per-row code0 sampler through K1
+    (the batched twin of :func:`forward_step_sample`); each sequence writes
+    its k/v row at its own offset. Returns (hidden [B, 1, h] post-final-norm,
+    cache, code0 [B] int32)."""
+    from ..ops.talker_kernel import talker_decode_step
+
+    pos = offsets.long()
+    h, code0 = talker_decode_step(
+        params, cfg, inputs_embeds, cache, offsets, rope[0][pos], rope[1][pos],
+        temperature=float(temperature),
+        top_k=int(top_k),
+        rep_penalty=float(repetition_penalty),
+        eos_id=-1 if eos_token_id is None else int(eos_token_id),
+        seed=seed,
+        suppress_add=suppress_add,
+        seen=seen,
+    )
+    return h[:, None], cache, code0
+
+
+def forward_batched_step(
+    params: Params,
+    cfg: TalkerConfig,
+    inputs_embeds: torch.Tensor,  # [B, 1, h]
+    cache,
+    offsets: torch.Tensor,  # [B] int32 on the device: per-sequence cache positions
+):
+    """Single-token decode for a batch of sequences at different positions.
+
+    Like :func:`forward` with S=1, but each sequence writes its k/v at its
+    own offset and masks its own prefix: the lockstep decoder's step
+    (models/batch_generate.py). On CUDA with fused int8 weights it is K1's
+    non-sample mode; otherwise the plain path, which on an int8 cache
+    quantizes the new rows before attending. Returns (hidden [B, 1, h] after
+    the final norm, cache)."""
+    B, S, _ = inputs_embeds.shape
+    if S != 1:
+        raise ValueError("forward_batched_step is single-token decode only")
+    dev = inputs_embeds.device
+    cos, sin = mrope_cos_sin(
+        offsets[:, None].long(), cfg.head_dim, cfg.rope_theta, cfg.mrope_section,
+        inputs_embeds.dtype,
+    )  # [B, 1, D]
+    if _k1_gate(params, inputs_embeds):
+        from ..ops.talker_kernel import talker_decode_step
+
+        h = talker_decode_step(params, cfg, inputs_embeds, cache, offsets, cos[:, 0], sin[:, 0],
+                               sample=False)
+        return h[:, None], cache
+    t_idx = torch.arange(cache.max_len, device=dev)
+    mask = t_idx[None, None, :] <= offsets.long()[:, None, None]  # [B, 1, T]
+    scale = cfg.head_dim**-0.5
+    nq, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    eps = cfg.rms_norm_eps
+    h = inputs_embeds
+    for idx in range(cfg.num_hidden_layers):
+        p = _layer(params["layers"], idx)
+        x = rms_norm(h, p["input_layernorm"], eps)
+        q, k, v = _project_qkv(p, x, B, S, nq, nkv, hd, eps)
+        q, k = apply_rotary(q, k, cos, sin)
+        _scatter_append_batched(cache, idx, k[:, :, 0], v[:, :, 0], offsets)
+        attn = _attend(q, *_layer_kv(cache, idx), mask, scale)
+        attn = attn.transpose(1, 2).reshape(B, S, nq * hd)
+        h = h + _dense(attn, p["o_proj"])
+        x = rms_norm(h, p["post_attention_layernorm"], eps)
+        h = h + _dense(_swiglu_mlp(p, x), p["down_proj"])
+    return rms_norm(h, params["norm"], eps), cache
 
 
 def codec_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:

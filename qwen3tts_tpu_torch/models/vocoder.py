@@ -48,13 +48,21 @@ def rvq_decode(params: Params, cfg: TokenizerDecoderConfig, codes: torch.Tensor)
     return out
 
 
+def _frames_per_row(frames, B: int, device) -> torch.Tensor:
+    """``frames`` (an int, or one count per row) as an int tensor [B]."""
+    if isinstance(frames, int):
+        return torch.full((B,), frames, device=device)
+    return torch.as_tensor(frames, device=device).reshape(-1).expand(B)
+
+
 def pre_transformer(
-    params: Params, cfg: TokenizerDecoderConfig, x: torch.Tensor, frames: int | None = None
+    params: Params, cfg: TokenizerDecoderConfig, x: torch.Tensor, frames=None
 ) -> torch.Tensor:
     """Bidirectional transformer at the latent rate. x: [B, T, latent].
 
-    With ``frames`` (valid frame count) attention is masked to the first
-    ``frames`` keys, so right-padding to a bucket does not leak into audio.
+    With ``frames`` (valid frame count: an int, or [B] per row) attention is
+    masked to each row's first ``frames`` keys, so right-padding to a bucket
+    does not leak into audio.
     """
     h = _mm(x, params["input_proj"]["w"]) + params["input_proj"]["b"]
     B, T, _ = h.shape
@@ -63,7 +71,8 @@ def pre_transformer(
     eps = cfg.rms_norm_eps
     key_mask = None
     if frames is not None:
-        key_mask = (torch.arange(T, device=x.device) < frames)[None, None, None, :]
+        frames_b = _frames_per_row(frames, B, x.device)
+        key_mask = (torch.arange(T, device=x.device)[None] < frames_b[:, None])[:, None, None, :]
     layers = params["layers"]
     for idx in range(layers["q_proj"].shape[0]):
         p = {k: v[idx] for k, v in layers.items()}
@@ -116,7 +125,7 @@ def main_decoder(params: Params, cfg: TokenizerDecoderConfig, x: torch.Tensor) -
 
 
 def decode_latents(
-    params: Params, cfg: TokenizerDecoderConfig, codes: torch.Tensor, frames: int | None = None
+    params: Params, cfg: TokenizerDecoderConfig, codes: torch.Tensor, frames=None
 ) -> torch.Tensor:
     """codes [B, T, 16] -> waveform [B, T*1920]."""
     h = rvq_decode(params, cfg, codes)
@@ -129,14 +138,13 @@ def decode_latents(
     return torch.clamp(wav[..., 0], -1.0, 1.0)
 
 
-def decode(
-    params: Params, cfg: TokenizerDecoderConfig, codes: torch.Tensor, frames: int | None = None
-):
+def decode(params: Params, cfg: TokenizerDecoderConfig, codes: torch.Tensor, frames=None):
     """codes [B, T, 16] -> (audio [B, T*1920], lengths [B]).
 
-    ``frames`` marks the valid frames of a codes buffer right-padded to a
-    bucket; output past ``frames * 1920`` samples must be trimmed. Valid
-    length = (#frames with first-codebook code > 0) * 1920.
+    ``frames`` (an int, or [B] per row) marks the valid frames of a codes
+    buffer right-padded to a bucket; output past ``frames * 1920`` samples
+    must be trimmed. Valid length = (#frames with first-codebook code > 0)
+    * 1920.
     """
     # cuDNN runs f32 convolutions in TF32 by default (about three decimal
     # digits), which would change the f32 vocoder's numbers against the
@@ -148,7 +156,8 @@ def decode(
         wav = decode_latents(params, cfg, codes, frames)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
-    T = codes.shape[1]
-    in_range = torch.arange(T, device=codes.device)[None] < (T if frames is None else frames)
+    B, T = codes.shape[:2]
+    limit = T if frames is None else _frames_per_row(frames, B, codes.device)[:, None]
+    in_range = torch.arange(T, device=codes.device)[None] < limit
     valid = ((codes[..., 0] > 0) & in_range).sum(dim=1).to(torch.int32)
     return wav, valid * cfg.total_upsample

@@ -10,6 +10,10 @@ edited source rebuilds.
 
 Every C entry returns ``cudaGetLastError()`` after its launches; ``check``
 raises on a non-zero code. Nothing here falls back to anything.
+
+The kernels' limits (``LIMITS``: the most rows, the head size, the partial
+sum rows) are read from csrc/common.cuh's ``constexpr`` lines, not copied,
+so the wrappers' checks cannot drift from the kernels.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,6 +31,16 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+
+
+def _header_ints(path: Path) -> dict[str, int]:
+    """The integer constants of a header: ``constexpr int NAME = value;``."""
+    pat = re.compile(r"^constexpr (?:int|uint32_t) (\w+) = (\d+);", re.M)
+    return {name: int(value) for name, value in pat.findall(path.read_text())}
+
+
+LIMITS = _header_ints(CSRC / "common.cuh")
+MAX_BATCH = LIMITS["MAX_BATCH"]  # rows of one K1 / K2 call
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qwen3tts_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -46,18 +61,20 @@ _ARGTYPES = {
         P, P, P, P, P, P, P,  # q k v part_ml part_acc out stream
     ],
     "qt_talker_step": [
-        I, I, I, I, I, I, I, I, I, F, F,  # L H NQ NKV D I V T pos eps scale
+        I, I, I, I, I, I, I, I, I, I, P,  # L H NQ NKV D I V T B pos offs
+        I, F, F,  # kv_quant eps scale
         P,  # x
         P, P, P, P, P, P, P, P,  # qkv_w qkv_s o_w o_s gu_w gu_s d_w d_s
         P, P, P, P, P,  # iln pln qn kn fnorm
-        P, P, P, P,  # k_cache v_cache cos sin
+        P, P, P, P,  # k_cache v_cache k_scale v_scale
+        P, P, I,  # cos sin rope_stride
         P, P, P, P,  # head_w head_s supp seen
-        F, I, F, I, I, U,  # rep greedy inv_t top_k eos_id key
+        F, I, F, I, I, U, U,  # rep greedy inv_t top_k eos_id seed0 seed1
         P, P, P, P, P,  # hres xn attn gated ws
         P, P, P,  # code_out logits_out stream
     ],
     "qt_cp_loop": [
-        I, I, I, I, I, I, I, I, F, F,  # L H NQ NKV D I V NCB eps scale
+        I, I, I, I, I, I, I, I, I, F, F,  # L H NQ NKV D I V NCB B eps scale
         P,  # x0
         P, P, P, P, P, P, P, P,  # qkv_w qkv_s o_w o_s gu_w gu_s d_w d_s
         P, P, P, P, P,  # iln pln qn kn fnorm
@@ -125,6 +142,12 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def workspace_rows(batch: int) -> int:
+    """Rows of O floats the GEMV partial sums take (GEMV_MAX_SPLIT at one
+    row, GEMV_MAX_PARTS at more)."""
+    return LIMITS["GEMV_MAX_SPLIT"] if batch == 1 else LIMITS["GEMV_MAX_PARTS"]
 
 
 def check(code: int, what: str) -> None:

@@ -1,18 +1,21 @@
 """K2: the code predictor's whole inner loop for one frame.
 
 ``predict_codes_fused`` replaces qwen3tts_tpu/ops/cp_kernel.py::
-predict_codes_fused at B=1 (the TPU kernel body is ``_cp_kernel``). On a
-CUDA tensor it launches the hand-written kernel in csrc/cp_loop.cu (one C
-call per frame; that file's header gives the bandwidth bound and the
-design); on a CPU tensor it runs ``predict_codes_fused_ref``, the plain
-PyTorch version. Any other device raises.
+predict_codes_fused for 1 <= B <= 64 rows (the TPU kernel body is
+``_cp_kernel``). On a CUDA tensor it launches the hand-written kernel in
+csrc/cp_loop.cu (one C call per frame; that file's header gives the bound
+and the design); on a CPU tensor it runs ``predict_codes_fused_ref``, the
+plain PyTorch version. Any other device raises.
 
 The loop: positions 0 and 1 take [talker hidden, talker codec_embedding
 (code0)]; positions 2..15 take the previous position's sampled code through
 its ``codec_embedding[j]`` row. Positions 1..15 apply ``lm_head[j]``
 (j = position - 1), then the sampler (exact top-k, Gumbel-max on stream
-j + 1 of the counter generator; no penalty, mask or EOS). Returns the 15
-codes and ``esum``, the f32 sum of the 15 sampled embedding rows.
+j + 1 + 16 b of the counter generator for row b, so row 0 draws what a
+single-sequence call draws; no penalty, mask or EOS). Each row attends over
+its own 16 slots (the TPU kernel's block-diagonal mask over one flat cache).
+Returns the 15 codes and ``esum``, the f32 sum of the 15 sampled embedding
+rows, of every row.
 
 ``force_codes`` (tests and comparisons) feeds the given codes forward in
 place of the sampled ones, which makes a greedy comparison teacher-forced;
@@ -27,15 +30,17 @@ import torch
 
 from ..models.talker import _embed
 from . import _cuda
-from .decode_blocks import layer_step, rms, sample_row
+from .decode_blocks import STREAMS_PER_ROW, layer_step, rms, sample_row
 from .quant import Int8Linear
 from .rope import rope_cos_sin
 
 _FUSED_KEYS = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
+MAX_BATCH = _cuda.MAX_BATCH
 
 
-def kernel_supported(cp_params, cp_cfg, talker_h: int) -> bool:
-    """The fused int8 serving layout, without a small-to-MTP projection."""
+def kernel_supported(cp_params, cp_cfg, talker_h: int, batch: int = 1) -> bool:
+    """The fused int8 serving layout, without a small-to-MTP projection, for
+    1..MAX_BATCH rows."""
     if "small_to_mtp_projection" in cp_params or cp_cfg.hidden_size != talker_h:
         return False
     layers = cp_params["layers"]
@@ -45,22 +50,24 @@ def kernel_supported(cp_params, cp_cfg, talker_h: int) -> bool:
         return False
     if isinstance(cp_params.get("codec_embedding"), Int8Linear):
         return False
+    lim = _cuda.LIMITS
     G = cp_cfg.num_attention_heads // cp_cfg.num_key_value_heads
     return (
-        cp_cfg.head_dim == 128
+        1 <= batch <= MAX_BATCH
+        and cp_cfg.head_dim == lim["HEAD_DIM"]
         and cp_cfg.num_attention_heads % cp_cfg.num_key_value_heads == 0
-        and G <= 4
+        and G <= lim["ATTN_MAX_GROUP"]
         and cp_cfg.hidden_size % 16 == 0
         and cp_cfg.intermediate_size % 16 == 0
         and cp_cfg.vocab_size % 16 == 0
-        and cp_cfg.vocab_size <= 4096
+        and cp_cfg.vocab_size <= lim["SAMPLE_THREADS"] * lim["SAMPLE_PER_THREAD"]
     )
 
 
 def _x0(talker_params, last_hidden, code0) -> torch.Tensor:
-    """[2, H] bf16: the talker hidden and the talker embedding of code0."""
-    emb = _embed(talker_params["codec_embedding"], code0.reshape(1))
-    return torch.cat([last_hidden.reshape(1, -1), emb.reshape(1, -1)]).to(torch.bfloat16)
+    """[B, 2, H] bf16: each row's talker hidden and talker embedding of code0."""
+    emb = _embed(talker_params["codec_embedding"], code0.reshape(-1))
+    return torch.stack([last_hidden, emb.to(last_hidden.dtype)], dim=1).to(torch.bfloat16)
 
 
 @functools.lru_cache(maxsize=8)
@@ -80,47 +87,58 @@ def predict_codes_fused_ref(
     L, H = cp_cfg.num_hidden_layers, cp_cfg.hidden_size
     NKV, D = cp_cfg.num_key_value_heads, cp_cfg.head_dim
     NCB, SLOTS = cp_cfg.num_code_groups - 1, cp_cfg.num_code_groups
+    B = last_hidden.shape[0]
     dev = last_hidden.device
     cos_t, sin_t = _rope_tables(cp_cfg, dev)
-    kc = torch.zeros(L, NKV, SLOTS, D, dtype=torch.bfloat16, device=dev)
+    kc = torch.zeros(L, B, NKV, SLOTS, D, dtype=torch.bfloat16, device=dev)
     vc = torch.zeros_like(kc)
     tables = cp_params["codec_embedding"]
     x0 = _x0(talker_params, last_hidden, code0)
-    esum = torch.zeros(H, dtype=torch.float32, device=dev)
+    esum = torch.zeros(B, H, dtype=torch.float32, device=dev)
+    forced = None if force_codes is None else force_codes.reshape(B, NCB).long()
+    rows = torch.arange(B, device=dev)
     codes, all_logits = [], []
-    x = x0[0]
+    x = x0[:, 0]
     for p in range(SLOTS):
         if p == 1:
-            x = x0[1]
+            x = x0[:, 1]
         h = x
+        pos = torch.full((B,), p, dtype=torch.int64, device=dev)
+        cos, sin = cos_t[p].expand(B, D), sin_t[p].expand(B, D)
         for l in range(L):
-            h = layer_step(cp_params["layers"], l, cp_cfg, h, cos_t[p], sin_t[p], kc[l], vc[l], p,
+            h = layer_step(cp_params["layers"], l, cp_cfg, h, cos, sin, (kc[l], vc[l]), pos,
                            cp_form=True)
         if p == 0:
             continue
         j = p - 1
         hn = rms(h, cp_params["norm"], cp_cfg.rms_norm_eps)
         logits = (hn.float() @ cp_params["lm_head"].q[j].float()) * cp_params["lm_head"].scale[j].reshape(-1)
-        code = sample_row(logits, temperature=temperature, top_k=top_k, seed=seed, stream=j + 1)
+        code = torch.cat([
+            sample_row(logits[b], temperature=temperature, top_k=top_k, seed=seed,
+                       stream=j + 1 + STREAMS_PER_ROW * b)
+            for b in range(B)
+        ])
         codes.append(code)
         all_logits.append(logits)
-        fed = code if force_codes is None else force_codes.reshape(-1)[j : j + 1]
-        x = tables[j][fed.long()].reshape(H).to(torch.bfloat16)
+        fed = code.long() if forced is None else forced[:, j]
+        x = tables[j][fed].to(torch.bfloat16)
         esum = esum + x.float()
-    out = torch.cat(codes).reshape(1, NCB)
+    out = torch.stack(codes, dim=1)
     if return_logits:
-        return out, esum.reshape(1, H), torch.stack(all_logits)
-    return out, esum.reshape(1, H)
+        lg = torch.stack(all_logits)  # [NCB, B, V]
+        return out, esum, lg[:, 0] if B == 1 else lg
+    return out, esum
 
 
 def predict_codes_fused(
     cp_params, cp_cfg, talker_params, last_hidden, code0, seed: tuple[int, int], *,
     temperature: float, top_k: int, force_codes=None, return_logits: bool = False,
 ):
-    """The CP inner loop for one frame at B=1.
+    """The CP inner loop for one frame of B rows.
 
-    last_hidden [1, H]; code0 [1] int32; seed: two 32-bit words. Returns
-    (codes [1, 15] int32, esum [1, H] f32[, logits [15, V] f32]).
+    last_hidden [B, H]; code0 [B] int32; seed: two 32-bit words;
+    force_codes [B, 15]. Returns (codes [B, 15] int32, esum [B, H] f32[,
+    logits f32 [15, V] at B=1, else [15, B, V]]).
     """
     kw = dict(temperature=temperature, top_k=top_k, force_codes=force_codes,
               return_logits=return_logits)
@@ -136,10 +154,12 @@ def _launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, tempe
     H = cp_cfg.hidden_size
     if not kernel_supported(cp_params, cp_cfg, last_hidden.shape[-1]):
         raise ValueError("predict_codes_fused: weights are not in the fused int8 layout")
-    if last_hidden.numel() != H or code0.numel() != 1:
-        raise ValueError("predict_codes_fused: batch 1 only")
-    if force_codes is not None and force_codes.numel() != cp_cfg.num_code_groups - 1:
-        raise ValueError("predict_codes_fused: force_codes must hold one code per codebook")
+    B = last_hidden.shape[0]
+    if last_hidden.shape != (B, H) or code0.numel() != B or not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"predict_codes_fused: last_hidden must be [B, H] and code0 [B], "
+                         f"1 <= B <= {MAX_BATCH}")
+    if force_codes is not None and force_codes.numel() != B * (cp_cfg.num_code_groups - 1):
+        raise ValueError("predict_codes_fused: force_codes must hold one code per codebook and row")
     L, NQ, NKV, D = (cp_cfg.num_hidden_layers, cp_cfg.num_attention_heads,
                      cp_cfg.num_key_value_heads, cp_cfg.head_dim)
     NCB, SLOTS, V = cp_cfg.num_code_groups - 1, cp_cfg.num_code_groups, cp_cfg.vocab_size
@@ -148,7 +168,7 @@ def _launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, tempe
     dev = last_hidden.device
     f32 = lambda t: t.float().contiguous()
     cos_t, sin_t = _rope_tables(cp_cfg, dev)
-    kc = torch.empty(L, NKV, SLOTS, D, dtype=torch.bfloat16, device=dev)
+    kc = torch.empty(L, B, NKV, SLOTS, D, dtype=torch.bfloat16, device=dev)
     vc = torch.empty_like(kc)
     # converted operands stay referenced until every launch is enqueued
     ins = [
@@ -166,19 +186,20 @@ def _launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, tempe
     force = None if force_codes is None else force_codes.to(torch.int32).reshape(-1).contiguous()
     oqkv = layers["qkv_proj"].q.shape[-1]
     bufs = [
-        torch.empty(H, dtype=torch.bfloat16, device=dev),  # residual stream
-        torch.empty(H, dtype=torch.bfloat16, device=dev),  # normed input
-        torch.empty(NQ * D, dtype=torch.bfloat16, device=dev),  # attention out
-        torch.empty(I, dtype=torch.bfloat16, device=dev),  # SwiGLU out
-        torch.empty(64 * max(oqkv, 2 * I, H, V), dtype=torch.float32, device=dev),
-        torch.empty(H, dtype=torch.bfloat16, device=dev),  # next position's input
+        torch.empty(B, H, dtype=torch.bfloat16, device=dev),  # residual stream
+        torch.empty(B, H, dtype=torch.bfloat16, device=dev),  # normed input
+        torch.empty(B, NQ * D, dtype=torch.bfloat16, device=dev),  # attention out
+        torch.empty(B, I, dtype=torch.bfloat16, device=dev),  # SwiGLU out
+        torch.empty(_cuda.workspace_rows(B) * max(oqkv, 2 * I, H, V), dtype=torch.float32,
+                    device=dev),
+        torch.empty(B, H, dtype=torch.bfloat16, device=dev),  # next position's input
     ]
-    codes = torch.empty(NCB, dtype=torch.int32, device=dev)
-    esum = torch.empty(H, dtype=torch.float32, device=dev)
-    logits = torch.empty(NCB, V, dtype=torch.float32, device=dev) if return_logits else None
+    codes = torch.empty(B, NCB, dtype=torch.int32, device=dev)
+    esum = torch.empty(B, H, dtype=torch.float32, device=dev)
+    logits = torch.empty(NCB, B, V, dtype=torch.float32, device=dev) if return_logits else None
     inv_t = torch.tensor(1.0 / temperature if temperature > 0 else 0.0, dtype=torch.float32).item()
     rc = _cuda.library().qt_cp_loop(
-        L, H, NQ, NKV, D, I, V, NCB, cp_cfg.rms_norm_eps, D**-0.5,
+        L, H, NQ, NKV, D, I, V, NCB, B, cp_cfg.rms_norm_eps, D**-0.5,
         *(_cuda.ptr(t) for t in ins),
         int(temperature <= 0), inv_t, int(top_k), seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF,
         _cuda.ptr(force),
@@ -187,8 +208,9 @@ def _launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, tempe
     )
     _cuda.check(rc, "predict_codes_fused")
     predict_codes_fused.launches += 1
-    out = (codes.reshape(1, NCB), esum.reshape(1, H))
-    return (*out, logits) if return_logits else out
+    if return_logits:
+        return codes, esum, logits[:, 0] if B == 1 else logits
+    return codes, esum
 
 
 predict_codes_fused.launches = 0  # kernel launches (CUDA calls), not plain runs

@@ -8,13 +8,19 @@ csrc/common.cuh, with the same rounding points:
   per-channel scale, rounded to bf16 once (``gemv_i8_partial`` + finish).
 * ``rms``: RMSNorm in f32 to bf16 (``rms_copy``/``finish_residual_norm``).
 * ``rope``: x*cos + rotate_half(x)*sin, each op rounded to bf16.
-* ``attend_rows``: one query row against cache rows [0, pos] (``attn_step``)
-  in the talker form (q scaled first, f32 probabilities) or the code
-  predictor form (scores scaled after the dot, probabilities rounded to bf16).
-  The kernel walks long caches in tiles with an online softmax; in f32 that
+* ``attend``: one query row per sequence against its cache rows [0, pos]
+  (``attn_step``, one block per (kv head, row) on the card), each row at its
+  own ``pos``, in the talker form (q scaled first, f32 probabilities) or the
+  code predictor form (scores scaled after the dot, probabilities rounded to
+  bf16). It writes the new k/v row at ``pos`` first; on an int8 cache
+  (``quantize_kv_rows``) the prefix is read as int8 with the K scale folded
+  into the scores and the V scale into the probabilities, while the current
+  token attends with its own unquantized k/v, as the TPU kernel does. The
+  kernel walks long caches in tiles with an online softmax; in f32 that
   differs from this one-pass softmax only in rounding order.
-* ``layer_step``: one transformer layer for one token, from the above.
-* ``sample_row``: the sampler (``sample_kernel``).
+* ``layer_step``: one transformer layer for one token of each of B rows.
+* ``sample_row``: the sampler (``sample_kernel``, one block per row; row b
+  draws from stream ``stream + 16 * b``).
 
 The plain versions of K1 and K2 (ops/talker_kernel.py, ops/cp_kernel.py) are
 built from these. The sampler's semantics:
@@ -41,16 +47,18 @@ from __future__ import annotations
 
 import torch
 
+from ._cuda import LIMITS
 from .norms import rms_norm
 from .quant import Int8Linear
 from .rope import rotate_half
 
 NEG_BIG = -1e30
 MASK32 = 0xFFFFFFFF
+STREAMS_PER_ROW = LIMITS["STREAMS_PER_ROW"]  # row b of a batched call: streams s + 16 b
 
 
 def mv(x: torch.Tensor, w: Int8Linear) -> torch.Tensor:
-    """x bf16 [K] @ int8 [K, N] * scale [1, N] -> bf16 [N]."""
+    """x bf16 [..., K] @ int8 [K, N] * scale [1, N] -> bf16 [..., N]."""
     return ((x.float() @ w.q.float()) * w.scale.reshape(-1)).to(torch.bfloat16)
 
 
@@ -64,49 +72,80 @@ def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     return x * cos + rotate_half(x) * sin
 
 
-def attend_rows(
-    q: torch.Tensor,  # [NQ, D] bf16
-    k: torch.Tensor,  # [NKV, n, D] bf16: cache rows [0, pos]
-    v: torch.Tensor,
+def attend(
+    q: torch.Tensor,  # [B, NQ, D] bf16, roped
+    k_new: torch.Tensor,  # [B, NKV, D] bf16: the new rows, roped
+    v_new: torch.Tensor,
+    cache: tuple,  # this layer's (k, v) [B, NKV, T, D] bf16, or (k, v, ks, vs) int8 + f32 [B, NKV, T]
+    pos: torch.Tensor,  # int64 [B]: each row's position
     scale: float,
     cp_form: bool,
 ) -> torch.Tensor:
-    """GQA attention of one query row; returns bf16 [NQ * D]."""
-    nq, d = q.shape
-    nkv = k.shape[0]
-    qg = q.float().reshape(nkv, nq // nkv, d)
-    kf, vf = k.float(), v.float()
-    if cp_form:
-        s = torch.einsum("hgd,htd->hgt", qg, kf) * scale
+    """GQA attention of one query row per sequence over its rows [0, pos];
+    the new k/v rows are written at ``pos`` in place first (quantized on an
+    int8 cache). Returns bf16 [B, NQ * D]."""
+    from ..models.talker import quantize_kv_rows
+
+    B, nq, d = q.shape
+    nkv = k_new.shape[1]
+    kc, vc = cache[0], cache[1]
+    rows = torch.arange(B, device=q.device)
+    t = torch.arange(kc.shape[2], device=q.device)
+    cur = (t[None] == pos[:, None])[:, None]  # [B, 1, T]
+    valid = (t[None] <= pos[:, None])[:, None, None]  # [B, 1, 1, T]
+    ks = vs = None
+    if len(cache) == 4:
+        (kq, ksc), (vq, vsc) = quantize_kv_rows(k_new), quantize_kv_rows(v_new)
+        kc[rows, :, pos], vc[rows, :, pos] = kq, vq
+        cache[2][rows, :, pos], cache[3][rows, :, pos] = ksc, vsc
+        # the prefix as int8 with its row scales, the current token unquantized
+        kf = torch.where(cur[..., None], k_new.float()[:, :, None], kc.float())
+        vf = torch.where(cur[..., None], v_new.float()[:, :, None], vc.float())
+        ks, vs = torch.where(cur, 1.0, cache[2]), torch.where(cur, 1.0, cache[3])
     else:
-        s = torch.einsum("hgd,htd->hgt", qg * scale, kf)
+        kc[rows, :, pos], vc[rows, :, pos] = k_new, v_new
+        kf, vf = kc.float(), vc.float()
+    qg = q.float().reshape(B, nkv, nq // nkv, d)
+    if cp_form:
+        s = torch.einsum("bhgd,bhtd->bhgt", qg, kf) * scale
+    else:
+        s = torch.einsum("bhgd,bhtd->bhgt", qg * scale, kf)
+    if ks is not None:
+        s = s * ks[:, :, None]
+    s = torch.where(valid, s, float("-inf"))
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     denom = e.sum(dim=-1, keepdim=True)
     if cp_form:
         p = (e / denom).to(torch.bfloat16).float()
-        out = torch.einsum("hgt,htd->hgd", p, vf)
+        out = torch.einsum("bhgt,bhtd->bhgd", p, vf)
     else:
-        out = torch.einsum("hgt,htd->hgd", e, vf) / denom
-    return out.to(torch.bfloat16).reshape(nq * d)
+        if vs is not None:
+            e = e * vs[:, :, None]
+        out = torch.einsum("bhgt,bhtd->bhgd", e, vf) / denom
+    return out.to(torch.bfloat16).reshape(B, nq * d)
 
 
-def layer_step(layers, l: int, cfg, h, cos, sin, k_rows, v_rows, pos: int, cp_form: bool):
-    """One transformer layer for one token (``layer_step`` in common.cuh).
+def layer_step(layers, l: int, cfg, h, cos, sin, cache, pos, cp_form: bool):
+    """One transformer layer for one token of each row (``layer_step`` in
+    common.cuh).
 
-    h: bf16 [H] residual stream; k_rows/v_rows: this layer's cache
-    [NKV, T, D], whose row ``pos`` is written in place. Returns the new h."""
+    h: bf16 [B, H] residual stream; cos/sin: bf16 [B, D] rope rows at each
+    row's position; cache: this layer's cache tuple (see ``attend``), whose
+    row ``pos[b]`` of sequence b is written in place; pos: int64 [B].
+    Returns the new h."""
     NQ, NKV, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
+    B = h.shape[0]
     I = layers["gate_up_proj"].q.shape[-1] // 2
+    c, s = cos[:, None], sin[:, None]
     qkv = mv(rms(h, layers["input_layernorm"][l], eps), layers["qkv_proj"][l])
-    q = rope(rms(qkv[: NQ * D].reshape(NQ, D), layers["q_norm"][l], eps), cos, sin)
-    k = rms(qkv[NQ * D : (NQ + NKV) * D].reshape(NKV, D), layers["k_norm"][l], eps)
-    k_rows[:, pos] = rope(k, cos, sin)
-    v_rows[:, pos] = qkv[(NQ + NKV) * D :].reshape(NKV, D)
-    attn = attend_rows(q, k_rows[:, : pos + 1], v_rows[:, : pos + 1], D**-0.5, cp_form)
+    q = rope(rms(qkv[:, : NQ * D].reshape(B, NQ, D), layers["q_norm"][l], eps), c, s)
+    k = rope(rms(qkv[:, NQ * D : (NQ + NKV) * D].reshape(B, NKV, D), layers["k_norm"][l], eps), c, s)
+    v = qkv[:, (NQ + NKV) * D :].reshape(B, NKV, D)
+    attn = attend(q, k, v, cache, pos, D**-0.5, cp_form)
     h = h + mv(attn, layers["o_proj"][l])
     gu = mv(rms(h, layers["post_attention_layernorm"][l], eps), layers["gate_up_proj"][l])
-    g, u = gu[:I].float(), gu[I:].float()
+    g, u = gu[:, :I].float(), gu[:, I:].float()
     return h + mv((g * torch.sigmoid(g) * u).to(torch.bfloat16), layers["down_proj"][l])
 
 

@@ -1,19 +1,32 @@
-"""K1: one talker decode step with the codec head and code0 sampler.
+"""K1: one talker decode step for B rows, with or without the codec head
+and code0 sampler.
 
 ``talker_decode_step`` replaces qwen3tts_tpu/ops/talker_kernel.py::
-talker_decode_step in sample mode at B=1 (the TPU kernel body is
-``_talker_step_kernel``). On a CUDA tensor it launches the hand-written
-kernel in csrc/talker_step.cu (one C call, a fixed sequence of launches; see
-that file's header for the bandwidth bound and the design); on a CPU tensor
-it runs ``talker_decode_step_ref``, the plain PyTorch version of the same
-function. Any other device raises. The plain version is never the CUDA path:
-on the card it serves only comparisons and timings.
+talker_decode_step (the TPU kernel body is ``_talker_step_kernel``) for
+1 <= B <= 64 rows at their own cache offsets, on a bf16 cache or an int8
+cache with per-row f32 scales (``KVCacheQ``), in sample mode (the codec head
+and the code0 sampler of every row) or non-sample mode (the post-norm hidden
+only). On a CUDA tensor it launches the hand-written kernel in
+csrc/talker_step.cu (one C call, a fixed sequence of launches; see that
+file's header for the bound and the design); on a CPU tensor it runs
+``talker_decode_step_ref``, the plain PyTorch version of the same function.
+Any other device raises. The plain version is never the CUDA path: on the
+card it serves only comparisons and timings.
 
-Per layer: RMSNorm -> fused qkv int8 matvec -> QK-RMSNorm -> rope at
-``offset`` -> GQA attention over cache rows [0, offset] (the new k/v row is
-written into the cache IN PLACE at ``offset``) -> o_proj + residual ->
-RMSNorm -> gate_up, SwiGLU -> down + residual. Then the final RMSNorm, the
-int8 codec head and the sampler (ops/decode_blocks.py ``sample_row``).
+Per layer: RMSNorm -> fused qkv int8 matvec -> QK-RMSNorm -> rope at each
+row's offset -> GQA attention over the row's cache rows [0, offset] (the new
+k/v row is written into the cache IN PLACE at the offset; an int8 cache
+takes it quantized, while the current token attends with its own
+unquantized k/v, as the TPU kernel does) -> o_proj + residual -> RMSNorm ->
+gate_up, SwiGLU -> down + residual. Then the final RMSNorm and, in sample
+mode, the int8 codec head and the sampler (ops/decode_blocks.py
+``sample_row``; row b draws from stream 16 b of the counter generator, so
+row 0 draws what a single-sequence call draws).
+
+Two call forms: ``offset`` an int (one sequence, x [1, 1, H], cos/sin one
+[D] row; returns h [H], code0 [1], logits [V]) or an int tensor [B] on the
+device of x (x [B, 1, H], cos/sin [B, D]; returns h [B, H], code0 [B],
+logits [B, V]).
 """
 
 from __future__ import annotations
@@ -21,68 +34,103 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .decode_blocks import layer_step, rms, sample_row, stream_key
+from .decode_blocks import STREAMS_PER_ROW, layer_step, rms, sample_row
 from .quant import Int8Linear
 
 _FUSED_KEYS = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
+MAX_BATCH = _cuda.MAX_BATCH
 
 
-def step_supported(params, cfg) -> bool:
-    """The fused int8 serving layout at shapes the kernel takes."""
+def fused_layout(params) -> bool:
+    """The fused int8 serving layout K1 reads: int8 qkv, o, gate_up, down
+    and codec head."""
     layers = params["layers"]
-    if not all(isinstance(layers.get(k), Int8Linear) for k in _FUSED_KEYS):
-        return False
-    if not isinstance(params.get("codec_head"), Int8Linear):
-        return False
+    return all(isinstance(layers.get(k), Int8Linear) for k in _FUSED_KEYS) and isinstance(
+        params.get("codec_head"), Int8Linear
+    )
+
+
+def step_supported(params, cfg, batch: int = 1, kv_quant: bool = False) -> bool:
+    """The fused int8 serving layout at shapes the kernel takes: any batch of
+    1..MAX_BATCH rows, a bf16 or an int8 cache (``kv_quant``)."""
+    lim = _cuda.LIMITS
     G = cfg.num_attention_heads // cfg.num_key_value_heads
     return (
-        cfg.head_dim == 128
+        fused_layout(params)
+        and 1 <= batch <= MAX_BATCH
+        and cfg.head_dim == lim["HEAD_DIM"]
         and cfg.num_attention_heads % cfg.num_key_value_heads == 0
-        and G <= 4
+        and G <= lim["ATTN_MAX_GROUP"]
         and cfg.hidden_size % 16 == 0
         and max(cfg.layer_intermediate_size(i) for i in range(cfg.num_hidden_layers)) % 16 == 0
         and cfg.vocab_size % 16 == 0
-        and cfg.vocab_size <= 4096
+        and cfg.vocab_size <= lim["SAMPLE_THREADS"] * lim["SAMPLE_PER_THREAD"]
     )
+
+
+def _one_row(out):
+    """The results of an int-offset call: h, logits without the batch axis
+    (code0 stays [1])."""
+    if not isinstance(out, tuple):
+        return out[0]
+    return (out[0][0], out[1], *(None if t is None else t[0] for t in out[2:]))
 
 
 def talker_decode_step_ref(
-    params, cfg, x, cache, offset: int, cos, sin, *,
-    temperature: float, top_k: int, rep_penalty: float, eos_id: int,
-    seed: tuple[int, int], suppress_add, seen, return_logits: bool = False,
+    params, cfg, x, cache, offset, cos, sin, *, sample: bool = True,
+    temperature: float = 0.0, top_k: int = 0, rep_penalty: float = 1.0, eos_id: int = -1,
+    seed: tuple[int, int] = (0, 0), suppress_add=None, seen=None, return_logits: bool = False,
 ):
     """Plain PyTorch version of K1 (same rounding points as the kernel)."""
-    cos, sin = cos.to(torch.bfloat16), sin.to(torch.bfloat16)
-    h = x.reshape(cfg.hidden_size).to(torch.bfloat16)
+    if isinstance(offset, int):
+        offs = torch.full((1,), offset, dtype=torch.int64, device=x.device)
+        return _one_row(talker_decode_step_ref(
+            params, cfg, x, cache, offs, cos, sin, sample=sample, temperature=temperature,
+            top_k=top_k, rep_penalty=rep_penalty, eos_id=eos_id, seed=seed,
+            suppress_add=suppress_add, seen=seen, return_logits=return_logits))
+    B, D = x.shape[0], cfg.head_dim
+    pos = offset.to(torch.int64)
+    cos, sin = (t.to(torch.bfloat16).reshape(-1, D).expand(B, D) for t in (cos, sin))
+    h = x.reshape(B, cfg.hidden_size).to(torch.bfloat16)
     for l in range(cfg.num_hidden_layers):
-        h = layer_step(params["layers"], l, cfg, h, cos, sin, cache.k[l, 0], cache.v[l, 0],
-                       offset, cp_form=False)
+        h = layer_step(params["layers"], l, cfg, h, cos, sin, tuple(c[l] for c in cache), pos,
+                       cp_form=False)
     hn = rms(h, params["norm"], cfg.rms_norm_eps)
+    if not sample:
+        return hn
     head = params["codec_head"]
     logits = (hn.float() @ head.q.float()) * head.scale.reshape(-1)
-    code = sample_row(
-        logits, temperature=temperature, top_k=top_k, rep_penalty=rep_penalty,
-        seen=seen, suppress_add=suppress_add, eos_id=eos_id, seed=seed, stream=0,
-    )
+    seen = seen.reshape(-1, logits.shape[-1]).expand(B, -1)
+    code = torch.cat([
+        sample_row(
+            logits[b], temperature=temperature, top_k=top_k, rep_penalty=rep_penalty,
+            seen=seen[b], suppress_add=suppress_add, eos_id=eos_id, seed=seed,
+            stream=STREAMS_PER_ROW * b,
+        )
+        for b in range(B)
+    ])
     return (hn, code, logits) if return_logits else (hn, code)
 
 
 def talker_decode_step(
-    params, cfg, x, cache, offset: int, cos, sin, *,
-    temperature: float, top_k: int, rep_penalty: float, eos_id: int,
-    seed: tuple[int, int], suppress_add, seen, return_logits: bool = False,
+    params, cfg, x, cache, offset, cos, sin, *, sample: bool = True,
+    temperature: float = 0.0, top_k: int = 0, rep_penalty: float = 1.0, eos_id: int = -1,
+    seed: tuple[int, int] = (0, 0), suppress_add=None, seen=None, return_logits: bool = False,
 ):
-    """One decode step at B=1.
+    """One decode step for B rows.
 
-    x [1, 1, H] bf16; cache: talker ``KVCache`` bf16 [L, 1, NKV, T, D];
-    offset: valid cache rows (the new row goes there); cos/sin [D] rope rows
-    at ``offset``; suppress_add f32 [V]; seen bool [V]; seed: two 32-bit
-    words. Returns (h [H] bf16 after the final norm, code0 [1] int32
-    [, logits [V] f32 before mask and penalty]).
+    x [B, 1, H] bf16; cache: talker ``KVCache`` bf16 [L, B, NKV, T, D] or
+    ``KVCacheQ`` (int8 rows + f32 scales [L, B, NKV, T]); offset: valid cache
+    rows of each sequence (its new row goes there), an int (B=1) or an int
+    tensor [B]; cos/sin [B, D] rope rows at the offsets. Sample mode:
+    suppress_add f32 [V] (shared), seen bool [B, V]; seed: two 32-bit words.
+    Returns (h bf16 after the final norm, code0 int32 [, logits f32 before
+    mask and penalty]) in sample mode, else h; shapes in the module doc.
     """
     kw = dict(
-        temperature=temperature, top_k=top_k, rep_penalty=rep_penalty, eos_id=eos_id,
-        seed=seed, suppress_add=suppress_add, seen=seen, return_logits=return_logits,
+        sample=sample, temperature=temperature, top_k=top_k, rep_penalty=rep_penalty,
+        eos_id=eos_id, seed=seed, suppress_add=suppress_add, seen=seen,
+        return_logits=return_logits,
     )
     if x.device.type == "cpu":
         return talker_decode_step_ref(params, cfg, x, cache, offset, cos, sin, **kw)
@@ -92,28 +140,42 @@ def talker_decode_step(
 
 
 def _launch(
-    params, cfg, x, cache, offset, cos, sin, *, temperature, top_k, rep_penalty, eos_id,
-    seed, suppress_add, seen, return_logits,
+    params, cfg, x, cache, offset, cos, sin, *, sample, temperature, top_k, rep_penalty,
+    eos_id, seed, suppress_add, seen, return_logits,
 ):
-    if not step_supported(params, cfg):
-        raise ValueError("talker_decode_step: weights are not in the fused int8 layout")
     L, H = cfg.num_hidden_layers, cfg.hidden_size
     NQ, NKV, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    B = x.shape[0]
+    quant = len(cache) == 4
+    if not step_supported(params, cfg, B, quant):
+        raise ValueError(f"talker_decode_step: weights not in the fused int8 layout, shapes "
+                         f"it does not take, or batch {B} outside 1..{MAX_BATCH}")
     layers = params["layers"]
     head = params["codec_head"]
     I = layers["gate_up_proj"].q.shape[-1] // 2
     V = head.q.shape[-1]
     T = cache.k.shape[3]
-    if x.dtype != torch.bfloat16 or x.numel() != H:
-        raise ValueError("talker_decode_step: x must be bf16 [1, 1, H]")
-    if cache.k.dtype != torch.bfloat16 or cache.k.shape != (L, 1, NKV, T, D):
-        raise ValueError("talker_decode_step: cache must be bf16 [L, 1, NKV, T, D]")
-    if not 0 <= offset < T:
-        raise ValueError(f"talker_decode_step: offset {offset} outside the cache of {T}")
-    if cos.numel() != D or sin.numel() != D:
-        raise ValueError("talker_decode_step: cos/sin must be one [D] rope row")
-    if suppress_add.numel() != V or seen.numel() != V or seen.dtype != torch.bool:
-        raise ValueError("talker_decode_step: suppress_add must be [V], seen bool [V]")
+    single = isinstance(offset, int)
+    if x.dtype != torch.bfloat16 or x.shape != (B, 1, H):
+        raise ValueError("talker_decode_step: x must be bf16 [B, 1, H]")
+    want = torch.int8 if quant else torch.bfloat16
+    if cache.k.dtype != want or cache.k.shape != (L, B, NKV, T, D):
+        raise ValueError(f"talker_decode_step: cache must be {want} [L, B, NKV, T, D]")
+    if quant and cache.ks.shape != (L, B, NKV, T):
+        raise ValueError("talker_decode_step: cache scales must be f32 [L, B, NKV, T]")
+    if single:
+        if B != 1 or not 0 <= offset < T:
+            raise ValueError(f"talker_decode_step: an int offset ({offset}) takes one sequence "
+                             f"and a row inside the cache of {T}")
+        offs = None
+        if cos.numel() != D or sin.numel() != D:
+            raise ValueError("talker_decode_step: cos/sin must be one [D] rope row")
+    else:
+        if offset.shape != (B,) or offset.device != x.device:
+            raise ValueError("talker_decode_step: offsets must be [B] on the device of x")
+        offs = offset.to(torch.int32).contiguous()
+        if cos.shape != (B, D) or sin.shape != (B, D):
+            raise ValueError("talker_decode_step: cos/sin must be [B, D] rope rows")
     dev = x.device
     f32 = lambda t: t.float().contiguous()
     bf16 = lambda t: t.to(torch.bfloat16).contiguous()
@@ -126,29 +188,40 @@ def _launch(
         layers["down_proj"].q, layers["down_proj"].scale,
         f32(layers["input_layernorm"]), f32(layers["post_attention_layernorm"]),
         f32(layers["q_norm"]), f32(layers["k_norm"]), f32(params["norm"]),
-        cache.k, cache.v, bf16(cos), bf16(sin),
-        head.q, head.scale, f32(suppress_add), seen.contiguous(),
+        cache.k, cache.v, cache.ks if quant else None, cache.vs if quant else None,
     ]
+    rope = [bf16(cos), bf16(sin)]
+    if sample:
+        if suppress_add.numel() != V or seen.dtype != torch.bool or seen.numel() != B * V:
+            raise ValueError("talker_decode_step: suppress_add must be [V], seen bool [B, V]")
+        tail = [head.q, head.scale, f32(suppress_add), seen.contiguous()]
+    else:
+        tail = [None] * 4
     oqkv = layers["qkv_proj"].q.shape[-1]
-    hres = torch.empty(H, dtype=torch.bfloat16, device=dev)
-    xn = torch.empty(H, dtype=torch.bfloat16, device=dev)
-    attn = torch.empty(NQ * D, dtype=torch.bfloat16, device=dev)
-    gated = torch.empty(I, dtype=torch.bfloat16, device=dev)
-    ws = torch.empty(64 * max(oqkv, 2 * I, H, V), dtype=torch.float32, device=dev)
-    code = torch.empty(1, dtype=torch.int32, device=dev)
-    logits = torch.empty(V, dtype=torch.float32, device=dev) if return_logits else None
+    hres = torch.empty(B, H, dtype=torch.bfloat16, device=dev)
+    xn = torch.empty(B, H, dtype=torch.bfloat16, device=dev)
+    attn = torch.empty(B, NQ * D, dtype=torch.bfloat16, device=dev)
+    gated = torch.empty(B, I, dtype=torch.bfloat16, device=dev)
+    ws = torch.empty(_cuda.workspace_rows(B) * max(oqkv, 2 * I, H, V), dtype=torch.float32,
+                     device=dev)
+    code = torch.empty(B, dtype=torch.int32, device=dev) if sample else None
+    logits = torch.empty(B, V, dtype=torch.float32, device=dev) if sample and return_logits else None
     inv_t = _f32(1.0 / temperature) if temperature > 0 else 0.0
     rc = _cuda.library().qt_talker_step(
-        L, H, NQ, NKV, D, I, V, T, offset, cfg.rms_norm_eps, D**-0.5,
+        L, H, NQ, NKV, D, I, V, T, B, offset if single else 0, _cuda.ptr(offs), int(quant),
+        cfg.rms_norm_eps, D**-0.5,
         *(_cuda.ptr(t) for t in ins),
+        *(_cuda.ptr(t) for t in rope), 0 if single else D,
+        *(_cuda.ptr(t) for t in tail),
         float(rep_penalty), int(temperature <= 0), inv_t, int(top_k), int(eos_id),
-        stream_key(seed[0], seed[1], 0),
+        seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF,
         *(_cuda.ptr(t) for t in (hres, xn, attn, gated, ws, code, logits)),
         _cuda.stream_ptr(),
     )
     _cuda.check(rc, "talker_decode_step")
     talker_decode_step.launches += 1
-    return (xn, code, logits) if return_logits else (xn, code)
+    out = xn if not sample else (xn, code, logits) if return_logits else (xn, code)
+    return _one_row(out) if single else out
 
 
 def _f32(v: float) -> float:

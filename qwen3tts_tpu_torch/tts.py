@@ -1,12 +1,18 @@
-"""Public Qwen3-TTS API, one-utterance subset (port of qwen3tts_tpu/tts.py).
+"""Public Qwen3-TTS API (port of qwen3tts_tpu/tts.py): one utterance and
+lockstep batches.
 
 ``Qwen3TTSModel.from_pretrained(dir)`` loads a checkpoint directory
 (utils/loader.py); ``Qwen3TTSModel(...)`` is built from parameter trees
-already on a device. ``generate`` / ``generate_custom_voice`` /
-``generate_voice_design`` build the prompt on the host, run prefill and the
-decode loop (models/generate.py), then the vocoder on the smallest
-``GEN_BUCKETS`` prefix that covers the generated frames. Streaming, voice
-cloning and batched serving are not ported yet.
+already on a device. Both target CUDA unless ``device="cpu"`` is asked for,
+and raise ``Qwen3TTSError`` when no card is present. ``generate`` /
+``generate_custom_voice`` / ``generate_voice_design`` build the prompt on
+the host, run prefill and the decode loop (models/generate.py), then the
+vocoder on the smallest ``GEN_BUCKETS`` prefix that covers the generated
+frames. ``generate_batch`` runs B utterances in lockstep decodes of at most
+64 each (models/batch_generate.py), with one batched vocoder call per group.
+``kv_cache_dtype="int8"`` keeps the talker's KV cache in int8 with per-row
+scales. Streaming, voice cloning, continuous batching and serving are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from .models import generate as gen_mod
 from .models import talker as tk_mod
 from .models import vocoder as vc_mod
 from .models.generate import SamplingConfig, pad_to_bucket
+from .ops.talker_kernel import MAX_BATCH
 
 CHAT_ASSISTANT = "<|im_start|>assistant\n{}<|im_end|>\n<|im_start|>assistant\n"
 CHAT_USER = "<|im_start|>user\n{}<|im_end|>\n"
@@ -75,6 +82,7 @@ def _generate_and_decode(
     max_frames: int,
     seed: int,
     cache_len: int,
+    kv_quant: bool = False,
 ):
     """The whole utterance: prefill, decode loop, then the vocoder on the
     smallest bucket prefix of the codes buffer that covers ``n_frames``.
@@ -85,12 +93,23 @@ def _generate_and_decode(
         prefill_embeds=prefill_embeds, prefill_len=prefill_len,
         trailing_embeds=trailing_embeds, trailing_len=trailing_len,
         tts_pad_embed=tts_pad_embed, max_steps=max_steps, max_frames=max_frames,
-        seed=seed, cache_len=cache_len,
+        seed=seed, cache_len=cache_len, kv_quant=kv_quant,
     )
     buckets = [b for b in GEN_BUCKETS if b < max_frames] + [max_frames]
     b = next(b for b in buckets if res.n_frames <= b)
     wav, lengths = vc_mod.decode(voc_params, dec_cfg, res.codes[None, :b], res.n_frames)
     return res.codes, res.n_frames, wav, lengths
+
+
+def _device(device) -> torch.device:
+    """The model's device: CUDA unless another is asked for; CUDA with no
+    card present raises."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise Qwen3TTSError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return device
 
 
 class Qwen3TTSModel:
@@ -106,9 +125,12 @@ class Qwen3TTSModel:
         tokenizer=None,
         dtype=torch.bfloat16,
         device=None,
+        kv_cache_dtype: str = "bf16",
     ):
         if config.talker_config is None:
             raise Qwen3TTSError("Talker config is required")
+        if kv_cache_dtype not in ("bf16", "int8"):
+            raise Qwen3TTSError(f"Unsupported kv_cache_dtype: {kv_cache_dtype!r}")
         self.config = config
         self.talker_cfg: TalkerConfig = config.talker_config
         self.cp_cfg = self.talker_cfg.code_predictor_config
@@ -118,7 +140,10 @@ class Qwen3TTSModel:
         self.tokenizer_config = tokenizer_config
         self.tokenizer = tokenizer
         self.dtype = dtype
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = _device(device)
+        # int8 KV cache with per-row scales: half the bytes the decode
+        # attention reads; opt-in, as int8 rounding perturbs attention
+        self.kv_quant = kv_cache_dtype == "int8"
         self.ref_exact_top_p = False
         self.last_info: GenerationInfo | None = None
 
@@ -139,15 +164,18 @@ class Qwen3TTSModel:
         device=None,
     ) -> "Qwen3TTSModel":
         """Load config.json + safetensors (+ speech_tokenizer/, tokenizer)
-        from a local directory onto ``device`` (default: CUDA when present).
+        from a local directory onto ``device`` (default CUDA, which raises
+        ``Qwen3TTSError`` where no card is present; ``device="cpu"`` runs on
+        the CPU).
 
         ``keep_packed=True`` keeps MLX int4/int8 weights packed: the
         low-memory mode, whose single-row matmuls run through K4.
         ``quantize='int8'`` requantizes the talker and code-predictor
         matmuls to weight-only int8 with fused q/k/v and gate/up (int4
         checkpoints are dequantized first), the layout K1 and K2 serve.
-        ``fuse`` fuses the projections without quantizing. ``mesh`` and
-        ``kv_cache_dtype='int8'`` are not ported yet and raise."""
+        ``fuse`` fuses the projections without quantizing.
+        ``kv_cache_dtype='int8'`` stores decode KV caches as int8 with
+        per-row scales. ``mesh`` is not ported yet and raises."""
         from .ops.quant import quantize_decode_params_int8
         from .utils.loader import Checkpoint
 
@@ -155,11 +183,9 @@ class Qwen3TTSModel:
             raise Qwen3TTSError(f"Unsupported quantize mode: {quantize!r}")
         if mesh is not None:
             raise Qwen3TTSError("mesh (multi-device) loading is not ported yet")
-        if kv_cache_dtype != "bf16":
-            raise Qwen3TTSError(f"kv_cache_dtype={kv_cache_dtype!r} is not ported yet (bf16 only)")
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        device = torch.device(device)
+        if kv_cache_dtype not in ("bf16", "int8"):
+            raise Qwen3TTSError(f"Unsupported kv_cache_dtype: {kv_cache_dtype!r}")
+        device = _device(device)
         if quantize is None and keep_packed is None and device.type == "cuda":
             # CUDA takes the JAX package's TPU default: a quantized (MLX
             # affine) checkpoint is dequantized and requantized to int8, which
@@ -205,6 +231,7 @@ class Qwen3TTSModel:
             tokenizer=tokenizer,
             dtype=dtype,
             device=device,
+            kv_cache_dtype=kv_cache_dtype,
         )
 
     @property
@@ -328,7 +355,8 @@ class Qwen3TTSModel:
         )
 
     def _prep_run(self, input_embeds, trailing, tts_pad, max_steps: int) -> dict:
-        """Bucket/pad the prompt and trailing streams; size the KV cache."""
+        """Bucket/pad the prompt and trailing streams; size the KV cache
+        (int8 with row scales under ``kv_cache_dtype="int8"``)."""
         p_len = input_embeds.shape[1]
         p_bucket = pad_to_bucket(p_len)
         prefill = torch.nn.functional.pad(
@@ -347,6 +375,7 @@ class Qwen3TTSModel:
             tts_pad_embed=tts_pad.to(self.dtype),
             max_frames=max_frames,
             cache_len=-(-(p_bucket + max_frames) // 128) * 128,
+            kv_quant=self.kv_quant,
         )
 
     def _set_info(self, n_tokens: int, prompt_tokens: int, prefill_t: float, gen_t: float):
@@ -480,3 +509,163 @@ class Qwen3TTSModel:
         else:
             audio = self.generate_voice_design(text, instruct=instruct, **kwargs)
         return (audio, self.last_info) if return_info else audio
+
+    # ------------------------------------------------------------------
+    # Batched synthesis
+    # ------------------------------------------------------------------
+
+    def generate_batch(
+        self,
+        texts: list[str],
+        speakers: list[str] | None = None,
+        instructs: list[str] | None = None,
+        language: str = "auto",
+        temperature: float = 0.9,
+        top_k: int = 50,
+        top_p: float = 1.0,
+        repetition_penalty: float = 1.05,
+        max_tokens: int = 2048,
+        seed: int = 0,
+        dp_mesh=None,
+    ) -> list[np.ndarray]:
+        """Synthesize B utterances in lockstep decodes of at most
+        ``MAX_BATCH`` (64) texts each; one waveform per text. One weight
+        stream serves every sequence of a group, so a frame costs far less
+        than B single-utterance frames. Group g (texts 64 g ...) draws from
+        ``seed + g``; the first group is the whole batch up to 64 texts.
+
+        On CUDA the decode runs through K1 and K2, which take the fused int8
+        layout (``from_pretrained(..., quantize='int8')``, the default for a
+        quantized checkpoint): other weights raise ``Qwen3TTSError``.
+
+        Unlike ``generate()``, a sequence that samples EOS on its very first
+        frame yields an empty waveform instead of raising (the batch's other
+        results stand); check ``len(audio)``. ``dp_mesh`` (data-parallel
+        replicas) is not ported yet and raises."""
+        from .models import batch_generate as bg
+
+        if dp_mesh is not None:
+            raise Qwen3TTSError("dp_mesh (data-parallel decode) is not ported yet")
+        B = len(texts)
+        if B == 0:
+            return []
+        speakers = speakers if speakers is not None else [None] * B
+        instructs = instructs if instructs is not None else [None] * B
+        if len(speakers) != B or len(instructs) != B:
+            raise Qwen3TTSError(
+                f"generate_batch: texts ({B}), speakers ({len(speakers)}) and "
+                f"instructs ({len(instructs)}) must have equal lengths"
+            )
+        if self.cp_params is None or self.cp_cfg is None:
+            raise Qwen3TTSError("Code predictor not available")
+        if self.vocoder_params is None or self.tokenizer_config is None:
+            raise Qwen3TTSError("Speech tokenizer not loaded")
+        if self.device.type == "cuda" and not bg.kernels_take(
+            self.talker_params, self.cp_params, self.talker_cfg, self.cp_cfg,
+            min(B, MAX_BATCH), self.kv_quant,
+        ):
+            raise Qwen3TTSError(
+                "generate_batch on CUDA runs through K1 and K2, which take the fused int8 "
+                "layout: load with from_pretrained(..., quantize='int8')"
+            )
+        sampling = self._sampling(temperature, top_k, top_p, repetition_penalty)
+        t0 = time.time()
+        groups = [
+            self._codes_batch(texts[i:i + MAX_BATCH], speakers[i:i + MAX_BATCH],
+                              instructs[i:i + MAX_BATCH], language, sampling, max_tokens,
+                              seed + i // MAX_BATCH)
+            for i in range(0, B, MAX_BATCH)
+        ]
+        n_frames = np.concatenate([n for _, n, _ in groups])
+        if (n_frames == 0).all():
+            raise Qwen3TTSError("No tokens generated")
+        audio = [a for codes, n, _ in groups
+                 for a in self._decode_audio_list(codes, np.maximum(n, 1))]
+        prompt = max(p for _, _, p in groups)
+        self._set_info(int(n_frames.sum()), prompt, 0.0, time.time() - t0)
+        return [a if n_frames[b] else a[:0] for b, a in enumerate(audio)]
+
+    def _codes_batch(self, texts, speakers, instructs, language, sampling, max_tokens, seed):
+        """One lockstep decode of at most MAX_BATCH texts; returns (codes
+        [B, max_frames, 16] on the device, n_frames numpy [B], the prompt
+        bucket)."""
+        from .models import batch_generate as bg
+
+        B = len(texts)
+        built = self._build_batch_inputs(texts, speakers, instructs, language)
+        p_bucket = pad_to_bucket(max(e.shape[1] for e, _, _ in built))
+        t_bucket = pad_to_bucket(max(t.shape[0] for _, t, _ in built))
+        pad = torch.nn.functional.pad
+        prefill = torch.stack(
+            [pad(e[0].to(self.dtype), (0, 0, 0, p_bucket - e.shape[1])) for e, _, _ in built]
+        )
+        trailing = torch.stack(
+            [pad(t.to(self.dtype), (0, 0, 0, t_bucket - t.shape[0])) for _, t, _ in built]
+        )
+        caps = [self._effective_max_tokens(t, max_tokens) for t in texts]
+        max_frames = pad_to_bucket(max(caps), GEN_BUCKETS)
+        cache_len = -(-(p_bucket + max_frames) // 128) * 128
+        res = bg.generate_codes_batch(
+            self.talker_params, self.cp_params,
+            talker_cfg=self.talker_cfg, cp_cfg=self.cp_cfg, sampling=sampling,
+            prefill_embeds=prefill,
+            prefill_lens=[e.shape[1] for e, _, _ in built],
+            trailing_embeds=trailing,
+            trailing_lens=[t.shape[0] for _, t, _ in built],
+            tts_pad_embed=built[0][2].to(self.dtype),
+            cache=tk_mod.make_cache(self.talker_cfg, B, cache_len, self.dtype, self.device,
+                                    quantized=self.kv_quant),
+            max_steps=caps, max_frames=max_frames, seed=seed,
+        )
+        return res.codes, res.n_frames.cpu().numpy(), p_bucket
+
+    def _build_batch_inputs(self, texts, speakers, instructs, language):
+        """Per-request validation and prompt construction for batched paths
+        (the per-mode rules of ``generate()``)."""
+        mode = self.config.tts_model_type
+        built = []
+        for text, speaker, instruct in zip(texts, speakers, instructs):
+            if mode == "voice_design":
+                if instruct is None:
+                    raise Qwen3TTSError("VoiceDesign model requires 'instruct' for every text")
+                speaker = None
+            elif mode in ("custom_voice", "base"):
+                if speaker is None:
+                    raise Qwen3TTSError(
+                        "CustomVoice/Base model requires 'speaker' for every text. "
+                        "Available speakers: " + ", ".join(self.supported_speakers)
+                    )
+                if speaker.lower() not in self.talker_cfg.speaker_ids:
+                    raise Qwen3TTSError(
+                        f"Speaker '{speaker}' not found. Available speakers: "
+                        + ", ".join(self.supported_speakers)
+                    )
+                if mode == "base":
+                    instruct = None
+            built.append(self._prepare_generation_inputs(
+                text, language=language, speaker=speaker, instruct=instruct
+            ))
+        return built
+
+    def _decode_audio_list(self, codes, n_frames) -> list[np.ndarray]:
+        """One vocoder call for ragged utterances on a shared bucket.
+        codes [B, max_frames, 16] on the device; n_frames: per-row counts."""
+        dec_cfg = self.tokenizer_config.decoder_config
+        n_frames = np.asarray(n_frames, np.int64)
+        bucket = pad_to_bucket(max(int(n_frames.max()), 1), GEN_BUCKETS)
+        buf = torch.zeros(codes.shape[0], bucket, codes.shape[2], dtype=codes.dtype,
+                          device=codes.device)
+        take = min(bucket, codes.shape[1])
+        in_range = torch.arange(take, device=codes.device)[None, :, None] < torch.as_tensor(
+            n_frames, device=codes.device)[:, None, None]
+        buf[:, :take] = torch.where(in_range, codes[:, :take], 0)
+        wav, lengths = vc_mod.decode(self.vocoder_params, dec_cfg, buf, torch.as_tensor(n_frames))
+        wav, lengths = wav.float().cpu().numpy(), lengths.cpu().numpy()
+        out = []
+        for b in range(len(n_frames)):
+            samples = wav[b][: n_frames[b] * dec_cfg.total_upsample]
+            valid = int(lengths[b])
+            if 0 < valid < samples.shape[0]:
+                samples = samples[:valid]
+            out.append(samples)
+        return out

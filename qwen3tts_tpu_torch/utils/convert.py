@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.talker import KVCache, KVCacheQ
 from ..ops.quant import Int8Linear, PackedLinear
 
 
@@ -41,9 +42,15 @@ def _tensor(x, device) -> torch.Tensor:
 
 
 def from_jax_params(tree, device=None):
-    """Convert a JAX-package parameter tree to torch tensors on ``device``."""
+    """Convert a JAX-package parameter tree to torch tensors on ``device``.
+    A talker KV cache (``KVCache``, or ``KVCacheQ`` with its row scales)
+    becomes the port's cache of the same kind."""
     if isinstance(tree, dict):
         return {k: from_jax_params(v, device) for k, v in tree.items()}
+    fields = getattr(tree, "_fields", None)
+    for cache_type in (KVCache, KVCacheQ):
+        if fields == cache_type._fields:
+            return cache_type(*(_tensor(a, device) for a in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_jax_params(v, device) for v in tree)
     if hasattr(tree, "q") and hasattr(tree, "scale"):

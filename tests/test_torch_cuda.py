@@ -22,6 +22,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from qwen3tts_tpu_torch import config as C
+from qwen3tts_tpu_torch.models import batch_generate as bg
 from qwen3tts_tpu_torch.models import generate as gen
 from qwen3tts_tpu_torch.models import talker as tk
 from qwen3tts_tpu_torch.ops import cp_kernel as cpk
@@ -304,3 +305,166 @@ def test_packed_loop_runs_k4_k3_and_syncs_once_per_frame(dev):
     assert q.quant_gemv.launches - n4 == 1 + per_cp + 8 * (7 * L + 1 + per_cp)
     assert decode_attention_inner.launches - n3 == 8 * L
     assert syncs == 8 + 1, syncs
+
+
+def _batched_case(dev, B, T, kv_quant, seed=0):
+    """x [B, 1, H], a random cache of T rows (int8 with row scales, or bf16),
+    ragged offsets, per-row rope rows and seen sets."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cache = tk.make_cache(CFG, B, T, torch.bfloat16, dev, quantized=kv_quant)
+    if kv_quant:
+        cache.k.copy_(torch.randint(-127, 128, cache.k.shape, generator=g, device=dev))
+        cache.v.copy_(torch.randint(-127, 128, cache.v.shape, generator=g, device=dev))
+        cache.ks.copy_(torch.rand(cache.ks.shape, generator=g, device=dev).mul(0.02))
+        cache.vs.copy_(torch.rand(cache.vs.shape, generator=g, device=dev).mul(0.01))
+    else:
+        cache.k.copy_(torch.randn(cache.k.shape, generator=g, device=dev))
+        cache.v.copy_(torch.randn(cache.v.shape, generator=g, device=dev).mul(0.5))
+    offs = torch.randint(T // 4, T - 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    x = torch.randn(B, 1, 256, generator=g, device=dev).mul(0.2).bfloat16()
+    rope = mrope_cos_sin(torch.arange(T, device=dev)[None], 128, CFG.rope_theta,
+                         CFG.mrope_section, torch.bfloat16)
+    cos, sin = rope[0][0][offs.long()], rope[1][0][offs.long()]
+    V = CFG.vocab_size
+    supp = torch.zeros(V, device=dev)
+    supp[V - 1024:] = -1e30
+    seen = torch.rand(B, V, generator=g, device=dev) < 0.01
+    return x, cache, offs, cos, sin, supp, seen
+
+
+def _clone(cache):
+    return type(cache)(*(a.clone() for a in cache))
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+@pytest.mark.parametrize("B", [5, 64])
+def test_k1_batched_matches_plain(dev, weights, B, kv_quant):
+    """K1 at B rows and ragged offsets, both modes, against its plain
+    version: hidden, logits and the new k/v rows within the bf16 bound,
+    greedy code0 equal but for near-ties, one launch per call."""
+    tp, _ = weights
+    T = 512 if kv_quant else 128
+    x, cache, offs, cos, sin, supp, seen = _batched_case(dev, B, T, kv_quant, seed=B)
+    kw = dict(temperature=0.0, top_k=50, rep_penalty=1.05, eos_id=-1, seed=(1, 2),
+              suppress_add=supp, seen=seen, return_logits=True)
+    ck, cr = _clone(cache), _clone(cache)
+    before = tkk.talker_decode_step.launches
+    hk, codek, lk = tkk.talker_decode_step(tp, CFG, x, ck, offs, cos, sin, **kw)
+    assert tkk.talker_decode_step.launches == before + 1
+    hr, coder, lr = tkk.talker_decode_step_ref(tp, CFG, x, cr, offs, cos, sin, **kw)
+    assert hk.shape == (B, 256) and codek.shape == (B,) and lk.shape == (B, CFG.vocab_size)
+    assert scaled(hk, hr) < 0.05 and scaled(lk, lr) < 0.05
+    rows, pos = torch.arange(B, device=dev), offs.long()
+    for i in range(2):  # k, then v: the new rows (dequantized for an int8 cache)
+        new_a, new_b = ck[i][:, rows, :, pos], cr[i][:, rows, :, pos]
+        if kv_quant:
+            new_a = tk.dequantize_kv(new_a, ck[2 + i][:, rows, :, pos])
+            new_b = tk.dequantize_kv(new_b, cr[2 + i][:, rows, :, pos])
+        assert scaled(new_a, new_b) < 0.05
+    err = float((lk - lr).abs().max())
+    z = _pen(lr, seen) + supp
+    for b in range(B):
+        a_, b_ = int(codek[b]), int(coder[b])
+        assert a_ == b_ or abs(float(z[b, a_] - z[b, b_])) <= 2 * err + 1e-6, b
+    hn = tkk.talker_decode_step(tp, CFG, x, _clone(cache), offs, cos, sin, sample=False)
+    hn_r = tkk.talker_decode_step_ref(tp, CFG, x, _clone(cache), offs, cos, sin, sample=False)
+    assert scaled(hn, hn_r) < 0.05 and torch.equal(hn, hk)
+
+
+@pytest.mark.parametrize("B", [5, 64])
+def test_k1_int8_rows_written_bit_equal(dev, weights, B):
+    """Layer 0's new k/v rows depend on x alone: the rows and scales that the
+    int8 step writes in place equal quantize_kv_rows of the rows that the
+    bf16 step writes, bit for bit."""
+    tp, _ = weights
+    x, cq, offs, cos, sin, _, _ = _batched_case(dev, B, 512, True, seed=3)
+    cb = tk.make_cache(CFG, B, 512, torch.bfloat16, dev)
+    tkk.talker_decode_step(tp, CFG, x, cq, offs, cos, sin, sample=False)
+    tkk.talker_decode_step(tp, CFG, x, cb, offs, cos, sin, sample=False)
+    rows, pos = torch.arange(B, device=dev), offs.long()
+    for qc, sc, bc in ((cq.k, cq.ks, cb.k), (cq.v, cq.vs, cb.v)):
+        q_ref, s_ref = tk.quantize_kv_rows(bc[0, rows, :, pos])
+        assert torch.equal(qc[0, rows, :, pos], q_ref)
+        assert torch.equal(sc[0, rows, :, pos], s_ref)
+
+
+@pytest.mark.parametrize("B", [3, 64])
+def test_k2_batched_matches_plain(dev, weights, B):
+    tp, cp = weights
+    g = torch.Generator(device=dev).manual_seed(B)
+    h = torch.randn(B, 256, generator=g, device=dev).mul(0.3).bfloat16()
+    code0 = torch.randint(0, 2048, (B,), generator=g, device=dev, dtype=torch.int32)
+    cr, er, lr = cpk.predict_codes_fused_ref(cp, CPC, tp, h, code0, (5, 6), temperature=0.0,
+                                             top_k=50, return_logits=True)
+    before = cpk.predict_codes_fused.launches
+    ck, ek, lk = cpk.predict_codes_fused(cp, CPC, tp, h, code0, (5, 6), temperature=0.0,
+                                         top_k=50, force_codes=cr, return_logits=True)
+    assert cpk.predict_codes_fused.launches == before + 1
+    assert ck.shape == (B, 15) and lk.shape == (15, B, CPC.vocab_size)
+    assert scaled(lk, lr) < 0.05
+    assert torch.equal(ek, er)  # the same bf16 rows summed in f32 in the same order
+    err = float((lk - lr).abs().max())
+    for b in range(B):
+        for j in range(15):
+            a, c = int(ck[b, j]), int(cr[b, j])
+            assert a == c or abs(float(lr[j, b, a] - lr[j, b, c])) <= 2 * err, (b, j)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_generate_codes_batch_runs_on_the_kernels(dev, weights, kv_quant):
+    """B=6 lockstep decode: K1 once per lockstep frame after the first, K2
+    once per frame, and one host sync per lockstep frame (plus the suppress
+    mask's copy per chunk)."""
+    tp, cp = weights
+    B = 6
+    g = torch.Generator(device=dev).manual_seed(7)
+    sampling = gen.SamplingConfig(0.9, 50, 1.0, 1.05, forbid_eos=True)
+    common = dict(talker_cfg=CFG, cp_cfg=CPC, sampling=sampling,
+                  trailing_embeds=torch.zeros(B, 16, 256, dtype=torch.bfloat16, device=dev),
+                  trailing_lens=torch.full((B,), 4, dtype=torch.int32, device=dev),
+                  tts_pad_embed=torch.zeros(256, dtype=torch.bfloat16, device=dev))
+    n1, n2 = tkk.talker_decode_step.launches, cpk.predict_codes_fused.launches
+    carry = bg.prefill_start_batch(
+        tp, cp, **common, prefill_embeds=torch.randn(B, 64, 256, generator=g, device=dev).mul(0.1).bfloat16(),
+        prefill_lens=torch.tensor([20, 33, 9, 64, 40, 12], dtype=torch.int32, device=dev),
+        cache=tk.make_cache(CFG, B, 256, device=dev, quantized=kv_quant), max_frames=16, seed=3)
+    assert cpk.predict_codes_fused.launches - n2 == 1
+    caps = torch.tensor([9, 12, 12, 5, 12, 12], dtype=torch.int32, device=dev)
+    carry, syncs = _count_syncs(lambda: bg.generate_chunk_batch(
+        tp, cp, carry, **common, max_steps=caps, until_step=10))
+    assert carry.step == 10
+    assert tkk.talker_decode_step.launches - n1 == 9
+    assert cpk.predict_codes_fused.launches - n2 == 10
+    assert syncs == 9 + 1, syncs
+    assert carry.frames.tolist() == [9, 10, 10, 5, 10, 10]
+    codes = carry.codes.cpu()
+    assert (codes[:, :, 0] < 2048).all() and (codes[:, :, 1:] < CPC.vocab_size).all()
+
+
+@pytest.mark.parametrize("case", ["65 rows", "f32 activations", "lockstep of 65"])
+def test_step_the_kernels_do_not_take_raises(dev, weights, case):
+    """No plain loop on the card for fused int8 weights: a batched step of
+    65 rows or of f32 activations raises in K1, and a lockstep decode of 65
+    rows raises before its prefill."""
+    tp, cp = weights
+    B = 3 if case == "f32 activations" else 65
+    x = torch.zeros(B, 1, 256, device=dev,
+                    dtype=torch.float32 if case == "f32 activations" else torch.bfloat16)
+    cache = tk.make_cache(CFG, B, 128, torch.bfloat16, dev)
+    offs = torch.full((B,), 4, dtype=torch.int32, device=dev)
+    n1 = tkk.talker_decode_step.launches
+    if case == "lockstep of 65":
+        with pytest.raises(ValueError, match="K1 and K2"):
+            bg.prefill_start_batch(
+                tp, cp, talker_cfg=CFG, cp_cfg=CPC, sampling=gen.SamplingConfig(),
+                prefill_embeds=torch.zeros(B, 64, 256, dtype=torch.bfloat16, device=dev),
+                prefill_lens=torch.full((B,), 8, dtype=torch.int32, device=dev),
+                trailing_embeds=torch.zeros(B, 16, 256, dtype=torch.bfloat16, device=dev),
+                trailing_lens=torch.full((B,), 4, dtype=torch.int32, device=dev),
+                tts_pad_embed=torch.zeros(256, dtype=torch.bfloat16, device=dev),
+                cache=cache, max_frames=16, seed=0)
+    else:
+        with pytest.raises(ValueError, match="talker_decode_step"):
+            tk.forward_batched_step(tp, CFG, x, cache, offs)
+    assert tkk.talker_decode_step.launches == n1
+    assert not cache.k.any()  # nothing ran

@@ -158,7 +158,7 @@ def test_from_pretrained_int8_equal_jax(dirs):
 
 
 def test_from_pretrained_refuses_unported_options(dirs):
-    for kw in (dict(quantize="int4"), dict(mesh=object()), dict(kv_cache_dtype="int8")):
+    for kw in (dict(quantize="int4"), dict(mesh=object()), dict(kv_cache_dtype="fp8")):
         with pytest.raises(Qwen3TTSError):
             TModel.from_pretrained(dirs["int4"], device="cpu", **kw)
 

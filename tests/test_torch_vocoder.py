@@ -100,3 +100,19 @@ def test_decode_restores_tf32_flags(setup, cudnn_tf32, matmul_tf32):
         assert torch.backends.cuda.matmul.allow_tf32 is matmul_tf32
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_per_row_frames_match_jax(setup):
+    """frames [B] per row (the batched decode's ragged utterances): each row
+    masked to its own valid frames, as JAX's decode does, and each row's
+    prefix equal to decoding that row alone."""
+    jcfg, tcfg, jp, tp, codes, signal = setup
+    batch = np.concatenate([codes, codes[:, ::-1].copy()], axis=0)  # [2, 12, 16]
+    frames = np.array([7, 10], np.int32)
+    wt, lt = tvc.decode(tp, tcfg, torch.from_numpy(batch), torch.from_numpy(frames))
+    wj, lj = jvc.decode(jp, jcfg, jnp.asarray(batch), jnp.asarray(frames))
+    assert scaled(wt.numpy(), np.asarray(wj), signal) <= F32_TOL
+    assert lt.tolist() == np.asarray(lj).tolist()
+    for b, n in enumerate(frames):
+        alone, _ = tvc.decode(tp, tcfg, torch.from_numpy(batch[b : b + 1]), int(n))
+        assert scaled(wt[b, : n * 1920].numpy(), alone[0, : n * 1920].numpy(), signal) <= F32_TOL
