@@ -63,7 +63,27 @@ kernels from csrc/, and runs, in order:
      codec tokens/s, per-sequence RTF; K1/K2 device time per frame beside
      the bounds; the plain path at B=8; a profiled window at B=64;
   e. ``generate()`` on an int8 cache: launches, the 66-frame RTF beside
-     phase 6's, and K1's device time and the decode loop on each cache.
+     phase 6's, and K1's device time and the decode loop on each cache;
+  f. K1 in bf16 mode (dense bf16 weights, no scales) against its plain
+     version at 0.6B, B = 1, 8 and 64, on prefilled bf16 and int8 caches,
+     within the bounds of phases 3 and a;
+  g. K1 at the 1.7B widths (H 2048, I 6144), int8 and bf16, B = 1 and 64;
+     K2 on bf16 weights at 0.6B and at 1.7B (the small-to-MTP projection
+     2048 -> 1024, int8 and bf16), B = 1 and 64: teacher-forced greedy
+     logits, esum and codes against the plain versions (bounds of phases 4
+     and b);
+  h. the bf16 checkpoint path: phase 9's 0.6B weights written as BF16, then
+     ``Qwen3TTSModel.from_pretrained(dir)`` with defaults gives fused dense
+     bf16 talker and CP; ``generate()`` runs K1 on every frame after the
+     first and K2 on every frame, no decode step through the plain
+     per-layer loop, no plain CP loop, the plain sampler only for the
+     first frame's code 0; then its 66-frame headline with K1 and K2
+     device time;
+  i. the 1.7B model (host_init trees, int8 and bf16) through
+     ``Qwen3TTSModel.generate``: the same launch checks, the headline;
+  j. ``generate_batch`` of 8 texts on the bf16 checkpoint and at 1.7B int8
+     (one K1 and one K2 per lockstep frame), and one B=64 lockstep cell for
+     each: ms per frame, codec tokens/s.
 
 Any failure raises and exits non-zero. The last lines are the card's name
 and power limit, one JSON object describing the kernels, and
@@ -93,60 +113,23 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-_ST_DTYPES = {"float32": "F32", "uint32": "U32", "int32": "I32"}
-
-
-def save_safetensors(path: str, tensors: dict) -> None:
-    """Write numpy arrays in the safetensors format (an 8-byte little-endian
-    header length, a JSON header padded to 8 bytes, then the raw buffers)."""
-    import numpy as np
-
-    arrays = {k: np.ascontiguousarray(v) for k, v in sorted(tensors.items())}
-    header, offset = {}, 0
-    for k, a in arrays.items():
-        header[k] = {"dtype": _ST_DTYPES[a.dtype.name], "shape": list(a.shape),
-                     "data_offsets": [offset, offset + a.nbytes]}
-        offset += a.nbytes
-    blob = json.dumps(header).encode()
-    blob += b" " * (-len(blob) % 8)
-    with open(path, "wb") as f:
-        f.write(len(blob).to_bytes(8, "little"))
-        f.write(blob)
-        for a in arrays.values():
-            f.write(memoryview(a.reshape(-1).view(np.uint8)))
-
-
-def write_packed_checkpoint(path: str, talker: dict, group: int = 64) -> None:
-    """A Qwen3-TTS checkpoint directory with the talker config ``talker``
-    (JSON form), MLX int4 weights and a full-size speech-tokenizer decoder,
-    from tests/synthetic_ckpt.py's numpy functions. Linear weights are
-    quantized by synthetic_ckpt.quantize_weights_mlx's selection rule with
-    the port's pack_quantized (that function imports JAX)."""
+def checkpoint_arrays(talker: dict):
+    """(config, weights, speech-tokenizer config, its weights): a Qwen3-TTS
+    checkpoint with the talker config ``talker`` (JSON form) and a full-size
+    speech-tokenizer decoder, as numpy f32 arrays from
+    tests/synthetic_ckpt.py's numpy functions. The small-to-MTP projection is
+    kept only where the CP is narrower than the talker."""
     import numpy as np
     from synthetic_ckpt import TINY_CONFIG, TINY_ST_CONFIG, build_main_weights, \
         build_speech_tokenizer_weights
 
     from qwen3tts_tpu_torch import config as C
-    from qwen3tts_tpu_torch.ops.quant import pack_quantized
 
-    os.makedirs(os.path.join(path, "speech_tokenizer"), exist_ok=True)
-    cfg = dict(TINY_CONFIG, talker_config=talker,
-               quantization={"group_size": group, "bits": 4, "mode": "affine"})
+    cfg = dict(TINY_CONFIG, talker_config=talker)
     weights = build_main_weights(cfg)
-    # the CP is as wide as the talker at 0.6B: no small-to-MTP projection
-    for k in [k for k in weights if "small_to_mtp_projection" in k]:
-        del weights[k]
-    out = {}
-    for k, v in weights.items():
-        if (k.endswith(".weight") and v.ndim == 2 and "embedding" not in k
-                and ("proj" in k or "lm_head" in k or "codec_head" in k or "linear_fc" in k)
-                and v.shape[1] % group == 0):
-            out[k], out[k + ".scales"], out[k + ".biases"] = pack_quantized(v, 4, group)
-        else:
-            out[k] = v
-    with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump(cfg, f)
-    save_safetensors(os.path.join(path, "model.safetensors"), out)
+    if talker["code_predictor_config"]["hidden_size"] == talker["hidden_size"]:
+        for k in [k for k in weights if "small_to_mtp_projection" in k]:
+            del weights[k]
     dec = {k: list(v) if isinstance(v, tuple) else v
            for k, v in dataclasses.asdict(C.TokenizerDecoderConfig()).items()}
     st_cfg = dict(TINY_ST_CONFIG, decoder_config=dec)
@@ -154,9 +137,40 @@ def write_packed_checkpoint(path: str, talker: dict, group: int = 64) -> None:
     for k, v in st.items():  # conv weights: unit gain per layer (the function
         if v.ndim == 3:      # scales by the kernel width only)
             st[k] = (v / np.sqrt(v.shape[1])).astype(np.float32)
+    return cfg, weights, st_cfg, st
+
+
+def write_checkpoint(path: str, arrays, packed_group: int | None = None) -> None:
+    """Write ``checkpoint_arrays`` to a directory: its linear weights as MLX
+    int4 (``packed_group``; synthetic_ckpt.quantize_weights_mlx's selection
+    rule with the port's pack_quantized, as that function imports JAX), or
+    every float tensor of the main checkpoint as BF16, the dtype Qwen
+    publishes (through torch: numpy has no bf16)."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.quant import pack_quantized
+    from qwen3tts_tpu_torch.utils.loader import write_safetensors
+
+    cfg, weights, st_cfg, st = arrays
+    os.makedirs(os.path.join(path, "speech_tokenizer"), exist_ok=True)
+    out = {}
+    if packed_group:
+        cfg = dict(cfg, quantization={"group_size": packed_group, "bits": 4, "mode": "affine"})
+        for k, v in weights.items():
+            if (k.endswith(".weight") and v.ndim == 2 and "embedding" not in k
+                    and ("proj" in k or "lm_head" in k or "codec_head" in k or "linear_fc" in k)
+                    and v.shape[1] % packed_group == 0):
+                out[k], out[k + ".scales"], out[k + ".biases"] = pack_quantized(v, 4, packed_group)
+            else:
+                out[k] = v
+    else:
+        out = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in weights.items()}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    write_safetensors(os.path.join(path, "model.safetensors"), out)
     with open(os.path.join(path, "speech_tokenizer", "config.json"), "w") as f:
         json.dump(st_cfg, f)
-    save_safetensors(os.path.join(path, "speech_tokenizer", "model.safetensors"), st)
+    write_safetensors(os.path.join(path, "speech_tokenizer", "model.safetensors"), st)
 
 
 def main() -> None:
@@ -218,19 +232,25 @@ def main() -> None:
         num_key_value_heads=8, head_dim=128, spk_id=(("aiden", 2861), ("vivian", 2862)),
         code_predictor_config=cpc,
     )
+    def fused_trees(c, seed=0):
+        """host_init talker and CP trees at ``c``'s widths, fused dense bf16,
+        and int8 copies of both (the dense trees stay: phases f-j)."""
+        tb = hi.to_device(hi.host_init_talker_params(seed, c), torch.bfloat16, dev)
+        tb["layers"] = tk.fuse_layer_projections(tb["layers"])
+        cb = hi.to_device(hi.host_init_cp_params(seed + 1, c.code_predictor_config, c.hidden_size),
+                          torch.bfloat16, dev)
+        cb["layers"] = tk.fuse_layer_projections(cb["layers"])
+        return (tb, cb, quantize_decode_params_int8(tb, "codec_head"),
+                quantize_decode_params_int8(cb, "lm_head"))
+
     t0 = time.time()
-    talker_p = hi.to_device(hi.host_init_talker_params(0, cfg), torch.bfloat16, dev)
-    talker_p["layers"] = tk.fuse_layer_projections(talker_p["layers"])
-    talker_p = quantize_decode_params_int8(talker_p, "codec_head")
-    cp_p = hi.to_device(hi.host_init_cp_params(1, cpc, cfg.hidden_size), torch.bfloat16, dev)
-    cp_p["layers"] = tk.fuse_layer_projections(cp_p["layers"])
-    cp_p = quantize_decode_params_int8(cp_p, "lm_head")
+    talker_b, cp_b, talker_p, cp_p = fused_trees(cfg)
     dec_cfg = C.TokenizerDecoderConfig()
     voc_p = hi.init_vocoder_params(
         torch.Generator(device=dev).manual_seed(2), dec_cfg, torch.float32, dev
     )
     torch.cuda.synchronize()
-    log(f"    weights: talker + CP (host_init, fused, int8) + f32 vocoder in "
+    log(f"    weights: talker + CP (host_init, fused, bf16 and int8) + f32 vocoder in "
         f"{time.time() - t0:.1f} s")
 
     def timed(fn, iters):
@@ -249,15 +269,21 @@ def main() -> None:
 
     def device_ms(fn, iters):
         """Device time per call: the sum of fn's device kernels over ``iters``
-        calls (torch.profiler), without the host time between them."""
+        calls (torch.profiler), without the host time between them. A
+        profiler window now and then records no device events at all; such
+        a window is taken again (three tries), never read as zero time."""
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        return sum(e.time_range.end - e.time_range.start for e in prof.events()
-                   if e.device_type == DeviceType.CUDA) / 1000 / iters
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            t = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                    if e.device_type == DeviceType.CUDA) / 1000 / iters
+            if t > 0:
+                return t
+        raise RuntimeError("the profiler recorded no device time in three windows")
 
     def scaled(a, b):
         a, b = a.float(), b.float()
@@ -671,7 +697,8 @@ def main() -> None:
     ckpt_tmp = tempfile.TemporaryDirectory(prefix="qt_ckpt_")
     ckpt = ckpt_tmp.name
     t0 = time.time()
-    write_packed_checkpoint(ckpt, talker_json)
+    arrays06 = checkpoint_arrays(talker_json)
+    write_checkpoint(ckpt, arrays06, packed_group=64)
     ckpt_s = time.time() - t0
     t0 = time.time()
     packed = Qwen3TTSModel.from_pretrained(ckpt, keep_packed=True)
@@ -892,58 +919,76 @@ def main() -> None:
     from qwen3tts_tpu_torch.models import batch_generate as bg
 
     NQ = cfg.num_attention_heads
-    lay, head = talker_p["layers"], talker_p["codec_head"]
     fused = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
     norms = ("input_layernorm", "post_attention_layernorm", "q_norm", "k_norm")
-    k1_w_bytes = nbytes(*(lay[k].q for k in fused), *(lay[k].scale for k in fused),
-                        *(lay[k] for k in norms), talker_p["norm"])
-    k1_w_elems = sum(lay[k].q.numel() for k in fused)
 
-    def k1_io(B, prefix_rows, kv_quant, sample, logits=False):
-        """(bytes, flops) of one K1 call: weights once, x, each row's prefix
-        read and new row written, the hidden out; the head, seen, mask, codes
-        and logits in sample mode."""
-        per_row = L * NKV * D * 2 * (1 if kv_quant else 2) + (L * NKV * 2 * 4 if kv_quant else 0)
-        n = k1_w_bytes + 2 * B * H * 2 + (prefix_rows + B) * per_row
-        flops = 2 * B * k1_w_elems + 4 * L * NQ * D * (prefix_rows + B)
+    def stack_ws(p):
+        """The fused projections' operands in either weight mode: int8 with
+        its scales, or dense bf16."""
+        return [t for k in fused for t in tkk._weight(p["layers"][k])]
+
+    def stack_elems(p):
+        return sum(tkk._weight(p["layers"][k])[0].numel() for k in fused)
+
+    def k1_io(B, prefix_rows, kv_quant, sample, logits=False, p=None, c=cfg):
+        """(bytes, flops) of one K1 call on weights ``p`` (int8 or bf16) at
+        ``c``'s widths: weights once, x, each row's prefix read and new row
+        written, the hidden out; the head, seen, mask, codes and logits in
+        sample mode."""
+        p = talker_p if p is None else p
+        L_, NKV_, NQ_, H_, V_ = (c.num_hidden_layers, c.num_key_value_heads,
+                                 c.num_attention_heads, c.hidden_size, c.vocab_size)
+        per_row = L_ * NKV_ * D * 2 * (1 if kv_quant else 2) + (L_ * NKV_ * 2 * 4 if kv_quant else 0)
+        n = (nbytes(*stack_ws(p), *(p["layers"][k] for k in norms), p["norm"])
+             + 2 * B * H_ * 2 + (prefix_rows + B) * per_row)
+        flops = 2 * B * stack_elems(p) + 4 * L_ * NQ_ * D * (prefix_rows + B)
         if sample:
-            n += nbytes(head.q, head.scale) + B * V + V * 4 + B * 4 + (B * V * 4 if logits else 0)
-            flops += 2 * B * head.q.numel()
+            head_w = tkk._weight(p["codec_head"])
+            n += nbytes(*head_w) + B * V_ + V_ * 4 + B * 4 + (B * V_ * 4 if logits else 0)
+            flops += 2 * B * head_w[0].numel()
         return n, flops
 
-    cpl = cp_p["layers"]
-    k2_w_bytes = nbytes(*(cpl[k].q for k in fused), *(cpl[k].scale for k in fused),
-                        *(cpl[k] for k in norms), cp_p["norm"], cp_p["lm_head"].q,
-                        cp_p["lm_head"].scale)
-    k2_w_elems = sum(cpl[k].q.numel() for k in fused)
-    # what the design moves: the stack re-read at each of 16 positions and
-    # one head per sampled position
-    k2_reread = (16 * nbytes(*(cpl[k].q for k in fused), *(cpl[k].scale for k in fused))
-                 + 15 * nbytes(cp_p["lm_head"].q[0], cp_p["lm_head"].scale[0]))
+    def k2_reread(p=None):
+        """What K2's design moves: the stack (and the projection) re-read at
+        each of 16 positions and one head per sampled position."""
+        p = cp_p if p is None else p
+        proj = p.get("small_to_mtp_projection")
+        return (16 * nbytes(*stack_ws(p), *([] if proj is None else [proj["w"], proj["b"]]))
+                + nbytes(*tkk._weight(p["lm_head"])))
 
-    def k2_io(B):
-        """(bytes, flops) of one K2 call, each input read once: the stack and
-        the 15 heads, x0, the 15 sampled embedding rows per row, codes and
-        esum out; 16 positions through the stack and 15 heads per row."""
-        NCB, Vc = cpc.num_code_groups - 1, cpc.vocab_size
-        n = k2_w_bytes + B * 2 * H * 2 + NCB * B * H * 2 + B * NCB * 4 + B * H * 4
-        flops = (2 * B * (16 * k2_w_elems + NCB * H * Vc)
-                 + 16 * 4 * cpc.num_hidden_layers * cpc.num_attention_heads * D * 16)
+    def k2_io(B, p=None, c=cpc, th=H):
+        """(bytes, flops) of one K2 call on weights ``p`` (int8 or bf16, with
+        the projection from talker width ``th`` where the CP is narrower),
+        each input read once: the stack, the 15 heads and the projection,
+        x0, the 15 sampled embedding rows per row, codes and esum out; 16
+        positions through the projection and the stack and 15 heads per
+        row."""
+        p = cp_p if p is None else p
+        NCB, Vc, Hc = c.num_code_groups - 1, c.vocab_size, c.hidden_size
+        proj = p.get("small_to_mtp_projection")
+        n = (nbytes(*stack_ws(p), *(p["layers"][k] for k in norms), p["norm"],
+                    *tkk._weight(p["lm_head"]), *([] if proj is None else [proj["w"], proj["b"]]))
+             + B * 2 * th * 2 + NCB * B * th * 2 + B * NCB * 4 + B * th * 4)
+        flops = (2 * B * (16 * stack_elems(p) + NCB * Hc * Vc + (16 * th * Hc if proj else 0))
+                 + 16 * 4 * c.num_hidden_layers * c.num_attention_heads * D * 16)
         return n, flops
 
     k1_bound = bound(*k1_io(1, pos, False, True))
     k2_bound = bound(*k2_io(1))
 
-    def batch_case(B, T, kv_quant, lo, hi, seed, prefill=False):
+    def batch_case(B, T, kv_quant, lo, hi, seed, prefill=False, p=None, c=cfg):
         """x, a cache of T rows, ragged offsets in [lo, hi), rope rows and
-        seen sets. ``prefill``: the cache rows come from the model's own
+        seen sets, for weights ``p`` (default: the int8 talker) at ``c``'s
+        widths. ``prefill``: the cache rows come from the model's own
         prefill of ``hi`` random prompt rows (the comparisons); otherwise
         they are random (the timings)."""
+        p = talker_p if p is None else p
         gb = torch.Generator(device=dev).manual_seed(seed)
-        cache = tk.make_cache(cfg, B, T, torch.bfloat16, dev, quantized=kv_quant)
+        cache = tk.make_cache(c, B, T, torch.bfloat16, dev, quantized=kv_quant)
+        H_ = c.hidden_size
         if prefill:
-            pre = torch.randn(B, hi, H, generator=gb, device=dev).mul(0.05).to(torch.bfloat16)
-            tk.forward(talker_p, cfg, pre, cache, 0)
+            pre = torch.randn(B, hi, H_, generator=gb, device=dev).mul(0.05).to(torch.bfloat16)
+            tk.forward(p, c, pre, cache, 0)
             del pre
         elif kv_quant:  # random int8 rows with scales of a bf16 cache of the same spread
             cache.k.copy_(torch.randint(-127, 128, cache.k.shape, generator=gb, device=dev))
@@ -954,9 +999,9 @@ def main() -> None:
             cache.k.copy_(torch.randn(cache.k.shape, generator=gb, device=dev))
             cache.v.copy_(torch.randn(cache.v.shape, generator=gb, device=dev).mul(0.5))
         offs = torch.randint(lo, hi, (B,), generator=gb, device=dev, dtype=torch.int32)
-        xb = torch.randn(B, 1, H, generator=gb, device=dev).mul(0.05).to(torch.bfloat16)
-        rope = mrope_cos_sin(torch.arange(T, device=dev)[None], D, cfg.rope_theta,
-                             cfg.mrope_section, torch.bfloat16)
+        xb = torch.randn(B, 1, H_, generator=gb, device=dev).mul(0.05).to(torch.bfloat16)
+        rope = mrope_cos_sin(torch.arange(T, device=dev)[None], D, c.rope_theta,
+                             c.mrope_section, torch.bfloat16)
         seen_b = torch.rand(B, V, generator=gb, device=dev) < 0.005
         return cache, offs, xb, rope[0][0][offs.long()], rope[1][0][offs.long()], seen_b
 
@@ -973,6 +1018,7 @@ def main() -> None:
         the current token's own unquantized k/v, and no rounding between
         operations. Returns the post-norm hidden [B, H]."""
         f, B, G, eps = torch.float64, x.shape[0], NQ // NKV, cfg.rms_norm_eps
+        lay = talker_p["layers"]
 
         def mv(a, w):
             return (a @ w.q.to(f)) * w.scale.reshape(-1).to(f)
@@ -1016,8 +1062,8 @@ def main() -> None:
         cases = [(False, 128, 20, 120, True), (True, 512, 100, 500, True)]
         if B == 64:
             cases.append((True, 512, 100, 500, False))
-        for kv_quant, T, lo, hi, prefilled in cases:
-            cache, offs, xb, cos_b, sin_b, seen_b = batch_case(B, T, kv_quant, lo, hi, B + T,
+        for kv_quant, T, lo, hi_, prefilled in cases:
+            cache, offs, xb, cos_b, sin_b, seen_b = batch_case(B, T, kv_quant, lo, hi_, B + T,
                                                                prefill=prefilled)
 
             def k1b_call(fn, c, temperature=0.0, seed=(1, 2), sample=True, logits=True):
@@ -1153,7 +1199,7 @@ def main() -> None:
             f"explained by near-ties")
         log(f"    K2 B={B}: {t_k:.3f} ms/frame back to back, device {t_d:.3f} ms, bound "
             f"{bnd[0]:.3f} ms ({bnd[1]}; the design's re-read of the stack at 16 positions: "
-            f"{k2_reread / HBM_BYTES_S * 1e3:.3f} ms), plain {t_p:.3f} ms  [{smi}]")
+            f"{k2_reread() / HBM_BYTES_S * 1e3:.3f} ms), plain {t_p:.3f} ms  [{smi}]")
 
     # ---- c. generate_batch(8 texts) on a bf16 and an int8 cache ----
     texts = ["Hello from the batched decode.", "The second voice reads a longer sentence here.",
@@ -1188,24 +1234,29 @@ def main() -> None:
     # ---- d. the batched headline: 66 frames, forbid_eos, B x cache grid ----
     grid = {}
 
-    def batch_run(B, kv_quant, T, seed, steps=frames):
+    def batch_run(B, kv_quant, T, seed, steps=frames, tp_=None, cp_=None, c_=cfg, cc_=cpc):
+        """One lockstep run of B rows (``generate_codes_batch``'s two stages,
+        timed apart), on the int8 0.6B trees unless others are given."""
+        tp_, cp_ = (talker_p if tp_ is None else tp_), (cp_p if cp_ is None else cp_)
+        H_ = c_.hidden_size
         gb = torch.Generator(device=dev).manual_seed(seed)
-        pre = torch.randn(B, p_bucket, H, generator=gb, device=dev).mul(0.05).to(torch.bfloat16)
-        trail = torch.randn(B, 64, H, generator=gb, device=dev).mul(0.05).to(torch.bfloat16)
+        pre = torch.randn(B, p_bucket, H_, generator=gb, device=dev).mul(0.05).to(torch.bfloat16)
+        trail = torch.randn(B, 64, H_, generator=gb, device=dev).mul(0.05).to(torch.bfloat16)
         lens_p = torch.full((B,), p_len, dtype=torch.int32, device=dev)
         lens_t = torch.full((B,), 12, dtype=torch.int32, device=dev)
         caps = torch.full((B,), steps, dtype=torch.int32, device=dev)
-        common = dict(talker_cfg=cfg, cp_cfg=cpc, sampling=sampling, trailing_embeds=trail,
-                      trailing_lens=lens_t, tts_pad_embed=pad)
+        common = dict(talker_cfg=c_, cp_cfg=cc_, sampling=sampling, trailing_embeds=trail,
+                      trailing_lens=lens_t, tts_pad_embed=torch.zeros(H_, dtype=torch.bfloat16,
+                                                                      device=dev))
         torch.cuda.synchronize()
         t0 = time.time()
         c = bg.prefill_start_batch(
-            talker_p, cp_p, **common, prefill_embeds=pre, prefill_lens=lens_p,
-            cache=tk.make_cache(cfg, B, T, torch.bfloat16, dev, quantized=kv_quant),
+            tp_, cp_, **common, prefill_embeds=pre, prefill_lens=lens_p,
+            cache=tk.make_cache(c_, B, T, torch.bfloat16, dev, quantized=kv_quant),
             max_frames=72, seed=seed)
         torch.cuda.synchronize()
         t1 = time.time()
-        c = bg.generate_chunk_batch(talker_p, cp_p, c, **common, max_steps=caps, until_step=72)
+        c = bg.generate_chunk_batch(tp_, cp_, c, **common, max_steps=caps, until_step=72)
         torch.cuda.synchronize()
         t2 = time.time()
         check(c.frames.tolist() == [steps] * B, f"batched run B={B}: frames {c.frames.tolist()}")
@@ -1339,6 +1390,347 @@ def main() -> None:
         f"{k1_dev_b1[True]:.4f} on the int8; decode loop (bf16, int8, int8, bf16) "
         f"{', '.join(f'{m:.3f}' for m in loop_ms)} ms/frame  [{smi}]")
 
+    # ==== dense-bf16 weights and the 1.7B model (phases f-j) ====
+    def k1_compare(label, p, c, B, T, kv_quant, lo, hi_, seed, sampled=2, iters=20):
+        """K1 on weights ``p`` at ``c``'s widths against its plain version, B
+        rows at offsets in [lo, hi_) of a T-row cache that p's own prefill
+        wrote (B=1 takes the int-offset form): greedy hidden, logits and new
+        k/v rows within the bf16 bound (0.05 scaled, phases 3 and a), code0
+        equal but for near-ties, then ``sampled`` seeds of sampled code0.
+        Returns the error, the times and the bound."""
+        cache, offs, xb, cos_b, sin_b, seen_b = batch_case(B, T, kv_quant, lo, hi_, seed,
+                                                           prefill=True, p=p, c=c)
+        one = B == 1
+        off = int(offs[0]) if one else offs
+        args = (cos_b[0], sin_b[0], seen_b[0]) if one else (cos_b, sin_b, seen_b)
+
+        def call(fn, cc, temperature=0.0, seed=(1, 2), logits=True):
+            out = fn(p, c, xb, cc, off, args[0], args[1], temperature=temperature, top_k=50,
+                     rep_penalty=1.05, eos_id=-1, seed=seed, suppress_add=supp, seen=args[2],
+                     return_logits=logits)
+            return tuple(t.reshape(B, -1) for t in out)
+
+        ck, cr = clone(cache), clone(cache)
+        (hk, codek, lk), (hr, coder, lr) = call(tkk.talker_decode_step, ck), call(
+            tkk.talker_decode_step_ref, cr)
+        torch.cuda.synchronize()
+        rows, posb = torch.arange(B, device=dev), offs.long()
+        errs = dict(h=scaled(hk, hr), logits=scaled(lk, lr))
+        for i, name in enumerate("kv"):  # the new rows (dequantized for an int8 cache)
+            a, b = ck[i][:, rows, :, posb], cr[i][:, rows, :, posb]
+            if kv_quant:
+                a = tk.dequantize_kv(a, ck[2 + i][:, rows, :, posb])
+                b = tk.dequantize_kv(b, cr[2 + i][:, rows, :, posb])
+            errs[name] = scaled(a, b)
+        abs_err = float((lk - lr).abs().max())
+        check(max(errs.values()) < 0.05, f"K1 {label} outside the bf16 bound: {errs}")
+        z = pen_b(lr, seen_b) + supp
+        flips = 0
+        for b in range(B):
+            a_, b_ = int(codek[b, 0]), int(coder[b, 0])
+            if a_ != b_:
+                flips += 1
+                check(near_tie(z[b], a_, b_, abs_err), f"K1 {label} greedy code0 row {b} beyond a near-tie")
+        mism = 0
+        for s_ in range(sampled):
+            seed = (8000 + s_, 19 * s_ + 1)
+            _, a_s, la = call(tkk.talker_decode_step, clone(cache), 0.9, seed)
+            _, b_s, lb = call(tkk.talker_decode_step_ref, clone(cache), 0.9, seed)
+            for b in range(B):
+                a_, b_ = int(a_s[b, 0]), int(b_s[b, 0])
+                if a_ != b_:
+                    mism += 1
+                    noise = gumbel_noise(seed[0], seed[1], 16 * b, V, dev)
+                    check(sampled_flip_explained(pen_b(lb[b], seen_b[b]) + supp, a_, b_,
+                                                 1.05 * float((la[b] - lb[b]).abs().max()), noise),
+                          f"K1 {label} sampled code0 row {b} beyond a near-tie")
+        t_k = timed(lambda: call(tkk.talker_decode_step, ck, 0.9, (3, 4), logits=False), iters)
+        t_p = timed(lambda: call(tkk.talker_decode_step_ref, cr, 0.9, (3, 4), logits=False), 2)
+        t_d = device_ms(lambda: call(tkk.talker_decode_step, ck, 0.9, (3, 4), logits=False), 10)
+        bnd = bound(*k1_io(B, int(offs.sum()), kv_quant, True, p=p, c=c))
+        log(f"    K1 {label}, {'int8' if kv_quant else 'bf16'} cache of {T} (offsets "
+            f"{int(offs.min())}..{int(offs.max())}): scaled err " + ", ".join(
+                f"{k} {v:.3g}" for k, v in errs.items()) + f" (logits max abs {abs_err:.3g}); "
+            f"greedy code0 {B - flips}/{B} equal; sampled {sampled} seeds: {sampled * B - mism}/"
+            f"{sampled * B} equal, {mism} near-ties; {t_k:.3f} ms/step back to back, device "
+            f"{t_d:.3f}, bound {bnd[0]:.3f} ({bnd[1]}), plain {t_p:.3f}  [{smi}]")
+        del cache, ck, cr
+        return dict(abs=abs_err, ms=t_k, plain_ms=t_p, dev_ms=t_d, bound=bnd)
+
+    def k2_compare(label, p, c, tp_, B, seed, iters=10):
+        """K2 on CP weights ``p`` (with the projection where ``c`` is narrower
+        than the talker ``tp_``) against its plain version at B rows:
+        teacher-forced greedy logits within the bound of phases 4 and b
+        (0.05 scaled), esum (talker width) bit-equal, codes equal but for
+        near-ties; then one sampled seed."""
+        th = tp_["codec_embedding"].shape[-1]
+        gb = torch.Generator(device=dev).manual_seed(seed)
+        hb = torch.randn(B, th, generator=gb, device=dev).mul(0.3).to(torch.bfloat16)
+        c0b = torch.randint(0, 2048, (B,), generator=gb, device=dev, dtype=torch.int32)
+
+        def call(fn, temperature, seed_, **kw):
+            out = fn(p, c, tp_, hb, c0b, seed_, temperature=temperature, top_k=50, **kw)
+            return (out[0], out[1], out[2].reshape(15, B, -1)) if len(out) == 3 else out
+
+        cr_, er_, lr_ = call(cpk.predict_codes_fused_ref, 0.0, (5, 6), return_logits=True)
+        ck_, ek_, lk_ = call(cpk.predict_codes_fused, 0.0, (5, 6), force_codes=cr_,
+                             return_logits=True)
+        torch.cuda.synchronize()
+        abs_err, err_lg = float((lk_ - lr_).abs().max()), scaled(lk_, lr_)
+        check(err_lg < 0.05, f"K2 {label} logits outside the bound")
+        check(ek_.shape == (B, th) and torch.equal(ek_, er_), f"K2 {label} esum differs")
+        flips = 0
+        for b in range(B):
+            for j in range(15):
+                a_, c_ = int(ck_[b, j]), int(cr_[b, j])
+                if a_ != c_:
+                    flips += 1
+                    check(near_tie(lr_[j, b], a_, c_, abs_err), f"K2 {label} code ({b}, {j}) beyond a near-tie")
+        seed_s = (9000 + B, 7)
+        ca, _, la = call(cpk.predict_codes_fused, 0.9, seed_s, return_logits=True)
+        cb_, _, lb = call(cpk.predict_codes_fused_ref, 0.9, seed_s, return_logits=True)
+        mism = 0
+        for b in range(B):
+            diff = (ca[b] != cb_[b]).nonzero()
+            if len(diff):
+                mism += 1
+                j = int(diff[0, 0])
+                noise = gumbel_noise(seed_s[0], seed_s[1], j + 1 + 16 * b, c.vocab_size, dev)
+                check(sampled_flip_explained(lb[j, b], int(ca[b, j]), int(cb_[b, j]),
+                                             float((la[j, b] - lb[j, b]).abs().max()), noise),
+                      f"K2 {label} sampled code ({b}, {j}) beyond a near-tie")
+        t_k = timed(lambda: call(cpk.predict_codes_fused, 0.9, (3, 4)), iters)
+        t_p = timed(lambda: call(cpk.predict_codes_fused_ref, 0.9, (3, 4)), 1)
+        t_d = device_ms(lambda: call(cpk.predict_codes_fused, 0.9, (3, 4)), 5)
+        bnd = bound(*k2_io(B, p, c, th))
+        log(f"    K2 {label}: teacher-forced scaled logits err {err_lg:.3g} (max abs {abs_err:.3g}), "
+            f"esum bit-equal, codes {15 * B - flips}/{15 * B} equal; sampled: {B - mism}/{B} rows "
+            f"equal, {mism} near-ties; {t_k:.3f} ms/frame back to back, device {t_d:.3f}, bound "
+            f"{bnd[0]:.3f} ({bnd[1]}; the re-read design: {k2_reread(p) / HBM_BYTES_S * 1e3:.3f}), "
+            f"plain {t_p:.3f}  [{smi}]")
+        return dict(abs=abs_err, ms=t_k, plain_ms=t_p, dev_ms=t_d, bound=bnd)
+
+    # ---- f. K1 in bf16 mode against its plain version at 0.6B ----
+    check(tkk._layout(talker_b["layers"]) == "bf16" and tkk._layout(cp_b["layers"]) == "bf16",
+          "the dense trees are not in the fused bf16 layout")
+    log("[f] K1 in bf16 mode at 0.6B (dense bf16 weights, no scales)")
+    k1f = {}
+    for B in (1, 8, 64):
+        for kv_quant, T, lo, hi_ in ((False, 256 if B == 1 else 128, 40 if B == 1 else 20,
+                                      41 if B == 1 else 120), (True, 512, 100, 500)):
+            k1f[(B, kv_quant)] = k1_compare(f"bf16 0.6B B={B}", talker_b, cfg, B, T, kv_quant, lo,
+                                            hi_, 300 + B, iters=20 if B == 1 else 10)
+
+    # ---- g. K1 at 1.7B widths; K2 on bf16 weights and with the projection ----
+    cpc17 = C.CodePredictorConfig(
+        vocab_size=2048, hidden_size=1024, intermediate_size=3072, num_hidden_layers=5,
+        num_attention_heads=16, num_key_value_heads=8, head_dim=128,
+    )
+    cfg17 = C.TalkerConfig(  # __graft_entry__.py::_flagship_17b
+        vocab_size=3072, text_vocab_size=151936, hidden_size=2048, text_hidden_size=2048,
+        intermediate_size=6144, num_hidden_layers=28, num_attention_heads=16,
+        num_key_value_heads=8, head_dim=128, spk_id=(("aiden", 2861), ("vivian", 2862)),
+        code_predictor_config=cpc17,
+    )
+    t0 = time.time()
+    trees17 = fused_trees(cfg17, seed=10)  # bf16 talker, bf16 CP, int8 talker, int8 CP
+    torch.cuda.synchronize()
+    check("small_to_mtp_projection" in trees17[1] and "small_to_mtp_projection" in trees17[3],
+          "the 1.7B CP has no small-to-MTP projection")
+    log(f"[g] 1.7B trees (host_init, fused, bf16 and an int8 copy) in {time.time() - t0:.1f} s")
+    k1g, k2g = {}, {}
+    for mode, tp_ in (("int8", trees17[2]), ("bf16", trees17[0])):
+        for B in (1, 64):
+            k1g[(mode, B)] = k1_compare(f"{mode} 1.7B B={B}", tp_, cfg17, B, 256 if B == 1 else 128,
+                                        False, 40 if B == 1 else 20, 41 if B == 1 else 120,
+                                        400 + B, sampled=1, iters=10)
+    for B in (1, 64):
+        k2g[("bf16 0.6B", B)] = k2_compare(f"bf16 0.6B B={B}", cp_b, cpc, talker_b, B, 500 + B)
+        for mode, cp_, tp_ in (("int8", trees17[3], trees17[2]), ("bf16", trees17[1], trees17[0])):
+            k2g[(f"{mode} 1.7B", B)] = k2_compare(f"{mode} 1.7B (projection 2048 -> 1024) B={B}",
+                                                  cp_, cpc17, tp_, B, 600 + B)
+
+    # ---- h. the bf16 checkpoint path: from_pretrained(dir) with defaults ----
+    from qwen3tts_tpu_torch.models import code_predictor as cpm_mod
+
+    calls = {"attend S=1": 0, "plain CP": 0, "plain sampler": 0}
+    real_attend, real_pc, real_samp = tk._attend, cpm_mod.predict_codes, gen.sample_token_inner
+
+    def counting(name, fn, when=lambda *a, **k: True):
+        def wrapped(*a, **k):
+            calls[name] += int(bool(when(*a, **k)))
+            return fn(*a, **k)
+        return wrapped
+
+    tk._attend = counting("attend S=1", real_attend, lambda q, *a, **k: q.shape[2] == 1)
+    cpm_mod.predict_codes = counting("plain CP", real_pc)
+    gen.sample_token_inner = counting("plain sampler", real_samp)
+
+    def reset_counts():
+        tkk.talker_decode_step.launches = cpk.predict_codes_fused.launches = 0
+        for k in calls:
+            calls[k] = 0
+
+    def path_check(label, n, cap):
+        """K1 once per frame after the first (and on an EOS step), K2 once
+        per frame, no decode step through the plain per-layer loop, no
+        plain CP loop, the plain sampler for the first frame's code 0 only."""
+        n1_, n2_ = tkk.talker_decode_step.launches, cpk.predict_codes_fused.launches
+        log(f"    {label}: {n} frames; launches K1 {n1_}, K2 {n2_}; plain per-layer decode steps "
+            f"{calls['attend S=1']}, plain CP loops {calls['plain CP']}, plain sampler calls "
+            f"{calls['plain sampler']}")
+        check(n2_ == n and n1_ == n - 1 + int(n < cap), f"{label}: K1 {n1_} / K2 {n2_} for {n} frames")
+        check(calls == {"attend S=1": 0, "plain CP": 0, "plain sampler": 1},
+              f"{label}: the plain path ran: {calls}")
+        return n1_, n2_
+
+    def headline(tp_, cp_, c, cc, voc_):
+        """The 66-frame forbid_eos headline on these weights: median wall of
+        3 runs after a warm-up (K1 and K2 counted over the 3), RTF, the
+        decode loop's ms/frame after the first frame (median of 2)."""
+        h_ = c.hidden_size
+        gh = torch.Generator(device=dev).manual_seed(21)
+        pre = torch.randn(1, p_bucket, h_, generator=gh, device=dev).mul(0.05).to(torch.bfloat16)
+        trail = torch.randn(64, h_, generator=gh, device=dev).mul(0.05).to(torch.bfloat16)
+        pad_ = torch.zeros(h_, dtype=torch.bfloat16, device=dev)
+        r = dict(talker_cfg=c, cp_cfg=cc, sampling=sampling, prefill_embeds=pre, prefill_len=p_len,
+                 trailing_embeds=trail, trailing_len=12, tts_pad_embed=pad_)
+
+        def once(seed):
+            torch.cuda.synchronize()
+            t = time.time()
+            _c, nf, w, _ = _generate_and_decode(tp_, cp_, voc_, dec_cfg=dec_cfg, **r,
+                                                max_frames=max_frames, max_steps=frames, seed=seed,
+                                                cache_len=cache_len)
+            torch.cuda.synchronize()
+            check(nf == frames and bool(torch.isfinite(w).all()), "headline run malformed")
+            return time.time() - t
+
+        def loop_ms():
+            c0 = gen.prefill_start(tp_, cp_, **r, cache=tk.make_cache(c, 1, cache_len, torch.bfloat16,
+                                                                     dev),
+                                   max_frames=max_frames, seed=9)
+            torch.cuda.synchronize()
+            t = time.time()
+            gen.generate_chunk(tp_, cp_, c0, talker_cfg=c, cp_cfg=cc, sampling=sampling,
+                               trailing_embeds=trail, trailing_len=12, tts_pad_embed=pad_,
+                               until_step=frames)
+            torch.cuda.synchronize()
+            return (time.time() - t) * 1000 / (frames - 1)
+
+        once(0)
+        tkk.talker_decode_step.launches = cpk.predict_codes_fused.launches = 0
+        walls_ = [once(s_) for s_ in (1, 2, 3)]
+        check((tkk.talker_decode_step.launches, cpk.predict_codes_fused.launches)
+              == (3 * (frames - 1), 3 * frames), "headline launches")
+        ms_ = statistics.median([loop_ms(), loop_ms()])
+        # K1 (offset 57, mid-run) and K2 device time at B=1 on these weights
+        c1 = tk.make_cache(c, 1, cache_len, torch.bfloat16, dev)
+        tk.forward(tp_, c, pre[:, :57], c1, 0)
+        r57 = mrope_cos_sin(torch.full((1, 1), 57, device=dev), D, c.rope_theta, c.mrope_section,
+                            torch.bfloat16)
+        x57 = pre[:, 57:58].contiguous()
+        d1 = device_ms(lambda: tkk.talker_decode_step(
+            tp_, c, x57, c1, 57, r57[0][0, 0], r57[1][0, 0], temperature=0.9, top_k=50,
+            rep_penalty=1.05, eos_id=-1, seed=(3, 4), suppress_add=supp, seen=seen), 20)
+        d2 = device_ms(lambda: cpk.predict_codes_fused(
+            cp_, cc, tp_, pre[0, :1], torch.tensor([5], dtype=torch.int32, device=dev), (3, 4),
+            temperature=0.9, top_k=50), 10)
+        wall_ = statistics.median(walls_)
+        return dict(wall=wall_, walls=walls_, rtf=wall_ / (frames / 12.5), ms=ms_, k1_dev=d1,
+                    k2_dev=d2)
+
+    def show_headline(label, hd):
+        log(f"    {label} headline (66 frames, forbid_eos, T=0.9 top-k 50 rep 1.05): wall "
+            f"{hd['wall']:.3f} s (runs {', '.join(f'{w:.3f}' for w in hd['walls'])}), RTF "
+            f"{hd['rtf']:.4f}; decode {hd['ms']:.2f} ms/frame; device per frame: K1 "
+            f"{hd['k1_dev']:.3f} ms, K2 {hd['k2_dev']:.3f} ms  [{smi}]")
+
+    bf16_tmp = tempfile.TemporaryDirectory(prefix="qt_bf16_")
+    t0 = time.time()
+    write_checkpoint(bf16_tmp.name, arrays06)
+    write_s = time.time() - t0
+    del arrays06
+    t0 = time.time()
+    bm = Qwen3TTSModel.from_pretrained(bf16_tmp.name)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    bm.tokenizer = StubTokenizer(cfg.text_vocab_size)
+    bt, bc = bm.talker_params, bm.cp_params
+    check(bm.device.type == "cuda" and tkk._layout(bt["layers"]) == "bf16"
+          and tkk._layout(bc["layers"]) == "bf16" and "q_proj" not in bt["layers"]
+          and bt["codec_head"].dtype == torch.bfloat16 and bc["lm_head"].dtype == torch.bfloat16,
+          "from_pretrained of a BF16 checkpoint did not give fused dense bf16 leaves")
+    log(f"[h] 0.6B checkpoint written as BF16 in {write_s:.1f} s, from_pretrained(dir) with defaults "
+        f"in {load_s:.1f} s: talker and CP fused, dense bf16 (qkv_proj "
+        f"{tuple(bt['layers']['qkv_proj'].shape)}, codec head {tuple(bt['codec_head'].shape)})")
+    reset_counts()
+    text_h = "Hello from the bf16 checkpoint on the H100."
+    wav_h, info_h = bm.generate(text_h, speaker="aiden", language="english", seed=0,
+                                return_info=True)
+    n_h = info_h.generation_token_count
+    path_h = path_check("generate() on the BF16 checkpoint", n_h,
+                        bm._effective_max_tokens(text_h, 2048))
+    check(bool(np.isfinite(wav_h).all()) and len(wav_h) % 1920 == 0
+          and 0 < len(wav_h) <= n_h * 1920, "bf16 checkpoint waveform")
+    hd_h = headline(bt, bc, bm.talker_cfg, bm.cp_cfg, bm.vocoder_params)
+    show_headline("bf16 checkpoint", hd_h)
+
+    # ---- i. 1.7B generate(), int8 and bf16 ----
+    m17 = {}
+    path_i, hd_i = {}, {}
+    text_i = "Hello from the 1.7B model on the H100."
+    for mode, tp_, cp_ in (("int8", trees17[2], trees17[3]), ("bf16", trees17[0], trees17[1])):
+        m17[mode] = Qwen3TTSModel(
+            C.ModelConfig(talker_config=cfg17, tts_model_type="custom_voice",
+                          tts_model_size="1b7"),
+            tp_, cp_, voc_p, tokenizer_config=C.TokenizerConfig(decoder_config=dec_cfg),
+            tokenizer=StubTokenizer(cfg17.text_vocab_size), dtype=torch.bfloat16, device=dev)
+        reset_counts()
+        wav_i, info_i = m17[mode].generate(text_i, speaker="aiden", language="english", seed=0,
+                                           return_info=True)
+        n_i = info_i.generation_token_count
+        log(f"[i] 1.7B {mode}:")
+        path_i[mode] = path_check(f"generate() at 1.7B, {mode}", n_i,
+                                  m17[mode]._effective_max_tokens(text_i, 2048))
+        check(bool(np.isfinite(wav_i).all()) and 0 < len(wav_i) <= n_i * 1920, "1.7B waveform")
+        hd_i[mode] = headline(tp_, cp_, cfg17, cpc17, voc_p)
+        show_headline(f"1.7B {mode}", hd_i[mode])
+
+    # ---- j. generate_batch on the bf16 checkpoint and at 1.7B int8 ----
+    grid_j = {}
+    for label, mb, tp_, cp_, c_, cc_ in (
+            ("bf16 checkpoint 0.6B", bm, bt, bc, bm.talker_cfg, bm.cp_cfg),
+            ("1.7B int8", m17["int8"], trees17[2], trees17[3], cfg17, cpc17)):
+        reset_counts()
+        t0 = time.time()
+        wavs = mb.generate_batch(texts, speakers=["aiden", "vivian"] * 4, language="english",
+                                 seed=0)
+        wall_j = time.time() - t0
+        n1j, n2j = tkk.talker_decode_step.launches, cpk.predict_codes_fused.launches
+        log(f"[j] generate_batch(8 texts), {label}: {mb.last_info.generation_token_count} frames in "
+            f"all, {wall_j:.2f} s; launches K1 {n1j} (lockstep frames after the first), K2 {n2j}; "
+            f"plain per-layer decode steps {calls['attend S=1']}, plain CP loops "
+            f"{calls['plain CP']}")
+        check(n1j >= 1 and n2j == n1j + 1 and calls["attend S=1"] == 0 and calls["plain CP"] == 0,
+              f"generate_batch {label}: K1 {n1j} / K2 {n2j}, {calls}")
+        check(all(bool(np.isfinite(w).all()) and len(w) % 1920 == 0 for w in wavs),
+              f"generate_batch {label} waveforms")
+        batch_run(64, False, 128, 0, tp_=tp_, cp_=cp_, c_=c_, cc_=cc_)  # warm-up
+        reset_counts()
+        runs = [batch_run(64, False, 128, s_, tp_=tp_, cp_=cp_, c_=c_, cc_=cc_) for s_ in (1, 2)]
+        launches_j = (tkk.talker_decode_step.launches // 2, cpk.predict_codes_fused.launches // 2)
+        check(launches_j == (frames - 1, frames), f"B=64 {label}: launches {launches_j}")
+        wall_b = statistics.median(r[0] for r in runs)
+        grid_j[label] = dict(ms=statistics.median(r[1] for r in runs),
+                             tok_s=64 * 16 * frames / wall_b, launches=launches_j)
+        log(f"    B=64, 128-slot bf16 cache, {label}: {grid_j[label]['ms']:.2f} ms/lockstep frame, "
+            f"{grid_j[label]['tok_s']:.0f} codec tokens/s (walls "
+            f"{', '.join(f'{r[0]:.3f}' for r in runs)} s)  [{smi}]")
+    tk._attend, cpm_mod.predict_codes, gen.sample_token_inner = real_attend, real_pc, real_samp
+    del bm, m17
+    bf16_tmp.cleanup()
+
     print(smi, flush=True)
     k1_64, k2_64 = k1b[(64, True)], k2b[64]
     kernels = [
@@ -1371,6 +1763,32 @@ def main() -> None:
              replaces="qwen3tts_tpu/ops/cp_kernel.py:619", launches=grid_launches[1],
              max_abs_err=k2_64["abs"], ms=k2_64["ms"], plain_ms=k2_64["plain_ms"],
              bound_ms=k2_64["bound"][0], bound_by=k2_64["bound"][1], library_ms=None),
+    ]
+
+    def entry(name, kernel, r, launches):
+        src, rep = {"K1": ("talker_step.cu", "talker_kernel.py:656"),
+                    "K2": ("cp_loop.cu", "cp_kernel.py:619")}[kernel]
+        return dict(name=name, route="cuda", source=f"qwen3tts_tpu_torch/csrc/{src}",
+                    replaces=f"qwen3tts_tpu/ops/{rep}", launches=launches, max_abs_err=r["abs"],
+                    ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+                    bound_by=r["bound"][1], library_ms=None)
+
+    j_bf16, j_17 = grid_j["bf16 checkpoint 0.6B"], grid_j["1.7B int8"]
+    kernels += [
+        entry("talker_decode_step (bf16 weights, B=1)", "K1", k1f[(1, False)], path_h[0]),
+        entry("talker_decode_step (bf16 weights, B=64)", "K1", k1f[(64, False)], j_bf16["launches"][0]),
+        entry("talker_decode_step (1.7B int8, B=1)", "K1", k1g[("int8", 1)], path_i["int8"][0]),
+        entry("talker_decode_step (1.7B bf16, B=1)", "K1", k1g[("bf16", 1)], path_i["bf16"][0]),
+        entry("talker_decode_step (1.7B int8, B=64)", "K1", k1g[("int8", 64)], j_17["launches"][0]),
+        entry("predict_codes_fused (bf16 weights, B=1)", "K2", k2g[("bf16 0.6B", 1)], path_h[1]),
+        entry("predict_codes_fused (bf16 weights, B=64)", "K2", k2g[("bf16 0.6B", 64)],
+              j_bf16["launches"][1]),
+        entry("predict_codes_fused (1.7B projection, int8, B=1)", "K2", k2g[("int8 1.7B", 1)],
+              path_i["int8"][1]),
+        entry("predict_codes_fused (1.7B projection, bf16, B=1)", "K2", k2g[("bf16 1.7B", 1)],
+              path_i["bf16"][1]),
+        entry("predict_codes_fused (1.7B projection, int8, B=64)", "K2", k2g[("int8 1.7B", 64)],
+              j_17["launches"][1]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,18 +6,24 @@
 // 128 and bf16 activations, and is launched on the caller's stream by the
 // host loops of the two .cu files. Row b's activations sit at b * width.
 //
-// The weight GEMV is the bound. At B=1 it is device-memory bandwidth on the
-// int8 weights (every byte is used once per token): ``gemv_i8_partial``
-// reads 16 bytes per thread with neighbouring threads on neighbouring
-// columns and splits the reduction dimension across blocks to put ~2 blocks
-// on every SM. At B>1 the same weight stream serves every row: the batched
-// GEMV (``gemv_i8_batched``) stages each block's weight tile in shared
-// memory once, from device memory, and multiplies it into all B rows from
-// there, with the rows tiled 8 at a time so the accumulators stay in
-// registers. Its arithmetic (2 x B flops per weight byte, f32 FMA on the
-// CUDA cores) overtakes the memory time near B = 8; at B = 64 a 0.6B talker
-// step is ~57 GFLOP, ~0.85 ms of FMA at the card's f32 peak against a
-// ~0.13 ms memory floor, so tensor cores are the later step.
+// The weight GEMV is the bound. Its weights are int8 (weight-only int8: the
+// finishing kernels multiply the f32 sum by a per-channel f32 scale) or
+// dense bf16 (no scale: the wrappers pass none and the sum is taken as it
+// is, the same f32 bits as a unit scale; its one rounding, f32 to bf16,
+// comes after the split sum, as the TPU kernel's bf16 mode does). At B=1
+// the GEMV is device-memory bandwidth on the weights (every byte is used
+// once per token): ``gemv_partial`` reads 16 bytes per thread (16 int8 or 8
+// bf16 weights) with neighbouring threads on neighbouring columns and splits
+// the reduction dimension across blocks to put ~2 blocks on every SM. At
+// B>1 the same weight stream serves every row: the batched GEMV
+// (``gemv_batched``) stages each block's weight tile in shared memory once,
+// from device memory, and multiplies it into all B rows from there, with
+// the rows tiled 8 at a time so the accumulators stay in registers. Its
+// arithmetic (2 x B flops per weight, f32 FMA on the CUDA cores) overtakes
+// the memory time near B = 8 for int8 (B = 16 for bf16, which moves twice
+// the bytes); at B = 64 a 0.6B talker step is ~57 GFLOP, ~0.85 ms of FMA at
+// the card's f32 peak against a ~0.13 ms memory floor, so tensor cores are
+// the later step.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -45,7 +51,6 @@ namespace {
 constexpr int HEAD_DIM = 128;
 constexpr int MAX_BATCH = 64;
 constexpr int GEMV_THREADS = 256;           // 8 warps split the rows
-constexpr int GEMV_COLS = 512;              // columns per block (B=1): 32 lanes x 16 B
 constexpr int GEMV_MAX_SPLIT = 64;          // B=1: at most 64 splits
 constexpr int GEMV_MAX_PARTS = 512;         // B>1: splits x B <= 512 (the workspace holds 512 x O floats)
 constexpr int BG_COLS = 128;                // batched GEMV: columns per block, 16 groups of 8
@@ -56,7 +61,8 @@ constexpr int SAMPLE_THREADS = 1024;
 constexpr int SAMPLE_PER_THREAD = 4;        // vocabularies up to 4096
 constexpr float NEG_BIG = -1e30f;
 
-static_assert(BG_ROWS * BG_COLS + MAX_BATCH * BG_XS * 2 <= BG_SMEM, "batched GEMV staging");
+// the staged tile of the wider weight type (bf16) and x
+static_assert(BG_ROWS * BG_COLS * 2 + MAX_BATCH * BG_XS * 2 <= BG_SMEM, "batched GEMV staging");
 static_assert(16 * 8 * BG_COLS * 4 <= BG_SMEM, "batched GEMV reduction");
 
 __device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
@@ -95,64 +101,88 @@ __host__ __device__ inline uint32_t stream_key(uint32_t s0, uint32_t s1, uint32_
 constexpr uint32_t STREAMS_PER_ROW = 16;
 
 // ---------------------------------------------------------------------------
-// int8 weight-only GEMV at B=1, first pass: part[split, o] = sum over this
-// split's rows r of x[r] * W[r, o] in f32. W is int8 [I, O] row-major
-// (O % 16 == 0). Grid (ceil(O / 512), splits); each warp walks every 8th row.
+// Weight-only GEMV at B=1, first pass: part[split, o] = sum over this
+// split's rows r of x[r] * W[r, o] in f32. W is int8 or bf16 [I, O]
+// row-major (O % 16 == 0). A thread loads 16 bytes: EPL = 16 (int8) or 8
+// (bf16) neighbouring columns, so a block covers 32 x EPL columns. Grid
+// (ceil(O / (32 EPL)), splits); each warp walks every 8th row.
 // ---------------------------------------------------------------------------
+template <typename W>
 __global__ void __launch_bounds__(GEMV_THREADS)
-gemv_i8_partial(const int8_t* __restrict__ W, const bf16* __restrict__ x,
-                float* __restrict__ part, int I, int O, int rows_per_split) {
+gemv_partial(const W* __restrict__ Wm, const bf16* __restrict__ x, float* __restrict__ part,
+             int I, int O, int rows_per_split) {
+  constexpr int EPL = 16 / sizeof(W);  // weights per 16-byte load
+  constexpr int COLS = 32 * EPL;       // columns per block
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int col = blockIdx.x * GEMV_COLS + lane * 16;
+  const int col = blockIdx.x * COLS + lane * EPL;
   const int r0 = blockIdx.y * rows_per_split;
   const int r1 = min(I, r0 + rows_per_split);
-  float acc[16];
+  float acc[EPL];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) acc[j] = 0.f;
+  for (int j = 0; j < EPL; ++j) acc[j] = 0.f;
   if (col < O) {
 #pragma unroll 4
     for (int r = r0 + warp; r < r1; r += GEMV_THREADS / 32) {
-      const int4 w = __ldg(reinterpret_cast<const int4*>(W + (size_t)r * O + col));
+      const int4 w = __ldg(reinterpret_cast<const int4*>(Wm + (size_t)r * O + col));
       const float xv = bf(x[r]);
-      const int8_t* wb = reinterpret_cast<const int8_t*>(&w);
+      const W* wb = reinterpret_cast<const W*>(&w);
 #pragma unroll
-      for (int j = 0; j < 16; ++j) acc[j] = fmaf(xv, (float)wb[j], acc[j]);
+      for (int j = 0; j < EPL; ++j) acc[j] = fmaf(xv, to_f(wb[j]), acc[j]);
     }
   }
-  __shared__ float red[GEMV_THREADS / 32][16][32];  // [warp][j][lane]
+  __shared__ float red[GEMV_THREADS / 32][EPL][32];  // [warp][j][lane]
 #pragma unroll
-  for (int j = 0; j < 16; ++j) red[warp][j][lane] = acc[j];
+  for (int j = 0; j < EPL; ++j) red[warp][j][lane] = acc[j];
   __syncthreads();
-  const int l = threadIdx.x & 31;
+  // each thread sums EPL / NW outputs over the warps, in an unrolled loop
+  constexpr int NW = GEMV_THREADS / 32;
+  static_assert(EPL % NW == 0, "each warp finishes EPL / NW columns per lane");
 #pragma unroll
-  for (int jj = 0; jj < 2; ++jj) {
-    const int j = (threadIdx.x >> 5) + jj * 8;
+  for (int jj = 0; jj < EPL / NW; ++jj) {
+    const int j = warp + jj * NW;
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < GEMV_THREADS / 32; ++w) s += red[w][j][l];
-    const int c = blockIdx.x * GEMV_COLS + l * 16 + j;
+    for (int w = 0; w < GEMV_THREADS / 32; ++w) s += red[w][j][lane];
+    const int c = blockIdx.x * COLS + lane * EPL + j;
     if (c < O) part[(size_t)blockIdx.y * O + c] = s;
   }
 }
 
+// 8 neighbouring weights of a staged tile, widened to f32
+__device__ __forceinline__ void load8(const int8_t* p, float* w) {
+  const int2 v = *reinterpret_cast<const int2*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) w[j] = (float)b[j];
+}
+__device__ __forceinline__ void load8(const bf16* p, float* w) {
+  const int4 v = *reinterpret_cast<const int4*>(p);
+  const bf16* b = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) w[j] = bf(b[j]);
+}
+
 // ---------------------------------------------------------------------------
-// int8 weight-only GEMV at B>1, first pass: part[split, b, o] = sum over this
-// split's rows r of x[b, r] * W[r, o] in f32. Grid (ceil(O / 128), splits).
-// A block owns 128 columns and one split of the rows; it walks the split in
-// passes of 128 rows, staging the weight tile (16-byte loads, each weight
-// byte read from device memory by this block only, once) and x[:, rows] in
-// shared memory. Thread = (column group of 8, slot of 16): the slots take
-// (row tile of 8 batch rows, row group) pairs, so at small B the rows of the
-// split are spread over up to 16 groups and at B=64 over 2. A thread keeps
-// 8 x 8 f32 accumulators; the row groups are summed through shared memory.
+// Weight-only GEMV at B>1, first pass: part[split, b, o] = sum over this
+// split's rows r of x[b, r] * W[r, o] in f32, W int8 or bf16. Grid
+// (ceil(O / 128), splits). A block owns 128 columns and one split of the
+// rows; it walks the split in passes of 128 rows, staging the weight tile
+// (16-byte loads, each weight read from device memory by this block only,
+// once; 16 KB of int8 or 32 KB of bf16) and x[:, rows] in shared memory.
+// Thread = (column group of 8, slot of 16): the slots take (row tile of 8
+// batch rows, row group) pairs, so at small B the rows of the split are
+// spread over up to 16 groups and at B=64 over 2. A thread keeps 8 x 8 f32
+// accumulators; the row groups are summed through shared memory.
 // ---------------------------------------------------------------------------
+template <typename W>
 __global__ void __launch_bounds__(GEMV_THREADS)
-gemv_i8_batched(const int8_t* __restrict__ W, const bf16* __restrict__ x, int B,
-                float* __restrict__ part, int I, int O, int rows_per_split) {
+gemv_batched(const W* __restrict__ Wm, const bf16* __restrict__ x, int B,
+             float* __restrict__ part, int I, int O, int rows_per_split) {
+  constexpr int EPL = 16 / sizeof(W);  // weights per 16-byte load
   extern __shared__ __align__(16) unsigned char bg_smem[];
-  int8_t* ws = reinterpret_cast<int8_t*>(bg_smem);                    // [BG_ROWS][BG_COLS]
-  bf16* xs = reinterpret_cast<bf16*>(bg_smem + BG_ROWS * BG_COLS);     // [B][BG_XS]
-  float* red = reinterpret_cast<float*>(bg_smem);                      // [KG][Bp][BG_COLS], at the end
+  W* ws = reinterpret_cast<W*>(bg_smem);                                          // [BG_ROWS][BG_COLS]
+  bf16* xs = reinterpret_cast<bf16*>(bg_smem + BG_ROWS * BG_COLS * sizeof(W));   // [B][BG_XS]
+  float* red = reinterpret_cast<float*>(bg_smem);                                 // [KG][Bp][BG_COLS], at the end
   const int tid = threadIdx.x;
   const int NBT = (B + 7) / 8, Bp = NBT * 8, KG = 16 / NBT;
   const int cg = tid & 15, slot = tid >> 4;
@@ -168,12 +198,12 @@ gemv_i8_batched(const int8_t* __restrict__ W, const bf16* __restrict__ x, int B,
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   for (int rc = r0; rc < r1; rc += BG_ROWS) {
     const int nr = min(BG_ROWS, r1 - rc);
-    for (int i = tid; i < nr * (BG_COLS / 16); i += GEMV_THREADS) {
-      const int r = i / (BG_COLS / 16), ch = i % (BG_COLS / 16);
-      const int c = c0 + ch * 16;
+    for (int i = tid; i < nr * (BG_COLS / EPL); i += GEMV_THREADS) {
+      const int r = i / (BG_COLS / EPL), ch = i % (BG_COLS / EPL);
+      const int c = c0 + ch * EPL;
       int4 w = make_int4(0, 0, 0, 0);
-      if (c < O) w = __ldg(reinterpret_cast<const int4*>(W + (size_t)(rc + r) * O + c));
-      *reinterpret_cast<int4*>(ws + r * BG_COLS + ch * 16) = w;
+      if (c < O) w = __ldg(reinterpret_cast<const int4*>(Wm + (size_t)(rc + r) * O + c));
+      *reinterpret_cast<int4*>(ws + r * BG_COLS + ch * EPL) = w;
     }
     for (int i = tid; i < B * nr; i += GEMV_THREADS) {
       const int b = i / nr, r = i % nr;
@@ -182,11 +212,8 @@ gemv_i8_batched(const int8_t* __restrict__ W, const bf16* __restrict__ x, int B,
     __syncthreads();
     if (active) {
       for (int r = kg; r < nr; r += KG) {
-        const int2 wv = *reinterpret_cast<const int2*>(ws + r * BG_COLS + cg * 8);
-        const int8_t* wb = reinterpret_cast<const int8_t*>(&wv);
         float w[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) w[j] = (float)wb[j];
+        load8(ws + r * BG_COLS + cg * 8, w);
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const int b = bt * 8 + i;
@@ -225,23 +252,22 @@ inline int num_sms() {
   return n;
 }
 
-// Launch the first pass of y[B, O] = x[B, I] @ W; returns the number of
-// splits written to ``part`` ([splits][B][O] f32).
-inline int gemv(const int8_t* W, const bf16* x, int B, float* part, int I, int O,
-                cudaStream_t st) {
+template <typename W>
+inline int gemv_t(const W* Wm, const bf16* x, int B, float* part, int I, int O, cudaStream_t st) {
   if (B == 1) {
-    const int col_blocks = (O + GEMV_COLS - 1) / GEMV_COLS;
+    constexpr int COLS = 32 * (16 / sizeof(W));
+    const int col_blocks = (O + COLS - 1) / COLS;
     int splits = (2 * num_sms()) / col_blocks;
     splits = max(1, min(min(splits, GEMV_MAX_SPLIT), (I + 7) / 8));
     int rows = (I + splits - 1) / splits;
     rows = (rows + 7) / 8 * 8;
     splits = (I + rows - 1) / rows;
-    gemv_i8_partial<<<dim3(col_blocks, splits), GEMV_THREADS, 0, st>>>(W, x, part, I, O, rows);
+    gemv_partial<W><<<dim3(col_blocks, splits), GEMV_THREADS, 0, st>>>(Wm, x, part, I, O, rows);
     return splits;
   }
-  static bool smem_set = false;
+  static bool smem_set = false;  // one per weight type
   if (!smem_set) {
-    cudaFuncSetAttribute(gemv_i8_batched, cudaFuncAttributeMaxDynamicSharedMemorySize, BG_SMEM);
+    cudaFuncSetAttribute(gemv_batched<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, BG_SMEM);
     smem_set = true;
   }
   const int col_blocks = (O + BG_COLS - 1) / BG_COLS;
@@ -250,9 +276,17 @@ inline int gemv(const int8_t* W, const bf16* x, int B, float* part, int I, int O
   int rows = (I + splits - 1) / splits;
   rows = (rows + 15) / 16 * 16;
   splits = (I + rows - 1) / rows;
-  gemv_i8_batched<<<dim3(col_blocks, splits), GEMV_THREADS, BG_SMEM, st>>>(W, x, B, part, I, O,
-                                                                            rows);
+  gemv_batched<W><<<dim3(col_blocks, splits), GEMV_THREADS, BG_SMEM, st>>>(Wm, x, B, part, I, O,
+                                                                           rows);
   return splits;
+}
+
+// Launch the first pass of y[B, O] = x[B, I] @ W, W int8 or (wbf16) bf16;
+// returns the number of splits written to ``part`` ([splits][B][O] f32).
+inline int gemv(const void* Wm, bool wbf16, const bf16* x, int B, float* part, int I, int O,
+                cudaStream_t st) {
+  return wbf16 ? gemv_t((const bf16*)Wm, x, B, part, I, O, st)
+               : gemv_t((const int8_t*)Wm, x, B, part, I, O, st);
 }
 
 // Sum of the splits of output ``idx``; consecutive splits lie ``stride``
@@ -262,6 +296,14 @@ __device__ __forceinline__ float split_sum(const float* part, int splits, int st
   float s = 0.f;
   for (int k = 0; k < splits; ++k) s += __ldg(part + (size_t)k * stride + idx);
   return s;
+}
+
+// A GEMV output in f32: the split sum times column c's scale for int8
+// weights; bf16 weights pass no scale (nullptr) and the sum is the output.
+__device__ __forceinline__ float mv_out(const float* part, int splits, int stride, int idx,
+                                        const float* scale, int c) {
+  const float s = split_sum(part, splits, stride, idx);
+  return scale ? __fmul_rn(s, scale[c]) : s;
 }
 
 // xn = rms(x, nw) and, if hres != nullptr, hres = x. One block per row;
@@ -287,9 +329,12 @@ __global__ void rms_copy(const bf16* __restrict__ x, int x_stride, const float* 
 }
 
 // Second pass of a GEMV whose output joins the residual stream:
-// h = bf16(h + bf16(sum * scale)); xn = rms(h, nw). One block per row.
+// h = bf16(h + bf16(y)), y the GEMV output (``mv_out``); xn = rms(h, nw).
+// With ``bias`` (the small-to-MTP projection, [H] shared by the rows) the
+// stream starts there instead: h = bf16(bf16(y) + bias). One block per row.
 __global__ void finish_residual_norm(const float* __restrict__ part, int splits,
                                      const float* __restrict__ scale, bf16* __restrict__ h,
+                                     const bf16* __restrict__ bias,
                                      const float* __restrict__ nw, bf16* __restrict__ xn,
                                      int H, float eps) {
   __shared__ float red[32];
@@ -297,8 +342,8 @@ __global__ void finish_residual_norm(const float* __restrict__ part, int splits,
   const int stride = gridDim.x * H;
   float ss = 0.f;
   for (int c = threadIdx.x; c < H; c += blockDim.x) {
-    const float y = rbf(__fmul_rn(split_sum(part, splits, stride, row + c), scale[c]));
-    const float hv = rbf(__fadd_rn(bf(h[row + c]), y));
+    const float y = rbf(mv_out(part, splits, stride, row + c, scale, c));
+    const float hv = rbf(__fadd_rn(bias ? bf(bias[c]) : bf(h[row + c]), y));
     h[row + c] = __float2bfloat16_rn(hv);
     ss = fmaf(hv, hv, ss);
   }
@@ -308,7 +353,7 @@ __global__ void finish_residual_norm(const float* __restrict__ part, int splits,
 }
 
 // Second pass of the gate_up GEMV: gated = bf16(g * sigmoid(g) * u) with
-// g, u the bf16-rounded halves. Grid (ceil(I / 256), B).
+// g, u the bf16-rounded halves (``mv_out``). Grid (ceil(I / 256), B).
 __global__ void finish_swiglu(const float* __restrict__ part, int splits,
                               const float* __restrict__ scale, int I, bf16* __restrict__ gated) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
@@ -316,8 +361,8 @@ __global__ void finish_swiglu(const float* __restrict__ part, int splits,
   if (c >= I) return;
   const int O = 2 * I;
   const int stride = gridDim.y * O;
-  const float g = rbf(__fmul_rn(split_sum(part, splits, stride, b * O + c), scale[c]));
-  const float u = rbf(__fmul_rn(split_sum(part, splits, stride, b * O + I + c), scale[I + c]));
+  const float g = rbf(mv_out(part, splits, stride, b * O + c, scale, c));
+  const float u = rbf(mv_out(part, splits, stride, b * O + I + c, scale, I + c));
   const float sig = 1.0f / (1.0f + expf(-g));
   gated[(size_t)b * I + c] = __float2bfloat16_rn(__fmul_rn(__fmul_rn(g, sig), u));
 }
@@ -395,7 +440,7 @@ attn_step(const float* __restrict__ part, int splits, const float* __restrict__ 
     const int col = which < G ? (kvh * G + which) * D + d
                     : which == G ? (NQ + kvh) * D + d
                                  : (NQ + NKV + kvh) * D + d;
-    raw[which][d] = rbf(__fmul_rn(split_sum(part, splits, stride, col), qkv_scale[col]));
+    raw[which][d] = rbf(mv_out(part, splits, stride, col, qkv_scale, col));
   }
   __syncthreads();
   if (warp <= G) {  // one warp per vector to normalise
@@ -554,7 +599,7 @@ attn_step(const float* __restrict__ part, int splits, const float* __restrict__ 
 
 // ---------------------------------------------------------------------------
 // The sampler: one block per row, over a vocabulary of up to 4096 ids.
-// Finishes the head GEMV (logits = sum * scale, f32), then: + suppress mask
+// Finishes the head GEMV (logits = ``mv_out``, f32), then: + suppress mask
 // (shared by the rows), repetition penalty (l < 0 ? l * rep : l / rep over
 // the row's ``seen``), and either argmax (greedy) or EOS save, exact top-k
 // (radix select on the ordered float bits), EOS restore, z * inv_t + Gumbel
@@ -618,7 +663,7 @@ sample_kernel(const float* __restrict__ part, int splits, const float* __restric
     valid[i] = c < V;
     float v = -CUDART_INF_F;
     if (valid[i]) {
-      v = __fmul_rn(split_sum(part, splits, stride, prow + c), scale[c]);
+      v = mv_out(part, splits, stride, prow + c, scale, c);
       if (logits_out) logits_out[c] = v;
       if (a.supp) v = __fadd_rn(v, a.supp[c]);
       if (seen && a.rep != 1.0f && seen[c]) v = v < 0.f ? __fmul_rn(v, a.rep) : __fdiv_rn(v, a.rep);
@@ -729,9 +774,11 @@ sample_kernel(const float* __restrict__ part, int splits, const float* __restric
 
 // One transformer layer of one token per row through the kernels above; the
 // residual stream is ``h`` [B, H] and ``xn`` holds rms(h, input_layernorm)
-// on entry and rms(h, next_norm) on return.
+// on entry and rms(h, next_norm) on return. The four matmul weights are
+// int8 with their scales, or bf16 (``wbf16``) with null scales.
 struct LayerW {
-  const int8_t *qkv_w, *o_w, *gu_w, *d_w;
+  const void *qkv_w, *o_w, *gu_w, *d_w;
+  bool wbf16;
   const float *qkv_s, *o_s, *gu_s, *d_s, *pln, *qn, *kn;
 };
 
@@ -741,7 +788,7 @@ inline int layer_step(const LayerW& w, const float* next_norm, int B, int H, int
                       int rope_stride, const AttnCache& cache, int pos, const int* offs,
                       bf16* h, bf16* xn, bf16* attn, bf16* gated, float* ws, cudaStream_t st) {
   const int D = HEAD_DIM;
-  int s = gemv(w.qkv_w, xn, B, ws, H, (NQ + 2 * NKV) * D, st);
+  int s = gemv(w.qkv_w, w.wbf16, xn, B, ws, H, (NQ + 2 * NKV) * D, st);
   QT_CHECK_LAUNCH();
   // score tile: the rows read from the cache, up to ATTN_TILE (all of it
   // when the rows' positions live on the device)
@@ -752,36 +799,44 @@ inline int layer_step(const LayerW& w, const float* next_norm, int B, int H, int
       (typename std::conditional<KVQ, int8_t, bf16>::type*)cache.v, cache.ks, cache.vs, cache.T,
       pos, offs, NQ, NKV, scale, attn);
   QT_CHECK_LAUNCH();
-  s = gemv(w.o_w, attn, B, ws, NQ * D, H, st);
+  s = gemv(w.o_w, w.wbf16, attn, B, ws, NQ * D, H, st);
   QT_CHECK_LAUNCH();
-  finish_residual_norm<<<B, 1024, 0, st>>>(ws, s, w.o_s, h, w.pln, xn, H, eps);
+  finish_residual_norm<<<B, 1024, 0, st>>>(ws, s, w.o_s, h, nullptr, w.pln, xn, H, eps);
   QT_CHECK_LAUNCH();
-  s = gemv(w.gu_w, xn, B, ws, H, 2 * I, st);
+  s = gemv(w.gu_w, w.wbf16, xn, B, ws, H, 2 * I, st);
   QT_CHECK_LAUNCH();
   finish_swiglu<<<dim3((I + 255) / 256, B), 256, 0, st>>>(ws, s, w.gu_s, I, gated);
   QT_CHECK_LAUNCH();
-  s = gemv(w.d_w, gated, B, ws, I, H, st);
+  s = gemv(w.d_w, w.wbf16, gated, B, ws, I, H, st);
   QT_CHECK_LAUNCH();
-  finish_residual_norm<<<B, 1024, 0, st>>>(ws, s, w.d_s, h, next_norm, xn, H, eps);
+  finish_residual_norm<<<B, 1024, 0, st>>>(ws, s, w.d_s, h, nullptr, next_norm, xn, H, eps);
   QT_CHECK_LAUNCH();
   return 0;
 }
 
-inline LayerW layer_weights(int l, int H, int NQ, int NKV, int I, const void* qkv_w,
+// Layer l's slices of the stacked weights: int8 [L, in, out] with f32
+// scales [L, out], or bf16 [L, in, out] (``wbf16``; the scales are ignored).
+inline LayerW layer_weights(int l, int H, int NQ, int NKV, int I, bool wbf16, const void* qkv_w,
                             const void* qkv_s, const void* o_w, const void* o_s,
                             const void* gu_w, const void* gu_s, const void* d_w,
                             const void* d_s, const void* pln, const void* qn, const void* kn) {
   const int D = HEAD_DIM;
   const size_t oqkv = (size_t)(NQ + 2 * NKV) * D;
+  const size_t esz = wbf16 ? 2 : 1;
+  auto wl = [&](const void* p, size_t n) { return (const void*)((const char*)p + l * n * esz); };
+  auto sl = [&](const void* p, size_t n) {
+    return wbf16 ? (const float*)nullptr : (const float*)p + l * n;
+  };
   LayerW w;
-  w.qkv_w = (const int8_t*)qkv_w + (size_t)l * H * oqkv;
-  w.qkv_s = (const float*)qkv_s + (size_t)l * oqkv;
-  w.o_w = (const int8_t*)o_w + (size_t)l * NQ * D * H;
-  w.o_s = (const float*)o_s + (size_t)l * H;
-  w.gu_w = (const int8_t*)gu_w + (size_t)l * H * 2 * I;
-  w.gu_s = (const float*)gu_s + (size_t)l * 2 * I;
-  w.d_w = (const int8_t*)d_w + (size_t)l * I * H;
-  w.d_s = (const float*)d_s + (size_t)l * H;
+  w.wbf16 = wbf16;
+  w.qkv_w = wl(qkv_w, (size_t)H * oqkv);
+  w.qkv_s = sl(qkv_s, oqkv);
+  w.o_w = wl(o_w, (size_t)NQ * D * H);
+  w.o_s = sl(o_s, H);
+  w.gu_w = wl(gu_w, (size_t)H * 2 * I);
+  w.gu_s = sl(gu_s, 2 * I);
+  w.d_w = wl(d_w, (size_t)I * H);
+  w.d_s = sl(d_s, H);
   w.pln = (const float*)pln + (size_t)l * H;
   w.qn = (const float*)qn + (size_t)l * D;
   w.kn = (const float*)kn + (size_t)l * D;

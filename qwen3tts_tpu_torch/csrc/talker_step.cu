@@ -3,20 +3,25 @@
 //
 // Replaces qwen3tts_tpu/ops/talker_kernel.py::talker_decode_step (body
 // _talker_step_kernel), the TPU kernel that ran all L layers as one Pallas
-// grid program with double-buffered int8 weight streaming, for any static
-// B at per-sequence cache offsets, on a bf16 cache or an int8 cache with
-// per-row f32 scales, in sample or non-sample mode.
+// grid program with double-buffered weight streaming, for any static B at
+// per-sequence cache offsets, on a bf16 cache or an int8 cache with per-row
+// f32 scales, in sample or non-sample mode, with int8 weights and per-channel
+// scales (its ``wo_bf16`` mode) or dense bf16 weights (its ``bf16`` mode).
 //
 // Bound on the H100. At B=1: device-memory bandwidth on the weights. At the
 // 0.6B shapes one step reads 28 x 15.7 MB of int8 layer weights plus the
 // 3.1 MB codec head (~443.5 MB), plus the KV prefix of every row:
 // 114,688 B per cached position in bf16, 57,344 B + 1,792 B of scales in
-// int8; the floor at 3.35 TB/s is 0.132 ms plus the cache. At B>1 the
-// weights are still read once per step for the whole batch (the batched
-// GEMV of common.cuh stages each weight tile in shared memory once and
-// multiplies it into every row), so the bytes barely grow with B but the
-// f32 FMA work does: 2 x B flops per weight byte, ~57 GFLOP at B=64, which
-// is above the memory floor from B of about 8 on.
+// int8; the floor at 3.35 TB/s is 0.132 ms plus the cache. Dense bf16
+// weights (a checkpoint served unquantized) double the weight bytes: 28 x
+// 31.46 MB + 6.3 MB = 887.1 MB, 0.265 ms. At the 1.7B shapes (H 2048, I
+// 6144) a layer is 50.33 MB in int8: 1,415.6 MB with the head, 0.423 ms;
+// 2,831.2 MB, 0.845 ms, in bf16. At B>1 the weights are still read once per
+// step for the whole batch (the batched GEMV of common.cuh stages each
+// weight tile in shared memory once and multiplies it into every row), so
+// the bytes barely grow with B but the f32 FMA work does: 2 x B flops per
+// weight, ~57 GFLOP at B=64 at 0.6B, which is above the memory floor from B
+// of about 8 on (about 16 in bf16).
 //
 // Design: split-K GEMVs whose second pass is fused with the residual add
 // and the next RMSNorm (or SwiGLU); an attention block per (kv head, row)
@@ -32,13 +37,15 @@
 using namespace qt;
 
 // Row positions: ``offs`` (device int32 [B]) when given, else ``pos`` for
-// every row. Caches [L, B, NKV, T, D] (bf16, or int8 with kv_quant and
-// scales [L, B, NKV, T]); rope rows cos/sin at ``cosr + b * rope_stride``.
+// every row. Layer weights int8 with f32 scales, or bf16 (``w_bf16``; the
+// scale pointers are then ignored); the codec head likewise (``head_bf16``).
+// Caches [L, B, NKV, T, D] (bf16, or int8 with kv_quant and scales
+// [L, B, NKV, T]); rope rows cos/sin at ``cosr + b * rope_stride``.
 // Sample mode when ``head_w`` is given: code_out [B], logits_out [B, V].
 // On return xn holds rms(h, final norm) [B, H], the hidden the CP consumes.
 extern "C" int qt_talker_step(
     int L, int H, int NQ, int NKV, int D, int I, int V, int T, int B, int pos, const void* offs,
-    int kv_quant, float eps, float scale,
+    int kv_quant, int w_bf16, int head_bf16, float eps, float scale,
     const void* x,
     const void* qkv_w, const void* qkv_s, const void* o_w, const void* o_s,
     const void* gu_w, const void* gu_s, const void* d_w, const void* d_s,
@@ -51,7 +58,9 @@ extern "C" int qt_talker_step(
     void* code_out, void* logits_out, void* stream) {
   if (D != HEAD_DIM || NQ % NKV != 0 || NQ / NKV > ATTN_MAX_GROUP || B < 1 || B > MAX_BATCH ||
       V > SAMPLE_THREADS * SAMPLE_PER_THREAD || (offs == nullptr && (pos < 0 || pos >= T)) ||
-      (kv_quant && (k_scale == nullptr || v_scale == nullptr)))
+      (kv_quant && (k_scale == nullptr || v_scale == nullptr)) ||
+      (!w_bf16 && (qkv_s == nullptr || o_s == nullptr || gu_s == nullptr || d_s == nullptr)) ||
+      (head_w != nullptr && !head_bf16 && head_s == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const size_t layer_rows = (size_t)B * NKV * T;  // cache rows of one layer
@@ -62,8 +71,8 @@ extern "C" int qt_talker_step(
   rms_copy<<<B, 1024, 0, st>>>((const bf16*)x, H, (const float*)iln, xnb, h, H, eps);
   QT_CHECK_LAUNCH();
   for (int l = 0; l < L; ++l) {
-    const LayerW w = layer_weights(l, H, NQ, NKV, I, qkv_w, qkv_s, o_w, o_s, gu_w, gu_s, d_w,
-                                   d_s, pln, qn, kn);
+    const LayerW w = layer_weights(l, H, NQ, NKV, I, w_bf16 != 0, qkv_w, qkv_s, o_w, o_s, gu_w,
+                                   gu_s, d_w, d_s, pln, qn, kn);
     const float* next_norm = l + 1 < L ? (const float*)iln + (size_t)(l + 1) * H
                                        : (const float*)fnorm;
     AttnCache cache;
@@ -82,7 +91,7 @@ extern "C" int qt_talker_step(
     if (err) return err;
   }
   if (head_w == nullptr) return 0;  // non-sample mode: the post-norm hidden only
-  const int s = gemv((const int8_t*)head_w, xnb, B, (float*)ws, H, V, st);
+  const int s = gemv(head_w, head_bf16 != 0, xnb, B, (float*)ws, H, V, st);
   QT_CHECK_LAUNCH();
   SampleArgs a;
   a.supp = (const float*)supp;
@@ -105,7 +114,8 @@ extern "C" int qt_talker_step(
   a.H = H;
   a.x_next = nullptr;
   a.esum = nullptr;
-  sample_kernel<<<B, SAMPLE_THREADS, 0, st>>>((const float*)ws, s, (const float*)head_s, V, a);
+  sample_kernel<<<B, SAMPLE_THREADS, 0, st>>>((const float*)ws, s,
+                                              head_bf16 ? nullptr : (const float*)head_s, V, a);
   QT_CHECK_LAUNCH();
   return 0;
 }

@@ -18,8 +18,9 @@ per lockstep frame (whether any sequence is still active). The per-row
 counters (``steps``, ``frames``, ``offsets``, ``done``) stay on the device.
 
 On CUDA the lockstep decode runs through the kernels only: it raises unless
-K1 and K2 both take the batch (the fused int8 layout, 1..MAX_BATCH rows;
-``Qwen3TTSModel.generate_batch`` splits longer lists into such groups).
+K1 and K2 both take the batch (a fused layout, int8 or dense bf16, and
+1..MAX_BATCH rows; ``Qwen3TTSModel.generate_batch`` splits longer lists
+into such groups).
 With top_p == 1 every lockstep frame runs K1 in sample mode
 (``talker.forward_batched_step_sample``) and K2 (``ops/cp_kernel.py``) once
 for all rows; with top_p < 1, a filter neither kernel has (nor has it on
@@ -70,7 +71,8 @@ class BatchResult(NamedTuple):
 
 def kernels_take(talker_params, cp_params, talker_cfg, cp_cfg, batch: int, kv_quant: bool) -> bool:
     """Whether K1 and K2 take a lockstep batch of ``batch`` rows: both stacks
-    in the fused int8 layout, at most MAX_BATCH rows."""
+    in a fused layout (int8 or dense bf16; the CP's projection where it is
+    narrower than the talker), at most MAX_BATCH rows."""
     from ..ops.cp_kernel import kernel_supported
     from ..ops.talker_kernel import step_supported
 
@@ -89,7 +91,8 @@ def _require_kernels(talker_params, cp_params, talker_cfg, cp_cfg, device, batch
     ):
         raise ValueError(
             f"lockstep decode of {batch} rows: on CUDA it runs through K1 and K2, which take "
-            f"1..{MAX_BATCH} rows of the fused int8 layout (from_pretrained(quantize='int8'))"
+            f"1..{MAX_BATCH} rows of a fused layout: int8 (from_pretrained(quantize='int8')) "
+            f"or dense bf16 (an unquantized checkpoint loaded as bf16)"
         )
 
 

@@ -14,12 +14,15 @@ synchronisation per frame) to decide EOS.
 EOS contract (as the reference's): the EOS frame records token -1 and a zero
 codes row, generation stops, and ``n_frames`` counts the frames before EOS.
 
-On CUDA, with the fused int8 weights and top_p == 1, every frame after the
-first runs the talker step through K1 (ops/talker_kernel.py) and every frame
-runs the code predictor through K2 (ops/cp_kernel.py); otherwise the plain
-path runs (talker.forward + codec_logits + the sampler, cp.predict_codes),
-in which a fused int8 talker step on CUDA is still K1, in its non-sample
-mode. The cache is bf16 or int8 (``kv_quant``); K1 takes both.
+On CUDA, with fused weights and top_p == 1, every frame after the first
+runs the talker step through K1 (ops/talker_kernel.py) and every frame runs
+the code predictor through K2 (ops/cp_kernel.py). Fused means either layout
+of ``talker_kernel._layout``: int8 (``quantize='int8'``) or dense bf16 (an
+unquantized checkpoint loaded as bf16); K2 also takes the small-to-MTP
+projection of the 1.7B model. Otherwise the plain path runs
+(talker.forward + codec_logits + the sampler, cp.predict_codes), in which a
+fused talker step on CUDA is still K1, in its non-sample mode. The cache is
+bf16 or int8 (``kv_quant``); K1 takes both.
 """
 
 from __future__ import annotations
@@ -80,7 +83,9 @@ def _fused_ok(sampling: SamplingConfig, device: torch.device) -> bool:
 
 
 def _use_cp_kernel(cp_params, cp_cfg, talker_cfg, sampling, device, batch: int = 1) -> bool:
-    """Gate for K2: CUDA tensors, fused int8 weights, top_p == 1, 1..64 rows."""
+    """Gate for K2: CUDA tensors, fused weights (int8 or bf16, with the
+    projection where the CP is narrower than the talker), top_p == 1, 1..64
+    rows."""
     from ..ops.cp_kernel import kernel_supported
 
     return _fused_ok(sampling, device) and kernel_supported(
@@ -91,8 +96,8 @@ def _use_cp_kernel(cp_params, cp_cfg, talker_cfg, sampling, device, batch: int =
 def _use_talker_sample_kernel(
     talker_params, talker_cfg, sampling, device, batch: int = 1, kv_quant: bool = False
 ) -> bool:
-    """Gate for K1 in sample mode: CUDA tensors, fused int8 weights and head,
-    top_p == 1, 1..64 rows, a bf16 or an int8 cache."""
+    """Gate for K1 in sample mode: CUDA tensors, fused weights and a head of
+    int8 or dense bf16, top_p == 1, 1..64 rows, a bf16 or an int8 cache."""
     from ..ops.talker_kernel import step_supported
 
     return _fused_ok(sampling, device) and step_supported(

@@ -12,7 +12,8 @@ cache from every call, the port writes new k/v rows into the cache IN PLACE
 the same cache object; K1 writes its rows in place too, so the JAX
 package's ``_append_cache_rows`` has no counterpart here.
 
-On CUDA a single-token step of fused int8 weights runs through K1
+On CUDA a single-token step of fused weights (int8 or dense bf16, the two
+layouts of ``talker_kernel._layout``) runs through K1
 (ops/talker_kernel.py), or raises where K1 does not take it: ``forward``
 and ``forward_batched_step`` in its non-sample mode, ``forward_step_sample``
 and ``forward_batched_step_sample`` in its sample mode. On an int8 cache the
@@ -133,13 +134,13 @@ def _layer_kv(cache, idx: int):
 
 
 def _k1_gate(params, x: torch.Tensor) -> bool:
-    """Whether a single-token step runs through K1: a CUDA tensor and the
-    fused int8 layout. K1 raises on what it does not take (more than
-    MAX_BATCH rows, activations not bf16), so such a step never runs the
-    plain loop on the card."""
-    from ..ops.talker_kernel import fused_layout
+    """Whether a single-token step runs through K1: a CUDA tensor and a fused
+    layout (int8 or dense bf16). K1 raises on what it does not take (more
+    than MAX_BATCH rows, activations not bf16), so such a step never runs
+    the plain loop on the card."""
+    from ..ops.talker_kernel import _layout
 
-    return x.device.type == "cuda" and x.shape[1] == 1 and fused_layout(params)
+    return x.device.type == "cuda" and x.shape[1] == 1 and _layout(params["layers"]) is not None
 
 
 def _dense(x: torch.Tensor, w) -> torch.Tensor:
@@ -276,8 +277,8 @@ def forward(
 
     Prefill (S > 1, right-padded: padded rows land past the valid length and
     stay masked until overwritten) and single-token decode (S == 1). On CUDA
-    a single-token step with fused int8 weights runs through K1 in its
-    non-sample mode (the JAX package's talker.py:403-421); the other
+    a single-token step with fused weights (int8 or dense bf16) runs through
+    K1 in its non-sample mode (the JAX package's talker.py:403-421); the other
     decode steps attend through K3 over rows [0, offset] where
     :func:`attention_kernel_gate` holds. An int8 cache takes the new rows
     quantized and is attended dequantized to bf16. Returns (hidden [B, S, h]
@@ -407,8 +408,8 @@ def forward_batched_step(
 
     Like :func:`forward` with S=1, but each sequence writes its k/v at its
     own offset and masks its own prefix: the lockstep decoder's step
-    (models/batch_generate.py). On CUDA with fused int8 weights it is K1's
-    non-sample mode; otherwise the plain path, which on an int8 cache
+    (models/batch_generate.py). On CUDA with fused weights (int8 or dense
+    bf16) it is K1's non-sample mode; otherwise the plain path, which on an int8 cache
     quantizes the new rows before attending. Returns (hidden [B, 1, h] after
     the final norm, cache)."""
     B, S, _ = inputs_embeds.shape

@@ -62,7 +62,7 @@ _ARGTYPES = {
     ],
     "qt_talker_step": [
         I, I, I, I, I, I, I, I, I, I, P,  # L H NQ NKV D I V T B pos offs
-        I, F, F,  # kv_quant eps scale
+        I, I, I, F, F,  # kv_quant w_bf16 head_bf16 eps scale
         P,  # x
         P, P, P, P, P, P, P, P,  # qkv_w qkv_s o_w o_s gu_w gu_s d_w d_s
         P, P, P, P, P,  # iln pln qn kn fnorm
@@ -74,11 +74,12 @@ _ARGTYPES = {
         P, P, P,  # code_out logits_out stream
     ],
     "qt_cp_loop": [
-        I, I, I, I, I, I, I, I, I, F, F,  # L H NQ NKV D I V NCB B eps scale
+        I, I, I, I, I, I, I, I, I, I,  # L H NQ NKV D I V NCB B TH
+        I, I, F, F,  # w_bf16 head_bf16 eps scale
         P,  # x0
         P, P, P, P, P, P, P, P,  # qkv_w qkv_s o_w o_s gu_w gu_s d_w d_s
         P, P, P, P, P,  # iln pln qn kn fnorm
-        P, P, P,  # lm_w lm_s emb
+        P, P, P, P, P,  # lm_w lm_s emb proj_w proj_b
         P, P, P, P,  # cos_tab sin_tab k_cache v_cache
         I, F, I, U, U,  # greedy inv_t top_k seed0 seed1
         P,  # force_codes

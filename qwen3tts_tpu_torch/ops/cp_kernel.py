@@ -7,6 +7,15 @@ csrc/cp_loop.cu (one C call per frame; that file's header gives the bound
 and the design); on a CPU tensor it runs ``predict_codes_fused_ref``, the
 plain PyTorch version. Any other device raises.
 
+It takes either fused layout of the layers (``talker_kernel._layout``:
+int8 with per-channel scales, or dense bf16), int8 or dense bf16 heads, and
+the small-to-MTP projection of a CP narrower than its talker (the 1.7B
+model: ``small_to_mtp_projection`` {"w": bf16 [talker_h, H], "b": bf16
+[H]}), which maps each position's talker-width input x to
+bf16(bf16(x @ w) + b) before the first layer. The TPU kernel took int8
+layers without a projection (cp_kernel.py:465-478) and left these cases to
+XLA.
+
 The loop: positions 0 and 1 take [talker hidden, talker codec_embedding
 (code0)]; positions 2..15 take the previous position's sampled code through
 its ``codec_embedding[j]`` row. Positions 1..15 apply ``lm_head[j]``
@@ -30,30 +39,43 @@ import torch
 
 from ..models.talker import _embed
 from . import _cuda
-from .decode_blocks import STREAMS_PER_ROW, layer_step, rms, sample_row
+from .decode_blocks import STREAMS_PER_ROW, layer_step, mv, mv_f32, out_dim, rms, sample_row
 from .quant import Int8Linear
 from .rope import rope_cos_sin
+from .talker_kernel import _FUSED_KEYS, _dense_bf16, _layout, _weight
 
-_FUSED_KEYS = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
 MAX_BATCH = _cuda.MAX_BATCH
+PROJ = "small_to_mtp_projection"
+
+
+def _projection_ok(cp_params, cp_cfg, talker_h: int) -> bool:
+    """No projection with equal widths, or a dense bf16 one from the talker
+    width to the CP's."""
+    proj = cp_params.get(PROJ)
+    if proj is None:
+        return cp_cfg.hidden_size == talker_h
+    w, b = proj.get("w"), proj.get("b")
+    return (_dense_bf16(w) and _dense_bf16(b)
+            and tuple(w.shape) == (talker_h, cp_cfg.hidden_size)
+            and tuple(b.shape) == (cp_cfg.hidden_size,))
 
 
 def kernel_supported(cp_params, cp_cfg, talker_h: int, batch: int = 1) -> bool:
-    """The fused int8 serving layout, without a small-to-MTP projection, for
-    1..MAX_BATCH rows."""
-    if "small_to_mtp_projection" in cp_params or cp_cfg.hidden_size != talker_h:
+    """A fused layout (int8 or bf16), int8 or dense bf16 heads, dense
+    embedding tables, the projection where the widths differ, 1..MAX_BATCH
+    rows."""
+    if _layout(cp_params["layers"]) is None or not _projection_ok(cp_params, cp_cfg, talker_h):
         return False
-    layers = cp_params["layers"]
-    if not all(isinstance(layers.get(k), Int8Linear) for k in _FUSED_KEYS):
+    head = cp_params.get("lm_head")
+    if not (isinstance(head, Int8Linear) or _dense_bf16(head)):
         return False
-    if not isinstance(cp_params.get("lm_head"), Int8Linear):
-        return False
-    if isinstance(cp_params.get("codec_embedding"), Int8Linear):
+    if not isinstance(cp_params.get("codec_embedding"), torch.Tensor):
         return False
     lim = _cuda.LIMITS
     G = cp_cfg.num_attention_heads // cp_cfg.num_key_value_heads
     return (
         1 <= batch <= MAX_BATCH
+        and talker_h % 16 == 0
         and cp_cfg.head_dim == lim["HEAD_DIM"]
         and cp_cfg.num_attention_heads % cp_cfg.num_key_value_heads == 0
         and G <= lim["ATTN_MAX_GROUP"]
@@ -65,9 +87,15 @@ def kernel_supported(cp_params, cp_cfg, talker_h: int, batch: int = 1) -> bool:
 
 
 def _x0(talker_params, last_hidden, code0) -> torch.Tensor:
-    """[B, 2, H] bf16: each row's talker hidden and talker embedding of code0."""
+    """[B, 2, talker_h] bf16: each row's talker hidden and talker embedding
+    of code0."""
     emb = _embed(talker_params["codec_embedding"], code0.reshape(-1))
     return torch.stack([last_hidden, emb.to(last_hidden.dtype)], dim=1).to(torch.bfloat16)
+
+
+def _head(heads, j: int):
+    """Head j of the stacked int8 or dense heads [15, H, V]."""
+    return Int8Linear(heads.q[j], heads.scale[j]) if isinstance(heads, Int8Linear) else heads[j]
 
 
 @functools.lru_cache(maxsize=8)
@@ -84,7 +112,7 @@ def predict_codes_fused_ref(
     temperature: float, top_k: int, force_codes=None, return_logits: bool = False,
 ):
     """Plain PyTorch version of K2 (same rounding points as the kernel)."""
-    L, H = cp_cfg.num_hidden_layers, cp_cfg.hidden_size
+    L = cp_cfg.num_hidden_layers
     NKV, D = cp_cfg.num_key_value_heads, cp_cfg.head_dim
     NCB, SLOTS = cp_cfg.num_code_groups - 1, cp_cfg.num_code_groups
     B = last_hidden.shape[0]
@@ -94,15 +122,15 @@ def predict_codes_fused_ref(
     vc = torch.zeros_like(kc)
     tables = cp_params["codec_embedding"]
     x0 = _x0(talker_params, last_hidden, code0)
-    esum = torch.zeros(B, H, dtype=torch.float32, device=dev)
+    proj = cp_params.get(PROJ)
+    esum = torch.zeros(B, x0.shape[-1], dtype=torch.float32, device=dev)  # talker width
     forced = None if force_codes is None else force_codes.reshape(B, NCB).long()
-    rows = torch.arange(B, device=dev)
     codes, all_logits = [], []
     x = x0[:, 0]
     for p in range(SLOTS):
         if p == 1:
             x = x0[:, 1]
-        h = x
+        h = x if proj is None else mv(x, proj["w"]) + proj["b"]
         pos = torch.full((B,), p, dtype=torch.int64, device=dev)
         cos, sin = cos_t[p].expand(B, D), sin_t[p].expand(B, D)
         for l in range(L):
@@ -112,7 +140,7 @@ def predict_codes_fused_ref(
             continue
         j = p - 1
         hn = rms(h, cp_params["norm"], cp_cfg.rms_norm_eps)
-        logits = (hn.float() @ cp_params["lm_head"].q[j].float()) * cp_params["lm_head"].scale[j].reshape(-1)
+        logits = mv_f32(hn, _head(cp_params["lm_head"], j))
         code = torch.cat([
             sample_row(logits[b], temperature=temperature, top_k=top_k, seed=seed,
                        stream=j + 1 + STREAMS_PER_ROW * b)
@@ -136,9 +164,9 @@ def predict_codes_fused(
 ):
     """The CP inner loop for one frame of B rows.
 
-    last_hidden [B, H]; code0 [B] int32; seed: two 32-bit words;
-    force_codes [B, 15]. Returns (codes [B, 15] int32, esum [B, H] f32[,
-    logits f32 [15, V] at B=1, else [15, B, V]]).
+    last_hidden [B, talker_h]; code0 [B] int32; seed: two 32-bit words;
+    force_codes [B, 15]. Returns (codes [B, 15] int32, esum [B, talker_h]
+    f32[, logits f32 [15, V] at B=1, else [15, B, V]]).
     """
     kw = dict(temperature=temperature, top_k=top_k, force_codes=force_codes,
               return_logits=return_logits)
@@ -151,20 +179,25 @@ def predict_codes_fused(
 
 def _launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, temperature, top_k,
             force_codes, return_logits):
-    H = cp_cfg.hidden_size
-    if not kernel_supported(cp_params, cp_cfg, last_hidden.shape[-1]):
-        raise ValueError("predict_codes_fused: weights are not in the fused int8 layout")
+    H, TH = cp_cfg.hidden_size, last_hidden.shape[-1]
     B = last_hidden.shape[0]
-    if last_hidden.shape != (B, H) or code0.numel() != B or not 1 <= B <= MAX_BATCH:
-        raise ValueError(f"predict_codes_fused: last_hidden must be [B, H] and code0 [B], "
-                         f"1 <= B <= {MAX_BATCH}")
+    if not kernel_supported(cp_params, cp_cfg, TH, B):
+        raise ValueError(f"predict_codes_fused: weights in neither fused layout (int8, bf16), "
+                         f"a projection it does not take, or batch {B} outside 1..{MAX_BATCH}")
+    if last_hidden.dim() != 2 or code0.numel() != B:
+        raise ValueError("predict_codes_fused: last_hidden must be [B, talker_h] and code0 [B]")
     if force_codes is not None and force_codes.numel() != B * (cp_cfg.num_code_groups - 1):
         raise ValueError("predict_codes_fused: force_codes must hold one code per codebook and row")
     L, NQ, NKV, D = (cp_cfg.num_hidden_layers, cp_cfg.num_attention_heads,
                      cp_cfg.num_key_value_heads, cp_cfg.head_dim)
     NCB, SLOTS, V = cp_cfg.num_code_groups - 1, cp_cfg.num_code_groups, cp_cfg.vocab_size
+    if tuple(cp_params["codec_embedding"].shape) != (NCB, V, TH):
+        raise ValueError(f"predict_codes_fused: codec_embedding must be [{NCB}, {V}, {TH}]")
     layers = cp_params["layers"]
-    I = layers["gate_up_proj"].q.shape[-1] // 2
+    head = cp_params["lm_head"]
+    w_bf16, head_bf16 = _layout(layers) == "bf16", not isinstance(head, Int8Linear)
+    proj = cp_params.get(PROJ)
+    I = out_dim(layers["gate_up_proj"]) // 2
     dev = last_hidden.device
     f32 = lambda t: t.float().contiguous()
     cos_t, sin_t = _rope_tables(cp_cfg, dev)
@@ -172,19 +205,18 @@ def _launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, tempe
     vc = torch.empty_like(kc)
     # converted operands stay referenced until every launch is enqueued
     ins = [
-        _x0(talker_params, last_hidden, code0).contiguous(),
-        layers["qkv_proj"].q, layers["qkv_proj"].scale,
-        layers["o_proj"].q, layers["o_proj"].scale,
-        layers["gate_up_proj"].q, layers["gate_up_proj"].scale,
-        layers["down_proj"].q, layers["down_proj"].scale,
+        _x0(talker_params, last_hidden, code0).transpose(0, 1).contiguous(),  # [2, B, TH]
+        *(t for k in _FUSED_KEYS for t in _weight(layers[k])),
         f32(layers["input_layernorm"]), f32(layers["post_attention_layernorm"]),
         f32(layers["q_norm"]), f32(layers["k_norm"]), f32(cp_params["norm"]),
-        cp_params["lm_head"].q, cp_params["lm_head"].scale,
+        *_weight(head),
         cp_params["codec_embedding"].to(torch.bfloat16).contiguous(),
+        None if proj is None else proj["w"].contiguous(),
+        None if proj is None else proj["b"].contiguous(),
         cos_t, sin_t, kc, vc,
     ]
     force = None if force_codes is None else force_codes.to(torch.int32).reshape(-1).contiguous()
-    oqkv = layers["qkv_proj"].q.shape[-1]
+    oqkv = out_dim(layers["qkv_proj"])
     bufs = [
         torch.empty(B, H, dtype=torch.bfloat16, device=dev),  # residual stream
         torch.empty(B, H, dtype=torch.bfloat16, device=dev),  # normed input
@@ -192,14 +224,15 @@ def _launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, tempe
         torch.empty(B, I, dtype=torch.bfloat16, device=dev),  # SwiGLU out
         torch.empty(_cuda.workspace_rows(B) * max(oqkv, 2 * I, H, V), dtype=torch.float32,
                     device=dev),
-        torch.empty(B, H, dtype=torch.bfloat16, device=dev),  # next position's input
+        torch.empty(B, TH, dtype=torch.bfloat16, device=dev),  # next position's input
     ]
     codes = torch.empty(B, NCB, dtype=torch.int32, device=dev)
-    esum = torch.empty(B, H, dtype=torch.float32, device=dev)
+    esum = torch.empty(B, TH, dtype=torch.float32, device=dev)
     logits = torch.empty(NCB, B, V, dtype=torch.float32, device=dev) if return_logits else None
     inv_t = torch.tensor(1.0 / temperature if temperature > 0 else 0.0, dtype=torch.float32).item()
     rc = _cuda.library().qt_cp_loop(
-        L, H, NQ, NKV, D, I, V, NCB, B, cp_cfg.rms_norm_eps, D**-0.5,
+        L, H, NQ, NKV, D, I, V, NCB, B, TH, int(w_bf16), int(head_bf16), cp_cfg.rms_norm_eps,
+        D**-0.5,
         *(_cuda.ptr(t) for t in ins),
         int(temperature <= 0), inv_t, int(top_k), seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF,
         _cuda.ptr(force),

@@ -4,8 +4,10 @@ Each function here is the plain version of a stage that the CUDA kernels of
 K1 (csrc/talker_step.cu) and K2 (csrc/cp_loop.cu) share through
 csrc/common.cuh, with the same rounding points:
 
-* ``mv``: int8 weight-only GEMV, f32 sums of exact upcasts times the
-  per-channel scale, rounded to bf16 once (``gemv_i8_partial`` + finish).
+* ``mv``: the weight GEMV (``gemv_partial``/``gemv_batched`` + finish):
+  f32 sums of exact upcasts, times the per-channel scale of an int8 weight
+  (a dense bf16 weight has none), rounded to bf16 once after the sum.
+  ``mv_f32`` is the same without the rounding (the codec and LM heads).
 * ``rms``: RMSNorm in f32 to bf16 (``rms_copy``/``finish_residual_norm``).
 * ``rope``: x*cos + rotate_half(x)*sin, each op rounded to bf16.
 * ``attend``: one query row per sequence against its cache rows [0, pos]
@@ -57,9 +59,22 @@ MASK32 = 0xFFFFFFFF
 STREAMS_PER_ROW = LIMITS["STREAMS_PER_ROW"]  # row b of a batched call: streams s + 16 b
 
 
-def mv(x: torch.Tensor, w: Int8Linear) -> torch.Tensor:
-    """x bf16 [..., K] @ int8 [K, N] * scale [1, N] -> bf16 [..., N]."""
-    return ((x.float() @ w.q.float()) * w.scale.reshape(-1)).to(torch.bfloat16)
+def mv_f32(x: torch.Tensor, w) -> torch.Tensor:
+    """x bf16 [..., K] @ w -> f32 [..., N]: int8 [K, N] times its scale
+    [1, N], or a dense bf16 [K, N] weight as it is."""
+    if isinstance(w, Int8Linear):
+        return (x.float() @ w.q.float()) * w.scale.reshape(-1)
+    return x.float() @ w.float()
+
+
+def mv(x: torch.Tensor, w) -> torch.Tensor:
+    """``mv_f32`` rounded once to bf16."""
+    return mv_f32(x, w).to(torch.bfloat16)
+
+
+def out_dim(w) -> int:
+    """Output width of an int8 or a dense [..., K, N] weight."""
+    return (w.q if isinstance(w, Int8Linear) else w).shape[-1]
 
 
 def rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -136,7 +151,7 @@ def layer_step(layers, l: int, cfg, h, cos, sin, cache, pos, cp_form: bool):
     NQ, NKV, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
     B = h.shape[0]
-    I = layers["gate_up_proj"].q.shape[-1] // 2
+    I = out_dim(layers["gate_up_proj"]) // 2
     c, s = cos[:, None], sin[:, None]
     qkv = mv(rms(h, layers["input_layernorm"][l], eps), layers["qkv_proj"][l])
     q = rope(rms(qkv[:, : NQ * D].reshape(B, NQ, D), layers["q_norm"][l], eps), c, s)

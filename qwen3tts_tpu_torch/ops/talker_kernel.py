@@ -6,20 +6,22 @@ talker_decode_step (the TPU kernel body is ``_talker_step_kernel``) for
 1 <= B <= 64 rows at their own cache offsets, on a bf16 cache or an int8
 cache with per-row f32 scales (``KVCacheQ``), in sample mode (the codec head
 and the code0 sampler of every row) or non-sample mode (the post-norm hidden
-only). On a CUDA tensor it launches the hand-written kernel in
+only), on either fused layout (``_layout``): int8 weights with per-channel
+scales (the TPU kernel's ``wo_bf16`` mode) or dense bf16 weights (its
+``bf16`` mode, no scale). The codec head is int8 or dense bf16 by itself. On a CUDA tensor it launches the hand-written kernel in
 csrc/talker_step.cu (one C call, a fixed sequence of launches; see that
 file's header for the bound and the design); on a CPU tensor it runs
 ``talker_decode_step_ref``, the plain PyTorch version of the same function.
 Any other device raises. The plain version is never the CUDA path: on the
 card it serves only comparisons and timings.
 
-Per layer: RMSNorm -> fused qkv int8 matvec -> QK-RMSNorm -> rope at each
+Per layer: RMSNorm -> fused qkv matvec -> QK-RMSNorm -> rope at each
 row's offset -> GQA attention over the row's cache rows [0, offset] (the new
 k/v row is written into the cache IN PLACE at the offset; an int8 cache
 takes it quantized, while the current token attends with its own
 unquantized k/v, as the TPU kernel does) -> o_proj + residual -> RMSNorm ->
 gate_up, SwiGLU -> down + residual. Then the final RMSNorm and, in sample
-mode, the int8 codec head and the sampler (ops/decode_blocks.py
+mode, the codec head and the sampler (ops/decode_blocks.py
 ``sample_row``; row b draws from stream 16 b of the counter generator, so
 row 0 draws what a single-sequence call draws).
 
@@ -34,29 +36,47 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .decode_blocks import STREAMS_PER_ROW, layer_step, rms, sample_row
+from .decode_blocks import STREAMS_PER_ROW, layer_step, mv_f32, out_dim, rms, sample_row
 from .quant import Int8Linear
 
 _FUSED_KEYS = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
 MAX_BATCH = _cuda.MAX_BATCH
 
 
-def fused_layout(params) -> bool:
-    """The fused int8 serving layout K1 reads: int8 qkv, o, gate_up, down
-    and codec head."""
-    layers = params["layers"]
-    return all(isinstance(layers.get(k), Int8Linear) for k in _FUSED_KEYS) and isinstance(
-        params.get("codec_head"), Int8Linear
-    )
+def _dense_bf16(w) -> bool:
+    return isinstance(w, torch.Tensor) and w.dtype == torch.bfloat16
+
+
+def _layout(layers) -> str | None:
+    """The fused layout of a layer stack, as the JAX package's ``_layout``:
+    "int8" (every fused projection an ``Int8Linear``), "bf16" (every one a
+    dense bf16 stack) or None (unfused, mixed, packed or another dtype).
+    K1 and K2 read both fused layouts."""
+    ws = [layers.get(k) for k in _FUSED_KEYS]
+    if all(isinstance(w, Int8Linear) for w in ws):
+        return "int8"
+    if all(_dense_bf16(w) for w in ws):
+        return "bf16"
+    return None
+
+
+def _weight(w):
+    """(weight, scale) operands of the kernels: an int8 weight with its f32
+    scale, or a dense bf16 weight with none (the kernels then multiply by no
+    scale)."""
+    return (w.q, w.scale) if isinstance(w, Int8Linear) else (w.contiguous(), None)
 
 
 def step_supported(params, cfg, batch: int = 1, kv_quant: bool = False) -> bool:
-    """The fused int8 serving layout at shapes the kernel takes: any batch of
-    1..MAX_BATCH rows, a bf16 or an int8 cache (``kv_quant``)."""
+    """A fused layout (``_layout``) with an int8 or dense bf16 codec head, at
+    shapes the kernel takes: any batch of 1..MAX_BATCH rows, a bf16 or an
+    int8 cache (``kv_quant``)."""
     lim = _cuda.LIMITS
     G = cfg.num_attention_heads // cfg.num_key_value_heads
+    head = params.get("codec_head")
     return (
-        fused_layout(params)
+        _layout(params["layers"]) is not None
+        and (isinstance(head, Int8Linear) or _dense_bf16(head))
         and 1 <= batch <= MAX_BATCH
         and cfg.head_dim == lim["HEAD_DIM"]
         and cfg.num_attention_heads % cfg.num_key_value_heads == 0
@@ -98,8 +118,7 @@ def talker_decode_step_ref(
     hn = rms(h, params["norm"], cfg.rms_norm_eps)
     if not sample:
         return hn
-    head = params["codec_head"]
-    logits = (hn.float() @ head.q.float()) * head.scale.reshape(-1)
+    logits = mv_f32(hn, params["codec_head"])
     seen = seen.reshape(-1, logits.shape[-1]).expand(B, -1)
     code = torch.cat([
         sample_row(
@@ -148,12 +167,13 @@ def _launch(
     B = x.shape[0]
     quant = len(cache) == 4
     if not step_supported(params, cfg, B, quant):
-        raise ValueError(f"talker_decode_step: weights not in the fused int8 layout, shapes "
-                         f"it does not take, or batch {B} outside 1..{MAX_BATCH}")
+        raise ValueError(f"talker_decode_step: weights in neither fused layout (int8, bf16), "
+                         f"shapes it does not take, or batch {B} outside 1..{MAX_BATCH}")
     layers = params["layers"]
     head = params["codec_head"]
-    I = layers["gate_up_proj"].q.shape[-1] // 2
-    V = head.q.shape[-1]
+    w_bf16, head_bf16 = _layout(layers) == "bf16", not isinstance(head, Int8Linear)
+    I = out_dim(layers["gate_up_proj"]) // 2
+    V = out_dim(head)
     T = cache.k.shape[3]
     single = isinstance(offset, int)
     if x.dtype != torch.bfloat16 or x.shape != (B, 1, H):
@@ -182,10 +202,7 @@ def _launch(
     # converted operands stay referenced until every launch is enqueued
     ins = [
         x.contiguous(),
-        layers["qkv_proj"].q, layers["qkv_proj"].scale,
-        layers["o_proj"].q, layers["o_proj"].scale,
-        layers["gate_up_proj"].q, layers["gate_up_proj"].scale,
-        layers["down_proj"].q, layers["down_proj"].scale,
+        *(t for k in _FUSED_KEYS for t in _weight(layers[k])),
         f32(layers["input_layernorm"]), f32(layers["post_attention_layernorm"]),
         f32(layers["q_norm"]), f32(layers["k_norm"]), f32(params["norm"]),
         cache.k, cache.v, cache.ks if quant else None, cache.vs if quant else None,
@@ -194,10 +211,10 @@ def _launch(
     if sample:
         if suppress_add.numel() != V or seen.dtype != torch.bool or seen.numel() != B * V:
             raise ValueError("talker_decode_step: suppress_add must be [V], seen bool [B, V]")
-        tail = [head.q, head.scale, f32(suppress_add), seen.contiguous()]
+        tail = [*_weight(head), f32(suppress_add), seen.contiguous()]
     else:
         tail = [None] * 4
-    oqkv = layers["qkv_proj"].q.shape[-1]
+    oqkv = out_dim(layers["qkv_proj"])
     hres = torch.empty(B, H, dtype=torch.bfloat16, device=dev)
     xn = torch.empty(B, H, dtype=torch.bfloat16, device=dev)
     attn = torch.empty(B, NQ * D, dtype=torch.bfloat16, device=dev)
@@ -209,7 +226,7 @@ def _launch(
     inv_t = _f32(1.0 / temperature) if temperature > 0 else 0.0
     rc = _cuda.library().qt_talker_step(
         L, H, NQ, NKV, D, I, V, T, B, offset if single else 0, _cuda.ptr(offs), int(quant),
-        cfg.rms_norm_eps, D**-0.5,
+        int(w_bf16), int(head_bf16), cfg.rms_norm_eps, D**-0.5,
         *(_cuda.ptr(t) for t in ins),
         *(_cuda.ptr(t) for t in rope), 0 if single else D,
         *(_cuda.ptr(t) for t in tail),

@@ -101,6 +101,13 @@ def _generate_and_decode(
     return res.codes, res.n_frames, wav, lengths
 
 
+def _kernel_device(device: torch.device) -> bool:
+    """Whether K1 and K2 serve the decode on ``device`` (CUDA). The load
+    rules of ``from_pretrained`` that choose the kernels' layouts follow it,
+    as the JAX package's follow the TPU."""
+    return device.type == "cuda"
+
+
 def _device(device) -> torch.device:
     """The model's device: CUDA unless another is asked for; CUDA with no
     card present raises."""
@@ -173,7 +180,10 @@ class Qwen3TTSModel:
         ``quantize='int8'`` requantizes the talker and code-predictor
         matmuls to weight-only int8 with fused q/k/v and gate/up (int4
         checkpoints are dequantized first), the layout K1 and K2 serve.
-        ``fuse`` fuses the projections without quantizing.
+        On CUDA an unquantized checkpoint loaded as bf16 (no ``quantize``,
+        not packed) is fused too, talker and CP: K1 and K2 serve it in
+        their dense-bf16 mode. ``fuse`` fuses the projections without
+        quantizing.
         ``kv_cache_dtype='int8'`` stores decode KV caches as int8 with
         per-row scales. ``mesh`` is not ported yet and raises."""
         from .ops.quant import quantize_decode_params_int8
@@ -186,7 +196,8 @@ class Qwen3TTSModel:
         if kv_cache_dtype not in ("bf16", "int8"):
             raise Qwen3TTSError(f"Unsupported kv_cache_dtype: {kv_cache_dtype!r}")
         device = _device(device)
-        if quantize is None and keep_packed is None and device.type == "cuda":
+        kernels = _kernel_device(device)
+        if quantize is None and keep_packed is None and kernels:
             # CUDA takes the JAX package's TPU default: a quantized (MLX
             # affine) checkpoint is dequantized and requantized to int8, which
             # K1 and K2 serve; keep_packed=True stays the low-memory mode. On
@@ -197,9 +208,19 @@ class Qwen3TTSModel:
         if quantize:
             keep_packed = False  # int4 checkpoints: dequantize, then requantize int8
         ckpt = Checkpoint(model_path, dtype, keep_packed=keep_packed, device=device)
-        # int8 fuses talker and CP projections (K1 and K2 take the fused
-        # layout); K1 has no dense-bf16 mode yet, so dense weights stay unfused
-        if fuse or quantize == "int8":
+        # The JAX package's fusion rule (its tts.py:427-443) with CUDA in the
+        # TPU's place: int8 fuses the talker and CP projections, the layout
+        # K1 and K2 read; so does a dense bf16 load on the card (JAX's
+        # ``bf16_kernel_ready``), which K1 and K2 serve in their bf16 mode.
+        # The JAX package fuses only the talker there, as its bf16 CP ran on
+        # XLA; the port's K2 takes the fused bf16 layout, so the CP is fused
+        # too. Other dtypes, packed weights and the CPU stay unfused.
+        q0 = ckpt.talker_params["layers"]["q_proj"]
+        bf16_kernel_ready = (
+            kernels and quantize is None and isinstance(q0, torch.Tensor)
+            and q0.dtype == torch.bfloat16
+        )
+        if fuse or quantize == "int8" or bf16_kernel_ready:
             ckpt.talker_params["layers"] = tk_mod.fuse_layer_projections(
                 ckpt.talker_params["layers"]
             )
@@ -534,9 +555,11 @@ class Qwen3TTSModel:
         than B single-utterance frames. Group g (texts 64 g ...) draws from
         ``seed + g``; the first group is the whole batch up to 64 texts.
 
-        On CUDA the decode runs through K1 and K2, which take the fused int8
-        layout (``from_pretrained(..., quantize='int8')``, the default for a
-        quantized checkpoint): other weights raise ``Qwen3TTSError``.
+        On CUDA the decode runs through K1 and K2, which take either fused
+        layout: int8 (``from_pretrained(..., quantize='int8')``, the default
+        for a quantized checkpoint) or dense bf16 (the default load of an
+        unquantized checkpoint), at 0.6B and 1.7B: other weights (packed,
+        unfused, float32) raise ``Qwen3TTSError``.
 
         Unlike ``generate()``, a sequence that samples EOS on its very first
         frame yields an empty waveform instead of raising (the batch's other
@@ -565,8 +588,9 @@ class Qwen3TTSModel:
             min(B, MAX_BATCH), self.kv_quant,
         ):
             raise Qwen3TTSError(
-                "generate_batch on CUDA runs through K1 and K2, which take the fused int8 "
-                "layout: load with from_pretrained(..., quantize='int8')"
+                "generate_batch on CUDA runs through K1 and K2, which take a fused layout: "
+                "int8 (from_pretrained(..., quantize='int8')) or dense bf16 (the default "
+                "from_pretrained of an unquantized checkpoint with dtype bf16)"
             )
         sampling = self._sampling(temperature, top_k, top_p, repetition_penalty)
         t0 = time.time()

@@ -76,6 +76,36 @@ def read_safetensors(path: str) -> dict[str, np.ndarray]:
     return out
 
 
+_ST_NAMES = {np.dtype(t).name: name for name, t in _ST_DTYPES.items()}
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """Write numpy arrays or torch tensors as one .safetensors file (an
+    8-byte little-endian header length, a JSON header padded to 8 bytes,
+    then the raw buffers): the inverse of :func:`read_safetensors`. A torch
+    bf16 tensor is written as "BF16", the dtype Qwen publishes its
+    checkpoints in (through a 16-bit view: numpy has no bf16)."""
+    arrays, header, offset = {}, {}, 0
+    for k, v in sorted(tensors.items()):
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().contiguous()
+            bf16 = v.dtype == torch.bfloat16
+            a = (v.view(torch.int16) if bf16 else v).numpy()
+        else:
+            bf16, a = False, np.ascontiguousarray(v)
+        header[k] = {"dtype": "BF16" if bf16 else _ST_NAMES[a.dtype.name],
+                     "shape": list(a.shape), "data_offsets": [offset, offset + a.nbytes]}
+        arrays[k] = a
+        offset += a.nbytes
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(len(blob).to_bytes(8, "little"))
+        f.write(blob)
+        for a in arrays.values():
+            f.write(memoryview(a.reshape(-1).view(np.uint8)))
+
+
 def load_safetensors_dir(path: str) -> dict[str, np.ndarray]:
     """Merge every *.safetensors in a directory into one flat dict."""
     tensors: dict[str, np.ndarray] = {}

@@ -11,7 +11,9 @@ Small shapes (head_dim 128 as the kernels need). Bounds as in chip_smoke.py:
 scaled max|a - b| / max(1, max|b|) < 0.05 for K1/K2's bf16 outputs (same
 rounding points, f32 sums in another order), codes equal unless a logit
 near-tie within twice the observed logit error explains the difference;
-K4 (f32 out) <= 1e-4 scaled; K3 (bf16 out) <= 1e-2 scaled.
+K4 (f32 out) <= 1e-4 scaled; K3 (bf16 out) <= 1e-2 scaled. K1 and K2 are
+held so in both weight modes (int8, dense bf16) and K2 also with the
+small-to-MTP projection of a CP narrower than its talker (the 1.7B shape).
 """
 
 import warnings
@@ -468,3 +470,115 @@ def test_step_the_kernels_do_not_take_raises(dev, weights, case):
             tk.forward_batched_step(tp, CFG, x, cache, offs)
     assert tkk.talker_decode_step.launches == n1
     assert not cache.k.any()  # nothing ran
+
+
+CPC_N = C.CodePredictorConfig(  # narrower than the talker: the 1.7B shape, with the projection
+    vocab_size=512, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+    num_attention_heads=16, num_key_value_heads=8, head_dim=128,
+)
+
+
+def _fused(tree, head=None):
+    tree["layers"] = tk.fuse_layer_projections(tree["layers"])
+    return tree if head is None else quantize_decode_params_int8(tree, head)
+
+
+@pytest.fixture(scope="module")
+def bf16_weights(dev):
+    """Dense bf16 fused talker and CP, and the narrow CP (with its
+    projection) in both weight modes."""
+    tp = _fused(hi.to_device(hi.host_init_talker_params(0, CFG), torch.bfloat16, dev))
+    cp = _fused(hi.to_device(hi.host_init_cp_params(1, CPC, 256), torch.bfloat16, dev))
+    narrow = {
+        mode: _fused(hi.to_device(hi.host_init_cp_params(2, CPC_N, 256), torch.bfloat16, dev),
+                     "lm_head" if mode == "int8" else None)
+        for mode in ("int8", "bf16")
+    }
+    return tp, cp, narrow
+
+
+@pytest.mark.parametrize("B,kv_quant", [(1, False), (5, True), (64, False)])
+def test_k1_bf16_matches_plain(dev, bf16_weights, B, kv_quant):
+    """K1 on dense bf16 weights against its plain version: hidden, logits
+    and the new k/v rows within the bf16 bound, greedy code0 equal but for
+    near-ties, one launch per call; the int-offset form at B=1."""
+    tp = bf16_weights[0]
+    assert tkk._layout(tp["layers"]) == "bf16"
+    T = 512 if kv_quant else 128
+    x, cache, offs, cos, sin, supp, seen = _batched_case(dev, B, T, kv_quant, seed=B + 1)
+    off = int(offs[0]) if B == 1 else offs
+    if B == 1:
+        cos, sin, seen = cos[0], sin[0], seen[0]
+    kw = dict(temperature=0.0, top_k=50, rep_penalty=1.05, eos_id=-1, seed=(1, 2),
+              suppress_add=supp, seen=seen, return_logits=True)
+    ck, cr = _clone(cache), _clone(cache)
+    before = tkk.talker_decode_step.launches
+    hk, codek, lk = tkk.talker_decode_step(tp, CFG, x, ck, off, cos, sin, **kw)
+    assert tkk.talker_decode_step.launches == before + 1
+    hr, coder, lr = tkk.talker_decode_step_ref(tp, CFG, x, cr, off, cos, sin, **kw)
+    assert scaled(hk, hr) < 0.05 and scaled(lk, lr) < 0.05
+    rows, pos = torch.arange(B, device=dev), offs.long()
+    for i in range(2):
+        new_a, new_b = ck[i][:, rows, :, pos], cr[i][:, rows, :, pos]
+        if kv_quant:
+            new_a = tk.dequantize_kv(new_a, ck[2 + i][:, rows, :, pos])
+            new_b = tk.dequantize_kv(new_b, cr[2 + i][:, rows, :, pos])
+        assert scaled(new_a, new_b) < 0.05
+    err = float((lk - lr).abs().max())
+    z = (_pen(lr, seen) + supp).reshape(B, -1)
+    for b in range(B):
+        a_, b_ = int(codek.reshape(-1)[b]), int(coder.reshape(-1)[b])
+        assert a_ == b_ or abs(float(z[b, a_] - z[b, b_])) <= 2 * err + 1e-6, b
+
+
+@pytest.mark.parametrize("mode,narrow,B", [("bf16", False, 3), ("bf16", True, 1),
+                                           ("int8", True, 64)])
+def test_k2_bf16_and_projection_match_plain(dev, bf16_weights, mode, narrow, B):
+    """K2 on dense bf16 layers and heads, and with the small-to-MTP
+    projection in both weight modes, against its plain version:
+    teacher-forced greedy logits within the bf16 bound, codes equal but for
+    near-ties, esum (talker width) bit-equal."""
+    tp, cp, narrow_cp = bf16_weights
+    cpc, cpp = (CPC_N, narrow_cp[mode]) if narrow else (CPC, cp)
+    assert ("small_to_mtp_projection" in cpp) == narrow
+    g = torch.Generator(device=dev).manual_seed(B)
+    h = torch.randn(B, 256, generator=g, device=dev).mul(0.3).bfloat16()
+    code0 = torch.randint(0, 2048, (B,), generator=g, device=dev, dtype=torch.int32)
+    cr, er, lr = cpk.predict_codes_fused_ref(cpp, cpc, tp, h, code0, (5, 6), temperature=0.0,
+                                             top_k=50, return_logits=True)
+    before = cpk.predict_codes_fused.launches
+    ck, ek, lk = cpk.predict_codes_fused(cpp, cpc, tp, h, code0, (5, 6), temperature=0.0,
+                                         top_k=50, force_codes=cr, return_logits=True)
+    assert cpk.predict_codes_fused.launches == before + 1
+    assert ek.shape == (B, 256) and scaled(lk, lr) < 0.05
+    assert torch.equal(ek, er)  # the same bf16 rows summed in f32 in the same order
+    err = float((lk - lr).abs().max())
+    lr, ck, cr = lr.reshape(15, B, -1), ck.reshape(B, 15), cr.reshape(B, 15)
+    for b in range(B):
+        for j in range(15):
+            a, c = int(ck[b, j]), int(cr[b, j])
+            assert a == c or abs(float(lr[j, b, a] - lr[j, b, c])) <= 2 * err, (b, j)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_generate_codes_with_projection_runs_on_the_kernels(dev, weights, bf16_weights, mode):
+    """The narrow CP behind the talker, in each weight mode: K1 once per
+    frame after the first, K2 once per frame; no plain CP loop."""
+    tp = weights[0] if mode == "int8" else bf16_weights[0]
+    cpp = bf16_weights[2][mode]
+    assert gen._use_cp_kernel(cpp, CPC_N, CFG, gen.SamplingConfig(), dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    n1, n2 = tkk.talker_decode_step.launches, cpk.predict_codes_fused.launches
+    res = gen.generate_codes(
+        tp, cpp, talker_cfg=CFG, cp_cfg=CPC_N,
+        sampling=gen.SamplingConfig(0.9, 50, 1.0, 1.05, forbid_eos=True),
+        prefill_embeds=torch.randn(1, 64, 256, generator=g, device=dev).mul(0.1).bfloat16(),
+        prefill_len=20, trailing_embeds=torch.zeros(16, 256, dtype=torch.bfloat16, device=dev),
+        trailing_len=4, tts_pad_embed=torch.zeros(256, dtype=torch.bfloat16, device=dev),
+        max_steps=8, max_frames=8, seed=3, cache_len=128,
+    )
+    assert res.n_frames == 8
+    assert tkk.talker_decode_step.launches - n1 == 7
+    assert cpk.predict_codes_fused.launches - n2 == 8
+    codes = res.codes.cpu()
+    assert (codes[:, 0] < 2048).all() and (codes[:, 1:] < CPC_N.vocab_size).all()
