@@ -83,7 +83,23 @@ kernels from csrc/, and runs, in order:
      ``Qwen3TTSModel.generate``: the same launch checks, the headline;
   j. ``generate_batch`` of 8 texts on the bf16 checkpoint and at 1.7B int8
      (one K1 and one K2 per lockstep frame), and one B=64 lockstep cell for
-     each: ms per frame, codec tokens/s.
+     each: ms per frame, codec tokens/s;
+  k. the ``dyn_int8`` mode (per-row int8 activations, s8 x s8 -> s32)
+     against the plain versions, within the bounds of phases 3, a, 4 and b:
+     K1 at 0.6B, B = 1, 8 and 64 on prefilled 128-row bf16 and 512-row int8
+     caches, and at 1.7B, B = 1 and 64; K2 at 0.6B, B = 1 and 64, and at
+     1.7B with its projection (which stays bf16); K2 on unfused int8 layers
+     in both modes at B = 1 and 64; K5's port (ops/cp_kernel_old.py) at B=1
+     in both modes. Each with events and device ms beside the same inputs'
+     ``wo_bf16`` times and the bound (operations over the int8 rate);
+  l. the main path in dyn_int8 (QWEN3TTS_TK_MODE and QWEN3TTS_CPK_MODE set
+     in-process, then restored): ``generate()`` at 0.6B and 1.7B int8 with
+     every K1 and K2 launch counted under dyn_int8 and no plain path; the
+     66-frame headline beside phase 6's, its decode loop in turns with
+     ``wo_bf16``'s; a B=64 lockstep cell in each mode, in turns;
+  m. an unfused int8 CP through ``Qwen3TTSModel(...).generate()``: K2 on
+     every frame with the plain CP loop made to raise; then ``generate()``
+     with K5's port in place of K2's wrapper, one K5 launch per frame.
 
 Any failure raises and exits non-zero. The last lines are the card's name
 and power limit, one JSON object describing the kernels, and
@@ -290,11 +306,12 @@ def main() -> None:
         return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
 
     # the least time the card could take: bytes over the HBM rate, operations
-    # over the bf16 dense tensor rate (H100 SXM data sheet, 700 W)
-    HBM_BYTES_S, PEAK_FLOP_S = 3.35e12, 989e12
+    # over the dense tensor rate of their type, bf16 or (dyn_int8) int8
+    # (H100 SXM data sheet, 700 W)
+    HBM_BYTES_S, PEAK_FLOP_S, PEAK_INT8_OP_S = 3.35e12, 989e12, 1979e12
 
-    def bound(n_bytes, flops):
-        t_b, t_o = n_bytes / HBM_BYTES_S * 1e3, flops / PEAK_FLOP_S * 1e3
+    def bound(n_bytes, flops, peak=PEAK_FLOP_S):
+        t_b, t_o = n_bytes / HBM_BYTES_S * 1e3, flops / peak * 1e3
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
     def nbytes(*ts):
@@ -922,13 +939,17 @@ def main() -> None:
     fused = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
     norms = ("input_layernorm", "post_attention_layernorm", "q_norm", "k_norm")
 
+    def proj_keys(p):
+        """The layer stack's projections: fused, or (a CP) unfused int8."""
+        return fused if "qkv_proj" in p["layers"] else cpk.UNFUSED_KEYS
+
     def stack_ws(p):
-        """The fused projections' operands in either weight mode: int8 with
-        its scales, or dense bf16."""
-        return [t for k in fused for t in tkk._weight(p["layers"][k])]
+        """The projections' operands in either weight mode: int8 with its
+        scales, or dense bf16."""
+        return [t for k in proj_keys(p) for t in tkk._weight(p["layers"][k])]
 
     def stack_elems(p):
-        return sum(tkk._weight(p["layers"][k])[0].numel() for k in fused)
+        return sum(tkk._weight(p["layers"][k])[0].numel() for k in proj_keys(p))
 
     def k1_io(B, prefix_rows, kv_quant, sample, logits=False, p=None, c=cfg):
         """(bytes, flops) of one K1 call on weights ``p`` (int8 or bf16) at
@@ -1391,23 +1412,26 @@ def main() -> None:
         f"{', '.join(f'{m:.3f}' for m in loop_ms)} ms/frame  [{smi}]")
 
     # ==== dense-bf16 weights and the 1.7B model (phases f-j) ====
-    def k1_compare(label, p, c, B, T, kv_quant, lo, hi_, seed, sampled=2, iters=20):
-        """K1 on weights ``p`` at ``c``'s widths against its plain version, B
-        rows at offsets in [lo, hi_) of a T-row cache that p's own prefill
-        wrote (B=1 takes the int-offset form): greedy hidden, logits and new
-        k/v rows within the bf16 bound (0.05 scaled, phases 3 and a), code0
-        equal but for near-ties, then ``sampled`` seeds of sampled code0.
-        Returns the error, the times and the bound."""
+    def k1_compare(label, p, c, B, T, kv_quant, lo, hi_, seed, sampled=2, iters=20,
+                   mode="wo_bf16"):
+        """K1 on weights ``p`` at ``c``'s widths against its plain version, in
+        matmul ``mode``, B rows at offsets in [lo, hi_) of a T-row cache that
+        p's own prefill wrote (B=1 takes the int-offset form): greedy hidden,
+        logits and new k/v rows within the bf16 bound (0.05 scaled, phases 3
+        and a), code0 equal but for near-ties, the non-sample hidden equal to
+        the sample mode's, then ``sampled`` seeds of sampled code0. Returns
+        the error, the times (in dyn_int8 beside the same inputs' wo_bf16
+        times) and the bound."""
         cache, offs, xb, cos_b, sin_b, seen_b = batch_case(B, T, kv_quant, lo, hi_, seed,
                                                            prefill=True, p=p, c=c)
         one = B == 1
         off = int(offs[0]) if one else offs
         args = (cos_b[0], sin_b[0], seen_b[0]) if one else (cos_b, sin_b, seen_b)
 
-        def call(fn, cc, temperature=0.0, seed=(1, 2), logits=True):
+        def call(fn, cc, temperature=0.0, seed=(1, 2), logits=True, mode_=mode):
             out = fn(p, c, xb, cc, off, args[0], args[1], temperature=temperature, top_k=50,
                      rep_penalty=1.05, eos_id=-1, seed=seed, suppress_add=supp, seen=args[2],
-                     return_logits=logits)
+                     return_logits=logits, mode=mode_)
             return tuple(t.reshape(B, -1) for t in out)
 
         ck, cr = clone(cache), clone(cache)
@@ -1424,6 +1448,9 @@ def main() -> None:
             errs[name] = scaled(a, b)
         abs_err = float((lk - lr).abs().max())
         check(max(errs.values()) < 0.05, f"K1 {label} outside the bf16 bound: {errs}")
+        hn = tkk.talker_decode_step(p, c, xb, clone(cache), off, args[0], args[1], sample=False,
+                                    mode=mode)
+        check(torch.equal(hn.reshape(B, -1), hk), f"K1 {label}: the non-sample hidden differs")
         z = pen_b(lr, seen_b) + supp
         flips = 0
         for b in range(B):
@@ -1444,37 +1471,51 @@ def main() -> None:
                     check(sampled_flip_explained(pen_b(lb[b], seen_b[b]) + supp, a_, b_,
                                                  1.05 * float((la[b] - lb[b]).abs().max()), noise),
                           f"K1 {label} sampled code0 row {b} beyond a near-tie")
-        t_k = timed(lambda: call(tkk.talker_decode_step, ck, 0.9, (3, 4), logits=False), iters)
+        def times(mode_):
+            t_k = timed(lambda: call(tkk.talker_decode_step, ck, 0.9, (3, 4), False, mode_), iters)
+            t_d = device_ms(lambda: call(tkk.talker_decode_step, ck, 0.9, (3, 4), False, mode_), 10)
+            return t_k, t_d
+
+        dyn = mode == "dyn_int8"
+        (t_k, t_d), (t_kw, t_dw) = times(mode), times("wo_bf16") if dyn else (None, None)
         t_p = timed(lambda: call(tkk.talker_decode_step_ref, cr, 0.9, (3, 4), logits=False), 2)
-        t_d = device_ms(lambda: call(tkk.talker_decode_step, ck, 0.9, (3, 4), logits=False), 10)
-        bnd = bound(*k1_io(B, int(offs.sum()), kv_quant, True, p=p, c=c))
+        bnd = bound(*k1_io(B, int(offs.sum()), kv_quant, True, p=p, c=c),
+                    PEAK_INT8_OP_S if dyn else PEAK_FLOP_S)
         log(f"    K1 {label}, {'int8' if kv_quant else 'bf16'} cache of {T} (offsets "
             f"{int(offs.min())}..{int(offs.max())}): scaled err " + ", ".join(
                 f"{k} {v:.3g}" for k, v in errs.items()) + f" (logits max abs {abs_err:.3g}); "
             f"greedy code0 {B - flips}/{B} equal; sampled {sampled} seeds: {sampled * B - mism}/"
             f"{sampled * B} equal, {mism} near-ties; {t_k:.3f} ms/step back to back, device "
-            f"{t_d:.3f}, bound {bnd[0]:.3f} ({bnd[1]}), plain {t_p:.3f}  [{smi}]")
+            f"{t_d:.3f}" + (f" (wo_bf16 on the same inputs: {t_kw:.3f}, device {t_dw:.3f})"
+                            if dyn else "")
+            + f", bound {bnd[0]:.3f} ({bnd[1]}), plain {t_p:.3f}  [{smi}]")
         del cache, ck, cr
-        return dict(abs=abs_err, ms=t_k, plain_ms=t_p, dev_ms=t_d, bound=bnd)
+        return dict(abs=abs_err, ms=t_k, plain_ms=t_p, dev_ms=t_d, bound=bnd, wo_ms=t_kw,
+                    wo_dev_ms=t_dw)
 
-    def k2_compare(label, p, c, tp_, B, seed, iters=10):
-        """K2 on CP weights ``p`` (with the projection where ``c`` is narrower
-        than the talker ``tp_``) against its plain version at B rows:
+    def k2_compare(label, p, c, tp_, B, seed, iters=10, mode="wo_bf16", fn=None):
+        """K2 (or ``fn``, the wrapper of K5's port) on CP weights ``p`` (with
+        the projection where ``c`` is narrower than the talker ``tp_``)
+        against its plain version at B rows, in matmul ``mode``:
         teacher-forced greedy logits within the bound of phases 4 and b
         (0.05 scaled), esum (talker width) bit-equal, codes equal but for
-        near-ties; then one sampled seed."""
+        near-ties; then one sampled seed. In dyn_int8 the times stand beside
+        the same inputs' wo_bf16 times."""
+        fn = fn or cpk.predict_codes_fused
         th = tp_["codec_embedding"].shape[-1]
         gb = torch.Generator(device=dev).manual_seed(seed)
         hb = torch.randn(B, th, generator=gb, device=dev).mul(0.3).to(torch.bfloat16)
         c0b = torch.randint(0, 2048, (B,), generator=gb, device=dev, dtype=torch.int32)
 
-        def call(fn, temperature, seed_, **kw):
-            out = fn(p, c, tp_, hb, c0b, seed_, temperature=temperature, top_k=50, **kw)
+        def call(fn_, temperature, seed_, mode_=mode, **kw):
+            out = fn_(p, c, tp_, hb, c0b, seed_, temperature=temperature, top_k=50, mode=mode_,
+                      **kw)
             return (out[0], out[1], out[2].reshape(15, B, -1)) if len(out) == 3 else out
 
         cr_, er_, lr_ = call(cpk.predict_codes_fused_ref, 0.0, (5, 6), return_logits=True)
-        ck_, ek_, lk_ = call(cpk.predict_codes_fused, 0.0, (5, 6), force_codes=cr_,
-                             return_logits=True)
+        n_fn = fn.launches
+        ck_, ek_, lk_ = call(fn, 0.0, (5, 6), force_codes=cr_, return_logits=True)
+        check(fn.launches == n_fn + 1, f"K2 {label}: the wrapper did not launch its kernel")
         torch.cuda.synchronize()
         abs_err, err_lg = float((lk_ - lr_).abs().max()), scaled(lk_, lr_)
         check(err_lg < 0.05, f"K2 {label} logits outside the bound")
@@ -1487,7 +1528,7 @@ def main() -> None:
                     flips += 1
                     check(near_tie(lr_[j, b], a_, c_, abs_err), f"K2 {label} code ({b}, {j}) beyond a near-tie")
         seed_s = (9000 + B, 7)
-        ca, _, la = call(cpk.predict_codes_fused, 0.9, seed_s, return_logits=True)
+        ca, _, la = call(fn, 0.9, seed_s, return_logits=True)
         cb_, _, lb = call(cpk.predict_codes_fused_ref, 0.9, seed_s, return_logits=True)
         mism = 0
         for b in range(B):
@@ -1499,16 +1540,22 @@ def main() -> None:
                 check(sampled_flip_explained(lb[j, b], int(ca[b, j]), int(cb_[b, j]),
                                              float((la[j, b] - lb[j, b]).abs().max()), noise),
                       f"K2 {label} sampled code ({b}, {j}) beyond a near-tie")
-        t_k = timed(lambda: call(cpk.predict_codes_fused, 0.9, (3, 4)), iters)
+        def times(mode_):
+            return (timed(lambda: call(fn, 0.9, (3, 4), mode_), iters),
+                    device_ms(lambda: call(fn, 0.9, (3, 4), mode_), 5))
+
+        dyn = mode == "dyn_int8"
+        (t_k, t_d), (t_kw, t_dw) = times(mode), times("wo_bf16") if dyn else (None, None)
         t_p = timed(lambda: call(cpk.predict_codes_fused_ref, 0.9, (3, 4)), 1)
-        t_d = device_ms(lambda: call(cpk.predict_codes_fused, 0.9, (3, 4)), 5)
-        bnd = bound(*k2_io(B, p, c, th))
+        bnd = bound(*k2_io(B, p, c, th), PEAK_INT8_OP_S if dyn else PEAK_FLOP_S)
         log(f"    K2 {label}: teacher-forced scaled logits err {err_lg:.3g} (max abs {abs_err:.3g}), "
             f"esum bit-equal, codes {15 * B - flips}/{15 * B} equal; sampled: {B - mism}/{B} rows "
-            f"equal, {mism} near-ties; {t_k:.3f} ms/frame back to back, device {t_d:.3f}, bound "
-            f"{bnd[0]:.3f} ({bnd[1]}; the re-read design: {k2_reread(p) / HBM_BYTES_S * 1e3:.3f}), "
-            f"plain {t_p:.3f}  [{smi}]")
-        return dict(abs=abs_err, ms=t_k, plain_ms=t_p, dev_ms=t_d, bound=bnd)
+            f"equal, {mism} near-ties; {t_k:.3f} ms/frame back to back, device {t_d:.3f}"
+            + (f" (wo_bf16 on the same inputs: {t_kw:.3f}, device {t_dw:.3f})" if dyn else "")
+            + f", bound {bnd[0]:.3f} ({bnd[1]}; the re-read design: "
+            f"{k2_reread(p) / HBM_BYTES_S * 1e3:.3f}), plain {t_p:.3f}  [{smi}]")
+        return dict(abs=abs_err, ms=t_k, plain_ms=t_p, dev_ms=t_d, bound=bnd, wo_ms=t_kw,
+                    wo_dev_ms=t_dw)
 
     # ---- f. K1 in bf16 mode against its plain version at 0.6B ----
     check(tkk._layout(talker_b["layers"]) == "bf16" and tkk._layout(cp_b["layers"]) == "bf16",
@@ -1727,6 +1774,179 @@ def main() -> None:
         log(f"    B=64, 128-slot bf16 cache, {label}: {grid_j[label]['ms']:.2f} ms/lockstep frame, "
             f"{grid_j[label]['tok_s']:.0f} codec tokens/s (walls "
             f"{', '.join(f'{r[0]:.3f}' for r in runs)} s)  [{smi}]")
+
+    # ==== dyn_int8, unfused int8 CP layers, K5 (phases k-m) ====
+    from qwen3tts_tpu_torch.ops import cp_kernel_old as cpk_old
+
+    # the 0.6B CP's int8 layers unfused (q/k/v and gate/up apart), from the
+    # seed of cp_p's trees
+    cp_u = quantize_decode_params_int8(hi.to_device(
+        hi.host_init_cp_params(1, cpc, H), torch.bfloat16, dev), "lm_head")
+    check(cpk.cp_layout(cp_u["layers"]) == "int8" and "q_proj" in cp_u["layers"],
+          "the unfused CP tree is not unfused int8")
+
+    # ---- k. K1 and K2 in dyn_int8, K2 unfused, K5: against the plain versions ----
+    log("[k] dyn_int8 (per-row int8 activations, s8 x s8 -> s32) against the plain versions")
+    k1k, k2k = {}, {}
+    for B in (1, 8, 64):
+        for kv_quant, T, lo, hi_ in ((False, 256 if B == 1 else 128, 40 if B == 1 else 20,
+                                      41 if B == 1 else 120), (True, 512, 100, 500)):
+            k1k[(B, kv_quant)] = k1_compare(f"dyn_int8 0.6B B={B}", talker_p, cfg, B, T, kv_quant,
+                                            lo, hi_, 700 + B, sampled=1 if B > 1 else 2,
+                                            iters=20 if B == 1 else 10, mode="dyn_int8")
+    def device_kernels(fn):
+        """Device activities (kernels, copies, memsets) of one call of fn."""
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):  # a window now and then records no device events
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            n_ = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+            if n_:
+                return n_
+        raise RuntimeError("the profiler recorded no device events in three windows")
+
+    # the amax of each activation row comes from the kernel that writes the
+    # row: dyn_int8 adds no launch to a K1 step or a K2 frame
+    c3 = tk.KVCache(cache0.k.clone(), cache0.v.clone())  # phase 3's prefilled cache
+    per_call = {m: (device_kernels(lambda: k1(tkk.talker_decode_step, c3, 0.9, (3, 4), mode=m)),
+                    device_kernels(lambda: k2(cpk.predict_codes_fused, 0.9, (3, 4), mode=m)))
+                for m in ("wo_bf16", "dyn_int8")}
+    log(f"    device activities per call, K1 B=1 / K2 B=1: wo_bf16 {per_call['wo_bf16']}, "
+        f"dyn_int8 {per_call['dyn_int8']}")
+    check(per_call["dyn_int8"] == per_call["wo_bf16"], "dyn_int8 changed the launches per call")
+    del c3
+    for B in (1, 64):
+        k1k[("1.7B", B)] = k1_compare(f"dyn_int8 1.7B B={B}", trees17[2], cfg17, B,
+                                      256 if B == 1 else 128, False, 40 if B == 1 else 20,
+                                      41 if B == 1 else 120, 800 + B, sampled=1, iters=10,
+                                      mode="dyn_int8")
+    for B in (1, 64):
+        k2k[("0.6B", B)] = k2_compare(f"dyn_int8 0.6B B={B}", cp_p, cpc, talker_p, B, 900 + B,
+                                      mode="dyn_int8")
+    k2k[("1.7B", 1)] = k2_compare("dyn_int8 1.7B (projection stays bf16) B=1", trees17[3], cpc17,
+                                  trees17[2], 1, 950, mode="dyn_int8")
+    for mode in ("wo_bf16", "dyn_int8"):
+        for B in (1, 64):
+            k2k[("unfused", mode, B)] = k2_compare(f"unfused int8 layers, {mode}, B={B}", cp_u, cpc,
+                                                   talker_p, B, 960 + B, mode=mode)
+    for mode in ("wo_bf16", "dyn_int8"):
+        k2k[("K5", mode)] = k2_compare(f"K5 (ops/cp_kernel_old.py), {mode}, B=1", cp_p, cpc,
+                                       talker_p, 1, 990, mode=mode, fn=cpk_old.predict_codes_fused)
+
+    # ---- l. the main path in dyn_int8: both variables set in-process ----
+    modes_k1, modes_k2 = tkk.talker_decode_step.mode_launches, cpk.predict_codes_fused.mode_launches
+
+    def reset_modes():
+        reset_counts()
+        for d in (modes_k1, modes_k2):
+            for k in d:
+                d[k] = 0
+
+    saved_env = {v: os.environ.get(v) for v in ("QWEN3TTS_TK_MODE", "QWEN3TTS_CPK_MODE")}
+
+    def set_modes(mode):
+        for v in saved_env:
+            os.environ[v] = mode
+
+    def mode_check(label, n, cap):
+        """path_check's launches and no plain path, every launch in dyn_int8."""
+        n1_, n2_ = path_check(label, n, cap)
+        check(modes_k1 == {"wo_bf16": 0, "bf16": 0, "dyn_int8": n1_}
+              and modes_k2 == {"wo_bf16": 0, "bf16": 0, "dyn_int8": n2_},
+              f"{label}: launches by mode K1 {modes_k1}, K2 {modes_k2}")
+        return n1_, n2_
+
+    set_modes("dyn_int8")
+    try:
+        text_l = "Hello from the H100 port of the talker."  # phase 5's text
+        reset_modes()
+        wav_l, info_l = model.generate(text_l, speaker="aiden", language="english", seed=0,
+                                       return_info=True)
+        log("[l] the main path in dyn_int8 (QWEN3TTS_TK_MODE = QWEN3TTS_CPK_MODE = dyn_int8):")
+        path_l = mode_check("generate() at 0.6B int8", info_l.generation_token_count, max_steps)
+        check(bool(np.isfinite(wav_l).all()) and len(wav_l) % 1920 == 0
+              and 0 < len(wav_l) <= info_l.generation_token_count * 1920, "dyn_int8 waveform")
+        # the 66-frame headline, its decode loop in turns with wo_bf16's
+        e2e(0)
+        walls_l = [e2e(s_)[0] for s_ in (1, 2, 3)]
+        loop_l = {}
+        for mode in ("dyn_int8", "wo_bf16", "dyn_int8", "wo_bf16"):
+            set_modes(mode)
+            loop_l.setdefault(mode, []).append(decode_ms(False))
+        set_modes("dyn_int8")
+        wall_l = statistics.median(walls_l)
+        log(f"    0.6B int8 headline in dyn_int8: wall {wall_l:.3f} s (runs "
+            f"{', '.join(f'{w:.3f}' for w in walls_l)}), RTF {wall_l / (frames / 12.5):.4f} "
+            f"against phase 6's {rtf:.4f}; decode loop dyn_int8 "
+            f"{', '.join(f'{m:.2f}' for m in loop_l['dyn_int8'])} ms/frame, wo_bf16 "
+            f"{', '.join(f'{m:.2f}' for m in loop_l['wo_bf16'])} (in turns)  [{smi}]")
+        reset_modes()
+        wav_l17, info_l17 = m17["int8"].generate(text_i, speaker="aiden", language="english",
+                                                 seed=0, return_info=True)
+        path_l17 = mode_check("generate() at 1.7B int8", info_l17.generation_token_count,
+                              m17["int8"]._effective_max_tokens(text_i, 2048))
+        check(bool(np.isfinite(wav_l17).all()) and len(wav_l17) > 0, "1.7B dyn_int8 waveform")
+        # one B=64 lockstep cell (128-slot bf16 cache) in each mode, in turns
+        cell_l = {}
+        for mode in ("dyn_int8", "wo_bf16", "dyn_int8", "wo_bf16"):
+            set_modes(mode)
+            batch_run(64, False, 128, 0)  # warm-up
+            reset_modes()
+            runs = [batch_run(64, False, 128, s_) for s_ in (1, 2)]
+            want = {m: (0, 0) for m in modes_k1}
+            want[mode] = (2 * (frames - 1), 2 * frames)
+            check({m: (modes_k1[m], modes_k2[m]) for m in modes_k1} == want,
+                  f"B=64 {mode}: launches by mode K1 {modes_k1}, K2 {modes_k2}")
+            wall_b = statistics.median(r[0] for r in runs)
+            cell_l.setdefault(mode, []).append(dict(
+                ms=statistics.median(r[1] for r in runs), tok_s=64 * 16 * frames / wall_b,
+                launches=(modes_k1[mode] // 2, modes_k2[mode] // 2)))
+        for mode, cells in cell_l.items():
+            log(f"    B=64 lockstep cell, 128-slot bf16 cache, 0.6B int8, {mode}: "
+                + ", ".join(f"{c_['ms']:.2f} ms/frame ({c_['tok_s']:.0f} codec tokens/s)"
+                            for c_ in cells) + f"  [{smi}]")
+    finally:
+        for v, val in saved_env.items():
+            if val is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = val
+
+    # ---- m. an unfused int8 CP through Qwen3TTSModel(...).generate() ----
+    # K2 on every frame, the plain CP loop never (it raises here); then the
+    # same with K5's port serving the CP, the module the older TPU layout
+    # maps to, in place of K2's wrapper
+    def no_plain_cp(*a, **k):
+        raise AssertionError("the plain CP loop ran on the card")
+
+    cpm_mod.predict_codes = no_plain_cp
+    mu = Qwen3TTSModel(
+        C.ModelConfig(talker_config=cfg, tts_model_type="custom_voice", tts_model_size="0b6"),
+        talker_p, cp_u, voc_p, tokenizer_config=C.TokenizerConfig(decoder_config=dec_cfg),
+        tokenizer=StubTokenizer(cfg.text_vocab_size), dtype=torch.bfloat16, device=dev)
+    reset_modes()
+    wav_m, info_m = mu.generate(text_l, speaker="aiden", language="english", seed=0,
+                                return_info=True)
+    log("[m] an unfused int8 code predictor (q/k/v, gate/up apart) through generate():")
+    path_m = path_check("generate() with the unfused CP", info_m.generation_token_count, max_steps)
+    check(modes_k2["wo_bf16"] == path_m[1], f"unfused CP: K2 launches by mode {modes_k2}")
+    check(bool(np.isfinite(wav_m).all()) and len(wav_m) > 0, "unfused CP waveform")
+    reset_modes()
+    cpk_old.predict_codes_fused.launches = 0
+    k2_entry = cpk.predict_codes_fused
+    cpk.predict_codes_fused = cpk_old.predict_codes_fused
+    try:
+        wav_m5, info_m5 = model.generate(text_l, speaker="aiden", language="english", seed=0,
+                                         return_info=True)
+        n5, k5_launches = info_m5.generation_token_count, cpk_old.predict_codes_fused.launches
+    finally:
+        cpk.predict_codes_fused = k2_entry
+    log(f"    generate() with K5's port serving the CP: {n5} frames, K5 launches {k5_launches}, "
+        f"K1 {tkk.talker_decode_step.launches}")
+    check(k5_launches == n5 and k2_entry.launches == 0 and bool(np.isfinite(wav_m5).all()),
+          f"K5's port: {k5_launches} launches for {n5} frames")
     tk._attend, cpm_mod.predict_codes, gen.sample_token_inner = real_attend, real_pc, real_samp
     del bm, m17
     bf16_tmp.cleanup()
@@ -1789,6 +2009,20 @@ def main() -> None:
               path_i["bf16"][1]),
         entry("predict_codes_fused (1.7B projection, int8, B=64)", "K2", k2g[("int8 1.7B", 64)],
               j_17["launches"][1]),
+    ]
+    dyn64 = cell_l["dyn_int8"][0]["launches"]
+    kernels += [
+        entry("talker_decode_step (dyn_int8, B=1)", "K1", k1k[(1, False)], path_l[0]),
+        entry("talker_decode_step (dyn_int8, B=64)", "K1", k1k[(64, False)], dyn64[0]),
+        entry("talker_decode_step (1.7B dyn_int8, B=1)", "K1", k1k[("1.7B", 1)], path_l17[0]),
+        entry("predict_codes_fused (dyn_int8, B=1)", "K2", k2k[("0.6B", 1)], path_l[1]),
+        entry("predict_codes_fused (dyn_int8, B=64)", "K2", k2k[("0.6B", 64)], dyn64[1]),
+        entry("predict_codes_fused (1.7B dyn_int8, B=1)", "K2", k2k[("1.7B", 1)], path_l17[1]),
+        entry("predict_codes_fused (unfused int8 layers, B=1)", "K2",
+              k2k[("unfused", "wo_bf16", 1)], path_m[1]),
+        dict(entry("predict_codes_fused (K5's port, ops/cp_kernel_old.py, B=1)", "K2",
+                   k2k[("K5", "wo_bf16")], k5_launches),
+             replaces="qwen3tts_tpu/ops/cp_kernel_old.py:598"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

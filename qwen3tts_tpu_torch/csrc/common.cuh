@@ -24,6 +24,36 @@
 // the bytes); at B = 64 a 0.6B talker step is ~57 GFLOP, ~0.85 ms of FMA at
 // the card's f32 peak against a ~0.13 ms memory floor, so tensor cores are
 // the later step.
+//
+// dyn_int8 (the TPU kernels' ``dyn_int8`` mode, int8 weights only): each
+// activation row x is quantized with its own scale s = max(amax(|x|) *
+// f32(1/127), 1e-12), xq = round_half_even(x / s) (an IEEE divide), and the
+// GEMV sums xq[k] * W[k, o] exactly in int32 with ``__dp4a`` (4 multiply-adds
+// per instruction, no widening of the weights): ``gemv_partial_dq`` at B=1,
+// ``gemv_batched_dq`` at B>1. Their split partials are int32 too and the
+// finishing kernels sum them in int32 before the one conversion to f32, as a
+// 6144-deep row reaches 6144 x 127 x 127 > 2^24. The finishing kernels then
+// scale: f32(acc) * (s * scale[o]) (layers, rounded to bf16, and the talker's
+// codec head), or (f32(acc) * s) * scale[o] (the code predictor's heads).
+// W is [K, O] row-major, so the 4 K-consecutive weights of one dp4a word lie
+// O bytes apart: a thread loads 16 columns of 4 rows (4 x 16 bytes) and
+// transposes them with byte permutes into 16 words.
+//
+// Where s comes from: the kernel that writes the activation row also writes
+// its amax (``amax`` slots, [3][B] f32: the normed input, the attention
+// output, the SwiGLU output), so no launch is added, not even a memset. The
+// row-owning kernels (``rms_copy``, ``finish_residual_norm``: one block per
+// row) write slot 0 and clear the row's slots 1 and 2; the attention (a
+// block per kv head) and SwiGLU (a block per 256 columns) take an
+// ``atomicMax`` over the float bits (amax >= 0) into slot 1 or 2, which the
+// next row-owning kernel reads and clears. A GEMV quantizes x while staging
+// it (each block its own rows); the finishing kernel recomputes s from the
+// same amax. The first kernel of a call is row-owning, so the slots need no
+// initial value.
+//
+// Unfused weights (the code predictor's q/k/v and gate/up as separate
+// matrices) are a ``Mat`` of up to three column segments written side by
+// side, so one GEMV launch and the same finishing kernels serve them.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -57,12 +87,16 @@ constexpr int BG_COLS = 128;                // batched GEMV: columns per block, 
 constexpr int BG_ROWS = 128;                // batched GEMV: weight rows staged per pass
 constexpr int BG_XS = BG_ROWS + 2;          // x row stride in shared memory (odd words: no conflicts)
 constexpr int BG_SMEM = 64 * 1024;          // batched GEMV: dynamic shared memory per block
+constexpr int BGQ_XS = BG_ROWS / 4 + 1;     // dyn_int8: x row stride in words of 4 int8
+constexpr int AMAX_SLOTS = 3;               // dyn_int8: amax of the normed input, attention, SwiGLU
+constexpr int MAX_SEGS = 3;                 // column segments of one unfused weight
 constexpr int SAMPLE_THREADS = 1024;
 constexpr int SAMPLE_PER_THREAD = 4;        // vocabularies up to 4096
 constexpr float NEG_BIG = -1e30f;
 
 // the staged tile of the wider weight type (bf16) and x
 static_assert(BG_ROWS * BG_COLS * 2 + MAX_BATCH * BG_XS * 2 <= BG_SMEM, "batched GEMV staging");
+static_assert(BG_ROWS * BG_COLS + MAX_BATCH * BGQ_XS * 4 <= BG_SMEM, "dyn_int8 GEMV staging");
 static_assert(16 * 8 * BG_COLS * 4 <= BG_SMEM, "batched GEMV reduction");
 
 __device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
@@ -70,6 +104,24 @@ __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 // round an f32 value to bf16 and back (a bf16 "store" kept in a register)
 __device__ __forceinline__ float rbf(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+// dyn_int8: a row's activation scale from its amax, and one quantized value
+// (f32 multiply by the f32 constant, IEEE divide, round half to even)
+__device__ __forceinline__ float act_scale(float amax) {
+  return fmaxf(__fmul_rn(amax, 1.0f / 127.0f), 1e-12f);
+}
+__device__ __forceinline__ uint32_t quant_act(float x, float s) {
+  return (uint32_t)(uint8_t)(int8_t)__float2int_rn(__fdiv_rn(x, s));
+}
+// 4 consecutive activations quantized into one dp4a word (x[0] in byte 0)
+__device__ __forceinline__ int pack4(const bf16* x, float s) {
+  return (int)(quant_act(bf(x[0]), s) | quant_act(bf(x[1]), s) << 8 |
+               quant_act(bf(x[2]), s) << 16 | quant_act(bf(x[3]), s) << 24);
+}
+// max into a slot of non-negative floats (their bits order as ints)
+__device__ __forceinline__ void atomic_amax(float* slot, float v) {
+  atomicMax(reinterpret_cast<int*>(slot), __float_as_int(v));
+}
 
 // Block-wide reductions; every thread gets the result. red: 32 floats of
 // shared memory. blockDim.x must be a multiple of 32.
@@ -80,6 +132,83 @@ __device__ float block_sum(float v, float* red) {
   if (lane == 0) red[w] = v;
   __syncthreads();
   return warp_sum(lane < nw ? red[lane] : 0.f);
+}
+
+__device__ float block_max(float v, float* red) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  v = warp_max(v);
+  __syncthreads();
+  if (lane == 0) red[w] = v;
+  __syncthreads();
+  return warp_max(lane < nw ? red[lane] : 0.f);
+}
+
+// A weight operand [I, O]: int8 with f32 per-column scales, or dense bf16
+// (``wbf16``, no scales), in up to MAX_SEGS column segments: segment i holds
+// output columns [end[i-1], end[i]) as its own row-major matrix of that
+// width with its own scales (unfused q/k/v, gate/up). A fused weight is one
+// segment. Segment widths are multiples of 16, so the columns of one
+// 16-byte load lie in one segment.
+struct Mat {
+  const void* w[MAX_SEGS];
+  const float* s[MAX_SEGS];
+  int end[MAX_SEGS];
+  int n;
+  bool wbf16;
+};
+
+__host__ __device__ inline Mat mat(bool wbf16) {
+  Mat m = {};
+  m.wbf16 = wbf16;
+  return m;
+}
+
+// Append layer l's slice of a stacked weight [L, in, width] (and its scales
+// [L, width]) as the next segment.
+inline void add_seg(Mat& m, const void* w, const void* s, int l, int in, int width) {
+  const int i = m.n++;
+  const size_t esz = m.wbf16 ? 2 : 1;
+  m.w[i] = (const char*)w + (size_t)l * in * width * esz;
+  m.s[i] = m.wbf16 ? nullptr : (const float*)s + (size_t)l * width;
+  m.end[i] = (i ? m.end[i - 1] : 0) + width;
+}
+
+__device__ __forceinline__ int seg_of(const Mat& m, int c) {
+  return (m.n > 1 && c >= m.end[0]) + (m.n > 2 && c >= m.end[1]);
+}
+__device__ __forceinline__ int seg_start(const Mat& m, int i) {
+  return i == 0 ? 0 : i == 1 ? m.end[0] : m.end[1];
+}
+
+// Row 0 of output column c's weights, and the row stride (its segment's width)
+template <typename W>
+__device__ __forceinline__ const W* wcol(const Mat& m, int c, int& ld) {
+  const int i = seg_of(m, c), c0 = seg_start(m, i);
+  ld = (i == 0 ? m.end[0] : i == 1 ? m.end[1] : m.end[2]) - c0;
+  return (const W*)(i == 0 ? m.w[0] : i == 1 ? m.w[1] : m.w[2]) + (c - c0);
+}
+
+__device__ __forceinline__ float col_scale(const Mat& m, int c) {
+  const int i = seg_of(m, c);
+  return (i == 0 ? m.s[0] : i == 1 ? m.s[1] : m.s[2])[c - seg_start(m, i)];
+}
+
+// Four rows of 16 int8 columns (w[k]: row k's 16 bytes) as 16 words, word j
+// holding column j's 4 weights in row order (the dp4a operand).
+__device__ __forceinline__ void transpose_4x16(const int4 (&w)[4], int (&cols)[16]) {
+  const int* a = reinterpret_cast<const int*>(&w[0]);
+  const int* b = reinterpret_cast<const int*>(&w[1]);
+  const int* c = reinterpret_cast<const int*>(&w[2]);
+  const int* d = reinterpret_cast<const int*>(&w[3]);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {  // word k of a row: columns 4k..4k+3
+    const uint32_t t0 = __byte_perm(a[k], b[k], 0x5140), t1 = __byte_perm(a[k], b[k], 0x7362);
+    const uint32_t u0 = __byte_perm(c[k], d[k], 0x5140), u1 = __byte_perm(c[k], d[k], 0x7362);
+    cols[4 * k + 0] = (int)__byte_perm(t0, u0, 0x5410);
+    cols[4 * k + 1] = (int)__byte_perm(t0, u0, 0x7632);
+    cols[4 * k + 2] = (int)__byte_perm(t1, u1, 0x5410);
+    cols[4 * k + 3] = (int)__byte_perm(t1, u1, 0x7632);
+  }
 }
 
 // The counter-based generator (decode_blocks.py ``_mix``/``stream_key``).
@@ -109,7 +238,7 @@ constexpr uint32_t STREAMS_PER_ROW = 16;
 // ---------------------------------------------------------------------------
 template <typename W>
 __global__ void __launch_bounds__(GEMV_THREADS)
-gemv_partial(const W* __restrict__ Wm, const bf16* __restrict__ x, float* __restrict__ part,
+gemv_partial(const Mat m, const bf16* __restrict__ x, float* __restrict__ part,
              int I, int O, int rows_per_split) {
   constexpr int EPL = 16 / sizeof(W);  // weights per 16-byte load
   constexpr int COLS = 32 * EPL;       // columns per block
@@ -121,9 +250,11 @@ gemv_partial(const W* __restrict__ Wm, const bf16* __restrict__ x, float* __rest
 #pragma unroll
   for (int j = 0; j < EPL; ++j) acc[j] = 0.f;
   if (col < O) {
+    int ld;
+    const W* wc = wcol<W>(m, col, ld);
 #pragma unroll 4
     for (int r = r0 + warp; r < r1; r += GEMV_THREADS / 32) {
-      const int4 w = __ldg(reinterpret_cast<const int4*>(Wm + (size_t)r * O + col));
+      const int4 w = __ldg(reinterpret_cast<const int4*>(wc + (size_t)r * ld));
       const float xv = bf(x[r]);
       const W* wb = reinterpret_cast<const W*>(&w);
 #pragma unroll
@@ -176,7 +307,7 @@ __device__ __forceinline__ void load8(const bf16* p, float* w) {
 // ---------------------------------------------------------------------------
 template <typename W>
 __global__ void __launch_bounds__(GEMV_THREADS)
-gemv_batched(const W* __restrict__ Wm, const bf16* __restrict__ x, int B,
+gemv_batched(const Mat m, const bf16* __restrict__ x, int B,
              float* __restrict__ part, int I, int O, int rows_per_split) {
   constexpr int EPL = 16 / sizeof(W);  // weights per 16-byte load
   extern __shared__ __align__(16) unsigned char bg_smem[];
@@ -202,7 +333,10 @@ gemv_batched(const W* __restrict__ Wm, const bf16* __restrict__ x, int B,
       const int r = i / (BG_COLS / EPL), ch = i % (BG_COLS / EPL);
       const int c = c0 + ch * EPL;
       int4 w = make_int4(0, 0, 0, 0);
-      if (c < O) w = __ldg(reinterpret_cast<const int4*>(Wm + (size_t)(rc + r) * O + c));
+      if (c < O) {
+        int ld;
+        w = __ldg(reinterpret_cast<const int4*>(wcol<W>(m, c, ld) + (size_t)(rc + r) * ld));
+      }
       *reinterpret_cast<int4*>(ws + r * BG_COLS + ch * EPL) = w;
     }
     for (int i = tid; i < B * nr; i += GEMV_THREADS) {
@@ -241,6 +375,154 @@ gemv_batched(const W* __restrict__ Wm, const bf16* __restrict__ x, int B,
   }
 }
 
+// ---------------------------------------------------------------------------
+// dyn_int8 GEMV at B=1, first pass: part[split, o] = the int32 sum over
+// this split's rows r of xq[r] * W[r, o], W int8, xq = x quantized with the
+// row's scale (``act_scale(amax[0])``). The block first quantizes its split
+// of x into shared memory (words of 4 rows); then a thread takes 16
+// neighbouring columns (a block 512) and each warp every 8th group of 4
+// rows: 4 x 16-byte loads, a byte transpose, 16 ``__dp4a``. Grid
+// (ceil(O / 512), splits); rows_per_split and I multiples of 4; dynamic
+// shared memory rows_per_split bytes.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(GEMV_THREADS)
+gemv_partial_dq(const Mat m, const bf16* __restrict__ x, const float* __restrict__ amax,
+                int* __restrict__ part, int I, int O, int rows_per_split) {
+  constexpr int COLS = 32 * 16, NW = GEMV_THREADS / 32;
+  extern __shared__ int xq4[];  // [rows_per_split / 4]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int col = blockIdx.x * COLS + lane * 16;
+  const int r0 = blockIdx.y * rows_per_split;
+  const int ng = (min(I, r0 + rows_per_split) - r0) / 4;
+  const float s = act_scale(amax[0]);
+  for (int g = threadIdx.x; g < ng; g += GEMV_THREADS) xq4[g] = pack4(x + r0 + 4 * g, s);
+  __syncthreads();
+  int acc[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) acc[j] = 0;
+  if (col < O) {
+    int ld;
+    const int8_t* wc = wcol<int8_t>(m, col, ld) + (size_t)r0 * ld;
+#pragma unroll 2
+    for (int g = warp; g < ng; g += NW) {
+      const int8_t* p = wc + (size_t)(4 * g) * ld;
+      int4 w[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) w[k] = __ldg(reinterpret_cast<const int4*>(p + (size_t)k * ld));
+      int cols[16];
+      transpose_4x16(w, cols);
+      const int xw = xq4[g];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) acc[j] = __dp4a(cols[j], xw, acc[j]);
+    }
+  }
+  __shared__ int red[NW][16][32];  // [warp][j][lane]
+#pragma unroll
+  for (int j = 0; j < 16; ++j) red[warp][j][lane] = acc[j];
+  __syncthreads();
+#pragma unroll
+  for (int jj = 0; jj < 16 / NW; ++jj) {
+    const int j = warp + jj * NW;
+    int t = 0;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) t += red[w][j][lane];
+    const int c = blockIdx.x * COLS + lane * 16 + j;
+    if (c < O) part[(size_t)blockIdx.y * O + c] = t;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dyn_int8 GEMV at B>1, first pass: part[split, b, o] = the int32 sum over
+// this split's rows r of xq[b, r] * W[r, o], W int8, xq = x quantized with
+// row b's scale. The blocking of ``gemv_batched``: a block owns 128 columns
+// and one split of the rows, in passes of 128 rows; it stages the weight
+// tile transposed into dp4a words ([32 row groups][128 columns] of 4 int8,
+// 16 KB) and x quantized into words ([B][32], 8 KB, half the bf16 tile).
+// A thread takes 8 columns x 8 batch rows of int32 accumulators: per group
+// of 4 weight rows, 2 x 16-byte loads of weights, 8 x words and 64 dp4a.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(GEMV_THREADS)
+gemv_batched_dq(const Mat m, const bf16* __restrict__ x, int B, const float* __restrict__ amax,
+                int* __restrict__ part, int I, int O, int rows_per_split) {
+  constexpr int NCH = BG_COLS / 16;  // 16-column chunks of the tile
+  extern __shared__ __align__(16) unsigned char bg_smem[];
+  int* ws4 = reinterpret_cast<int*>(bg_smem);     // [BG_ROWS / 4][BG_COLS]
+  int* xs4 = ws4 + (BG_ROWS / 4) * BG_COLS;       // [B][BGQ_XS]
+  int* red = reinterpret_cast<int*>(bg_smem);     // [KG][Bp][BG_COLS], at the end
+  __shared__ float s_row[MAX_BATCH];
+  const int tid = threadIdx.x;
+  const int NBT = (B + 7) / 8, Bp = NBT * 8, KG = 16 / NBT;
+  const int cg = tid & 15, slot = tid >> 4;
+  const int bt = slot % NBT, kg = slot / NBT;
+  const bool active = kg < KG;
+  const int c0 = blockIdx.x * BG_COLS;
+  const int r0 = blockIdx.y * rows_per_split;
+  const int r1 = min(I, r0 + rows_per_split);
+  for (int b = tid; b < B; b += GEMV_THREADS) s_row[b] = act_scale(amax[b]);
+  int acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0;
+  __syncthreads();  // s_row
+  for (int rc = r0; rc < r1; rc += BG_ROWS) {
+    const int ng = min(BG_ROWS, r1 - rc) / 4;
+    for (int i = tid; i < ng * NCH; i += GEMV_THREADS) {
+      const int g = i / NCH, ch = i % NCH;
+      const int c = c0 + ch * 16;
+      int4 w[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) w[k] = make_int4(0, 0, 0, 0);
+      if (c < O) {
+        int ld;
+        const int8_t* p = wcol<int8_t>(m, c, ld) + (size_t)(rc + 4 * g) * ld;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) w[k] = __ldg(reinterpret_cast<const int4*>(p + (size_t)k * ld));
+      }
+      int cols[16];
+      transpose_4x16(w, cols);
+      int4* dst = reinterpret_cast<int4*>(ws4 + g * BG_COLS + ch * 16);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        dst[k] = make_int4(cols[4 * k], cols[4 * k + 1], cols[4 * k + 2], cols[4 * k + 3]);
+    }
+    for (int i = tid; i < B * ng; i += GEMV_THREADS) {
+      const int b = i / ng, g = i % ng;
+      xs4[b * BGQ_XS + g] = pack4(x + (size_t)b * I + rc + 4 * g, s_row[b]);
+    }
+    __syncthreads();
+    if (active) {
+      for (int g = kg; g < ng; g += KG) {
+        const int4 wa = *reinterpret_cast<const int4*>(ws4 + g * BG_COLS + cg * 8);
+        const int4 wb = *reinterpret_cast<const int4*>(ws4 + g * BG_COLS + cg * 8 + 4);
+        const int w[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int b = bt * 8 + i;
+          const int xw = b < B ? xs4[b * BGQ_XS + g] : 0;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = __dp4a(w[j], xw, acc[i][j]);
+        }
+      }
+    }
+    __syncthreads();  // the next pass (or the reduction) overwrites the tiles
+  }
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) red[(kg * Bp + bt * 8 + i) * BG_COLS + cg * 8 + j] = acc[i][j];
+  }
+  __syncthreads();
+  for (int o = tid; o < B * BG_COLS; o += GEMV_THREADS) {
+    const int b = o / BG_COLS, c = o % BG_COLS;
+    if (c0 + c >= O) continue;
+    int t = 0;
+    for (int k = 0; k < KG; ++k) t += red[(k * Bp + b) * BG_COLS + c];
+    part[((size_t)blockIdx.y * B + b) * O + c0 + c] = t;
+  }
+}
+
 inline int num_sms() {
   static int n = 0;
   if (n == 0) {
@@ -252,41 +534,72 @@ inline int num_sms() {
   return n;
 }
 
+// The split of the reduction dimension: ``cols`` columns per block, a
+// multiple of ``align`` rows per split; returns the splits, sets ``rows``.
+inline int gemv_splits(int B, int I, int O, int cols, int align, int& rows) {
+  const int col_blocks = (O + cols - 1) / cols;
+  int splits = B == 1 ? (2 * num_sms()) / col_blocks : (2 * num_sms() + col_blocks - 1) / col_blocks;
+  splits = max(1, min(min(splits, B == 1 ? GEMV_MAX_SPLIT : GEMV_MAX_PARTS / B),
+                      (I + align - 1) / align));
+  rows = (I + splits - 1) / splits;
+  rows = (rows + align - 1) / align * align;
+  return (I + rows - 1) / rows;
+}
+
+template <typename K>
+inline void big_smem(K kernel) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BG_SMEM);
+}
+
 template <typename W>
-inline int gemv_t(const W* Wm, const bf16* x, int B, float* part, int I, int O, cudaStream_t st) {
+inline int gemv_t(const Mat& m, const bf16* x, int B, float* part, int I, int O, cudaStream_t st) {
+  int rows;
   if (B == 1) {
     constexpr int COLS = 32 * (16 / sizeof(W));
-    const int col_blocks = (O + COLS - 1) / COLS;
-    int splits = (2 * num_sms()) / col_blocks;
-    splits = max(1, min(min(splits, GEMV_MAX_SPLIT), (I + 7) / 8));
-    int rows = (I + splits - 1) / splits;
-    rows = (rows + 7) / 8 * 8;
-    splits = (I + rows - 1) / rows;
-    gemv_partial<W><<<dim3(col_blocks, splits), GEMV_THREADS, 0, st>>>(Wm, x, part, I, O, rows);
+    const int splits = gemv_splits(1, I, O, COLS, 8, rows);
+    gemv_partial<W><<<dim3((O + COLS - 1) / COLS, splits), GEMV_THREADS, 0, st>>>(m, x, part, I,
+                                                                                 O, rows);
     return splits;
   }
   static bool smem_set = false;  // one per weight type
   if (!smem_set) {
-    cudaFuncSetAttribute(gemv_batched<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, BG_SMEM);
+    big_smem(gemv_batched<W>);
     smem_set = true;
   }
-  const int col_blocks = (O + BG_COLS - 1) / BG_COLS;
-  int splits = (2 * num_sms() + col_blocks - 1) / col_blocks;
-  splits = max(1, min(min(splits, GEMV_MAX_PARTS / B), (I + 15) / 16));
-  int rows = (I + splits - 1) / splits;
-  rows = (rows + 15) / 16 * 16;
-  splits = (I + rows - 1) / rows;
-  gemv_batched<W><<<dim3(col_blocks, splits), GEMV_THREADS, BG_SMEM, st>>>(Wm, x, B, part, I, O,
-                                                                           rows);
+  const int splits = gemv_splits(B, I, O, BG_COLS, 16, rows);
+  gemv_batched<W><<<dim3((O + BG_COLS - 1) / BG_COLS, splits), GEMV_THREADS, BG_SMEM, st>>>(
+      m, x, B, part, I, O, rows);
   return splits;
 }
 
-// Launch the first pass of y[B, O] = x[B, I] @ W, W int8 or (wbf16) bf16;
-// returns the number of splits written to ``part`` ([splits][B][O] f32).
-inline int gemv(const void* Wm, bool wbf16, const bf16* x, int B, float* part, int I, int O,
+inline int gemv_dq(const Mat& m, const bf16* x, int B, const float* amax, int* part, int I, int O,
+                   cudaStream_t st) {
+  int rows;
+  if (B == 1) {
+    const int splits = gemv_splits(1, I, O, 512, 8, rows);
+    gemv_partial_dq<<<dim3((O + 511) / 512, splits), GEMV_THREADS, rows, st>>>(m, x, amax, part,
+                                                                                I, O, rows);
+    return splits;
+  }
+  static bool smem_set = false;
+  if (!smem_set) {
+    big_smem(gemv_batched_dq);
+    smem_set = true;
+  }
+  const int splits = gemv_splits(B, I, O, BG_COLS, 16, rows);
+  gemv_batched_dq<<<dim3((O + BG_COLS - 1) / BG_COLS, splits), GEMV_THREADS, BG_SMEM, st>>>(
+      m, x, B, amax, part, I, O, rows);
+  return splits;
+}
+
+// Launch the first pass of y[B, O] = x[B, I] @ W; returns the number of
+// splits written to ``part`` ([splits][B][O]): f32 sums (W int8 or bf16),
+// or with ``amax`` (dyn_int8, the rows' activation amax; W int8) int32 sums
+// of x quantized per row.
+inline int gemv(const Mat& m, const bf16* x, int B, float* part, int I, int O, const float* amax,
                 cudaStream_t st) {
-  return wbf16 ? gemv_t((const bf16*)Wm, x, B, part, I, O, st)
-               : gemv_t((const int8_t*)Wm, x, B, part, I, O, st);
+  if (amax) return gemv_dq(m, x, B, amax, reinterpret_cast<int*>(part), I, O, st);
+  return m.wbf16 ? gemv_t<bf16>(m, x, B, part, I, O, st) : gemv_t<int8_t>(m, x, B, part, I, O, st);
 }
 
 // Sum of the splits of output ``idx``; consecutive splits lie ``stride``
@@ -298,20 +611,42 @@ __device__ __forceinline__ float split_sum(const float* part, int splits, int st
   return s;
 }
 
-// A GEMV output in f32: the split sum times column c's scale for int8
-// weights; bf16 weights pass no scale (nullptr) and the sum is the output.
+// dyn_int8: the exact int32 sum of the splits, converted to f32 once
+__device__ __forceinline__ float split_isum(const float* part, int splits, int stride, int idx) {
+  const int* p = reinterpret_cast<const int*>(part);
+  int s = 0;
+  for (int k = 0; k < splits; ++k) s += __ldg(p + (size_t)k * stride + idx);
+  return __int2float_rn(s);
+}
+
+// A GEMV output in f32, column c of ``m``. Weight-only (s == 0): the split
+// sum times column c's scale for int8 weights, the sum as it is for bf16.
+// dyn_int8 (s > 0, the row's activation scale): f32(int32 sum) * (s * scale).
 __device__ __forceinline__ float mv_out(const float* part, int splits, int stride, int idx,
-                                        const float* scale, int c) {
-  const float s = split_sum(part, splits, stride, idx);
-  return scale ? __fmul_rn(s, scale[c]) : s;
+                                        const Mat& m, int c, float s) {
+  if (s > 0.f)
+    return __fmul_rn(split_isum(part, splits, stride, idx), __fmul_rn(s, col_scale(m, c)));
+  const float sum = split_sum(part, splits, stride, idx);
+  return m.wbf16 ? sum : __fmul_rn(sum, col_scale(m, c));
+}
+
+// dyn_int8, in a row-owning kernel (one block per row): clear row b's
+// atomic slots (amax points at slot 0 of the [AMAX_SLOTS][B] slots)
+__device__ __forceinline__ void clear_atomic_slots(float* amax, int b) {
+  if (threadIdx.x == 0)
+    for (int i = 1; i < AMAX_SLOTS; ++i) amax[i * gridDim.x + b] = 0.f;
 }
 
 // xn = rms(x, nw) and, if hres != nullptr, hres = x. One block per row;
-// row b of x at x + b * x_stride, of xn/hres at b * H.
+// row b of x at x + b * x_stride, of xn/hres at b * H. With ``amax_out``
+// (dyn_int8, slot 0 of the slots) the row's max |xn| goes to amax_out[b]
+// and its atomic slots are cleared.
 __global__ void rms_copy(const bf16* __restrict__ x, int x_stride, const float* __restrict__ nw,
-                         bf16* __restrict__ xn, bf16* __restrict__ hres, int H, float eps) {
+                         bf16* __restrict__ xn, bf16* __restrict__ hres, int H, float eps,
+                         float* __restrict__ amax_out) {
   __shared__ float red[32];
   const int b = blockIdx.x;
+  if (amax_out) clear_atomic_slots(amax_out, b);
   x += (size_t)b * x_stride;
   xn += (size_t)b * H;
   if (hres) hres += (size_t)b * H;
@@ -321,10 +656,17 @@ __global__ void rms_copy(const bf16* __restrict__ x, int x_stride, const float* 
     ss = fmaf(v, v, ss);
   }
   const float r = 1.0f / sqrtf(__fdiv_rn(block_sum(ss, red), (float)H) + eps);
+  float mx = 0.f;
   for (int c = threadIdx.x; c < H; c += blockDim.x) {
     const bf16 v = x[c];
     if (hres) hres[c] = v;
-    xn[c] = __float2bfloat16_rn(__fmul_rn(__fmul_rn(bf(v), r), nw[c]));
+    const bf16 o = __float2bfloat16_rn(__fmul_rn(__fmul_rn(bf(v), r), nw[c]));
+    xn[c] = o;
+    mx = fmaxf(mx, fabsf(bf(o)));
+  }
+  if (amax_out) {
+    mx = block_max(mx, red);
+    if (threadIdx.x == 0) amax_out[b] = mx;
   }
 }
 
@@ -332,39 +674,67 @@ __global__ void rms_copy(const bf16* __restrict__ x, int x_stride, const float* 
 // h = bf16(h + bf16(y)), y the GEMV output (``mv_out``); xn = rms(h, nw).
 // With ``bias`` (the small-to-MTP projection, [H] shared by the rows) the
 // stream starts there instead: h = bf16(bf16(y) + bias). One block per row.
-__global__ void finish_residual_norm(const float* __restrict__ part, int splits,
-                                     const float* __restrict__ scale, bf16* __restrict__ h,
+// dyn_int8: ``amax_in`` holds the GEMV input's amax (an atomic slot, or
+// null for the bf16 projection), ``amax_out`` (slot 0 of the slots) takes
+// the max |xn| of the row, and the row's atomic slots are cleared once read.
+__global__ void finish_residual_norm(const float* __restrict__ part, int splits, const Mat m,
+                                     const float* __restrict__ amax_in, bf16* __restrict__ h,
                                      const bf16* __restrict__ bias,
                                      const float* __restrict__ nw, bf16* __restrict__ xn,
-                                     int H, float eps) {
+                                     int H, float eps, float* __restrict__ amax_out) {
   __shared__ float red[32];
+  __shared__ float s_sh;
   const int row = blockIdx.x * H;
   const int stride = gridDim.x * H;
+  if (threadIdx.x == 0) s_sh = amax_in ? act_scale(amax_in[blockIdx.x]) : 0.f;
+  __syncthreads();
+  if (amax_out) clear_atomic_slots(amax_out, blockIdx.x);
+  const float s = s_sh;
   float ss = 0.f;
   for (int c = threadIdx.x; c < H; c += blockDim.x) {
-    const float y = rbf(mv_out(part, splits, stride, row + c, scale, c));
+    const float y = rbf(mv_out(part, splits, stride, row + c, m, c, s));
     const float hv = rbf(__fadd_rn(bias ? bf(bias[c]) : bf(h[row + c]), y));
     h[row + c] = __float2bfloat16_rn(hv);
     ss = fmaf(hv, hv, ss);
   }
   const float r = 1.0f / sqrtf(__fdiv_rn(block_sum(ss, red), (float)H) + eps);
-  for (int c = threadIdx.x; c < H; c += blockDim.x)
-    xn[row + c] = __float2bfloat16_rn(__fmul_rn(__fmul_rn(bf(h[row + c]), r), nw[c]));
+  float mx = 0.f;
+  for (int c = threadIdx.x; c < H; c += blockDim.x) {
+    const bf16 o = __float2bfloat16_rn(__fmul_rn(__fmul_rn(bf(h[row + c]), r), nw[c]));
+    xn[row + c] = o;
+    mx = fmaxf(mx, fabsf(bf(o)));
+  }
+  if (amax_out) {
+    mx = block_max(mx, red);
+    if (threadIdx.x == 0) amax_out[blockIdx.x] = mx;
+  }
 }
 
 // Second pass of the gate_up GEMV: gated = bf16(g * sigmoid(g) * u) with
 // g, u the bf16-rounded halves (``mv_out``). Grid (ceil(I / 256), B).
-__global__ void finish_swiglu(const float* __restrict__ part, int splits,
-                              const float* __restrict__ scale, int I, bf16* __restrict__ gated) {
+// dyn_int8: s from ``amax_in`` (the GEMV input's), and each warp's max
+// |gated| joins row b's atomic slot ``amax_out``.
+__global__ void finish_swiglu(const float* __restrict__ part, int splits, const Mat m,
+                              const float* __restrict__ amax_in, int I, bf16* __restrict__ gated,
+                              float* __restrict__ amax_out) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const int b = blockIdx.y;
-  if (c >= I) return;
   const int O = 2 * I;
   const int stride = gridDim.y * O;
-  const float g = rbf(mv_out(part, splits, stride, b * O + c, scale, c));
-  const float u = rbf(mv_out(part, splits, stride, b * O + I + c, scale, I + c));
-  const float sig = 1.0f / (1.0f + expf(-g));
-  gated[(size_t)b * I + c] = __float2bfloat16_rn(__fmul_rn(__fmul_rn(g, sig), u));
+  const float s = amax_in ? act_scale(amax_in[b]) : 0.f;
+  float mx = 0.f;
+  if (c < I) {
+    const float g = rbf(mv_out(part, splits, stride, b * O + c, m, c, s));
+    const float u = rbf(mv_out(part, splits, stride, b * O + I + c, m, I + c, s));
+    const float sig = 1.0f / (1.0f + expf(-g));
+    const bf16 o = __float2bfloat16_rn(__fmul_rn(__fmul_rn(g, sig), u));
+    gated[(size_t)b * I + c] = o;
+    mx = fabsf(bf(o));
+  }
+  if (amax_out) {
+    mx = warp_max(mx);
+    if ((threadIdx.x & 31) == 0) atomic_amax(amax_out + b, mx);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -409,14 +779,17 @@ struct AttnCache {
 
 // kc/vc: this layer's cache rows (int8 with KVQ, else bf16), ksc/vsc their
 // scales (KVQ), as in AttnCache
+// dyn_int8: ``amax_in`` gives the qkv GEMV's activation scale, and each
+// warp's max |out| joins row b's atomic slot ``amax_out``.
 template <bool CP, bool KVQ, typename KV = typename std::conditional<KVQ, int8_t, bf16>::type>
 __global__ void __launch_bounds__(ATTN_THREADS)
-attn_step(const float* __restrict__ part, int splits, const float* __restrict__ qkv_scale,
-          const float* __restrict__ qn, const float* __restrict__ kn, float eps,
+attn_step(const float* __restrict__ part, int splits, const Mat qkv,
+          const float* __restrict__ amax_in, const float* __restrict__ qn,
+          const float* __restrict__ kn, float eps,
           const bf16* __restrict__ cosr, const bf16* __restrict__ sinr, int rope_stride,
           KV* __restrict__ kc, KV* __restrict__ vc, float* __restrict__ ksc,
           float* __restrict__ vsc, int T, int pos_all, const int* __restrict__ offs, int NQ,
-          int NKV, float scale, bf16* __restrict__ out) {
+          int NKV, float scale, bf16* __restrict__ out, float* __restrict__ amax_out) {
   constexpr int D = HEAD_DIM;
   __shared__ float raw[ATTN_MAX_GROUP + 2][D];  // q heads..., k, v (bf16 values)
   __shared__ float qk[ATTN_MAX_GROUP + 1][D];   // normed + roped q heads..., k
@@ -434,13 +807,14 @@ attn_step(const float* __restrict__ part, int splits, const float* __restrict__ 
   part += (size_t)b * OQKV;
   cosr += (size_t)b * rope_stride;
   sinr += (size_t)b * rope_stride;
+  const float s_act = amax_in ? act_scale(amax_in[b]) : 0.f;
 
   for (int i = tid; i < (G + 2) * D; i += blockDim.x) {
     const int which = i / D, d = i % D;
     const int col = which < G ? (kvh * G + which) * D + d
                     : which == G ? (NQ + kvh) * D + d
                                  : (NQ + NKV + kvh) * D + d;
-    raw[which][d] = rbf(mv_out(part, splits, stride, col, qkv_scale, col));
+    raw[which][d] = rbf(mv_out(part, splits, stride, col, qkv, col, s_act));
   }
   __syncthreads();
   if (warp <= G) {  // one warp per vector to normalise
@@ -587,13 +961,20 @@ attn_step(const float* __restrict__ part, int splits, const float* __restrict__ 
     }
   }
   out += (size_t)b * NQ * D;
+  float mx = 0.f;
 #pragma unroll
   for (int j = 0; j < ATTN_OWN; ++j) {
     const int i = tid + j * ATTN_THREADS;
     if (i < G * D) {
       const int g = i / D, d = i % D;
-      out[(kvh * G + g) * D + d] = __float2bfloat16_rn(CP ? acc[j] : __fdiv_rn(acc[j], l_run[g]));
+      const bf16 o = __float2bfloat16_rn(CP ? acc[j] : __fdiv_rn(acc[j], l_run[g]));
+      out[(kvh * G + g) * D + d] = o;
+      mx = fmaxf(mx, fabsf(bf(o)));
     }
+  }
+  if (amax_out) {
+    mx = warp_max(mx);
+    if (lane == 0) atomic_amax(amax_out + b, mx);
   }
 }
 
@@ -638,11 +1019,12 @@ struct SampleArgs {
   int H;
   bf16* x_next;          // [B, H]
   float* esum;           // [B, H]
+  const float* amax;     // dyn_int8 head: row b's input amax at amax[b], else null
+  int cp_head;           // dyn_int8: (f32(acc) * s) * scale (CP heads), else f32(acc) * (s * scale)
 };
 
 __global__ void __launch_bounds__(SAMPLE_THREADS)
-sample_kernel(const float* __restrict__ part, int splits, const float* __restrict__ scale, int V,
-              SampleArgs a) {
+sample_kernel(const float* __restrict__ part, int splits, const Mat head, int V, SampleArgs a) {
   __shared__ float redf[32];
   __shared__ int redi[32];
   __shared__ uint32_t hist[256];
@@ -655,6 +1037,7 @@ sample_kernel(const float* __restrict__ part, int splits, const float* __restric
   const uint8_t* seen = a.seen ? a.seen + (size_t)b * V : nullptr;
   float* logits_out = a.logits_out ? a.logits_out + (size_t)b * a.logits_stride : nullptr;
   const uint32_t key = stream_key(a.seed0, a.seed1, a.stream + STREAMS_PER_ROW * (uint32_t)b);
+  const float s_act = a.amax ? act_scale(a.amax[b]) : 0.f;
   float z[SAMPLE_PER_THREAD];
   bool valid[SAMPLE_PER_THREAD];
 #pragma unroll
@@ -663,7 +1046,10 @@ sample_kernel(const float* __restrict__ part, int splits, const float* __restric
     valid[i] = c < V;
     float v = -CUDART_INF_F;
     if (valid[i]) {
-      v = mv_out(part, splits, stride, prow + c, scale, c);
+      v = a.amax && a.cp_head
+          ? __fmul_rn(__fmul_rn(split_isum(part, splits, stride, prow + c), s_act),
+                      col_scale(head, c))
+          : mv_out(part, splits, stride, prow + c, head, c, s_act);
       if (logits_out) logits_out[c] = v;
       if (a.supp) v = __fadd_rn(v, a.supp[c]);
       if (seen && a.rep != 1.0f && seen[c]) v = v < 0.f ? __fmul_rn(v, a.rep) : __fdiv_rn(v, a.rep);
@@ -775,72 +1161,92 @@ sample_kernel(const float* __restrict__ part, int splits, const float* __restric
 // One transformer layer of one token per row through the kernels above; the
 // residual stream is ``h`` [B, H] and ``xn`` holds rms(h, input_layernorm)
 // on entry and rms(h, next_norm) on return. The four matmul weights are
-// int8 with their scales, or bf16 (``wbf16``) with null scales.
+// int8 with their scales, or bf16 with none. ``amax`` (dyn_int8, int8
+// weights): the [AMAX_SLOTS][B] activation amax slots, the first holding
+// xn's on entry (and on return); null in the weight-only modes.
 struct LayerW {
-  const void *qkv_w, *o_w, *gu_w, *d_w;
-  bool wbf16;
-  const float *qkv_s, *o_s, *gu_s, *d_s, *pln, *qn, *kn;
+  Mat qkv, o, gu, d;
+  const float *pln, *qn, *kn;
 };
 
 template <bool CP, bool KVQ>
 inline int layer_step(const LayerW& w, const float* next_norm, int B, int H, int NQ, int NKV,
                       int I, float eps, float scale, const bf16* cosr, const bf16* sinr,
                       int rope_stride, const AttnCache& cache, int pos, const int* offs,
-                      bf16* h, bf16* xn, bf16* attn, bf16* gated, float* ws, cudaStream_t st) {
+                      bf16* h, bf16* xn, bf16* attn, bf16* gated, float* ws, float* amax,
+                      cudaStream_t st) {
   const int D = HEAD_DIM;
-  int s = gemv(w.qkv_w, w.wbf16, xn, B, ws, H, (NQ + 2 * NKV) * D, st);
+  float* a_xn = amax;                           // xn's amax (row-owning kernels write it)
+  float* a_attn = amax ? amax + B : nullptr;    // the attention output's (atomic)
+  float* a_gated = amax ? amax + 2 * B : nullptr;  // the SwiGLU output's (atomic)
+  int s = gemv(w.qkv, xn, B, ws, H, (NQ + 2 * NKV) * D, a_xn, st);
   QT_CHECK_LAUNCH();
   // score tile: the rows read from the cache, up to ATTN_TILE (all of it
   // when the rows' positions live on the device)
   const int rows = offs ? ATTN_TILE : min(max(KVQ ? pos : pos + 1, 1), ATTN_TILE);
   attn_step<CP, KVQ><<<dim3(NKV, B), ATTN_THREADS, (NQ / NKV) * rows * sizeof(float), st>>>(
-      ws, s, w.qkv_s, w.qn, w.kn, eps, cosr, sinr, rope_stride,
+      ws, s, w.qkv, a_xn, w.qn, w.kn, eps, cosr, sinr, rope_stride,
       (typename std::conditional<KVQ, int8_t, bf16>::type*)cache.k,
       (typename std::conditional<KVQ, int8_t, bf16>::type*)cache.v, cache.ks, cache.vs, cache.T,
-      pos, offs, NQ, NKV, scale, attn);
+      pos, offs, NQ, NKV, scale, attn, a_attn);
   QT_CHECK_LAUNCH();
-  s = gemv(w.o_w, w.wbf16, attn, B, ws, NQ * D, H, st);
+  s = gemv(w.o, attn, B, ws, NQ * D, H, a_attn, st);
   QT_CHECK_LAUNCH();
-  finish_residual_norm<<<B, 1024, 0, st>>>(ws, s, w.o_s, h, nullptr, w.pln, xn, H, eps);
+  finish_residual_norm<<<B, 1024, 0, st>>>(ws, s, w.o, a_attn, h, nullptr, w.pln, xn, H, eps, a_xn);
   QT_CHECK_LAUNCH();
-  s = gemv(w.gu_w, w.wbf16, xn, B, ws, H, 2 * I, st);
+  s = gemv(w.gu, xn, B, ws, H, 2 * I, a_xn, st);
   QT_CHECK_LAUNCH();
-  finish_swiglu<<<dim3((I + 255) / 256, B), 256, 0, st>>>(ws, s, w.gu_s, I, gated);
+  finish_swiglu<<<dim3((I + 255) / 256, B), 256, 0, st>>>(ws, s, w.gu, a_xn, I, gated, a_gated);
   QT_CHECK_LAUNCH();
-  s = gemv(w.d_w, w.wbf16, gated, B, ws, I, H, st);
+  s = gemv(w.d, gated, B, ws, I, H, a_gated, st);
   QT_CHECK_LAUNCH();
-  finish_residual_norm<<<B, 1024, 0, st>>>(ws, s, w.d_s, h, nullptr, next_norm, xn, H, eps);
+  finish_residual_norm<<<B, 1024, 0, st>>>(ws, s, w.d, a_gated, h, nullptr, next_norm, xn, H, eps,
+                                           a_xn);
   QT_CHECK_LAUNCH();
   return 0;
 }
 
+// The stacked layer weights, as (weight, scale) pairs: fused (q = qkv,
+// g = gate_up; k, v and u null) or unfused (q, k, v, gate, up apart).
+struct StackW {
+  const void *q, *qs, *k, *ks, *v, *vs, *o, *os, *g, *gs, *u, *us, *d, *ds;
+};
+
 // Layer l's slices of the stacked weights: int8 [L, in, out] with f32
 // scales [L, out], or bf16 [L, in, out] (``wbf16``; the scales are ignored).
-inline LayerW layer_weights(int l, int H, int NQ, int NKV, int I, bool wbf16, const void* qkv_w,
-                            const void* qkv_s, const void* o_w, const void* o_s,
-                            const void* gu_w, const void* gu_s, const void* d_w,
-                            const void* d_s, const void* pln, const void* qn, const void* kn) {
+inline LayerW layer_weights(int l, int H, int NQ, int NKV, int I, bool wbf16, const StackW& s,
+                            const void* pln, const void* qn, const void* kn) {
   const int D = HEAD_DIM;
-  const size_t oqkv = (size_t)(NQ + 2 * NKV) * D;
-  const size_t esz = wbf16 ? 2 : 1;
-  auto wl = [&](const void* p, size_t n) { return (const void*)((const char*)p + l * n * esz); };
-  auto sl = [&](const void* p, size_t n) {
-    return wbf16 ? (const float*)nullptr : (const float*)p + l * n;
-  };
   LayerW w;
-  w.wbf16 = wbf16;
-  w.qkv_w = wl(qkv_w, (size_t)H * oqkv);
-  w.qkv_s = sl(qkv_s, oqkv);
-  w.o_w = wl(o_w, (size_t)NQ * D * H);
-  w.o_s = sl(o_s, H);
-  w.gu_w = wl(gu_w, (size_t)H * 2 * I);
-  w.gu_s = sl(gu_s, 2 * I);
-  w.d_w = wl(d_w, (size_t)I * H);
-  w.d_s = sl(d_s, H);
+  w.qkv = w.o = w.gu = w.d = mat(wbf16);
+  if (s.k) {
+    add_seg(w.qkv, s.q, s.qs, l, H, NQ * D);
+    add_seg(w.qkv, s.k, s.ks, l, H, NKV * D);
+    add_seg(w.qkv, s.v, s.vs, l, H, NKV * D);
+  } else {
+    add_seg(w.qkv, s.q, s.qs, l, H, (NQ + 2 * NKV) * D);
+  }
+  add_seg(w.o, s.o, s.os, l, NQ * D, H);
+  if (s.u) {
+    add_seg(w.gu, s.g, s.gs, l, H, I);
+    add_seg(w.gu, s.u, s.us, l, H, I);
+  } else {
+    add_seg(w.gu, s.g, s.gs, l, H, 2 * I);
+  }
+  add_seg(w.d, s.d, s.ds, l, I, H);
   w.pln = (const float*)pln + (size_t)l * H;
   w.qn = (const float*)qn + (size_t)l * D;
   w.kn = (const float*)kn + (size_t)l * D;
   return w;
+}
+
+// Whether every present weight of the stack has its scales (int8), and the
+// unfused parts come whole (k with v, and up with k).
+inline bool stack_ok(const StackW& s, bool wbf16) {
+  auto ok = [&](const void* w, const void* sc) { return w == nullptr || wbf16 || sc != nullptr; };
+  return s.q && s.o && s.g && s.d && (s.k == nullptr) == (s.v == nullptr) &&
+         (s.k == nullptr) == (s.u == nullptr) && ok(s.q, s.qs) && ok(s.k, s.ks) &&
+         ok(s.v, s.vs) && ok(s.o, s.os) && ok(s.g, s.gs) && ok(s.u, s.us) && ok(s.d, s.ds);
 }
 
 }  // namespace

@@ -8,14 +8,19 @@
 // the sampled code's codec_embedding[j] row to the next position. The TPU
 // kernel ran the B rows as one flat cache with a block-diagonal mask; here
 // each row attends over its own 16 slots (one attention block per
-// (kv head, row)). The TPU kernel took int8 layers without a projection;
-// this one also takes dense bf16 layers and heads (the TPU kernel's
-// ``bf16`` matmul mode) and the small-to-MTP projection of the 1.7B model,
-// both of which went to XLA on the TPU. With the projection the inputs are
-// in talker width TH (the talker hidden, the talker's embedding of code 0,
-// the [V, TH] rows of codec_embedding[j]) and each goes through
-// bf16(bf16(x @ w) + b) into the CP width H before the first layer; esum
-// stays in talker width.
+// (kv head, row)). The TPU kernel took int8 layers, fused or unfused,
+// without a projection, in its ``wo_bf16`` or ``dyn_int8`` mode; this one
+// takes them all (unfused q/k/v and gate/up are column segments of one
+// ``Mat``, common.cuh, so one GEMV launch reads them in place; dyn_int8
+// quantizes each activation row and sums s8 x s8 in int32, its heads
+// scaled (f32(acc) * s) * scale as the TPU kernel's are), and also dense
+// bf16 layers and heads (the TPU kernel's ``bf16`` matmul mode) and the
+// small-to-MTP projection of the 1.7B model, both of which went to XLA on
+// the TPU; the projection stays a bf16 GEMV in dyn_int8. With the
+// projection the inputs are in talker width TH (the talker hidden, the
+// talker's embedding of code 0, the [V, TH] rows of codec_embedding[j]) and
+// each goes through bf16(bf16(x @ w) + b) into the CP width H before the
+// first layer; esum stays in talker width.
 //
 // Bound on the H100: device-memory bandwidth at small B. The TPU kernel kept
 // the whole 5-layer int8 stack (~78.6 MB at the 0.6B shapes) resident in VMEM
@@ -39,35 +44,43 @@
 using namespace qt;
 
 // x0 [2, B, TH] (position-major: the talker hidden rows, then the code-0
-// embedding rows); layers int8 with f32 scales or bf16 (``w_bf16``), the 15
-// heads likewise (``head_bf16``); emb [NCB, V, TH]; proj_w [TH, H] and
-// proj_b [H] bf16, or both null when TH == H; k/v_cache scratch
+// embedding rows); layers int8 with f32 scales or bf16 (``w_bf16``), fused
+// (q_w = qkv, g_w = gate_up; k, v, u null) or unfused (seven weights), the
+// 15 heads likewise (``head_bf16``); ``dyn`` (int8 layers): dyn_int8 for
+// the layers and int8 heads, with ``amax`` the [AMAX_SLOTS, B] f32 slots
+// (no initial value); emb [NCB, V, TH]; proj_w [TH, H] and proj_b [H]
+// bf16, or both null when TH == H; k/v_cache scratch
 // [L, B, NKV, NCB + 1, D] bf16; force_codes, codes_out [B, NCB]; esum
 // [B, TH]; xbuf [B, TH]; logits_out [NCB, B, V]. Row b draws its codebook j
 // from stream j + 1 + 16 b.
 extern "C" int qt_cp_loop(
     int L, int H, int NQ, int NKV, int D, int I, int V, int NCB, int B, int TH, int w_bf16,
-    int head_bf16, float eps, float scale,
+    int head_bf16, int dyn, float eps, float scale,
     const void* x0,
-    const void* qkv_w, const void* qkv_s, const void* o_w, const void* o_s,
-    const void* gu_w, const void* gu_s, const void* d_w, const void* d_s,
+    const void* q_w, const void* q_s, const void* k_w, const void* k_s, const void* v_w,
+    const void* v_s, const void* o_w, const void* o_s, const void* g_w, const void* g_s,
+    const void* u_w, const void* u_s, const void* d_w, const void* d_s,
     const void* iln, const void* pln, const void* qn, const void* kn, const void* fnorm,
     const void* lm_w, const void* lm_s, const void* emb, const void* proj_w, const void* proj_b,
     const void* cos_tab, const void* sin_tab, void* k_cache, void* v_cache,
     int greedy, float inv_t, int top_k, uint32_t seed0, uint32_t seed1,
     const void* force_codes,
-    void* hres, void* xn, void* attn, void* gated, void* ws, void* xbuf,
+    void* hres, void* xn, void* attn, void* gated, void* ws, void* xbuf, void* amax,
     void* codes_out, void* esum, void* logits_out, void* stream) {
+  const StackW stack = {q_w, q_s, k_w, k_s, v_w, v_s, o_w, o_s, g_w, g_s, u_w, u_s, d_w, d_s};
   if (D != HEAD_DIM || NQ % NKV != 0 || NQ / NKV > ATTN_MAX_GROUP || B < 1 || B > MAX_BATCH ||
       V > SAMPLE_THREADS * SAMPLE_PER_THREAD || NCB + 1 > ATTN_TILE ||
       (proj_w == nullptr && TH != H) || (proj_w != nullptr && proj_b == nullptr) ||
-      (!w_bf16 && (qkv_s == nullptr || o_s == nullptr || gu_s == nullptr || d_s == nullptr)) ||
-      (!head_bf16 && lm_s == nullptr))
+      !stack_ok(stack, w_bf16 != 0) || (!head_bf16 && lm_s == nullptr) ||
+      (dyn && (w_bf16 || amax == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int SLOTS = NCB + 1;
   const size_t layer_kv = (size_t)B * NKV * SLOTS * D;
-  const size_t head_esz = head_bf16 ? 2 : 1;
+  float* ax = dyn ? (float*)amax : nullptr;
+  const float* head_ax = head_bf16 ? nullptr : ax;  // dense heads stay bf16
+  Mat proj = mat(true);
+  if (proj_w != nullptr) add_seg(proj, proj_w, nullptr, 0, TH, H);
   bf16* h = (bf16*)hres;
   bf16* xnb = (bf16*)xn;
   bf16* xb = (bf16*)xbuf;
@@ -76,20 +89,19 @@ extern "C" int qt_cp_loop(
   for (int p = 0; p < SLOTS; ++p) {
     const bf16* xin = p < 2 ? (const bf16*)x0 + (size_t)p * B * TH : xb;
     if (proj_w != nullptr) {  // h = bf16(bf16(xin @ proj_w) + proj_b), xn = rms(h)
-      const int s = gemv(proj_w, true, xin, B, (float*)ws, TH, H, st);
+      const int s = gemv(proj, xin, B, (float*)ws, TH, H, nullptr, st);
       QT_CHECK_LAUNCH();
-      finish_residual_norm<<<B, 1024, 0, st>>>((const float*)ws, s, nullptr, h,
+      finish_residual_norm<<<B, 1024, 0, st>>>((const float*)ws, s, proj, nullptr, h,
                                                (const bf16*)proj_b, (const float*)iln, xnb, H,
-                                               eps);
+                                               eps, ax);
     } else {
-      rms_copy<<<B, 1024, 0, st>>>(xin, H, (const float*)iln, xnb, h, H, eps);
+      rms_copy<<<B, 1024, 0, st>>>(xin, H, (const float*)iln, xnb, h, H, eps, ax);
     }
     QT_CHECK_LAUNCH();
     const bf16* cosr = (const bf16*)cos_tab + (size_t)p * D;
     const bf16* sinr = (const bf16*)sin_tab + (size_t)p * D;
     for (int l = 0; l < L; ++l) {
-      const LayerW w = layer_weights(l, H, NQ, NKV, I, w_bf16 != 0, qkv_w, qkv_s, o_w, o_s, gu_w,
-                                     gu_s, d_w, d_s, pln, qn, kn);
+      const LayerW w = layer_weights(l, H, NQ, NKV, I, w_bf16 != 0, stack, pln, qn, kn);
       const float* next_norm = l + 1 < L ? (const float*)iln + (size_t)(l + 1) * H
                                          : (const float*)fnorm;
       AttnCache cache;
@@ -99,13 +111,14 @@ extern "C" int qt_cp_loop(
       cache.T = SLOTS;
       const int err = layer_step<true, false>(
           w, next_norm, B, H, NQ, NKV, I, eps, scale, cosr, sinr, 0, cache, p, nullptr, h, xnb,
-          (bf16*)attn, (bf16*)gated, (float*)ws, st);
+          (bf16*)attn, (bf16*)gated, (float*)ws, ax, st);
       if (err) return err;
     }
     if (p == 0) continue;  // position 0 only fills the cache
     const int j = p - 1;  // head / embedding table of this position
-    const int s = gemv((const char*)lm_w + (size_t)j * H * V * head_esz, head_bf16 != 0, xnb, B,
-                       (float*)ws, H, V, st);
+    Mat head = mat(head_bf16 != 0);
+    add_seg(head, lm_w, lm_s, j, H, V);
+    const int s = gemv(head, xnb, B, (float*)ws, H, V, head_ax, st);
     QT_CHECK_LAUNCH();
     SampleArgs a;
     a.supp = nullptr;
@@ -128,8 +141,9 @@ extern "C" int qt_cp_loop(
     a.H = TH;
     a.x_next = xb;
     a.esum = (float*)esum;
-    sample_kernel<<<B, SAMPLE_THREADS, 0, st>>>(
-        (const float*)ws, s, head_bf16 ? nullptr : (const float*)lm_s + (size_t)j * V, V, a);
+    a.amax = head_ax;
+    a.cp_head = 1;
+    sample_kernel<<<B, SAMPLE_THREADS, 0, st>>>((const float*)ws, s, head, V, a);
     QT_CHECK_LAUNCH();
   }
   return 0;

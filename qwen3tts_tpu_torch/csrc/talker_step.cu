@@ -6,7 +6,9 @@
 // grid program with double-buffered weight streaming, for any static B at
 // per-sequence cache offsets, on a bf16 cache or an int8 cache with per-row
 // f32 scales, in sample or non-sample mode, with int8 weights and per-channel
-// scales (its ``wo_bf16`` mode) or dense bf16 weights (its ``bf16`` mode).
+// scales (its ``wo_bf16`` mode, or ``dyn_int8``: each activation row
+// quantized to int8, s8 x s8 summed in int32) or dense bf16 weights (its
+// ``bf16`` mode).
 //
 // Bound on the H100. At B=1: device-memory bandwidth on the weights. At the
 // 0.6B shapes one step reads 28 x 15.7 MB of int8 layer weights plus the
@@ -21,7 +23,10 @@
 // weight tile in shared memory once and multiplies it into every row), so
 // the bytes barely grow with B but the f32 FMA work does: 2 x B flops per
 // weight, ~57 GFLOP at B=64 at 0.6B, which is above the memory floor from B
-// of about 8 on (about 16 in bf16).
+// of about 8 on (about 16 in bf16). In dyn_int8 the operations are 2 x B
+// integer multiply-adds per weight, 4 to a dp4a instruction with no widening
+// of the weight: the int8 dense rate (1,979 TOP/s on tensor cores) is the
+// bound's yardstick; the CUDA cores' dp4a sits far below it.
 //
 // Design: split-K GEMVs whose second pass is fused with the residual add
 // and the next RMSNorm (or SwiGLU); an attention block per (kv head, row)
@@ -39,13 +44,15 @@ using namespace qt;
 // Row positions: ``offs`` (device int32 [B]) when given, else ``pos`` for
 // every row. Layer weights int8 with f32 scales, or bf16 (``w_bf16``; the
 // scale pointers are then ignored); the codec head likewise (``head_bf16``).
+// ``dyn`` (int8 layers): the dyn_int8 mode for the layers and an int8 head,
+// with ``amax`` the [AMAX_SLOTS, B] f32 slots (else null; no initial value).
 // Caches [L, B, NKV, T, D] (bf16, or int8 with kv_quant and scales
 // [L, B, NKV, T]); rope rows cos/sin at ``cosr + b * rope_stride``.
 // Sample mode when ``head_w`` is given: code_out [B], logits_out [B, V].
 // On return xn holds rms(h, final norm) [B, H], the hidden the CP consumes.
 extern "C" int qt_talker_step(
     int L, int H, int NQ, int NKV, int D, int I, int V, int T, int B, int pos, const void* offs,
-    int kv_quant, int w_bf16, int head_bf16, float eps, float scale,
+    int kv_quant, int w_bf16, int head_bf16, int dyn, float eps, float scale,
     const void* x,
     const void* qkv_w, const void* qkv_s, const void* o_w, const void* o_s,
     const void* gu_w, const void* gu_s, const void* d_w, const void* d_s,
@@ -54,13 +61,14 @@ extern "C" int qt_talker_step(
     const void* cosr, const void* sinr, int rope_stride,
     const void* head_w, const void* head_s, const void* supp, const void* seen,
     float rep, int greedy, float inv_t, int top_k, int eos_id, uint32_t seed0, uint32_t seed1,
-    void* hres, void* xn, void* attn, void* gated, void* ws,
+    void* hres, void* xn, void* attn, void* gated, void* ws, void* amax,
     void* code_out, void* logits_out, void* stream) {
   if (D != HEAD_DIM || NQ % NKV != 0 || NQ / NKV > ATTN_MAX_GROUP || B < 1 || B > MAX_BATCH ||
       V > SAMPLE_THREADS * SAMPLE_PER_THREAD || (offs == nullptr && (pos < 0 || pos >= T)) ||
       (kv_quant && (k_scale == nullptr || v_scale == nullptr)) ||
       (!w_bf16 && (qkv_s == nullptr || o_s == nullptr || gu_s == nullptr || d_s == nullptr)) ||
-      (head_w != nullptr && !head_bf16 && head_s == nullptr))
+      (head_w != nullptr && !head_bf16 && head_s == nullptr) ||
+      (dyn && (w_bf16 || amax == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const size_t layer_rows = (size_t)B * NKV * T;  // cache rows of one layer
@@ -68,11 +76,13 @@ extern "C" int qt_talker_step(
   bf16* h = (bf16*)hres;
   bf16* xnb = (bf16*)xn;
   const int* offs_p = (const int*)offs;
-  rms_copy<<<B, 1024, 0, st>>>((const bf16*)x, H, (const float*)iln, xnb, h, H, eps);
+  float* ax = dyn ? (float*)amax : nullptr;
+  const StackW stack = {qkv_w, qkv_s, nullptr, nullptr, nullptr, nullptr, o_w, o_s,
+                        gu_w, gu_s, nullptr, nullptr, d_w, d_s};
+  rms_copy<<<B, 1024, 0, st>>>((const bf16*)x, H, (const float*)iln, xnb, h, H, eps, ax);
   QT_CHECK_LAUNCH();
   for (int l = 0; l < L; ++l) {
-    const LayerW w = layer_weights(l, H, NQ, NKV, I, w_bf16 != 0, qkv_w, qkv_s, o_w, o_s, gu_w,
-                                   gu_s, d_w, d_s, pln, qn, kn);
+    const LayerW w = layer_weights(l, H, NQ, NKV, I, w_bf16 != 0, stack, pln, qn, kn);
     const float* next_norm = l + 1 < L ? (const float*)iln + (size_t)(l + 1) * H
                                        : (const float*)fnorm;
     AttnCache cache;
@@ -84,14 +94,17 @@ extern "C" int qt_talker_step(
     const int err = kv_quant
         ? layer_step<false, true>(w, next_norm, B, H, NQ, NKV, I, eps, scale, (const bf16*)cosr,
                                   (const bf16*)sinr, rope_stride, cache, pos, offs_p, h, xnb,
-                                  (bf16*)attn, (bf16*)gated, (float*)ws, st)
+                                  (bf16*)attn, (bf16*)gated, (float*)ws, ax, st)
         : layer_step<false, false>(w, next_norm, B, H, NQ, NKV, I, eps, scale, (const bf16*)cosr,
                                    (const bf16*)sinr, rope_stride, cache, pos, offs_p, h, xnb,
-                                   (bf16*)attn, (bf16*)gated, (float*)ws, st);
+                                   (bf16*)attn, (bf16*)gated, (float*)ws, ax, st);
     if (err) return err;
   }
   if (head_w == nullptr) return 0;  // non-sample mode: the post-norm hidden only
-  const int s = gemv(head_w, head_bf16 != 0, xnb, B, (float*)ws, H, V, st);
+  Mat head = mat(head_bf16 != 0);
+  add_seg(head, head_w, head_s, 0, H, V);
+  const float* head_ax = head_bf16 ? nullptr : ax;  // a dense head stays bf16
+  const int s = gemv(head, xnb, B, (float*)ws, H, V, head_ax, st);
   QT_CHECK_LAUNCH();
   SampleArgs a;
   a.supp = (const float*)supp;
@@ -114,8 +127,9 @@ extern "C" int qt_talker_step(
   a.H = H;
   a.x_next = nullptr;
   a.esum = nullptr;
-  sample_kernel<<<B, SAMPLE_THREADS, 0, st>>>((const float*)ws, s,
-                                              head_bf16 ? nullptr : (const float*)head_s, V, a);
+  a.amax = head_ax;
+  a.cp_head = 0;
+  sample_kernel<<<B, SAMPLE_THREADS, 0, st>>>((const float*)ws, s, head, V, a);
   QT_CHECK_LAUNCH();
   return 0;
 }

@@ -18,9 +18,10 @@ per lockstep frame (whether any sequence is still active). The per-row
 counters (``steps``, ``frames``, ``offsets``, ``done``) stay on the device.
 
 On CUDA the lockstep decode runs through the kernels only: it raises unless
-K1 and K2 both take the batch (a fused layout, int8 or dense bf16, and
-1..MAX_BATCH rows; ``Qwen3TTSModel.generate_batch`` splits longer lists
-into such groups).
+K1 and K2 both take the batch (a fused layout, int8 or dense bf16, or for
+the CP unfused int8, and 1..MAX_BATCH rows; ``Qwen3TTSModel.generate_batch``
+splits longer lists into such groups). Both kernels run in the matmul mode
+that QWEN3TTS_TK_MODE and QWEN3TTS_CPK_MODE select (``generate.py``).
 With top_p == 1 every lockstep frame runs K1 in sample mode
 (``talker.forward_batched_step_sample``) and K2 (``ops/cp_kernel.py``) once
 for all rows; with top_p < 1, a filter neither kernel has (nor has it on
@@ -45,7 +46,9 @@ from ..ops.rope import mrope_cos_sin
 from ..ops.sampling import sample_token_inner
 from . import code_predictor as cp
 from . import talker as tk
-from .generate import _code0_mask, _frame_seeds, _use_cp_kernel, _use_talker_sample_kernel
+from .generate import (
+    _code0_mask, _cpk_mode, _frame_seeds, _use_cp_kernel, _use_talker_sample_kernel,
+)
 
 
 class BatchCarry(NamedTuple):
@@ -70,9 +73,10 @@ class BatchResult(NamedTuple):
 
 
 def kernels_take(talker_params, cp_params, talker_cfg, cp_cfg, batch: int, kv_quant: bool) -> bool:
-    """Whether K1 and K2 take a lockstep batch of ``batch`` rows: both stacks
-    in a fused layout (int8 or dense bf16; the CP's projection where it is
-    narrower than the talker), at most MAX_BATCH rows."""
+    """Whether K1 and K2 take a lockstep batch of ``batch`` rows: the talker
+    in a fused layout (int8 or dense bf16), the CP fused or, in int8,
+    unfused (with its projection where it is narrower than the talker), at
+    most MAX_BATCH rows."""
     from ..ops.cp_kernel import kernel_supported
     from ..ops.talker_kernel import step_supported
 
@@ -92,7 +96,7 @@ def _require_kernels(talker_params, cp_params, talker_cfg, cp_cfg, device, batch
         raise ValueError(
             f"lockstep decode of {batch} rows: on CUDA it runs through K1 and K2, which take "
             f"1..{MAX_BATCH} rows of a fused layout: int8 (from_pretrained(quantize='int8')) "
-            f"or dense bf16 (an unquantized checkpoint loaded as bf16)"
+            f"or dense bf16 (an unquantized checkpoint loaded as bf16); K2 also unfused int8"
         )
 
 
@@ -135,7 +139,7 @@ def _frame_batch(
 
         rest, esum = predict_codes_fused(
             cp_params, cp_cfg, talker_params, hidden_last, code0_cp, cp_seed,
-            temperature=sampling.temperature, top_k=sampling.top_k,
+            temperature=sampling.temperature, top_k=sampling.top_k, mode=_cpk_mode(cp_params),
         )
         codec_sum = tk.embed_codec(talker_params, code0).float() + esum
         return code0, rest, is_eos, seen, codec_sum

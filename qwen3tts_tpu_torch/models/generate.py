@@ -18,11 +18,14 @@ On CUDA, with fused weights and top_p == 1, every frame after the first
 runs the talker step through K1 (ops/talker_kernel.py) and every frame runs
 the code predictor through K2 (ops/cp_kernel.py). Fused means either layout
 of ``talker_kernel._layout``: int8 (``quantize='int8'``) or dense bf16 (an
-unquantized checkpoint loaded as bf16); K2 also takes the small-to-MTP
-projection of the 1.7B model. Otherwise the plain path runs
-(talker.forward + codec_logits + the sampler, cp.predict_codes), in which a
-fused talker step on CUDA is still K1, in its non-sample mode. The cache is
-bf16 or int8 (``kv_quant``); K1 takes both.
+unquantized checkpoint loaded as bf16); K2 also takes an unfused int8 code
+predictor and the small-to-MTP projection of the 1.7B model. The JAX
+package's switches pick the kernels' matmul mode on int8 weights:
+QWEN3TTS_TK_MODE (K1, ``talker._kernel_mode``) and QWEN3TTS_CPK_MODE (K2,
+``_cpk_mode``), ``wo_bf16`` unless set to ``dyn_int8``. Otherwise the plain
+path runs (talker.forward + codec_logits + the sampler, cp.predict_codes),
+in which a fused talker step on CUDA is still K1, in its non-sample mode.
+The cache is bf16 or int8 (``kv_quant``); K1 takes both.
 """
 
 from __future__ import annotations
@@ -83,14 +86,24 @@ def _fused_ok(sampling: SamplingConfig, device: torch.device) -> bool:
 
 
 def _use_cp_kernel(cp_params, cp_cfg, talker_cfg, sampling, device, batch: int = 1) -> bool:
-    """Gate for K2: CUDA tensors, fused weights (int8 or bf16, with the
-    projection where the CP is narrower than the talker), top_p == 1, 1..64
-    rows."""
+    """Gate for K2: CUDA tensors, int8 (fused or unfused) or fused bf16
+    layers (with the projection where the CP is narrower than the talker),
+    top_p == 1, 1..64 rows."""
     from ..ops.cp_kernel import kernel_supported
 
     return _fused_ok(sampling, device) and kernel_supported(
         cp_params, cp_cfg, talker_cfg.hidden_size, batch
     )
+
+
+def _cpk_mode(cp_params) -> str:
+    """K2's matmul mode: QWEN3TTS_CPK_MODE (``wo_bf16`` unless
+    ``dyn_int8``; the JAX package's ``_cpk_mode``) for int8 layers, "bf16"
+    for dense ones, as ``talker._kernel_mode`` does for K1."""
+    from ..ops.cp_kernel import cp_layout
+
+    mode = tk.env_mode("QWEN3TTS_CPK_MODE")
+    return mode if cp_layout(cp_params["layers"]) == "int8" else "bf16"
 
 
 def _use_talker_sample_kernel(
@@ -165,7 +178,7 @@ def _frame(
 
         rest, esum = predict_codes_fused(
             cp_params, cp_cfg, talker_params, hidden_last, code0, cp_seed,
-            temperature=sampling.temperature, top_k=sampling.top_k,
+            temperature=sampling.temperature, top_k=sampling.top_k, mode=_cpk_mode(cp_params),
         )
         csum = tk.embed_codec(talker_params, code0).float() + esum
         return code0, rest, False, seen, csum

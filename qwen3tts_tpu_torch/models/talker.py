@@ -16,20 +16,24 @@ On CUDA a single-token step of fused weights (int8 or dense bf16, the two
 layouts of ``talker_kernel._layout``) runs through K1
 (ops/talker_kernel.py), or raises where K1 does not take it: ``forward``
 and ``forward_batched_step`` in its non-sample mode, ``forward_step_sample``
-and ``forward_batched_step_sample`` in its sample mode. On an int8 cache the
-kernel lets the current token attend with its own unquantized k/v, while
-the plain path here quantizes the new row before attending, as the JAX
-package's XLA path does.
+and ``forward_batched_step_sample`` in its sample mode. Each K1 call takes
+the matmul mode ``_kernel_mode`` selects, as the JAX package's do:
+QWEN3TTS_TK_MODE=dyn_int8 opts int8 layers into per-row int8 activations.
+On an int8 cache the kernel lets the current token attend with its own
+unquantized k/v, while the plain path here quantizes the new row before
+attending, as the JAX package's XLA path does.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, NamedTuple
 
 import torch
 
 from ..config import TalkerConfig
 from ..ops.attention import MIN_CACHE, decode_attention_inner
+from ..ops.decode_blocks import quantize_rows as quantize_kv_rows  # the int8 cache's rows
 from ..ops.norms import rms_norm, silu
 from ..ops.quant import Int8Linear, PackedLinear, embed_lookup, int8_matmul, quant_gemv, quant_matmul
 from ..ops.rope import apply_rotary, mrope_cos_sin
@@ -71,15 +75,6 @@ class KVCacheQ(NamedTuple):
     @property
     def quantized(self) -> bool:
         return True
-
-
-def quantize_kv_rows(x: torch.Tensor):
-    """Per-row symmetric int8: x [..., D] -> (int8 [..., D], f32 scale [...]).
-    scale = max(amax / 127, 1e-12); ``torch.round`` rounds half to even, as
-    ``jnp.round`` and K1's ``__float2int_rn`` do."""
-    xf = x.float()
-    scale = torch.clamp_min(xf.abs().amax(dim=-1) * (1.0 / 127.0), 1e-12)
-    return torch.round(xf / scale[..., None]).to(torch.int8), scale
 
 
 def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
@@ -131,6 +126,30 @@ def _layer_kv(cache, idx: int):
     if cache.quantized:
         return dequantize_kv(cache.k[idx], cache.ks[idx]), dequantize_kv(cache.v[idx], cache.vs[idx])
     return cache.k[idx], cache.v[idx]
+
+
+ENV_MODES = ("wo_bf16", "dyn_int8")  # the values of QWEN3TTS_TK_MODE / QWEN3TTS_CPK_MODE
+
+
+def env_mode(var: str) -> str:
+    """The matmul mode a variable of the JAX package selects, read when
+    called: ``wo_bf16`` (unset) or ``dyn_int8``; any other value raises
+    (the JAX package would treat it as ``wo_bf16``)."""
+    mode = os.environ.get(var, "wo_bf16")
+    if mode not in ENV_MODES:
+        raise ValueError(f"{var}={mode!r}: expected one of {', '.join(ENV_MODES)}")
+    return mode
+
+
+def _kernel_mode(params) -> str:
+    """K1's matmul mode, as the JAX package's ``_kernel_mode``
+    (talker.py:317-327): "bf16" for a layout other than int8, else
+    QWEN3TTS_TK_MODE (``wo_bf16`` by default; ``dyn_int8`` opts the int8
+    layers into s8 x s8 matvecs)."""
+    from ..ops.talker_kernel import _layout
+
+    mode = env_mode("QWEN3TTS_TK_MODE")
+    return mode if _layout(params["layers"]) == "int8" else "bf16"
 
 
 def _k1_gate(params, x: torch.Tensor) -> bool:
@@ -296,7 +315,7 @@ def forward(
 
         offs = offset if B == 1 else torch.full((B,), offset, dtype=torch.int32, device=dev)
         h = talker_decode_step(params, cfg, inputs_embeds, cache, offs, cos[:, 0], sin[:, 0],
-                               sample=False)
+                               sample=False, mode=_kernel_mode(params))
         return h.reshape(B, 1, -1), cache
     t_idx = torch.arange(T_max, device=dev)
     q_pos = offset + torch.arange(S, device=dev)
@@ -349,7 +368,7 @@ def forward_step_sample(
 
     cos, sin = rope[0][offset], rope[1][offset]
     h, code0 = talker_decode_step(
-        params, cfg, inputs_embeds, cache, offset, cos, sin,
+        params, cfg, inputs_embeds, cache, offset, cos, sin, mode=_kernel_mode(params),
         temperature=float(temperature),
         top_k=int(top_k),
         rep_penalty=float(repetition_penalty),
@@ -386,7 +405,7 @@ def forward_batched_step_sample(
     pos = offsets.long()
     h, code0 = talker_decode_step(
         params, cfg, inputs_embeds, cache, offsets, rope[0][pos], rope[1][pos],
-        temperature=float(temperature),
+        mode=_kernel_mode(params), temperature=float(temperature),
         top_k=int(top_k),
         rep_penalty=float(repetition_penalty),
         eos_id=-1 if eos_token_id is None else int(eos_token_id),
@@ -424,7 +443,7 @@ def forward_batched_step(
         from ..ops.talker_kernel import talker_decode_step
 
         h = talker_decode_step(params, cfg, inputs_embeds, cache, offsets, cos[:, 0], sin[:, 0],
-                               sample=False)
+                               sample=False, mode=_kernel_mode(params))
         return h[:, None], cache
     t_idx = torch.arange(cache.max_len, device=dev)
     mask = t_idx[None, None, :] <= offsets.long()[:, None, None]  # [B, 1, T]

@@ -12,8 +12,9 @@ Every C entry returns ``cudaGetLastError()`` after its launches; ``check``
 raises on a non-zero code. Nothing here falls back to anything.
 
 The kernels' limits (``LIMITS``: the most rows, the head size, the partial
-sum rows) are read from csrc/common.cuh's ``constexpr`` lines, not copied,
-so the wrappers' checks cannot drift from the kernels.
+sum rows, the dyn_int8 amax slots) are read from csrc/common.cuh's
+``constexpr`` lines, not copied, so the wrappers' checks cannot drift from
+the kernels.
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ _ARGTYPES = {
     ],
     "qt_talker_step": [
         I, I, I, I, I, I, I, I, I, I, P,  # L H NQ NKV D I V T B pos offs
-        I, I, I, F, F,  # kv_quant w_bf16 head_bf16 eps scale
+        I, I, I, I, F, F,  # kv_quant w_bf16 head_bf16 dyn eps scale
         P,  # x
         P, P, P, P, P, P, P, P,  # qkv_w qkv_s o_w o_s gu_w gu_s d_w d_s
         P, P, P, P, P,  # iln pln qn kn fnorm
@@ -70,20 +71,21 @@ _ARGTYPES = {
         P, P, I,  # cos sin rope_stride
         P, P, P, P,  # head_w head_s supp seen
         F, I, F, I, I, U, U,  # rep greedy inv_t top_k eos_id seed0 seed1
-        P, P, P, P, P,  # hres xn attn gated ws
+        P, P, P, P, P, P,  # hres xn attn gated ws amax
         P, P, P,  # code_out logits_out stream
     ],
     "qt_cp_loop": [
         I, I, I, I, I, I, I, I, I, I,  # L H NQ NKV D I V NCB B TH
-        I, I, F, F,  # w_bf16 head_bf16 eps scale
+        I, I, I, F, F,  # w_bf16 head_bf16 dyn eps scale
         P,  # x0
-        P, P, P, P, P, P, P, P,  # qkv_w qkv_s o_w o_s gu_w gu_s d_w d_s
+        P, P, P, P, P, P, P, P,  # q_w q_s k_w k_s v_w v_s o_w o_s
+        P, P, P, P, P, P,  # g_w g_s u_w u_s d_w d_s
         P, P, P, P, P,  # iln pln qn kn fnorm
         P, P, P, P, P,  # lm_w lm_s emb proj_w proj_b
         P, P, P, P,  # cos_tab sin_tab k_cache v_cache
         I, F, I, U, U,  # greedy inv_t top_k seed0 seed1
         P,  # force_codes
-        P, P, P, P, P, P,  # hres xn attn gated ws xbuf
+        P, P, P, P, P, P, P,  # hres xn attn gated ws xbuf amax
         P, P, P, P,  # codes_out esum logits_out stream
     ],
 }
@@ -149,6 +151,12 @@ def workspace_rows(batch: int) -> int:
     """Rows of O floats the GEMV partial sums take (GEMV_MAX_SPLIT at one
     row, GEMV_MAX_PARTS at more)."""
     return LIMITS["GEMV_MAX_SPLIT"] if batch == 1 else LIMITS["GEMV_MAX_PARTS"]
+
+
+def amax_slots(batch: int, device) -> torch.Tensor:
+    """The per-row activation amax slots of one dyn_int8 call (AMAX_SLOTS x
+    batch floats); the kernels set them before any read (common.cuh)."""
+    return torch.empty(LIMITS["AMAX_SLOTS"] * batch, dtype=torch.float32, device=device)
 
 
 def check(code: int, what: str) -> None:

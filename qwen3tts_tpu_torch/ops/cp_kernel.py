@@ -7,14 +7,20 @@ csrc/cp_loop.cu (one C call per frame; that file's header gives the bound
 and the design); on a CPU tensor it runs ``predict_codes_fused_ref``, the
 plain PyTorch version. Any other device raises.
 
-It takes either fused layout of the layers (``talker_kernel._layout``:
-int8 with per-channel scales, or dense bf16), int8 or dense bf16 heads, and
-the small-to-MTP projection of a CP narrower than its talker (the 1.7B
-model: ``small_to_mtp_projection`` {"w": bf16 [talker_h, H], "b": bf16
-[H]}), which maps each position's talker-width input x to
-bf16(bf16(x @ w) + b) before the first layer. The TPU kernel took int8
-layers without a projection (cp_kernel.py:465-478) and left these cases to
-XLA.
+It takes the layers int8 with per-channel scales, fused or unfused (q/k/v
+and gate/up apart, as the TPU kernel's gate allows, cp_kernel.py:466-474;
+the kernel reads the separate matrices as column segments of one weight,
+with no copy), or fused dense bf16; int8 or dense bf16 heads; and the
+small-to-MTP projection of a CP narrower than its talker (the 1.7B model:
+``small_to_mtp_projection`` {"w": bf16 [talker_h, H], "b": bf16 [H]}),
+which maps each position's talker-width input x to bf16(bf16(x @ w) + b)
+before the first layer. The TPU kernel took int8 layers without a
+projection and left the rest to XLA. ``mode`` is the TPU kernel's:
+``wo_bf16`` (the port's default; the JAX wrapper's is ``dyn_int8``, which
+no JAX caller relies on) or ``dyn_int8`` (int8 layers and heads meet each
+activation row quantized to int8, summed s8 x s8 in int32; the layers give
+bf16(f32(acc) * (s * scale)), the heads (f32(acc) * s) * scale; the
+projection stays a bf16 matvec).
 
 The loop: positions 0 and 1 take [talker hidden, talker codec_embedding
 (code0)]; positions 2..15 take the previous position's sampled code through
@@ -39,13 +45,25 @@ import torch
 
 from ..models.talker import _embed
 from . import _cuda
-from .decode_blocks import STREAMS_PER_ROW, layer_step, mv, mv_f32, out_dim, rms, sample_row
+from .decode_blocks import STREAMS_PER_ROW, layer_step, mv, mv_f32, rms, sample_row
 from .quant import Int8Linear
 from .rope import rope_cos_sin
-from .talker_kernel import _FUSED_KEYS, _dense_bf16, _layout, _weight
+from .talker_kernel import MODES, _dense_bf16, _layout, _weight, run_mode
 
 MAX_BATCH = _cuda.MAX_BATCH
 PROJ = "small_to_mtp_projection"
+UNFUSED_KEYS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+# the kernel's seven weight operands: fused stacks fill q (qkv) and gate (gate_up)
+_FUSED_AS_SEVEN = ("qkv_proj", None, None, "o_proj", "gate_up_proj", None, "down_proj")
+
+
+def cp_layout(layers) -> str | None:
+    """"int8" (fused, or the seven unfused projections all ``Int8Linear``),
+    "bf16" (fused dense bf16) or None: the layer layouts K2 reads."""
+    if "qkv_proj" not in layers and all(isinstance(layers.get(k), Int8Linear)
+                                        for k in UNFUSED_KEYS):
+        return "int8"
+    return _layout(layers)
 
 
 def _projection_ok(cp_params, cp_cfg, talker_h: int) -> bool:
@@ -61,10 +79,10 @@ def _projection_ok(cp_params, cp_cfg, talker_h: int) -> bool:
 
 
 def kernel_supported(cp_params, cp_cfg, talker_h: int, batch: int = 1) -> bool:
-    """A fused layout (int8 or bf16), int8 or dense bf16 heads, dense
+    """Layers in a layout of ``cp_layout``, int8 or dense bf16 heads, dense
     embedding tables, the projection where the widths differ, 1..MAX_BATCH
     rows."""
-    if _layout(cp_params["layers"]) is None or not _projection_ok(cp_params, cp_cfg, talker_h):
+    if cp_layout(cp_params["layers"]) is None or not _projection_ok(cp_params, cp_cfg, talker_h):
         return False
     head = cp_params.get("lm_head")
     if not (isinstance(head, Int8Linear) or _dense_bf16(head)):
@@ -110,8 +128,10 @@ def _rope_tables(cp_cfg, device):
 def predict_codes_fused_ref(
     cp_params, cp_cfg, talker_params, last_hidden, code0, seed: tuple[int, int], *,
     temperature: float, top_k: int, force_codes=None, return_logits: bool = False,
+    mode: str = "wo_bf16",
 ):
     """Plain PyTorch version of K2 (same rounding points as the kernel)."""
+    mode = run_mode(mode, cp_layout(cp_params["layers"]), "predict_codes_fused")
     L = cp_cfg.num_hidden_layers
     NKV, D = cp_cfg.num_key_value_heads, cp_cfg.head_dim
     NCB, SLOTS = cp_cfg.num_code_groups - 1, cp_cfg.num_code_groups
@@ -135,12 +155,12 @@ def predict_codes_fused_ref(
         cos, sin = cos_t[p].expand(B, D), sin_t[p].expand(B, D)
         for l in range(L):
             h = layer_step(cp_params["layers"], l, cp_cfg, h, cos, sin, (kc[l], vc[l]), pos,
-                           cp_form=True)
+                           cp_form=True, mode=mode)
         if p == 0:
             continue
         j = p - 1
         hn = rms(h, cp_params["norm"], cp_cfg.rms_norm_eps)
-        logits = mv_f32(hn, _head(cp_params["lm_head"], j))
+        logits = mv_f32(hn, _head(cp_params["lm_head"], j), mode, cp_head=True)
         code = torch.cat([
             sample_row(logits[b], temperature=temperature, top_k=top_k, seed=seed,
                        stream=j + 1 + STREAMS_PER_ROW * b)
@@ -161,29 +181,40 @@ def predict_codes_fused_ref(
 def predict_codes_fused(
     cp_params, cp_cfg, talker_params, last_hidden, code0, seed: tuple[int, int], *,
     temperature: float, top_k: int, force_codes=None, return_logits: bool = False,
+    mode: str = "wo_bf16",
 ):
     """The CP inner loop for one frame of B rows.
 
     last_hidden [B, talker_h]; code0 [B] int32; seed: two 32-bit words;
-    force_codes [B, 15]. Returns (codes [B, 15] int32, esum [B, talker_h]
-    f32[, logits f32 [15, V] at B=1, else [15, B, V]]).
+    force_codes [B, 15]; mode: see ``talker_kernel.run_mode``. Returns
+    (codes [B, 15] int32, esum [B, talker_h] f32[, logits f32 [15, V] at
+    B=1, else [15, B, V]]).
     """
     kw = dict(temperature=temperature, top_k=top_k, force_codes=force_codes,
               return_logits=return_logits)
     if last_hidden.device.type == "cpu":
-        return predict_codes_fused_ref(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, **kw)
+        return predict_codes_fused_ref(cp_params, cp_cfg, talker_params, last_hidden, code0, seed,
+                                       mode=mode, **kw)
     if last_hidden.device.type != "cuda":
         raise ValueError(f"predict_codes_fused: unsupported device {last_hidden.device}")
-    return _launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, **kw)
+    mode = run_mode(mode, cp_layout(cp_params["layers"]), "predict_codes_fused")
+    out = launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed,
+                 dyn=mode == "dyn_int8", **kw)
+    predict_codes_fused.launches += 1
+    predict_codes_fused.mode_launches[mode] += 1
+    return out
 
 
-def _launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, temperature, top_k,
-            force_codes, return_logits):
+def launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, temperature, top_k,
+           force_codes, return_logits, dyn):
+    """One call of the kernel in csrc/cp_loop.cu on CUDA tensors (the
+    wrappers count it: this one and ops/cp_kernel_old.py's)."""
     H, TH = cp_cfg.hidden_size, last_hidden.shape[-1]
     B = last_hidden.shape[0]
     if not kernel_supported(cp_params, cp_cfg, TH, B):
-        raise ValueError(f"predict_codes_fused: weights in neither fused layout (int8, bf16), "
-                         f"a projection it does not take, or batch {B} outside 1..{MAX_BATCH}")
+        raise ValueError(f"predict_codes_fused: weights in no layout it reads (int8 fused or "
+                         f"unfused, fused bf16), a projection it does not take, or batch {B} "
+                         f"outside 1..{MAX_BATCH}")
     if last_hidden.dim() != 2 or code0.numel() != B:
         raise ValueError("predict_codes_fused: last_hidden must be [B, talker_h] and code0 [B]")
     if force_codes is not None and force_codes.numel() != B * (cp_cfg.num_code_groups - 1):
@@ -195,9 +226,9 @@ def _launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, tempe
         raise ValueError(f"predict_codes_fused: codec_embedding must be [{NCB}, {V}, {TH}]")
     layers = cp_params["layers"]
     head = cp_params["lm_head"]
-    w_bf16, head_bf16 = _layout(layers) == "bf16", not isinstance(head, Int8Linear)
+    w_bf16, head_bf16 = cp_layout(layers) == "bf16", not isinstance(head, Int8Linear)
     proj = cp_params.get(PROJ)
-    I = out_dim(layers["gate_up_proj"]) // 2
+    I = _weight(layers["down_proj"])[0].shape[-2]  # down_proj [L, I, H]
     dev = last_hidden.device
     f32 = lambda t: t.float().contiguous()
     cos_t, sin_t = _rope_tables(cp_cfg, dev)
@@ -206,7 +237,8 @@ def _launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, tempe
     # converted operands stay referenced until every launch is enqueued
     ins = [
         _x0(talker_params, last_hidden, code0).transpose(0, 1).contiguous(),  # [2, B, TH]
-        *(t for k in _FUSED_KEYS for t in _weight(layers[k])),
+        *(t for k in (_FUSED_AS_SEVEN if "qkv_proj" in layers else UNFUSED_KEYS)
+          for t in (_weight(layers[k]) if k else (None, None))),
         f32(layers["input_layernorm"]), f32(layers["post_attention_layernorm"]),
         f32(layers["q_norm"]), f32(layers["k_norm"]), f32(cp_params["norm"]),
         *_weight(head),
@@ -216,7 +248,7 @@ def _launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, tempe
         cos_t, sin_t, kc, vc,
     ]
     force = None if force_codes is None else force_codes.to(torch.int32).reshape(-1).contiguous()
-    oqkv = out_dim(layers["qkv_proj"])
+    oqkv = (NQ + 2 * NKV) * D
     bufs = [
         torch.empty(B, H, dtype=torch.bfloat16, device=dev),  # residual stream
         torch.empty(B, H, dtype=torch.bfloat16, device=dev),  # normed input
@@ -225,14 +257,15 @@ def _launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, tempe
         torch.empty(_cuda.workspace_rows(B) * max(oqkv, 2 * I, H, V), dtype=torch.float32,
                     device=dev),
         torch.empty(B, TH, dtype=torch.bfloat16, device=dev),  # next position's input
+        _cuda.amax_slots(B, dev) if dyn else None,
     ]
     codes = torch.empty(B, NCB, dtype=torch.int32, device=dev)
     esum = torch.empty(B, TH, dtype=torch.float32, device=dev)
     logits = torch.empty(NCB, B, V, dtype=torch.float32, device=dev) if return_logits else None
     inv_t = torch.tensor(1.0 / temperature if temperature > 0 else 0.0, dtype=torch.float32).item()
     rc = _cuda.library().qt_cp_loop(
-        L, H, NQ, NKV, D, I, V, NCB, B, TH, int(w_bf16), int(head_bf16), cp_cfg.rms_norm_eps,
-        D**-0.5,
+        L, H, NQ, NKV, D, I, V, NCB, B, TH, int(w_bf16), int(head_bf16), int(dyn),
+        cp_cfg.rms_norm_eps, D**-0.5,
         *(_cuda.ptr(t) for t in ins),
         int(temperature <= 0), inv_t, int(top_k), seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF,
         _cuda.ptr(force),
@@ -240,10 +273,10 @@ def _launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, tempe
         _cuda.ptr(codes), _cuda.ptr(esum), _cuda.ptr(logits), _cuda.stream_ptr(),
     )
     _cuda.check(rc, "predict_codes_fused")
-    predict_codes_fused.launches += 1
     if return_logits:
         return codes, esum, logits[:, 0] if B == 1 else logits
     return codes, esum
 
 
 predict_codes_fused.launches = 0  # kernel launches (CUDA calls), not plain runs
+predict_codes_fused.mode_launches = dict.fromkeys(MODES, 0)  # the same, by the mode run

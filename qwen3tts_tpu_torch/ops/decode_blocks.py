@@ -8,6 +8,12 @@ csrc/common.cuh, with the same rounding points:
   f32 sums of exact upcasts, times the per-channel scale of an int8 weight
   (a dense bf16 weight has none), rounded to bf16 once after the sum.
   ``mv_f32`` is the same without the rounding (the codec and LM heads).
+  In the ``dyn_int8`` mode an int8 weight instead meets x quantized per row
+  (``quantize_rows``): the int32 sum is exact (taken in float64, |sum| <
+  2^53, so the card's matmul serves too), converted to f32 once and scaled
+  f32(acc) * (s * scale), or (f32(acc) * s) * scale for the code
+  predictor's heads (``gemv_partial_dq``/``gemv_batched_dq``). A dense bf16
+  weight stays a bf16 GEMV in that mode.
 * ``rms``: RMSNorm in f32 to bf16 (``rms_copy``/``finish_residual_norm``).
 * ``rope``: x*cos + rotate_half(x)*sin, each op rounded to bf16.
 * ``attend``: one query row per sequence against its cache rows [0, pos]
@@ -15,12 +21,13 @@ csrc/common.cuh, with the same rounding points:
   own ``pos``, in the talker form (q scaled first, f32 probabilities) or the
   code predictor form (scores scaled after the dot, probabilities rounded to
   bf16). It writes the new k/v row at ``pos`` first; on an int8 cache
-  (``quantize_kv_rows``) the prefix is read as int8 with the K scale folded
+  (``quantize_rows``) the prefix is read as int8 with the K scale folded
   into the scores and the V scale into the probabilities, while the current
   token attends with its own unquantized k/v, as the TPU kernel does. The
   kernel walks long caches in tiles with an online softmax; in f32 that
   differs from this one-pass softmax only in rounding order.
-* ``layer_step``: one transformer layer for one token of each of B rows.
+* ``layer_step``: one transformer layer for one token of each of B rows,
+  on fused or unfused (q/k/v, gate/up apart) projections.
 * ``sample_row``: the sampler (``sample_kernel``, one block per row; row b
   draws from stream ``stream + 16 * b``).
 
@@ -59,17 +66,36 @@ MASK32 = 0xFFFFFFFF
 STREAMS_PER_ROW = LIMITS["STREAMS_PER_ROW"]  # row b of a batched call: streams s + 16 b
 
 
-def mv_f32(x: torch.Tensor, w) -> torch.Tensor:
+def quantize_rows(x: torch.Tensor):
+    """Per-row symmetric int8: x [..., D] -> (int8 [..., D], f32 scale [...]).
+    scale = max(amax * f32(1/127), 1e-12), then an IEEE divide;
+    ``torch.round`` rounds half to even, as ``jnp.round`` and the kernels'
+    ``__float2int_rn`` do. The int8 KV cache's rows and the dyn_int8
+    activations both take it."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1) * (1.0 / 127.0), 1e-12)
+    return torch.round(xf / scale[..., None]).to(torch.int8), scale
+
+
+def mv_f32(x: torch.Tensor, w, mode: str = "wo_bf16", cp_head: bool = False) -> torch.Tensor:
     """x bf16 [..., K] @ w -> f32 [..., N]: int8 [K, N] times its scale
-    [1, N], or a dense bf16 [K, N] weight as it is."""
+    [1, N], or a dense bf16 [K, N] weight as it is. ``mode="dyn_int8"`` with
+    an int8 weight: x quantized per row, the exact int32 sum in f32, times
+    s * scale (``cp_head``: times s, then the scale)."""
     if isinstance(w, Int8Linear):
-        return (x.float() @ w.q.float()) * w.scale.reshape(-1)
+        scale = w.scale.reshape(-1)
+        if mode == "dyn_int8":
+            xq, s = quantize_rows(x)
+            acc = (xq.double() @ w.q.double()).float()
+            s = s[..., None]
+            return acc * s * scale if cp_head else acc * (s * scale)
+        return (x.float() @ w.q.float()) * scale
     return x.float() @ w.float()
 
 
-def mv(x: torch.Tensor, w) -> torch.Tensor:
+def mv(x: torch.Tensor, w, mode: str = "wo_bf16") -> torch.Tensor:
     """``mv_f32`` rounded once to bf16."""
-    return mv_f32(x, w).to(torch.bfloat16)
+    return mv_f32(x, w, mode).to(torch.bfloat16)
 
 
 def out_dim(w) -> int:
@@ -99,8 +125,6 @@ def attend(
     """GQA attention of one query row per sequence over its rows [0, pos];
     the new k/v rows are written at ``pos`` in place first (quantized on an
     int8 cache). Returns bf16 [B, NQ * D]."""
-    from ..models.talker import quantize_kv_rows
-
     B, nq, d = q.shape
     nkv = k_new.shape[1]
     kc, vc = cache[0], cache[1]
@@ -110,7 +134,7 @@ def attend(
     valid = (t[None] <= pos[:, None])[:, None, None]  # [B, 1, 1, T]
     ks = vs = None
     if len(cache) == 4:
-        (kq, ksc), (vq, vsc) = quantize_kv_rows(k_new), quantize_kv_rows(v_new)
+        (kq, ksc), (vq, vsc) = quantize_rows(k_new), quantize_rows(v_new)
         kc[rows, :, pos], vc[rows, :, pos] = kq, vq
         cache[2][rows, :, pos], cache[3][rows, :, pos] = ksc, vsc
         # the prefix as int8 with its row scales, the current token unquantized
@@ -140,9 +164,18 @@ def attend(
     return out.to(torch.bfloat16).reshape(B, nq * d)
 
 
-def layer_step(layers, l: int, cfg, h, cos, sin, cache, pos, cp_form: bool):
+def _mv_cat(x, layers, l: int, fused: str, parts: tuple, mode: str) -> torch.Tensor:
+    """The fused projection ``fused`` of layer l, or its unfused ``parts``
+    side by side (each column is the same function of x either way)."""
+    if fused in layers:
+        return mv(x, layers[fused][l], mode)
+    return torch.cat([mv(x, layers[k][l], mode) for k in parts], dim=-1)
+
+
+def layer_step(layers, l: int, cfg, h, cos, sin, cache, pos, cp_form: bool,
+               mode: str = "wo_bf16"):
     """One transformer layer for one token of each row (``layer_step`` in
-    common.cuh).
+    common.cuh), in the matmul ``mode`` of ``mv``.
 
     h: bf16 [B, H] residual stream; cos/sin: bf16 [B, D] rope rows at each
     row's position; cache: this layer's cache tuple (see ``attend``), whose
@@ -151,17 +184,19 @@ def layer_step(layers, l: int, cfg, h, cos, sin, cache, pos, cp_form: bool):
     NQ, NKV, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
     B = h.shape[0]
-    I = out_dim(layers["gate_up_proj"]) // 2
     c, s = cos[:, None], sin[:, None]
-    qkv = mv(rms(h, layers["input_layernorm"][l], eps), layers["qkv_proj"][l])
+    qkv = _mv_cat(rms(h, layers["input_layernorm"][l], eps), layers, l, "qkv_proj",
+                  ("q_proj", "k_proj", "v_proj"), mode)
     q = rope(rms(qkv[:, : NQ * D].reshape(B, NQ, D), layers["q_norm"][l], eps), c, s)
     k = rope(rms(qkv[:, NQ * D : (NQ + NKV) * D].reshape(B, NKV, D), layers["k_norm"][l], eps), c, s)
     v = qkv[:, (NQ + NKV) * D :].reshape(B, NKV, D)
     attn = attend(q, k, v, cache, pos, D**-0.5, cp_form)
-    h = h + mv(attn, layers["o_proj"][l])
-    gu = mv(rms(h, layers["post_attention_layernorm"][l], eps), layers["gate_up_proj"][l])
+    h = h + mv(attn, layers["o_proj"][l], mode)
+    gu = _mv_cat(rms(h, layers["post_attention_layernorm"][l], eps), layers, l, "gate_up_proj",
+                 ("gate_proj", "up_proj"), mode)
+    I = gu.shape[-1] // 2
     g, u = gu[:, :I].float(), gu[:, I:].float()
-    return h + mv((g * torch.sigmoid(g) * u).to(torch.bfloat16), layers["down_proj"][l])
+    return h + mv((g * torch.sigmoid(g) * u).to(torch.bfloat16), layers["down_proj"][l], mode)
 
 
 def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:

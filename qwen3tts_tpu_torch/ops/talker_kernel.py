@@ -8,7 +8,12 @@ cache with per-row f32 scales (``KVCacheQ``), in sample mode (the codec head
 and the code0 sampler of every row) or non-sample mode (the post-norm hidden
 only), on either fused layout (``_layout``): int8 weights with per-channel
 scales (the TPU kernel's ``wo_bf16`` mode) or dense bf16 weights (its
-``bf16`` mode, no scale). The codec head is int8 or dense bf16 by itself. On a CUDA tensor it launches the hand-written kernel in
+``bf16`` mode, no scale). The codec head is int8 or dense bf16 by itself.
+``mode="dyn_int8"`` (the TPU kernel's third mode, int8 layers only)
+quantizes each matvec's activation row to int8 with its own scale and sums
+s8 x s8 in int32: the layers give bf16(f32(acc) * (s * scale)), an int8
+codec head f32(acc) * (s * scale); a dense head stays bf16. On a CUDA
+tensor it launches the hand-written kernel in
 csrc/talker_step.cu (one C call, a fixed sequence of launches; see that
 file's header for the bound and the design); on a CPU tensor it runs
 ``talker_decode_step_ref``, the plain PyTorch version of the same function.
@@ -41,6 +46,7 @@ from .quant import Int8Linear
 
 _FUSED_KEYS = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
 MAX_BATCH = _cuda.MAX_BATCH
+MODES = ("wo_bf16", "bf16", "dyn_int8")  # the TPU kernels' matmul modes
 
 
 def _dense_bf16(w) -> bool:
@@ -65,6 +71,21 @@ def _weight(w):
     scale, or a dense bf16 weight with none (the kernels then multiply by no
     scale)."""
     return (w.q, w.scale) if isinstance(w, Int8Linear) else (w.contiguous(), None)
+
+
+def run_mode(mode: str, layout: str | None, what: str) -> str:
+    """The mode a call runs in, checked against the weights' layout:
+    ``wo_bf16`` (the default) multiplies the layout's own weights, int8 with
+    scales or dense bf16 (the mode JAX names ``bf16``, which requires dense
+    bf16 weights); ``dyn_int8`` requires int8 weights. Raises ValueError on
+    any other mode or a mismatch."""
+    if mode not in MODES:
+        raise ValueError(f"{what}: unknown mode {mode!r} (expected one of {', '.join(MODES)})")
+    if mode == "dyn_int8" and layout != "int8":
+        raise ValueError(f"{what}: dyn_int8 takes int8 weights, not the {layout} layout")
+    if mode == "bf16" and layout != "bf16":
+        raise ValueError(f"{what}: the bf16 mode takes dense bf16 weights, not the {layout} layout")
+    return "bf16" if layout == "bf16" else mode
 
 
 def step_supported(params, cfg, batch: int = 1, kv_quant: bool = False) -> bool:
@@ -100,25 +121,27 @@ def talker_decode_step_ref(
     params, cfg, x, cache, offset, cos, sin, *, sample: bool = True,
     temperature: float = 0.0, top_k: int = 0, rep_penalty: float = 1.0, eos_id: int = -1,
     seed: tuple[int, int] = (0, 0), suppress_add=None, seen=None, return_logits: bool = False,
+    mode: str = "wo_bf16",
 ):
     """Plain PyTorch version of K1 (same rounding points as the kernel)."""
+    mode = run_mode(mode, _layout(params["layers"]), "talker_decode_step")
     if isinstance(offset, int):
         offs = torch.full((1,), offset, dtype=torch.int64, device=x.device)
         return _one_row(talker_decode_step_ref(
             params, cfg, x, cache, offs, cos, sin, sample=sample, temperature=temperature,
             top_k=top_k, rep_penalty=rep_penalty, eos_id=eos_id, seed=seed,
-            suppress_add=suppress_add, seen=seen, return_logits=return_logits))
+            suppress_add=suppress_add, seen=seen, return_logits=return_logits, mode=mode))
     B, D = x.shape[0], cfg.head_dim
     pos = offset.to(torch.int64)
     cos, sin = (t.to(torch.bfloat16).reshape(-1, D).expand(B, D) for t in (cos, sin))
     h = x.reshape(B, cfg.hidden_size).to(torch.bfloat16)
     for l in range(cfg.num_hidden_layers):
         h = layer_step(params["layers"], l, cfg, h, cos, sin, tuple(c[l] for c in cache), pos,
-                       cp_form=False)
+                       cp_form=False, mode=mode)
     hn = rms(h, params["norm"], cfg.rms_norm_eps)
     if not sample:
         return hn
-    logits = mv_f32(hn, params["codec_head"])
+    logits = mv_f32(hn, params["codec_head"], mode)
     seen = seen.reshape(-1, logits.shape[-1]).expand(B, -1)
     code = torch.cat([
         sample_row(
@@ -135,6 +158,7 @@ def talker_decode_step(
     params, cfg, x, cache, offset, cos, sin, *, sample: bool = True,
     temperature: float = 0.0, top_k: int = 0, rep_penalty: float = 1.0, eos_id: int = -1,
     seed: tuple[int, int] = (0, 0), suppress_add=None, seen=None, return_logits: bool = False,
+    mode: str = "wo_bf16",
 ):
     """One decode step for B rows.
 
@@ -143,8 +167,9 @@ def talker_decode_step(
     rows of each sequence (its new row goes there), an int (B=1) or an int
     tensor [B]; cos/sin [B, D] rope rows at the offsets. Sample mode:
     suppress_add f32 [V] (shared), seen bool [B, V]; seed: two 32-bit words.
-    Returns (h bf16 after the final norm, code0 int32 [, logits f32 before
-    mask and penalty]) in sample mode, else h; shapes in the module doc.
+    ``mode``: see ``run_mode``. Returns (h bf16 after the final norm, code0
+    int32 [, logits f32 before mask and penalty]) in sample mode, else h;
+    shapes in the module doc.
     """
     kw = dict(
         sample=sample, temperature=temperature, top_k=top_k, rep_penalty=rep_penalty,
@@ -152,15 +177,19 @@ def talker_decode_step(
         return_logits=return_logits,
     )
     if x.device.type == "cpu":
-        return talker_decode_step_ref(params, cfg, x, cache, offset, cos, sin, **kw)
+        return talker_decode_step_ref(params, cfg, x, cache, offset, cos, sin, mode=mode, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"talker_decode_step: unsupported device {x.device}")
-    return _launch(params, cfg, x, cache, offset, cos, sin, **kw)
+    mode = run_mode(mode, _layout(params["layers"]), "talker_decode_step")
+    out = _launch(params, cfg, x, cache, offset, cos, sin, dyn=mode == "dyn_int8", **kw)
+    talker_decode_step.launches += 1
+    talker_decode_step.mode_launches[mode] += 1
+    return out
 
 
 def _launch(
     params, cfg, x, cache, offset, cos, sin, *, sample, temperature, top_k, rep_penalty,
-    eos_id, seed, suppress_add, seen, return_logits,
+    eos_id, seed, suppress_add, seen, return_logits, dyn,
 ):
     L, H = cfg.num_hidden_layers, cfg.hidden_size
     NQ, NKV, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -221,22 +250,22 @@ def _launch(
     gated = torch.empty(B, I, dtype=torch.bfloat16, device=dev)
     ws = torch.empty(_cuda.workspace_rows(B) * max(oqkv, 2 * I, H, V), dtype=torch.float32,
                      device=dev)
+    amax = _cuda.amax_slots(B, dev) if dyn else None
     code = torch.empty(B, dtype=torch.int32, device=dev) if sample else None
     logits = torch.empty(B, V, dtype=torch.float32, device=dev) if sample and return_logits else None
     inv_t = _f32(1.0 / temperature) if temperature > 0 else 0.0
     rc = _cuda.library().qt_talker_step(
         L, H, NQ, NKV, D, I, V, T, B, offset if single else 0, _cuda.ptr(offs), int(quant),
-        int(w_bf16), int(head_bf16), cfg.rms_norm_eps, D**-0.5,
+        int(w_bf16), int(head_bf16), int(dyn), cfg.rms_norm_eps, D**-0.5,
         *(_cuda.ptr(t) for t in ins),
         *(_cuda.ptr(t) for t in rope), 0 if single else D,
         *(_cuda.ptr(t) for t in tail),
         float(rep_penalty), int(temperature <= 0), inv_t, int(top_k), int(eos_id),
         seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF,
-        *(_cuda.ptr(t) for t in (hres, xn, attn, gated, ws, code, logits)),
+        *(_cuda.ptr(t) for t in (hres, xn, attn, gated, ws, amax, code, logits)),
         _cuda.stream_ptr(),
     )
     _cuda.check(rc, "talker_decode_step")
-    talker_decode_step.launches += 1
     out = xn if not sample else (xn, code, logits) if return_logits else (xn, code)
     return _one_row(out) if single else out
 
@@ -247,3 +276,4 @@ def _f32(v: float) -> float:
 
 
 talker_decode_step.launches = 0  # kernel launches (CUDA calls), not plain runs
+talker_decode_step.mode_launches = dict.fromkeys(MODES, 0)  # the same, by the mode run

@@ -559,7 +559,8 @@ class Qwen3TTSModel:
         layout: int8 (``from_pretrained(..., quantize='int8')``, the default
         for a quantized checkpoint) or dense bf16 (the default load of an
         unquantized checkpoint), at 0.6B and 1.7B: other weights (packed,
-        unfused, float32) raise ``Qwen3TTSError``.
+        unfused talker, float32) raise ``Qwen3TTSError``; an unfused int8
+        code predictor runs through K2.
 
         Unlike ``generate()``, a sequence that samples EOS on its very first
         frame yields an empty waveform instead of raising (the batch's other
@@ -590,7 +591,8 @@ class Qwen3TTSModel:
             raise Qwen3TTSError(
                 "generate_batch on CUDA runs through K1 and K2, which take a fused layout: "
                 "int8 (from_pretrained(..., quantize='int8')) or dense bf16 (the default "
-                "from_pretrained of an unquantized checkpoint with dtype bf16)"
+                "from_pretrained of an unquantized checkpoint with dtype bf16); K2 also an "
+                "unfused int8 code predictor"
             )
         sampling = self._sampling(temperature, top_k, top_p, repetition_penalty)
         t0 = time.time()

@@ -13,7 +13,10 @@ rounding points, f32 sums in another order), codes equal unless a logit
 near-tie within twice the observed logit error explains the difference;
 K4 (f32 out) <= 1e-4 scaled; K3 (bf16 out) <= 1e-2 scaled. K1 and K2 are
 held so in both weight modes (int8, dense bf16) and K2 also with the
-small-to-MTP projection of a CP narrower than its talker (the 1.7B shape).
+small-to-MTP projection of a CP narrower than its talker (the 1.7B shape);
+both also in the ``dyn_int8`` matmul mode (selected for ``generate_codes``
+by QWEN3TTS_TK_MODE / QWEN3TTS_CPK_MODE), K2 on unfused int8 layers, and
+K5's port (ops/cp_kernel_old.py), which launches K2's kernel.
 """
 
 import warnings
@@ -582,3 +585,142 @@ def test_generate_codes_with_projection_runs_on_the_kernels(dev, weights, bf16_w
     assert cpk.predict_codes_fused.launches - n2 == 8
     codes = res.codes.cpu()
     assert (codes[:, 0] < 2048).all() and (codes[:, 1:] < CPC_N.vocab_size).all()
+
+
+# --- dyn_int8 (per-row int8 activations, s8 x s8 -> s32), unfused K2, K5 ---
+
+
+def _unfused_int8_cp(dev, cpc=CPC, seed=1):
+    cp = hi.to_device(hi.host_init_cp_params(seed, cpc, CFG.hidden_size), torch.bfloat16, dev)
+    return quantize_decode_params_int8(cp, "lm_head")
+
+
+@pytest.mark.parametrize("B,kv_quant", [(1, False), (5, True), (64, False), (64, True)])
+def test_k1_dyn_int8_matches_plain(dev, weights, B, kv_quant):
+    """K1 in dyn_int8 against its plain version: hidden, logits and the new
+    k/v rows within the bf16 bound, greedy code0 equal but for near-ties,
+    the non-sample hidden equal to the sample-mode one; one launch per call,
+    counted under dyn_int8; the int-offset form at B=1."""
+    tp, _ = weights
+    T = 512 if kv_quant else 128
+    x, cache, offs, cos, sin, supp, seen = _batched_case(dev, B, T, kv_quant, seed=B + 7)
+    off = int(offs[0]) if B == 1 else offs
+    if B == 1:
+        cos, sin, seen = cos[0], sin[0], seen[0]
+    kw = dict(temperature=0.0, top_k=50, rep_penalty=1.05, eos_id=-1, seed=(1, 2),
+              suppress_add=supp, seen=seen, return_logits=True, mode="dyn_int8")
+    ck, cr = _clone(cache), _clone(cache)
+    before = dict(tkk.talker_decode_step.mode_launches)
+    hk, codek, lk = tkk.talker_decode_step(tp, CFG, x, ck, off, cos, sin, **kw)
+    assert tkk.talker_decode_step.mode_launches["dyn_int8"] == before["dyn_int8"] + 1
+    assert tkk.talker_decode_step.mode_launches["wo_bf16"] == before["wo_bf16"]
+    hr, coder, lr = tkk.talker_decode_step_ref(tp, CFG, x, cr, off, cos, sin, **kw)
+    assert scaled(hk, hr) < 0.05 and scaled(lk, lr) < 0.05
+    rows, pos = torch.arange(B, device=dev), offs.long()
+    for i in range(2):
+        new_a, new_b = ck[i][:, rows, :, pos], cr[i][:, rows, :, pos]
+        if kv_quant:
+            new_a = tk.dequantize_kv(new_a, ck[2 + i][:, rows, :, pos])
+            new_b = tk.dequantize_kv(new_b, cr[2 + i][:, rows, :, pos])
+        assert scaled(new_a, new_b) < 0.05
+    err = float((lk - lr).abs().max())
+    z = (_pen(lr, seen) + supp).reshape(B, -1)
+    for b in range(B):
+        a_, b_ = int(codek.reshape(-1)[b]), int(coder.reshape(-1)[b])
+        assert a_ == b_ or abs(float(z[b, a_] - z[b, b_])) <= 2 * err + 1e-6, b
+    hn = tkk.talker_decode_step(tp, CFG, x, _clone(cache), off, cos, sin, sample=False,
+                                mode="dyn_int8")
+    assert torch.equal(hn, hk)
+
+
+def _k2_check(cpc, cpp, tp, dev, B, mode, fn=None):
+    """K2 (or ``fn``, K5) teacher-forced greedy against the plain version:
+    logits within the bf16 bound, codes equal but for near-ties, esum
+    bit-equal."""
+    fn = fn or cpk.predict_codes_fused
+    g = torch.Generator(device=dev).manual_seed(B)
+    h = torch.randn(B, CFG.hidden_size, generator=g, device=dev).mul(0.3).bfloat16()
+    code0 = torch.randint(0, 2048, (B,), generator=g, device=dev, dtype=torch.int32)
+    cr, er, lr = cpk.predict_codes_fused_ref(cpp, cpc, tp, h, code0, (5, 6), temperature=0.0,
+                                             top_k=50, return_logits=True, mode=mode)
+    before = fn.launches
+    ck, ek, lk = fn(cpp, cpc, tp, h, code0, (5, 6), temperature=0.0, top_k=50, force_codes=cr,
+                    return_logits=True, mode=mode)
+    assert fn.launches == before + 1
+    assert scaled(lk, lr) < 0.05
+    assert torch.equal(ek, er)  # the same bf16 rows summed in f32 in the same order
+    err = float((lk - lr).abs().max())
+    lr, ck, cr = lr.reshape(15, B, -1), ck.reshape(B, 15), cr.reshape(B, 15)
+    for b in range(B):
+        for j in range(15):
+            a, c = int(ck[b, j]), int(cr[b, j])
+            assert a == c or abs(float(lr[j, b, a] - lr[j, b, c])) <= 2 * err, (b, j)
+
+
+@pytest.mark.parametrize("mode,layers,B", [
+    ("dyn_int8", "fused", 3), ("dyn_int8", "fused", 64), ("wo_bf16", "unfused", 1),
+    ("dyn_int8", "unfused", 1), ("wo_bf16", "unfused", 64), ("dyn_int8", "unfused", 64),
+    ("dyn_int8", "projection", 1),
+])
+def test_k2_dyn_int8_and_unfused_match_plain(dev, weights, bf16_weights, mode, layers, B):
+    """K2 in dyn_int8 (fused, unfused, and with the bf16 small-to-MTP
+    projection, which stays a bf16 GEMV), and on unfused int8 layers in
+    both modes, against its plain version; counted under its mode."""
+    tp, cp = weights
+    cpc, cpp = CPC, cp
+    if layers == "unfused":
+        cpp = _unfused_int8_cp(dev)
+        assert "q_proj" in cpp["layers"] and cpk.kernel_supported(cpp, CPC, 256, B)
+    elif layers == "projection":
+        cpc, cpp = CPC_N, bf16_weights[2]["int8"]
+    before = cpk.predict_codes_fused.mode_launches[mode]
+    _k2_check(cpc, cpp, tp, dev, B, mode)
+    assert cpk.predict_codes_fused.mode_launches[mode] == before + 1
+
+
+@pytest.mark.parametrize("mode", ["wo_bf16", "dyn_int8"])
+def test_k5_launches_the_cp_kernel(dev, weights, mode):
+    """ops/cp_kernel_old.py (K5's port) launches K2's CUDA kernel, counted
+    by its own counter, and matches the plain version."""
+    from qwen3tts_tpu_torch.ops import cp_kernel_old as cpk_old
+
+    tp, cp = weights
+    assert cpk_old.kernel_supported(cp, CPC, 256)
+    n2 = cpk.predict_codes_fused.launches
+    _k2_check(CPC, cp, tp, dev, 1, mode, fn=cpk_old.predict_codes_fused)
+    assert cpk.predict_codes_fused.launches == n2  # counted as K5's, not K2's
+
+
+@pytest.mark.parametrize("cp_layers", ["fused", "unfused"])
+def test_generate_codes_dyn_int8_runs_on_the_kernels(dev, weights, monkeypatch, cp_layers):
+    """QWEN3TTS_TK_MODE / QWEN3TTS_CPK_MODE = dyn_int8: K1 once per frame
+    after the first and K2 once per frame, all in dyn_int8, on a fused and
+    on an unfused int8 CP; the plain CP loop never runs."""
+    tp, cp = weights
+    if cp_layers == "unfused":
+        cp = _unfused_int8_cp(dev)
+    for var in ("QWEN3TTS_TK_MODE", "QWEN3TTS_CPK_MODE"):
+        monkeypatch.setenv(var, "dyn_int8")
+
+    def plain_cp(*a, **k):
+        raise AssertionError("the plain CP loop ran")
+
+    monkeypatch.setattr(gen.cp, "predict_codes", plain_cp)
+    g = torch.Generator(device=dev).manual_seed(2)
+    n1 = dict(tkk.talker_decode_step.mode_launches)
+    n2 = dict(cpk.predict_codes_fused.mode_launches)
+    res = gen.generate_codes(
+        tp, cp, talker_cfg=CFG, cp_cfg=CPC,
+        sampling=gen.SamplingConfig(0.9, 50, 1.0, 1.05, forbid_eos=True),
+        prefill_embeds=torch.randn(1, 64, 256, generator=g, device=dev).mul(0.1).bfloat16(),
+        prefill_len=20, trailing_embeds=torch.zeros(16, 256, dtype=torch.bfloat16, device=dev),
+        trailing_len=4, tts_pad_embed=torch.zeros(256, dtype=torch.bfloat16, device=dev),
+        max_steps=10, max_frames=12, seed=3, cache_len=128,
+    )
+    assert res.n_frames == 10
+    k1 = {m: tkk.talker_decode_step.mode_launches[m] - n1[m] for m in n1}
+    k2 = {m: cpk.predict_codes_fused.mode_launches[m] - n2[m] for m in n2}
+    assert k1 == {"wo_bf16": 0, "bf16": 0, "dyn_int8": 9}
+    assert k2 == {"wo_bf16": 0, "bf16": 0, "dyn_int8": 10}
+    codes = res.codes[:10].cpu()
+    assert (codes[:, 0] < 2048).all() and (codes[:, 1:] < CPC.vocab_size).all()

@@ -31,9 +31,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SUBMODULES = (
     "config", "tts",
-    "models.talker", "models.code_predictor", "models.generate", "models.vocoder",
+    "models.talker", "models.code_predictor", "models.generate", "models.batch_generate",
+    "models.vocoder",
     "ops.quant", "ops.norms", "ops.rope", "ops.sampling", "ops.conv", "ops.decode_blocks",
-    "ops.talker_kernel", "ops.cp_kernel", "ops._cuda", "ops.attention",
+    "ops.talker_kernel", "ops.cp_kernel", "ops.cp_kernel_old", "ops._cuda", "ops.attention",
     "utils.host_init", "utils.convert", "utils.loader",
 )
 
