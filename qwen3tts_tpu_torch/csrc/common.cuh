@@ -67,8 +67,22 @@
 
 typedef __nv_bfloat16 bf16;
 
+// Operations (kernel launches and memsets) enqueued through QT_CHECK_LAUNCH
+// since the library was loaded, counted on the host (qt_launches in
+// talker_step.cu). Every operation of K1 (qt_talker_step) and K2
+// (qt_cp_loop) is followed by exactly one QT_CHECK_LAUNCH, so the count's
+// growth over a call is that call's launches, exactly.
+namespace qt {
+inline unsigned long long& launch_count() {
+  static unsigned long long n = 0;  // one instance across the library (inline, external linkage)
+  return n;
+}
+}  // namespace qt
+
+// After each enqueued operation: count it and return its launch error.
 #define QT_CHECK_LAUNCH()                          \
   do {                                             \
+    ++::qt::launch_count();                        \
     cudaError_t e_ = cudaGetLastError();           \
     if (e_ != cudaSuccess) return (int)e_;         \
   } while (0)
@@ -781,7 +795,11 @@ struct AttnCache {
 // scales (KVQ), as in AttnCache
 // dyn_int8: ``amax_in`` gives the qkv GEMV's activation scale, and each
 // warp's max |out| joins row b's atomic slot ``amax_out``.
-template <bool CP, bool KVQ, typename KV = typename std::conditional<KVQ, int8_t, bf16>::type>
+// NOATTN (T6's ``noattn`` ablation, talker form, bf16 cache): the new k/v
+// row is written as usual, the prefix walk and the softmax are skipped, and
+// the output is q itself after QK-norm and rope (unscaled).
+template <bool CP, bool KVQ, bool NOATTN = false,
+          typename KV = typename std::conditional<KVQ, int8_t, bf16>::type>
 __global__ void __launch_bounds__(ATTN_THREADS)
 attn_step(const float* __restrict__ part, int splits, const Mat qkv,
           const float* __restrict__ amax_in, const float* __restrict__ qn,
@@ -834,7 +852,7 @@ attn_step(const float* __restrict__ part, int splits, const Mat qkv,
     const float rot = d < D / 2 ? -xp : xp;
     const float y = rbf(__fadd_rn(rbf(__fmul_rn(xd, bf(cosr[d]))), rbf(__fmul_rn(rot, bf(sinr[d])))));
     // the talker form scales q before the dot
-    qk[which][d] = (!CP && which < G) ? __fmul_rn(y, scale) : y;
+    qk[which][d] = (!CP && !NOATTN && which < G) ? __fmul_rn(y, scale) : y;
   }
   __syncthreads();
   const size_t head = ((size_t)b * NKV + kvh) * T;  // this (row, kv head)'s first cache row
@@ -879,7 +897,7 @@ attn_step(const float* __restrict__ part, int splits, const Mat qkv,
 #pragma unroll
   for (int j = 0; j < ATTN_OWN; ++j) acc[j] = 0.f;
   // rows read from the cache: the prefix, and the new row but on an int8 cache
-  const int n = !in_range ? 0 : KVQ ? pos : pos + 1;
+  const int n = !in_range || NOATTN ? 0 : KVQ ? pos : pos + 1;
   const int TS = min(n, ATTN_TILE);
   for (int t0 = 0; t0 < n; t0 += ATTN_TILE) {
     const int nt = min(ATTN_TILE, n - t0);
@@ -967,7 +985,9 @@ attn_step(const float* __restrict__ part, int splits, const Mat qkv,
     const int i = tid + j * ATTN_THREADS;
     if (i < G * D) {
       const int g = i / D, d = i % D;
-      const bf16 o = __float2bfloat16_rn(CP ? acc[j] : __fdiv_rn(acc[j], l_run[g]));
+      const bf16 o = __float2bfloat16_rn(NOATTN ? qk[g][d]
+                                         : CP   ? acc[j]
+                                                : __fdiv_rn(acc[j], l_run[g]));
       out[(kvh * G + g) * D + d] = o;
       mx = fmaxf(mx, fabsf(bf(o)));
     }
@@ -983,10 +1003,11 @@ attn_step(const float* __restrict__ part, int splits, const Mat qkv,
 // Finishes the head GEMV (logits = ``mv_out``, f32), then: + suppress mask
 // (shared by the rows), repetition penalty (l < 0 ? l * rep : l / rep over
 // the row's ``seen``), and either argmax (greedy) or EOS save, exact top-k
-// (radix select on the ordered float bits), EOS restore, z * inv_t + Gumbel
-// noise on the row's stream, argmax. Ties go to the lowest id. With ``emb``
-// the block then copies row ``code`` (or the forced code) of emb [V, H] to
-// the row's x_next and adds it to its esum (f32).
+// (radix select on the ordered float bits), top-p (``top_p_stage``), EOS
+// restore, z * inv_t + Gumbel noise on the row's stream, argmax. Ties go to
+// the lowest id. With ``emb`` the block then copies row ``code`` (or the
+// forced code) of emb [V, H] to the row's x_next and adds it to its esum
+// (f32).
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ uint32_t float_key(float f) {
   const uint32_t u = __float_as_uint(f);
@@ -1021,10 +1042,135 @@ struct SampleArgs {
   float* esum;           // [B, H]
   const float* amax;     // dyn_int8 head: row b's input amax at amax[b], else null
   int cp_head;           // dyn_int8: (f32(acc) * s) * scale (CP heads), else f32(acc) * (s * scale)
+  float top_p_thr;       // top-p: keep a token iff its cumulative mass > this (f32(1 - p)); 0: off
+  int ref_exact;         // top-p mass exp(z) unnormalized (the reference's), else softmax(z)
 };
 
+// Top-p on a row held in registers (SAMPLE_PER_THREAD values a thread, id
+// tid + i * blockDim.x), after top-k: mass m_i = softmax(z)_i, or exp(z_i)
+// with ``ref_exact``; ids in ascending order of (z, id), the stable
+// ascending argsort; keep an id iff the cumulative mass up to and including
+// it is > ``thr``, drop the rest to NEG_BIG. Ids of zero mass lie at the
+// bottom of that order with a cumulative mass of 0 and are dropped without
+// being sorted. The ids of positive mass (at most k with top-k on, the whole
+// row with it off) are compacted into shared memory as 64-bit keys (ordered
+// float bits, id) and sorted by a block-wide bitonic sort; a block scan
+// then sums the mass in f32 in the ascending order (4 consecutive ranks a
+// thread, then warp and block prefix sums: the terms of jnp.cumsum, in
+// another association), and the kept ids are the ranks from the first whose
+// cumulative mass exceeds thr up (a suffix of the order, as the sequential
+// sum gives). The mass of an id is recomputed from its sorted key with the
+// same operations, so the two agree to the bit. The stage is the TOPP
+// instance of ``sample_kernel`` (``launch_sampler`` picks it when the stage
+// is on) with its keys in dynamic shared memory, so the sampler without
+// top-p is the kernel it was, registers and shared memory alike.
+
+__device__ __forceinline__ float top_p_mass(float z, float m, float sum, int ref_exact) {
+  return ref_exact ? expf(z) : __fdiv_rn(expf(z - m), sum);
+}
+
+__device__ void top_p_stage(float (&z)[SAMPLE_PER_THREAD], const bool (&valid)[SAMPLE_PER_THREAD],
+                            float thr, int ref_exact, float* red, unsigned long long* keys) {
+  __shared__ int n_sh, first_sh;
+  __shared__ float scan[32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float m = 0.f, sum = 1.f;
+  if (!ref_exact) {
+    float mx = -CUDART_INF_F;
+#pragma unroll
+    for (int i = 0; i < SAMPLE_PER_THREAD; ++i)
+      if (valid[i]) mx = fmaxf(mx, z[i]);
+    m = block_max(mx, red);
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < SAMPLE_PER_THREAD; ++i)
+      if (valid[i]) s += expf(z[i] - m);
+    sum = block_sum(s, red);
+  }
+  if (tid == 0) n_sh = 0;
+  __syncthreads();
+  float mass[SAMPLE_PER_THREAD];
+  unsigned long long key[SAMPLE_PER_THREAD];
+#pragma unroll
+  for (int i = 0; i < SAMPLE_PER_THREAD; ++i) {
+    mass[i] = valid[i] ? top_p_mass(z[i], m, sum, ref_exact) : 0.f;
+    // + 0.f: -0 and +0 compare equal and take the id order
+    key[i] = (unsigned long long)float_key(z[i] + 0.f) << 32 | (uint32_t)(tid + i * blockDim.x);
+    if (mass[i] > 0.f) keys[atomicAdd(&n_sh, 1)] = key[i];
+  }
+  __syncthreads();
+  const int n = n_sh;
+  int N = 1;
+  while (N < n) N <<= 1;
+  for (int i = n + tid; i < N; i += blockDim.x) keys[i] = ~0ull;
+  __syncthreads();
+  for (int k = 2; k <= N; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = tid; i < N; i += blockDim.x) {
+        const int p = i ^ j;
+        if (p > i) {
+          const unsigned long long a = keys[i], b = keys[p];
+          if ((a > b) == ((i & k) == 0)) {
+            keys[i] = b;
+            keys[p] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  // ranks 4 tid .. 4 tid + 3: local cumulative mass, then the block's prefix
+  float cum[SAMPLE_PER_THREAD];
+  float run = 0.f;
+#pragma unroll
+  for (int i = 0; i < SAMPLE_PER_THREAD; ++i) {
+    const int r = tid * SAMPLE_PER_THREAD + i;
+    if (r < n) run += top_p_mass(key_float((uint32_t)(keys[r] >> 32)), m, sum, ref_exact);
+    cum[i] = run;
+  }
+  float incl = run;  // inclusive warp scan of the thread totals
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) scan[warp] = incl;
+  if (tid == 0) first_sh = n;
+  __syncthreads();
+  if (warp == 0) {
+    const int nw = blockDim.x >> 5;
+    float w = lane < nw ? scan[lane] : 0.f;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += v;
+    }
+    if (lane < nw) scan[lane] = w;  // inclusive over the warps
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);  // the warp's exclusive prefix
+  if (lane == 0) excl = 0.f;
+  __syncthreads();
+  const float before = (warp ? scan[warp - 1] : 0.f) + excl;
+#pragma unroll
+  for (int i = 0; i < SAMPLE_PER_THREAD; ++i) {
+    const int r = tid * SAMPLE_PER_THREAD + i;
+    if (r < n && before + cum[i] > thr) {
+      atomicMin(&first_sh, r);
+      break;
+    }
+  }
+  __syncthreads();
+  const int first = first_sh;
+  const unsigned long long kmin = first < n ? keys[first] : ~0ull;
+#pragma unroll
+  for (int i = 0; i < SAMPLE_PER_THREAD; ++i)
+    if (valid[i] && !(mass[i] > 0.f && first < n && key[i] >= kmin)) z[i] = NEG_BIG;
+}
+
+template <bool TOPP>
 __global__ void __launch_bounds__(SAMPLE_THREADS)
 sample_kernel(const float* __restrict__ part, int splits, const Mat head, int V, SampleArgs a) {
+  extern __shared__ unsigned long long top_p_keys[];  // TOPP: next_pow2(V) keys
   __shared__ float redf[32];
   __shared__ int redi[32];
   __shared__ uint32_t hist[256];
@@ -1091,6 +1237,7 @@ sample_kernel(const float* __restrict__ part, int splits, const Mat head, int V,
       for (int i = 0; i < SAMPLE_PER_THREAD; ++i)
         if (valid[i] && !(z[i] >= kth)) z[i] = NEG_BIG;
     }
+    if (TOPP) top_p_stage(z, valid, a.top_p_thr, a.ref_exact, redf, top_p_keys);
     __syncthreads();  // eos_logit
 #pragma unroll
     for (int i = 0; i < SAMPLE_PER_THREAD; ++i) {
@@ -1158,18 +1305,38 @@ sample_kernel(const float* __restrict__ part, int splits, const Mat head, int V,
   }
 }
 
+// One sampler launch for B rows: the top-p instance (its keys in
+// next_pow2(V) x 8 bytes of dynamic shared memory) when a.top_p_thr > 0.
+inline void launch_sampler(const float* part, int splits, const Mat& head, int V,
+                           const SampleArgs& a, int B, cudaStream_t st) {
+  if (a.top_p_thr > 0.f) {
+    size_t n = 1;
+    while (n < (size_t)V) n <<= 1;
+    sample_kernel<true><<<B, SAMPLE_THREADS, n * sizeof(unsigned long long), st>>>(part, splits,
+                                                                                   head, V, a);
+  } else {
+    sample_kernel<false><<<B, SAMPLE_THREADS, 0, st>>>(part, splits, head, V, a);
+  }
+}
+
 // One transformer layer of one token per row through the kernels above; the
 // residual stream is ``h`` [B, H] and ``xn`` holds rms(h, input_layernorm)
 // on entry and rms(h, next_norm) on return. The four matmul weights are
 // int8 with their scales, or bf16 with none. ``amax`` (dyn_int8, int8
 // weights): the [AMAX_SLOTS][B] activation amax slots, the first holding
 // xn's on entry (and on return); null in the weight-only modes.
+// ``PART`` (T6's ablations, csrc/talker_ablate.cu; K1 and K2 run
+// LAYER_FULL): LAYER_NOATTN takes q for the attention output
+// (``attn_step``'s NOATTN), LAYER_NOMLP ends the layer after o_proj + the
+// residual, whose finish applies ``next_norm`` (no gate_up, no down).
+constexpr int LAYER_FULL = 0, LAYER_NOATTN = 1, LAYER_NOMLP = 2;
+
 struct LayerW {
   Mat qkv, o, gu, d;
   const float *pln, *qn, *kn;
 };
 
-template <bool CP, bool KVQ>
+template <bool CP, bool KVQ, int PART = LAYER_FULL>
 inline int layer_step(const LayerW& w, const float* next_norm, int B, int H, int NQ, int NKV,
                       int I, float eps, float scale, const bf16* cosr, const bf16* sinr,
                       int rope_stride, const AttnCache& cache, int pos, const int* offs,
@@ -1184,7 +1351,8 @@ inline int layer_step(const LayerW& w, const float* next_norm, int B, int H, int
   // score tile: the rows read from the cache, up to ATTN_TILE (all of it
   // when the rows' positions live on the device)
   const int rows = offs ? ATTN_TILE : min(max(KVQ ? pos : pos + 1, 1), ATTN_TILE);
-  attn_step<CP, KVQ><<<dim3(NKV, B), ATTN_THREADS, (NQ / NKV) * rows * sizeof(float), st>>>(
+  attn_step<CP, KVQ, PART == LAYER_NOATTN>
+      <<<dim3(NKV, B), ATTN_THREADS, (NQ / NKV) * rows * sizeof(float), st>>>(
       ws, s, w.qkv, a_xn, w.qn, w.kn, eps, cosr, sinr, rope_stride,
       (typename std::conditional<KVQ, int8_t, bf16>::type*)cache.k,
       (typename std::conditional<KVQ, int8_t, bf16>::type*)cache.v, cache.ks, cache.vs, cache.T,
@@ -1192,8 +1360,11 @@ inline int layer_step(const LayerW& w, const float* next_norm, int B, int H, int
   QT_CHECK_LAUNCH();
   s = gemv(w.o, attn, B, ws, NQ * D, H, a_attn, st);
   QT_CHECK_LAUNCH();
-  finish_residual_norm<<<B, 1024, 0, st>>>(ws, s, w.o, a_attn, h, nullptr, w.pln, xn, H, eps, a_xn);
+  finish_residual_norm<<<B, 1024, 0, st>>>(ws, s, w.o, a_attn, h, nullptr,
+                                           PART == LAYER_NOMLP ? next_norm : w.pln, xn, H, eps,
+                                           a_xn);
   QT_CHECK_LAUNCH();
+  if (PART == LAYER_NOMLP) return 0;
   s = gemv(w.gu, xn, B, ws, H, 2 * I, a_xn, st);
   QT_CHECK_LAUNCH();
   finish_swiglu<<<dim3((I + 255) / 256, B), 256, 0, st>>>(ws, s, w.gu, a_xn, I, gated, a_gated);

@@ -52,7 +52,8 @@ using namespace qt;
 // bf16, or both null when TH == H; k/v_cache scratch
 // [L, B, NKV, NCB + 1, D] bf16; force_codes, codes_out [B, NCB]; esum
 // [B, TH]; xbuf [B, TH]; logits_out [NCB, B, V]. Row b draws its codebook j
-// from stream j + 1 + 16 b.
+// from stream j + 1 + 16 b; top_p_thr is f32(1 - top_p) or 0 (no top-p
+// stage), see SampleArgs.
 extern "C" int qt_cp_loop(
     int L, int H, int NQ, int NKV, int D, int I, int V, int NCB, int B, int TH, int w_bf16,
     int head_bf16, int dyn, float eps, float scale,
@@ -63,8 +64,8 @@ extern "C" int qt_cp_loop(
     const void* iln, const void* pln, const void* qn, const void* kn, const void* fnorm,
     const void* lm_w, const void* lm_s, const void* emb, const void* proj_w, const void* proj_b,
     const void* cos_tab, const void* sin_tab, void* k_cache, void* v_cache,
-    int greedy, float inv_t, int top_k, uint32_t seed0, uint32_t seed1,
-    const void* force_codes,
+    int greedy, float inv_t, int top_k, float top_p_thr, int ref_exact, uint32_t seed0,
+    uint32_t seed1, const void* force_codes,
     void* hres, void* xn, void* attn, void* gated, void* ws, void* xbuf, void* amax,
     void* codes_out, void* esum, void* logits_out, void* stream) {
   const StackW stack = {q_w, q_s, k_w, k_s, v_w, v_s, o_w, o_s, g_w, g_s, u_w, u_s, d_w, d_s};
@@ -127,6 +128,8 @@ extern "C" int qt_cp_loop(
     a.greedy = greedy;
     a.inv_t = inv_t;
     a.top_k = top_k;
+    a.top_p_thr = top_p_thr;
+    a.ref_exact = ref_exact;
     a.eos_id = -1;
     a.seed0 = seed0;
     a.seed1 = seed1;
@@ -143,7 +146,7 @@ extern "C" int qt_cp_loop(
     a.esum = (float*)esum;
     a.amax = head_ax;
     a.cp_head = 1;
-    sample_kernel<<<B, SAMPLE_THREADS, 0, st>>>((const float*)ws, s, head, V, a);
+    launch_sampler((const float*)ws, s, head, V, a, B, st);
     QT_CHECK_LAUNCH();
   }
   return 0;

@@ -41,6 +41,9 @@
 
 using namespace qt;
 
+// The operations enqueued through QT_CHECK_LAUNCH so far (common.cuh).
+extern "C" unsigned long long qt_launches(void) { return qt::launch_count(); }
+
 // Row positions: ``offs`` (device int32 [B]) when given, else ``pos`` for
 // every row. Layer weights int8 with f32 scales, or bf16 (``w_bf16``; the
 // scale pointers are then ignored); the codec head likewise (``head_bf16``).
@@ -48,7 +51,8 @@ using namespace qt;
 // with ``amax`` the [AMAX_SLOTS, B] f32 slots (else null; no initial value).
 // Caches [L, B, NKV, T, D] (bf16, or int8 with kv_quant and scales
 // [L, B, NKV, T]); rope rows cos/sin at ``cosr + b * rope_stride``.
-// Sample mode when ``head_w`` is given: code_out [B], logits_out [B, V].
+// Sample mode when ``head_w`` is given: code_out [B], logits_out [B, V];
+// top_p_thr is f32(1 - top_p) or 0 (no top-p stage), see SampleArgs.
 // On return xn holds rms(h, final norm) [B, H], the hidden the CP consumes.
 extern "C" int qt_talker_step(
     int L, int H, int NQ, int NKV, int D, int I, int V, int T, int B, int pos, const void* offs,
@@ -60,8 +64,8 @@ extern "C" int qt_talker_step(
     void* k_cache, void* v_cache, void* k_scale, void* v_scale,
     const void* cosr, const void* sinr, int rope_stride,
     const void* head_w, const void* head_s, const void* supp, const void* seen,
-    float rep, int greedy, float inv_t, int top_k, int eos_id, uint32_t seed0, uint32_t seed1,
-    void* hres, void* xn, void* attn, void* gated, void* ws, void* amax,
+    float rep, int greedy, float inv_t, int top_k, float top_p_thr, int ref_exact, int eos_id,
+    uint32_t seed0, uint32_t seed1, void* hres, void* xn, void* attn, void* gated, void* ws, void* amax,
     void* code_out, void* logits_out, void* stream) {
   if (D != HEAD_DIM || NQ % NKV != 0 || NQ / NKV > ATTN_MAX_GROUP || B < 1 || B > MAX_BATCH ||
       V > SAMPLE_THREADS * SAMPLE_PER_THREAD || (offs == nullptr && (pos < 0 || pos >= T)) ||
@@ -113,6 +117,8 @@ extern "C" int qt_talker_step(
   a.greedy = greedy;
   a.inv_t = inv_t;
   a.top_k = top_k;
+  a.top_p_thr = top_p_thr;
+  a.ref_exact = ref_exact;
   a.eos_id = eos_id;
   a.seed0 = seed0;
   a.seed1 = seed1;
@@ -129,7 +135,7 @@ extern "C" int qt_talker_step(
   a.esum = nullptr;
   a.amax = head_ax;
   a.cp_head = 0;
-  sample_kernel<<<B, SAMPLE_THREADS, 0, st>>>((const float*)ws, s, head, V, a);
+  launch_sampler((const float*)ws, s, head, V, a, B, st);
   QT_CHECK_LAUNCH();
   return 0;
 }

@@ -22,14 +22,14 @@ K1 and K2 both take the batch (a fused layout, int8 or dense bf16, or for
 the CP unfused int8, and 1..MAX_BATCH rows; ``Qwen3TTSModel.generate_batch``
 splits longer lists into such groups). Both kernels run in the matmul mode
 that QWEN3TTS_TK_MODE and QWEN3TTS_CPK_MODE select (``generate.py``).
-With top_p == 1 every lockstep frame runs K1 in sample mode
-(``talker.forward_batched_step_sample``) and K2 (``ops/cp_kernel.py``) once
-for all rows; with top_p < 1, a filter neither kernel has (nor has it on
-the TPU), the talker step is K1's non-sample mode
-(``talker.forward_batched_step``) and the sampler and code predictor run
-plain. Row b of K1 and K2 draws from its own streams of the counter
-generator (16 b + 0 for code 0, 16 b + j for codebook j), from the
-per-frame seed words of ``generate._frame_seeds``.
+Every lockstep frame after the first runs K1 in sample mode
+(``talker.forward_batched_step_sample``), and every frame K2
+(``ops/cp_kernel.py``) once for all rows, at any ``top_p`` and
+``ref_exact_top_p``: both kernels' sampler has the top-p stage, which the
+TPU kernels lacked (the TPU sent top_p < 1 to XLA). Row b of K1 and K2
+draws from its own streams of the counter generator (16 b + 0 for code 0,
+16 b + j for codebook j), from the per-frame seed words of
+``generate._frame_seeds``.
 
 Not ported yet: the per-request sampling rows (``samp_vec``), which wait for
 the serving module.
@@ -139,7 +139,8 @@ def _frame_batch(
 
         rest, esum = predict_codes_fused(
             cp_params, cp_cfg, talker_params, hidden_last, code0_cp, cp_seed,
-            temperature=sampling.temperature, top_k=sampling.top_k, mode=_cpk_mode(cp_params),
+            temperature=sampling.temperature, top_k=sampling.top_k, top_p=sampling.top_p,
+            ref_exact_top_p=sampling.ref_exact_top_p, mode=_cpk_mode(cp_params),
         )
         codec_sum = tk.embed_codec(talker_params, code0).float() + esum
         return code0, rest, is_eos, seen, codec_sum
@@ -291,7 +292,7 @@ def generate_chunk_batch(
                 temperature=sampling.temperature, top_k=sampling.top_k,
                 repetition_penalty=sampling.repetition_penalty,
                 eos_token_id=None if sampling.forbid_eos else eos_id,
-                rope=rope,
+                rope=rope, top_p=sampling.top_p, ref_exact_top_p=sampling.ref_exact_top_p,
             )
             code0, rest, is_eos, seen, codec_sum = _frame_batch(
                 talker_params, cp_params, talker_cfg, cp_cfg, sampling, suppress_mask,

@@ -14,12 +14,15 @@ synchronisation per frame) to decide EOS.
 EOS contract (as the reference's): the EOS frame records token -1 and a zero
 codes row, generation stops, and ``n_frames`` counts the frames before EOS.
 
-On CUDA, with fused weights and top_p == 1, every frame after the first
-runs the talker step through K1 (ops/talker_kernel.py) and every frame runs
-the code predictor through K2 (ops/cp_kernel.py). Fused means either layout
-of ``talker_kernel._layout``: int8 (``quantize='int8'``) or dense bf16 (an
-unquantized checkpoint loaded as bf16); K2 also takes an unfused int8 code
-predictor and the small-to-MTP projection of the 1.7B model. The JAX
+On CUDA, with fused weights, every frame after the first runs the talker
+step through K1 (ops/talker_kernel.py) and every frame runs the code
+predictor through K2 (ops/cp_kernel.py), at any sampling setting: both
+kernels' sampler has the top-p stage (``top_p`` and ``ref_exact_top_p``)
+that the TPU kernels lacked (the TPU sent top_p < 1 to XLA). Fused means
+either layout of ``talker_kernel._layout``: int8 (``quantize='int8'``) or
+dense bf16 (an unquantized checkpoint loaded as bf16); K2 also takes an
+unfused int8 code predictor and the small-to-MTP projection of the 1.7B
+model. The JAX
 package's switches pick the kernels' matmul mode on int8 weights:
 QWEN3TTS_TK_MODE (K1, ``talker._kernel_mode``) and QWEN3TTS_CPK_MODE (K2,
 ``_cpk_mode``), ``wo_bf16`` unless set to ``dyn_int8``. Otherwise the plain
@@ -81,14 +84,15 @@ class GenResult(NamedTuple):
 
 
 def _fused_ok(sampling: SamplingConfig, device: torch.device) -> bool:
-    # ref_exact_top_p only changes the top-p filter, which top_p >= 1 turns off
-    return device.type == "cuda" and sampling.top_p >= 1.0
+    """The kernels run on CUDA tensors, at any ``sampling`` (the top-p stage
+    and ``ref_exact_top_p`` included)."""
+    return device.type == "cuda"
 
 
 def _use_cp_kernel(cp_params, cp_cfg, talker_cfg, sampling, device, batch: int = 1) -> bool:
     """Gate for K2: CUDA tensors, int8 (fused or unfused) or fused bf16
     layers (with the projection where the CP is narrower than the talker),
-    top_p == 1, 1..64 rows."""
+    1..64 rows, any ``top_p`` and ``ref_exact_top_p`` (``_fused_ok``)."""
     from ..ops.cp_kernel import kernel_supported
 
     return _fused_ok(sampling, device) and kernel_supported(
@@ -110,7 +114,8 @@ def _use_talker_sample_kernel(
     talker_params, talker_cfg, sampling, device, batch: int = 1, kv_quant: bool = False
 ) -> bool:
     """Gate for K1 in sample mode: CUDA tensors, fused weights and a head of
-    int8 or dense bf16, top_p == 1, 1..64 rows, a bf16 or an int8 cache."""
+    int8 or dense bf16, 1..64 rows, a bf16 or an int8 cache, any ``top_p``
+    and ``ref_exact_top_p`` (``_fused_ok``)."""
     from ..ops.talker_kernel import step_supported
 
     return _fused_ok(sampling, device) and step_supported(
@@ -178,7 +183,8 @@ def _frame(
 
         rest, esum = predict_codes_fused(
             cp_params, cp_cfg, talker_params, hidden_last, code0, cp_seed,
-            temperature=sampling.temperature, top_k=sampling.top_k, mode=_cpk_mode(cp_params),
+            temperature=sampling.temperature, top_k=sampling.top_k, top_p=sampling.top_p,
+            ref_exact_top_p=sampling.ref_exact_top_p, mode=_cpk_mode(cp_params),
         )
         csum = tk.embed_codec(talker_params, code0).float() + esum
         return code0, rest, False, seen, csum
@@ -315,7 +321,7 @@ def generate_chunk(
                 temperature=sampling.temperature, top_k=sampling.top_k,
                 repetition_penalty=sampling.repetition_penalty,
                 eos_token_id=None if sampling.forbid_eos else eos_id,
-                rope=rope,
+                rope=rope, top_p=sampling.top_p, ref_exact_top_p=sampling.ref_exact_top_p,
             )
             code0, rest, is_eos, seen, codec_sum = _frame(
                 talker_params, cp_params, talker_cfg, cp_cfg, sampling, suppress_mask,

@@ -359,6 +359,8 @@ def forward_step_sample(
     repetition_penalty: float,
     eos_token_id: int | None,
     rope: tuple[torch.Tensor, torch.Tensor],
+    top_p: float = 1.0,
+    ref_exact_top_p: bool = False,
 ):
     """Decode step + codec head + code0 sampler through K1
     (ops/talker_kernel.py), on a bf16 or an int8 cache. ``rope``: the cos/sin
@@ -371,6 +373,8 @@ def forward_step_sample(
         params, cfg, inputs_embeds, cache, offset, cos, sin, mode=_kernel_mode(params),
         temperature=float(temperature),
         top_k=int(top_k),
+        top_p=float(top_p),
+        ref_exact_top_p=bool(ref_exact_top_p),
         rep_penalty=float(repetition_penalty),
         eos_id=-1 if eos_token_id is None else int(eos_token_id),
         seed=seed,
@@ -395,6 +399,8 @@ def forward_batched_step_sample(
     repetition_penalty: float,
     eos_token_id: int | None,
     rope: tuple[torch.Tensor, torch.Tensor],
+    top_p: float = 1.0,
+    ref_exact_top_p: bool = False,
 ):
     """Batched decode step + codec head + per-row code0 sampler through K1
     (the batched twin of :func:`forward_step_sample`); each sequence writes
@@ -407,6 +413,8 @@ def forward_batched_step_sample(
         params, cfg, inputs_embeds, cache, offsets, rope[0][pos], rope[1][pos],
         mode=_kernel_mode(params), temperature=float(temperature),
         top_k=int(top_k),
+        top_p=float(top_p),
+        ref_exact_top_p=bool(ref_exact_top_p),
         rep_penalty=float(repetition_penalty),
         eos_id=-1 if eos_token_id is None else int(eos_token_id),
         seed=seed,

@@ -51,9 +51,11 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 U = ctypes.c_uint32
+LL = ctypes.c_longlong
 
 # argument types of the C entries, in order (csrc/talker_step.cu, cp_loop.cu,
-# quant_matmul.cu, decode_attention.cu)
+# quant_matmul.cu, decode_attention.cu, weight_stream.cu, talker_ablate.cu,
+# hbm_read.cu)
 _ARGTYPES = {
     "qt_quant_gemv": [I, I, I, I, I, P, P, P, P, P, P],  # O I bits group x_bf16 x w s b y stream
     "qt_decode_attention_chunks": [I],  # pos
@@ -70,7 +72,7 @@ _ARGTYPES = {
         P, P, P, P,  # k_cache v_cache k_scale v_scale
         P, P, I,  # cos sin rope_stride
         P, P, P, P,  # head_w head_s supp seen
-        F, I, F, I, I, U, U,  # rep greedy inv_t top_k eos_id seed0 seed1
+        F, I, F, I, F, I, I, U, U,  # rep greedy inv_t top_k top_p_thr ref_exact eos_id seed0 seed1
         P, P, P, P, P, P,  # hres xn attn gated ws amax
         P, P, P,  # code_out logits_out stream
     ],
@@ -83,11 +85,25 @@ _ARGTYPES = {
         P, P, P, P, P,  # iln pln qn kn fnorm
         P, P, P, P, P,  # lm_w lm_s emb proj_w proj_b
         P, P, P, P,  # cos_tab sin_tab k_cache v_cache
-        I, F, I, U, U,  # greedy inv_t top_k seed0 seed1
+        I, F, I, F, I, U, U,  # greedy inv_t top_k top_p_thr ref_exact seed0 seed1
         P,  # force_codes
         P, P, P, P, P, P, P,  # hres xn attn gated ws xbuf amax
         P, P, P, P,  # codes_out esum logits_out stream
     ],
+    "qt_weight_stream": [
+        I, P, P, P, P,  # n w[] layer_bytes[] esz[] tile[] (host arrays)
+        I, I, I, I,  # L form B H
+        P, P, P, P, P,  # x h sums tiles stream
+    ],
+    "qt_talker_ablate": [
+        I, I, I, I, I, I, I, I, I, I, F, F,  # part L H NQ NKV D I T B pos eps scale
+        P,  # x
+        P, P, P, P, P, P, P, P,  # qkv_w qkv_s o_w o_s gu_w gu_s d_w d_s
+        P, P, P, P, P,  # iln pln qn kn fnorm
+        P, P, P, P,  # k_cache v_cache cos sin
+        P, P, P, P, P, P, P, P,  # hres xn attn gated ws sums tiles stream
+    ],
+    "qt_hbm_colsum": [P, LL, LL, I, I, I, P, P],  # x total_rows row0 rows blk_rows group out stream
 }
 
 build_seconds: float | None = None  # wall time of this process's build, if it built
@@ -144,7 +160,17 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.qt_launches.argtypes = []
+    lib.qt_launches.restype = ctypes.c_ulonglong
     return lib
+
+
+def launches() -> int:
+    """Operations (kernel launches, memsets) K1 and K2 have enqueued in
+    this process, counted on the host by the library itself
+    (``launch_count`` in csrc/common.cuh): exact, where a profiler window
+    can drop device records."""
+    return int(library().qt_launches())
 
 
 def workspace_rows(batch: int) -> int:

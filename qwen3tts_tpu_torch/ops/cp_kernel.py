@@ -25,10 +25,11 @@ projection stays a bf16 matvec).
 The loop: positions 0 and 1 take [talker hidden, talker codec_embedding
 (code0)]; positions 2..15 take the previous position's sampled code through
 its ``codec_embedding[j]`` row. Positions 1..15 apply ``lm_head[j]``
-(j = position - 1), then the sampler (exact top-k, Gumbel-max on stream
-j + 1 + 16 b of the counter generator for row b, so row 0 draws what a
-single-sequence call draws; no penalty, mask or EOS). Each row attends over
-its own 16 slots (the TPU kernel's block-diagonal mask over one flat cache).
+(j = position - 1), then the sampler (exact top-k, top-p where top_p < 1,
+Gumbel-max on stream j + 1 + 16 b of the counter generator for row b, so
+row 0 draws what a single-sequence call draws; no penalty, mask or EOS).
+Each row attends over its own 16 slots (the TPU kernel's block-diagonal
+mask over one flat cache).
 Returns the 15 codes and ``esum``, the f32 sum of the 15 sampled embedding
 rows, of every row.
 
@@ -45,7 +46,9 @@ import torch
 
 from ..models.talker import _embed
 from . import _cuda
-from .decode_blocks import STREAMS_PER_ROW, layer_step, mv, mv_f32, rms, sample_row
+from .decode_blocks import (
+    STREAMS_PER_ROW, layer_step, mv, mv_f32, rms, sample_row, top_p_threshold,
+)
 from .quant import Int8Linear
 from .rope import rope_cos_sin
 from .talker_kernel import MODES, _dense_bf16, _layout, _weight, run_mode
@@ -127,8 +130,8 @@ def _rope_tables(cp_cfg, device):
 
 def predict_codes_fused_ref(
     cp_params, cp_cfg, talker_params, last_hidden, code0, seed: tuple[int, int], *,
-    temperature: float, top_k: int, force_codes=None, return_logits: bool = False,
-    mode: str = "wo_bf16",
+    temperature: float, top_k: int, top_p: float = 1.0, ref_exact_top_p: bool = False,
+    force_codes=None, return_logits: bool = False, mode: str = "wo_bf16",
 ):
     """Plain PyTorch version of K2 (same rounding points as the kernel)."""
     mode = run_mode(mode, cp_layout(cp_params["layers"]), "predict_codes_fused")
@@ -162,7 +165,8 @@ def predict_codes_fused_ref(
         hn = rms(h, cp_params["norm"], cp_cfg.rms_norm_eps)
         logits = mv_f32(hn, _head(cp_params["lm_head"], j), mode, cp_head=True)
         code = torch.cat([
-            sample_row(logits[b], temperature=temperature, top_k=top_k, seed=seed,
+            sample_row(logits[b], temperature=temperature, top_k=top_k, top_p=top_p,
+                       ref_exact_top_p=ref_exact_top_p, seed=seed,
                        stream=j + 1 + STREAMS_PER_ROW * b)
             for b in range(B)
         ])
@@ -180,17 +184,19 @@ def predict_codes_fused_ref(
 
 def predict_codes_fused(
     cp_params, cp_cfg, talker_params, last_hidden, code0, seed: tuple[int, int], *,
-    temperature: float, top_k: int, force_codes=None, return_logits: bool = False,
-    mode: str = "wo_bf16",
+    temperature: float, top_k: int, top_p: float = 1.0, ref_exact_top_p: bool = False,
+    force_codes=None, return_logits: bool = False, mode: str = "wo_bf16",
 ):
     """The CP inner loop for one frame of B rows.
 
     last_hidden [B, talker_h]; code0 [B] int32; seed: two 32-bit words;
-    force_codes [B, 15]; mode: see ``talker_kernel.run_mode``. Returns
+    force_codes [B, 15]; top_p / ref_exact_top_p: the sampler's top-p stage
+    (off at top_p >= 1); mode: see ``talker_kernel.run_mode``. Returns
     (codes [B, 15] int32, esum [B, talker_h] f32[, logits f32 [15, V] at
     B=1, else [15, B, V]]).
     """
-    kw = dict(temperature=temperature, top_k=top_k, force_codes=force_codes,
+    kw = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+              ref_exact_top_p=ref_exact_top_p, force_codes=force_codes,
               return_logits=return_logits)
     if last_hidden.device.type == "cpu":
         return predict_codes_fused_ref(cp_params, cp_cfg, talker_params, last_hidden, code0, seed,
@@ -206,7 +212,7 @@ def predict_codes_fused(
 
 
 def launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, temperature, top_k,
-           force_codes, return_logits, dyn):
+           top_p, ref_exact_top_p, force_codes, return_logits, dyn):
     """One call of the kernel in csrc/cp_loop.cu on CUDA tensors (the
     wrappers count it: this one and ops/cp_kernel_old.py's)."""
     H, TH = cp_cfg.hidden_size, last_hidden.shape[-1]
@@ -267,7 +273,8 @@ def launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, temper
         L, H, NQ, NKV, D, I, V, NCB, B, TH, int(w_bf16), int(head_bf16), int(dyn),
         cp_cfg.rms_norm_eps, D**-0.5,
         *(_cuda.ptr(t) for t in ins),
-        int(temperature <= 0), inv_t, int(top_k), seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF,
+        int(temperature <= 0), inv_t, int(top_k), top_p_threshold(top_p), int(ref_exact_top_p),
+        seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF,
         _cuda.ptr(force),
         *(_cuda.ptr(t) for t in bufs),
         _cuda.ptr(codes), _cuda.ptr(esum), _cuda.ptr(logits), _cuda.stream_ptr(),

@@ -31,12 +31,13 @@ def kernel_supported(cp_params, cp_cfg, talker_h: int) -> bool:
 
 def predict_codes_fused(
     cp_params, cp_cfg, talker_params, last_hidden, code0, seed: tuple[int, int], *,
-    temperature: float, top_k: int, mode: str = "wo_bf16", force_codes=None,
-    return_logits: bool = False,
+    temperature: float, top_k: int, top_p: float = 1.0, ref_exact_top_p: bool = False,
+    mode: str = "wo_bf16", force_codes=None, return_logits: bool = False,
 ):
     """The CP inner loop for one frame of B rows; arguments and results as
     ``cp_kernel.predict_codes_fused``'s."""
-    kw = dict(temperature=temperature, top_k=top_k, force_codes=force_codes,
+    kw = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+              ref_exact_top_p=ref_exact_top_p, force_codes=force_codes,
               return_logits=return_logits)
     if last_hidden.device.type == "cpu":
         return cpk.predict_codes_fused_ref(cp_params, cp_cfg, talker_params, last_hidden, code0,

@@ -43,8 +43,11 @@ built from these. The sampler's semantics:
   5. top-k: keep every logit >= the EXACT k-th largest (a radix select in
      the kernel, ``torch.topk`` here). The TPU kernels used a threshold
      within (max-min)*2^-24 of it; the XLA sampler's ``lax.top_k`` is exact.
-  6. restore the EOS logit
-  7. z * (1/temperature) + Gumbel noise, argmax with the lowest index on ties.
+  6. top-p (``top_p_filter``, 0 < top_p < 1) on z at temperature 1: the
+     XLA sampler's ``apply_top_p`` (ops/sampling.py), which the TPU kernels
+     did not have (the TPU sent top_p < 1 to XLA)
+  7. restore the EOS logit
+  8. z * (1/temperature) + Gumbel noise, argmax with the lowest index on ties.
 
 The noise comes from a counter-based generator over (two seed words, a
 stream id, the column), written once in CUDA and once here in integer torch
@@ -173,13 +176,16 @@ def _mv_cat(x, layers, l: int, fused: str, parts: tuple, mode: str) -> torch.Ten
 
 
 def layer_step(layers, l: int, cfg, h, cos, sin, cache, pos, cp_form: bool,
-               mode: str = "wo_bf16"):
+               mode: str = "wo_bf16", part: str = "full"):
     """One transformer layer for one token of each row (``layer_step`` in
     common.cuh), in the matmul ``mode`` of ``mv``.
 
     h: bf16 [B, H] residual stream; cos/sin: bf16 [B, D] rope rows at each
     row's position; cache: this layer's cache tuple (see ``attend``), whose
     row ``pos[b]`` of sequence b is written in place; pos: int64 [B].
+    ``part`` (T6's ablations, qwen3tts_tpu_torch/tools/exp_tk_b1_ablate.py;
+    a bf16 cache): "noattn" writes the new k/v rows and takes q (normed,
+    roped) for the attention output, "nomlp" ends after o_proj + residual.
     Returns the new h."""
     NQ, NKV, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
@@ -190,8 +196,15 @@ def layer_step(layers, l: int, cfg, h, cos, sin, cache, pos, cp_form: bool,
     q = rope(rms(qkv[:, : NQ * D].reshape(B, NQ, D), layers["q_norm"][l], eps), c, s)
     k = rope(rms(qkv[:, NQ * D : (NQ + NKV) * D].reshape(B, NKV, D), layers["k_norm"][l], eps), c, s)
     v = qkv[:, (NQ + NKV) * D :].reshape(B, NKV, D)
-    attn = attend(q, k, v, cache, pos, D**-0.5, cp_form)
+    if part == "noattn":
+        rows = torch.arange(B, device=h.device)
+        cache[0][rows, :, pos], cache[1][rows, :, pos] = k, v
+        attn = q.reshape(B, NQ * D)
+    else:
+        attn = attend(q, k, v, cache, pos, D**-0.5, cp_form)
     h = h + mv(attn, layers["o_proj"][l], mode)
+    if part == "nomlp":
+        return h
     gu = _mv_cat(rms(h, layers["post_attention_layernorm"][l], eps), layers, l, "gate_up_proj",
                  ("gate_proj", "up_proj"), mode)
     I = gu.shape[-1] // 2
@@ -247,11 +260,58 @@ def gumbel_noise(seed0: int, seed1: int, stream: int, n: int, device) -> torch.T
     return -torch.log(-torch.log(u))
 
 
+def top_k_filter(z: torch.Tensor, top_k: int) -> torch.Tensor:
+    """The top-k stage of the kernels' sampler on one row z [V] f32: every
+    value >= the exact k-th largest stays, the rest become NEG_BIG
+    (0 < top_k < V; otherwise z as it is)."""
+    if not 0 < top_k < z.shape[-1]:
+        return z
+    kth = torch.topk(z, top_k).values[-1]
+    return torch.where(z >= kth, z, torch.full_like(z, NEG_BIG))
+
+
+def top_p_threshold(top_p: float) -> float:
+    """The cumulative mass a token must exceed to stay, f32(1 - top_p) as
+    the XLA sampler compares it (a Python float against an f32 array), or
+    0.0 where the stage is off (top_p <= 0 or >= 1): the kernels' argument."""
+    if top_p <= 0.0 or top_p >= 1.0:
+        return 0.0
+    return torch.tensor(1.0 - top_p, dtype=torch.float32).item()
+
+
+def top_p_cum(z: torch.Tensor, ref_exact: bool = False) -> torch.Tensor:
+    """The cumulative mass of each id of one row z [V] f32, in id order:
+    mass softmax(z) (or the unnormalized exp(z) with ``ref_exact``) summed
+    over the ids in stable ascending order of z up to and including it."""
+    if ref_exact:
+        mass = torch.exp(z)
+    else:
+        e = torch.exp(z - z.amax())
+        mass = e / e.sum()
+    order = torch.sort(z, stable=True).indices
+    cum = torch.empty_like(mass)
+    cum[order] = torch.cumsum(mass[order], 0)
+    return cum
+
+
+def top_p_filter(z: torch.Tensor, top_p: float, ref_exact: bool = False) -> torch.Tensor:
+    """The top-p stage of the kernels' sampler (``top_p_stage`` in
+    common.cuh) on one row z [V] f32 after top-k: keep an id iff its
+    cumulative mass (``top_p_cum``) exceeds ``top_p_threshold(top_p)``; the
+    rest become NEG_BIG."""
+    thr = top_p_threshold(top_p)
+    if thr == 0.0:
+        return z
+    return torch.where(top_p_cum(z, ref_exact) > thr, z, torch.full_like(z, NEG_BIG))
+
+
 def sample_row(
     logits: torch.Tensor,  # [V] float32
     *,
     temperature: float,
     top_k: int,
+    top_p: float = 1.0,
+    ref_exact_top_p: bool = False,
     rep_penalty: float = 1.0,
     seen: torch.Tensor | None = None,  # [V] bool
     suppress_add: torch.Tensor | None = None,  # [V] float32
@@ -272,9 +332,7 @@ def sample_row(
     if temperature > 0:
         if eos_id >= 0:
             eos_logit = z[eos_id].clone()
-        if 0 < top_k < V:
-            kth = torch.topk(z, top_k).values[-1]
-            z = torch.where(z >= kth, z, torch.full_like(z, NEG_BIG))
+        z = top_p_filter(top_k_filter(z, top_k), top_p, ref_exact_top_p)
         if eos_id >= 0:
             z = z.clone()
             z[eos_id] = eos_logit

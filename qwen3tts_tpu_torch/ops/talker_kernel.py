@@ -26,9 +26,9 @@ k/v row is written into the cache IN PLACE at the offset; an int8 cache
 takes it quantized, while the current token attends with its own
 unquantized k/v, as the TPU kernel does) -> o_proj + residual -> RMSNorm ->
 gate_up, SwiGLU -> down + residual. Then the final RMSNorm and, in sample
-mode, the codec head and the sampler (ops/decode_blocks.py
-``sample_row``; row b draws from stream 16 b of the counter generator, so
-row 0 draws what a single-sequence call draws).
+mode, the codec head and the sampler (ops/decode_blocks.py ``sample_row``,
+top-k and top-p included; row b draws from stream 16 b of the counter
+generator, so row 0 draws what a single-sequence call draws).
 
 Two call forms: ``offset`` an int (one sequence, x [1, 1, H], cos/sin one
 [D] row; returns h [H], code0 [1], logits [V]) or an int tensor [B] on the
@@ -41,7 +41,9 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .decode_blocks import STREAMS_PER_ROW, layer_step, mv_f32, out_dim, rms, sample_row
+from .decode_blocks import (
+    STREAMS_PER_ROW, layer_step, mv_f32, out_dim, rms, sample_row, top_p_threshold,
+)
 from .quant import Int8Linear
 
 _FUSED_KEYS = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
@@ -119,9 +121,9 @@ def _one_row(out):
 
 def talker_decode_step_ref(
     params, cfg, x, cache, offset, cos, sin, *, sample: bool = True,
-    temperature: float = 0.0, top_k: int = 0, rep_penalty: float = 1.0, eos_id: int = -1,
-    seed: tuple[int, int] = (0, 0), suppress_add=None, seen=None, return_logits: bool = False,
-    mode: str = "wo_bf16",
+    temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0, ref_exact_top_p: bool = False,
+    rep_penalty: float = 1.0, eos_id: int = -1, seed: tuple[int, int] = (0, 0),
+    suppress_add=None, seen=None, return_logits: bool = False, mode: str = "wo_bf16",
 ):
     """Plain PyTorch version of K1 (same rounding points as the kernel)."""
     mode = run_mode(mode, _layout(params["layers"]), "talker_decode_step")
@@ -129,7 +131,8 @@ def talker_decode_step_ref(
         offs = torch.full((1,), offset, dtype=torch.int64, device=x.device)
         return _one_row(talker_decode_step_ref(
             params, cfg, x, cache, offs, cos, sin, sample=sample, temperature=temperature,
-            top_k=top_k, rep_penalty=rep_penalty, eos_id=eos_id, seed=seed,
+            top_k=top_k, top_p=top_p, ref_exact_top_p=ref_exact_top_p,
+            rep_penalty=rep_penalty, eos_id=eos_id, seed=seed,
             suppress_add=suppress_add, seen=seen, return_logits=return_logits, mode=mode))
     B, D = x.shape[0], cfg.head_dim
     pos = offset.to(torch.int64)
@@ -145,7 +148,8 @@ def talker_decode_step_ref(
     seen = seen.reshape(-1, logits.shape[-1]).expand(B, -1)
     code = torch.cat([
         sample_row(
-            logits[b], temperature=temperature, top_k=top_k, rep_penalty=rep_penalty,
+            logits[b], temperature=temperature, top_k=top_k, top_p=top_p,
+            ref_exact_top_p=ref_exact_top_p, rep_penalty=rep_penalty,
             seen=seen[b], suppress_add=suppress_add, eos_id=eos_id, seed=seed,
             stream=STREAMS_PER_ROW * b,
         )
@@ -156,9 +160,9 @@ def talker_decode_step_ref(
 
 def talker_decode_step(
     params, cfg, x, cache, offset, cos, sin, *, sample: bool = True,
-    temperature: float = 0.0, top_k: int = 0, rep_penalty: float = 1.0, eos_id: int = -1,
-    seed: tuple[int, int] = (0, 0), suppress_add=None, seen=None, return_logits: bool = False,
-    mode: str = "wo_bf16",
+    temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0, ref_exact_top_p: bool = False,
+    rep_penalty: float = 1.0, eos_id: int = -1, seed: tuple[int, int] = (0, 0),
+    suppress_add=None, seen=None, return_logits: bool = False, mode: str = "wo_bf16",
 ):
     """One decode step for B rows.
 
@@ -166,13 +170,15 @@ def talker_decode_step(
     ``KVCacheQ`` (int8 rows + f32 scales [L, B, NKV, T]); offset: valid cache
     rows of each sequence (its new row goes there), an int (B=1) or an int
     tensor [B]; cos/sin [B, D] rope rows at the offsets. Sample mode:
-    suppress_add f32 [V] (shared), seen bool [B, V]; seed: two 32-bit words.
+    suppress_add f32 [V] (shared), seen bool [B, V]; seed: two 32-bit words;
+    top_p / ref_exact_top_p: the sampler's top-p stage (off at top_p >= 1).
     ``mode``: see ``run_mode``. Returns (h bf16 after the final norm, code0
     int32 [, logits f32 before mask and penalty]) in sample mode, else h;
     shapes in the module doc.
     """
     kw = dict(
-        sample=sample, temperature=temperature, top_k=top_k, rep_penalty=rep_penalty,
+        sample=sample, temperature=temperature, top_k=top_k, top_p=top_p,
+        ref_exact_top_p=ref_exact_top_p, rep_penalty=rep_penalty,
         eos_id=eos_id, seed=seed, suppress_add=suppress_add, seen=seen,
         return_logits=return_logits,
     )
@@ -188,8 +194,8 @@ def talker_decode_step(
 
 
 def _launch(
-    params, cfg, x, cache, offset, cos, sin, *, sample, temperature, top_k, rep_penalty,
-    eos_id, seed, suppress_add, seen, return_logits, dyn,
+    params, cfg, x, cache, offset, cos, sin, *, sample, temperature, top_k, top_p,
+    ref_exact_top_p, rep_penalty, eos_id, seed, suppress_add, seen, return_logits, dyn,
 ):
     L, H = cfg.num_hidden_layers, cfg.hidden_size
     NQ, NKV, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -260,7 +266,8 @@ def _launch(
         *(_cuda.ptr(t) for t in ins),
         *(_cuda.ptr(t) for t in rope), 0 if single else D,
         *(_cuda.ptr(t) for t in tail),
-        float(rep_penalty), int(temperature <= 0), inv_t, int(top_k), int(eos_id),
+        float(rep_penalty), int(temperature <= 0), inv_t, int(top_k), top_p_threshold(top_p),
+        int(ref_exact_top_p), int(eos_id),
         seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF,
         *(_cuda.ptr(t) for t in (hres, xn, attn, gated, ws, amax, code, logits)),
         _cuda.stream_ptr(),

@@ -16,7 +16,12 @@ held so in both weight modes (int8, dense bf16) and K2 also with the
 small-to-MTP projection of a CP narrower than its talker (the 1.7B shape);
 both also in the ``dyn_int8`` matmul mode (selected for ``generate_codes``
 by QWEN3TTS_TK_MODE / QWEN3TTS_CPK_MODE), K2 on unfused int8 layers, and
-K5's port (ops/cp_kernel_old.py), which launches K2's kernel.
+K5's port (ops/cp_kernel_old.py), which launches K2's kernel. The top-p
+stage of K1's and K2's sampler against ``sample_row`` on the kernels' own
+logits (equal but for a cut within rounding of the threshold), and
+``generate_codes`` with top_p < 1 on the kernels. The experiment kernels of
+qwen3tts_tpu_torch/tools (T7 ``weight_stream``, T6 ``variant_step``, T3
+``colsum``) against their plain versions.
 """
 
 import warnings
@@ -34,7 +39,9 @@ from qwen3tts_tpu_torch.ops import cp_kernel as cpk
 from qwen3tts_tpu_torch.ops import quant as q
 from qwen3tts_tpu_torch.ops import talker_kernel as tkk
 from qwen3tts_tpu_torch.ops.attention import decode_attention_inner, decode_attention_ref
-from qwen3tts_tpu_torch.ops.decode_blocks import gumbel_noise
+from qwen3tts_tpu_torch.ops.decode_blocks import (
+    NEG_BIG, gumbel_noise, sample_row, top_k_filter, top_p_cum, top_p_threshold,
+)
 from qwen3tts_tpu_torch.ops.quant import quantize_decode_params_int8
 from qwen3tts_tpu_torch.ops.rope import mrope_cos_sin
 from qwen3tts_tpu_torch.utils import host_init as hi
@@ -691,6 +698,36 @@ def test_k5_launches_the_cp_kernel(dev, weights, mode):
     assert cpk.predict_codes_fused.launches == n2  # counted as K5's, not K2's
 
 
+@pytest.mark.parametrize("mode", ["wo_bf16", "dyn_int8"])
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_library_launches_per_call(dev, weights, kernel, mode):
+    """The operations one call enqueues, as the library counts them: K1 =
+    rms_copy + 8 per layer (four GEMVs, attention, SwiGLU, two residual
+    finishes) + head GEMV + sampler; K2 = the esum memset +
+    (rms_copy + 8 per layer) per position + (head GEMV + sampler) per code.
+    dyn_int8 adds none (each row's amax comes from the kernel writing it)."""
+    from qwen3tts_tpu_torch.ops import _cuda
+
+    tp, cp = weights
+    if kernel == "K1":
+        case = _k1_case(dev, tp, 70, 128, False)
+        call = lambda: _k1(tkk.talker_decode_step, tp, case, 70, temperature=0.9, mode=mode)
+        expect = 8 * CFG.num_hidden_layers + 3
+    else:
+        g = torch.Generator(device=dev).manual_seed(2)
+        h = torch.randn(1, CFG.hidden_size, generator=g, device=dev).mul(0.3).bfloat16()
+        code0 = torch.tensor([5], dtype=torch.int32, device=dev)
+        call = lambda: cpk.predict_codes_fused(cp, CPC, tp, h, code0, (5, 6), temperature=0.9,
+                                               top_k=50, mode=mode)
+        ncb = CPC.num_code_groups - 1
+        expect = 1 + (ncb + 1) * (1 + 8 * CPC.num_hidden_layers) + 2 * ncb
+    call()
+    torch.cuda.synchronize()
+    n0 = _cuda.launches()
+    call()
+    assert _cuda.launches() - n0 == expect
+
+
 @pytest.mark.parametrize("cp_layers", ["fused", "unfused"])
 def test_generate_codes_dyn_int8_runs_on_the_kernels(dev, weights, monkeypatch, cp_layers):
     """QWEN3TTS_TK_MODE / QWEN3TTS_CPK_MODE = dyn_int8: K1 once per frame
@@ -724,3 +761,168 @@ def test_generate_codes_dyn_int8_runs_on_the_kernels(dev, weights, monkeypatch, 
     assert k2 == {"wo_bf16": 0, "bf16": 0, "dyn_int8": 10}
     codes = res.codes[:10].cpu()
     assert (codes[:, 0] < 2048).all() and (codes[:, 1:] < CPC.vocab_size).all()
+
+
+# ---- the sampler's top-p stage (K1 sample mode, K2) ----
+
+def _top_p_flip_ok(z, p, ref_exact, a, b) -> bool:
+    """Codes a (kernel) and b (``sample_row`` on the kernel's own logits)
+    differ only where the top-p cut fell within rounding of one of them:
+    the cumulative mass at a or b within n_terms x 2^-23 (x the total mass)
+    of the threshold (f32 sums in another association)."""
+    cum = top_p_cum(z, ref_exact)
+    n = int((z > NEG_BIG / 2).sum())
+    tol = n * 2.0**-23 * max(1.0, float(cum.max()))
+    thr = top_p_threshold(p)
+    return min(abs(float(cum[a]) - thr), abs(float(cum[b]) - thr)) <= tol
+
+
+@pytest.mark.parametrize("top_k", [50, 0])
+@pytest.mark.parametrize("p,ref_exact", [(0.8, False), (0.95, True), (0.5, False)])
+@pytest.mark.parametrize("B", [1, 5])
+def test_k1_top_p_matches_sample_row(dev, weights, B, p, ref_exact, top_k):
+    """K1's sampled code0 with top-p against ``sample_row`` (the plain
+    sampler, top-p stage included) on the kernel's own logits, same seed
+    and stream: equal but for a cut within rounding of the threshold."""
+    tp, _ = weights
+    x, cache, offs, cos, sin, supp, seen = _batched_case(dev, B, 128, False, seed=40 + B)
+    off = int(offs[0]) if B == 1 else offs
+    if B == 1:
+        cos, sin, seen = cos[0], sin[0], seen[0]
+    flips = 0
+    for s in range(6):
+        kw = dict(temperature=0.9, top_k=top_k, top_p=p, ref_exact_top_p=ref_exact,
+                  rep_penalty=1.05, eos_id=-1, seed=(s, 11), suppress_add=supp, seen=seen,
+                  return_logits=True)
+        _, code, logits = tkk.talker_decode_step(tp, CFG, x, _clone(cache), off, cos, sin, **kw)
+        code, logits, seen_b = code.reshape(B), logits.reshape(B, -1), seen.reshape(B, -1)
+        for b in range(B):
+            want = int(sample_row(logits[b], temperature=0.9, top_k=top_k, top_p=p,
+                                  ref_exact_top_p=ref_exact, rep_penalty=1.05, seen=seen_b[b],
+                                  suppress_add=supp, seed=(s, 11), stream=16 * b))
+            if int(code[b]) != want:
+                flips += 1
+                z = top_k_filter(_pen(logits[b], seen_b[b]) + supp, top_k)
+                assert _top_p_flip_ok(z, p, ref_exact, int(code[b]), want), (s, b)
+    assert flips <= B  # a cut within rounding is rare
+
+
+@pytest.mark.parametrize("top_k", [50, 0])
+@pytest.mark.parametrize("p,ref_exact", [(0.8, False), (0.95, True)])
+@pytest.mark.parametrize("B", [1, 3])
+def test_k2_top_p_matches_sample_row(dev, weights, B, p, ref_exact, top_k):
+    """K2's 15 sampled codes with top-p against ``sample_row`` on the
+    kernel's own logits of each position (stream j + 1 + 16 b)."""
+    tp, cp = weights
+    g = torch.Generator(device=dev).manual_seed(B)
+    h = torch.randn(B, CFG.hidden_size, generator=g, device=dev).mul(0.3).bfloat16()
+    code0 = torch.randint(0, 2048, (B,), generator=g, device=dev, dtype=torch.int32)
+    before = cpk.predict_codes_fused.launches
+    codes, _, logits = cpk.predict_codes_fused(cp, CPC, tp, h, code0, (7, 8), temperature=0.9,
+                                               top_k=top_k, top_p=p, ref_exact_top_p=ref_exact,
+                                               return_logits=True)
+    assert cpk.predict_codes_fused.launches == before + 1
+    logits = logits.reshape(15, B, -1)
+    flips = 0
+    for b in range(B):
+        for j in range(15):
+            want = int(sample_row(logits[j, b], temperature=0.9, top_k=top_k, top_p=p,
+                                  ref_exact_top_p=ref_exact, seed=(7, 8), stream=j + 1 + 16 * b))
+            a = int(codes[b, j])
+            if a != want:
+                flips += 1
+                assert _top_p_flip_ok(top_k_filter(logits[j, b], top_k), p, ref_exact, a, want)
+    assert flips <= 1
+
+
+@pytest.mark.parametrize("ref_exact", [False, True])
+def test_generate_codes_top_p_runs_on_the_kernels(dev, weights, monkeypatch, ref_exact):
+    """top_p < 1 (and ref_exact_top_p): K1 in sample mode once per frame
+    after the first, K2 once per frame; the plain CP loop never runs and the
+    plain sampler only for the first frame's code 0."""
+    tp, cp = weights
+
+    def plain_cp(*a, **k):
+        raise AssertionError("the plain CP loop ran")
+
+    calls = []
+    real = gen.sample_token_inner
+    monkeypatch.setattr(gen.cp, "predict_codes", plain_cp)
+    monkeypatch.setattr(gen, "sample_token_inner", lambda *a, **k: calls.append(1) or real(*a, **k))
+    g = torch.Generator(device=dev).manual_seed(2)
+    n1, n2 = tkk.talker_decode_step.launches, cpk.predict_codes_fused.launches
+    res = gen.generate_codes(
+        tp, cp, talker_cfg=CFG, cp_cfg=CPC,
+        sampling=gen.SamplingConfig(0.9, 50, 0.9, 1.05, forbid_eos=True,
+                                    ref_exact_top_p=ref_exact),
+        prefill_embeds=torch.randn(1, 64, 256, generator=g, device=dev).mul(0.1).bfloat16(),
+        prefill_len=20, trailing_embeds=torch.zeros(16, 256, dtype=torch.bfloat16, device=dev),
+        trailing_len=4, tts_pad_embed=torch.zeros(256, dtype=torch.bfloat16, device=dev),
+        max_steps=10, max_frames=12, seed=3, cache_len=128,
+    )
+    assert res.n_frames == 10 and len(calls) == 1
+    assert tkk.talker_decode_step.launches - n1 == 9
+    assert cpk.predict_codes_fused.launches - n2 == 10
+
+
+# ---- the experiment kernels: T7, T6, T3 (qwen3tts_tpu_torch/tools) ----
+
+@pytest.mark.parametrize("variant", ["dma4", "dma12", "dma1", "t6 form"])
+def test_weight_stream_matches_plain(dev, weights, variant):
+    """T7: h bit-equal on int8 operands, within a bf16 step with the f32
+    rows (their tiles summed in another order); checksums exact."""
+    from qwen3tts_tpu_torch.tools import exp_weight_stream as tws
+
+    tp, _ = weights
+    big, small = tws.talker_operands(tp)
+    ops = {"dma4": big, "dma12": big + small, "dma1": [tws.merged(big)], "t6 form": big}[variant]
+    form = 1 if variant == "t6 form" else 0
+    x = torch.randn(2, 256, generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev).bfloat16()
+    before = tws.weight_stream.launches
+    h, sums = tws.weight_stream(ops, x, form)
+    assert tws.weight_stream.launches == before + 1
+    hr, sums_r = tws.weight_stream_ref(ops, x, form)
+    if variant == "dma12":
+        assert float((h.float() - hr.float()).abs().max()) <= 2.0**-7 * float(hr.float().abs().max())
+    else:
+        assert torch.equal(h, hr)
+    for s, sr in zip(sums, sums_r):
+        assert s.dtype == sr.dtype and torch.equal(s, sr)
+
+
+@pytest.mark.parametrize("part", ["full", "noattn", "nomlp", "dma"])
+def test_variant_step_matches_plain(dev, weights, part):
+    """T6: h before the final norm and the new k/v rows within the bf16
+    bound (dma bit-equal), one launch per call."""
+    from qwen3tts_tpu_torch.tools import exp_tk_b1_ablate as tab
+
+    tp, _ = weights
+    x, cache, offs, cos, sin, _, _ = _batched_case(dev, 1, 128, False, seed=77)
+    pos = int(offs[0])
+    ck, cr = _clone(cache), _clone(cache)
+    before = tab.variant_step.launches
+    hk, kk, vk = tab.variant_step(tp, CFG, x, ck, pos, cos[0], sin[0], part)
+    assert tab.variant_step.launches == before + 1
+    hr, kr, vr = tab.variant_step_ref(tp, CFG, x, cr, pos, cos[0], sin[0], part)
+    if part == "dma":
+        assert torch.equal(hk, hr) and not kk.any() and not vk.any()
+    else:
+        assert scaled(hk, hr) < 0.05 and scaled(kk, kr) < 0.05 and scaled(vk, vr) < 0.05
+    assert torch.equal(ck.k[:, :, :, :pos], cache.k[:, :, :, :pos])
+
+
+@pytest.mark.parametrize("off", [0, 1])
+@pytest.mark.parametrize("blk_rows", [64, 1024])
+def test_colsum_matches_plain(dev, off, blk_rows):
+    """T3: the column sums of a moved window, exact."""
+    from qwen3tts_tpu_torch.tools import exp_hbm_peak as thp
+
+    rows = 8192
+    x = torch.randint(-128, 127, (rows + 1024, thp.COLS), dtype=torch.int8, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(blk_rows))
+    before = thp.colsum.launches
+    got = thp.colsum(x, off * blk_rows, rows, blk_rows)
+    assert thp.colsum.launches == before + 1
+    assert torch.equal(got, thp.colsum_ref(x, off * blk_rows, rows, blk_rows))
+    assert torch.equal(got, x[off * blk_rows : off * blk_rows + rows].sum(0, dtype=torch.int32))

@@ -36,6 +36,8 @@ SUBMODULES = (
     "ops.quant", "ops.norms", "ops.rope", "ops.sampling", "ops.conv", "ops.decode_blocks",
     "ops.talker_kernel", "ops.cp_kernel", "ops.cp_kernel_old", "ops._cuda", "ops.attention",
     "utils.host_init", "utils.convert", "utils.loader",
+    "tools", "tools._card", "tools.exp_weight_stream", "tools.exp_tk_b1_ablate",
+    "tools.exp_hbm_peak",
 )
 
 
