@@ -112,7 +112,20 @@ kernels from csrc/, and runs, in order:
      versions, then their scripts' timings at a reduced count: T7's weight
      stream (dma4, dma12, dma1, beside K1 as the full step), T6's ablated
      B=1 step (full, noattn, nomlp, dma over 66 steps), T3's sustained read
-     (4-32 MiB blocks, beside a torch reduction).
+     (4-32 MiB blocks, beside a torch reduction);
+  p. the last four experiment kernels against their plain versions on the
+     card: T1's attention forms (a, b, c, c2 at full size, 4 iterations,
+     within 1e-3 scaled), T4's mxu and plane variants at the four talker
+     shapes (within 1e-4 scaled), T5's KV append at L 28, B 32, T 256 with
+     offsets at both ends, at 8k + 7 and outside the cache (bit-equal) and
+     T2's twelve probes on random inputs (exact; p6 within 1e-5 scaled);
+     then each script's ``main`` at a reduced count (T1 at n = 100 and 200
+     iterations with the bmm yardstick, T4's device times with K4 beside
+     them, T5's four appends in the script's order with ``index_put_``, T2's
+     probes on the script's inputs), every launch counter from 0, each
+     kernel launched in that run. Its kernels' times are queued on the card
+     behind a spin kernel (no host, no profiler in the way); phases 7 and 8
+     read only profiler windows that recorded every kernel of their calls.
 
 The K1 comparisons in dyn_int8 (phase k) hold kernel and plain version
 against a float64 step of the model's maths (the kernel within 1.5x of the
@@ -286,37 +299,14 @@ def main() -> None:
     log(f"    weights: talker + CP (host_init, fused, bf16 and int8) + f32 vocoder in "
         f"{time.time() - t0:.1f} s")
 
-    def timed(fn, iters):
-        fn()
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / iters
-
+    # timed: ms per call of back-to-back calls (CUDA events); device_ms: the
+    # device time per call (torch.profiler; a window that did not record
+    # every kernel it was given, or no device time, taken again); both after
+    # one warm-up call
+    from qwen3tts_tpu_torch.tools._card import device_ms
+    from qwen3tts_tpu_torch.tools._card import event_ms as timed
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def device_ms(fn, iters):
-        """Device time per call: the sum of fn's device kernels over ``iters``
-        calls (torch.profiler), without the host time between them. A
-        profiler window now and then records no device events at all; such
-        a window is taken again (three tries), never read as zero time."""
-        fn()
-        torch.cuda.synchronize()
-        for _ in range(3):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    fn()
-                torch.cuda.synchronize()
-            t = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                    if e.device_type == DeviceType.CUDA) / 1000 / iters
-            if t > 0:
-                return t
-        raise RuntimeError("the profiler recorded no device time in three windows")
 
     def scaled(a, b):
         a, b = a.float(), b.float()
@@ -652,7 +642,10 @@ def main() -> None:
                 return tq.quant_matmul(xq, *copies[next(turn) % n_cp])
 
             us_k, us_p = 1000 * timed(run_k, 200), 1000 * timed(run_p, 50)
-            dev_k, dev_p = device_ms(run_k, 2 * n_cp), device_ms(run_p, 10)
+            # kernels per call: K4 1; the plain version 10 and a cast of bf16 x
+            # (counted on the H100), each profiler window held to them
+            dev_k = device_ms(run_k, 2 * n_cp, 1)
+            dev_p = device_ms(run_p, 10, 10 + (xdt == torch.bfloat16))
             del copies
             k4_times[(bits, group, O, I, xdt)] = (dev_k, dev_p)
             k4_io[(bits, group, O, I, xdt)] = (nbytes(pw.q, pw.scales, pw.biases, xq, yk), 2 * O * I)
@@ -694,14 +687,15 @@ def main() -> None:
                 run_k = rotating(lambda l: attn.decode_attention_inner(*a, layer=l))
                 run_p = rotating(lambda l: attn.decode_attention_ref(*a, layer=l))
             ms_k, ms_p = timed(run_k, 100), timed(run_p, 20)
-            dev_k, dev_p = device_ms(run_k, 56), device_ms(run_p, 28)
+            # kernels per call: K3 2 (partials, combine), the plain version 8
+            dev_k, dev_p = device_ms(run_k, 56, 2), device_ms(run_p, 28, 8)
             k3_times[(T_c, pos_c, layer)] = (dev_k, dev_p)
             if (T_c, pos_c, layer) == (4096, 4000, L - 1):
                 # the yardstick: one library call over the valid prefix,
                 # never called by the port, over the layers in turn too
                 k3_lib_ms = device_ms(rotating(lambda l: torch.nn.functional.scaled_dot_product_attention(
                     qv, kc[l, :, :, : pos_c + 1], vc[l, :, :, : pos_c + 1], scale=D**-0.5,
-                    enable_gqa=True)), 56)
+                    enable_gqa=True)), 56, 2)  # cuDNN's flash kernel and its reduction
                 k3_bound = bound(nbytes(qv, kc[layer, :, :, : pos_c + 1], vc[layer, :, :, : pos_c + 1], ok_),
                                  4 * cfg.num_attention_heads * D * (pos_c + 1))
             log(f"[8] K3 pos {pos_c} of {T_c} ({'layer index' if layer is not None else 'one layer'}): "
@@ -2280,9 +2274,10 @@ def main() -> None:
 
         ms = timed(t7_step, 20)
         b_ = t7[name]["bytes"]
-        t7[name].update(ms=ms, bound=b_ / HBM_BYTES_S * 1e3)
+        t7[name].update(ms=ms, bound=bound(b_, 0))
+        b_ms = t7[name]["bound"][0]
         log(f"    T7 {name}: {ms:.3f} ms/step, {b_ / 1e6:.1f} MB -> {b_ / 1e6 / ms:.0f} GB/s, "
-            f"bound {t7[name]['bound']:.3f} ms ({t7[name]['bound'] / ms:.3f} of it)  [{smi}]")
+            f"bound {b_ms:.3f} ms ({b_ms / ms:.3f} of it)  [{smi}]")
     t7_launches = tws.weight_stream.launches
     rope_o = mrope_cos_sin(torch.arange(256, device=dev)[None], D, cfg.rope_theta,
                            cfg.mrope_section, torch.bfloat16)
@@ -2301,13 +2296,13 @@ def main() -> None:
     c6 = tk.make_cache(cfg, 1, 256, torch.bfloat16, dev)
     for part in tab.PARTS:
         ms = timed(lambda: t6_loop(part, c6), 1) / 66
-        bnd6 = tab.part_bytes(talker_p, part, tab.PREFILL_LEN + 32, cfg) / HBM_BYTES_S * 1e3
+        bnd6 = bound(tab.part_bytes(talker_p, part, tab.PREFILL_LEN + 32, cfg), 0)
         t6[part].update(ms=ms, bound=bnd6)
         log(f"    T6 {part:6s} x66: {ms:.3f} ms/step, {ms / L * 1e3:.1f} us/layer, bound "
-            f"{bnd6:.3f} ms ({bnd6 / ms:.3f} of it)  [{smi}]")
+            f"{bnd6[0]:.3f} ms ({bnd6[0] / ms:.3f} of it)  [{smi}]")
     t6_launches = tab.variant_step.launches
     n_t3 = ROWS_B = thp.ROWS * thp.COLS
-    t3_bound = n_t3 / HBM_BYTES_S * 1e3
+    t3_bound = bound(n_t3, 0)
     lib_ms = timed(lambda: x_t3[8 : 8 + thp.ROWS].sum(0, dtype=torch.int32), 10)
     log(f"    T3 torch reduction x[a:a+ROWS].sum(0, int32): {lib_ms:.3f} ms/iter, "
         f"{ROWS_B / 1e6 / lib_ms:.1f} GB/s  [{smi}]")
@@ -2322,7 +2317,7 @@ def main() -> None:
         ms = timed(t3_iter, 10)
         t3[blk_mb].update(ms=ms, gbs=n_t3 / 1e6 / ms)
         log(f"    T3 blk={blk_mb:2d} MiB: {ms:.4f} ms/iter, {n_t3 / 1e6 / ms:.1f} GB/s, bound "
-            f"{t3_bound:.4f} ms ({t3_bound / ms:.3f} of it; 3.35 TB/s published)  [{smi}]")
+            f"{t3_bound[0]:.4f} ms ({t3_bound[0] / ms:.3f} of it; 3.35 TB/s published)  [{smi}]")
     t3_launches = thp.colsum.launches
     log(f"    launches in the timings: T7 {t7_launches}, T6 {t6_launches}, T3 {t3_launches}; "
         f"phase o took {time.time() - t_o:.1f} s")
@@ -2331,6 +2326,100 @@ def main() -> None:
     tk._attend, cpm_mod.predict_codes, gen.sample_token_inner = real_attend, real_pc, real_samp
     del bm, m17
     bf16_tmp.cleanup()
+
+    # ---- p. T1, T4, T5, T2: the experiment kernels of this slice ----
+    # Each against its plain version, on inputs its script's own check does
+    # not use, then its script's run (the scripts' ``main`` at reduced
+    # counts) with every launch counter from 0.
+    from qwen3tts_tpu_torch.tools import exp_attn_forms as taf
+    from qwen3tts_tpu_torch.tools import exp_cpk as tcp
+    from qwen3tts_tpu_torch.tools import exp_int4_repack as tir
+    from qwen3tts_tpu_torch.tools import exp_kv_append as tka
+
+    t_p = time.time()
+    log("[p] T1 (attention forms), T4 (int4 matvec forms), T5 (KV append), T2 (CP probes) "
+        "against their plain versions, then their scripts at reduced counts")
+    n_t1 = 100  # iterations of the T1 script's shorter call (the longer: 2 x n_t1)
+    t1 = {}
+    for form in taf.FORMS:
+        qf, kf, vf = taf.inputs(form, 3, dev)
+        got, ref = taf.attn_form(form, qf, kf, vf, 4), taf.attn_form_ref(form, qf, kf, vf, 4)
+        err = scaled(got, ref)
+        check(err <= 1e-3, f"T1 form {form}: scaled error {err:.3g} > 1e-3")
+        t1[form] = dict(abs=float((got - ref).abs().max()), err=err,
+                        plain_ms=timed(lambda: taf.attn_form_ref(form, qf, kf, vf, n_t1), 1),
+                        bound=bound(taf.call_bytes(qf, kf, vf), n_t1 * taf.iteration_flops(qf, vf)))
+    t4 = {}
+    for I4, O4 in tir.SHAPES:
+        w4 = tir.weights(I4, O4, 1, dev)
+        for name, fn, ref_fn, args in (
+                ("mxu", tir.mxu_variant, tir.mxu_variant_ref,
+                 (w4["x"], w4["packed"], w4["scales"], w4["biases"])),
+                ("plane", tir.plane_variant, tir.plane_variant_ref,
+                 (w4["x"], w4["lo"], w4["hi"], w4["scales"]))):
+            got, ref = fn(*args), ref_fn(*args)
+            err = scaled(got, ref)
+            check(err <= 1e-4, f"T4 {name} at ({I4}, {O4}): scaled error {err:.3g} > 1e-4")
+            t4[(name, I4, O4)] = dict(abs=float((got - ref).abs().max()), err=err,
+                                      plain_ms=timed(lambda: ref_fn(*args), 10))
+    g5 = torch.Generator(device=dev).manual_seed(5)
+    rand5 = lambda *s_: torch.randn(*s_, generator=g5, device=dev).to(torch.bfloat16)
+    kn5, vn5 = rand5(tka.L, tka.B, tka.HKV, tka.D), rand5(tka.L, tka.B, tka.HKV, tka.D)
+    kc5, vc5 = rand5(tka.L, tka.B, tka.HKV, tka.T, tka.D), rand5(tka.L, tka.B, tka.HKV, tka.T, tka.D)
+    # offsets at both ends of the cache, at 8k + 7 (the TPU's window edge)
+    # and outside it (placed as dynamic_update_slice places them)
+    offs5 = torch.tensor([0, 7, 8, tka.T - 1, -1, tka.T + 5] + [8 * k + 7 for k in range(2, 28)],
+                         dtype=torch.int32, device=dev)
+    ref5 = tka.kv_append_ref(kc5.clone(), vc5.clone(), kn5, vn5, offs5)
+    tka.kv_append(kc5, vc5, kn5, vn5, offs5)
+    check(torch.equal(kc5, ref5[0]) and torch.equal(vc5, ref5[1]),
+          "T5: the kernel's caches differ from the plain version's")
+    del kn5, vn5, kc5, vc5, ref5
+    t2 = {}
+    for name in tcp.PROBES:  # the script checks its own inputs; these are random
+        args = tcp.probe_random_inputs(name, dev)
+        got, ref = tcp.probe(name, *args), tcp.probe_ref(name, *args)
+        err = tcp.agree(name, got, ref)  # raises if an exact probe differs
+        check(err <= 1e-5, f"T2 {name}: scaled error {err:.3g} > 1e-5")
+        t2[name] = dict(abs=max(float((a.float() - b.float()).abs().max())
+                                for a, b in zip(tcp.outputs(got), tcp.outputs(ref))),
+                        plain_ms=timed(lambda: tcp.probe_ref(name, *args), 20))
+    log(f"    against the plain versions: T1 scaled {max(v['err'] for v in t1.values()):.3g} "
+        f"(<= 1e-3), T4 {max(v['err'] for v in t4.values()):.3g} (<= 1e-4), T5 bit-equal, T2 "
+        f"exact on random inputs but p6 {t2['p6']['abs']:.3g} (<= 1e-5 scaled)")
+
+    # the scripts' runs, each launch counter from 0
+    taf.attn_form.launches = dict.fromkeys(taf.FORMS, 0)
+    tcp.probe.launches = dict.fromkeys(tcp.PROBES, 0)
+    tir.mxu_variant.launches = tir.plane_variant.launches = tka.kv_append.launches = 0
+    r1 = taf.main([str(n_t1)])
+    r4 = tir.main(["50"])
+    r5 = tka.main(["1"])
+    r2 = tcp.main([])
+    p_launches = dict(taf.attn_form.launches, mxu=tir.mxu_variant.launches,
+                      plane=tir.plane_variant.launches, kv_append=tka.kv_append.launches,
+                      probes=sum(tcp.probe.launches.values()))
+    check(all(v > 0 for v in p_launches.values()) and all(tcp.probe.launches.values()),
+          f"phase p: a kernel of the scripts' runs was never launched: {p_launches}, "
+          f"{tcp.probe.launches}")
+    for form in taf.FORMS:
+        t1[form].update(ms=r1[form]["t1_ms"])
+    h4 = (1024, 3072)  # the headline shape of the T4 entries
+    for name in ("mxu", "plane"):
+        t4[(name,) + h4].update(ms=r4[h4]["queued_us"][name] / 1e3,
+                                bound=bound(r4[h4]["bytes"][name], 0))
+    t5 = dict(abs=0.0, ms=r5["kernel"]["queued_ms"], plain_ms=r5["plain append (after)"]["ms"],
+              bound=bound(r5["bytes"], 0))
+    t5_lib_ms = r5["index_put_ (library)"]["queued_ms"]
+    t2_all = dict(abs=max(v["abs"] for v in t2.values()),
+                  ms=sum(v["queued_us"] for v in r2.values()) / 1e3,
+                  plain_ms=sum(v["plain_ms"] for v in t2.values()),
+                  bound=bound(sum(v["bytes"] for v in r2.values()), 0))
+    log(f"    launches in the scripts' runs: {p_launches}; T1 us/iter "
+        + ", ".join(f"{f_} {r1[f_]['per_us']:.3f}" for f_ in taf.FORMS)
+        + f"; T5 ms/append: kernel {t5['ms']:.4f} and index_put_ {t5_lib_ms:.4f} queued, plain "
+        f"{t5['plain_ms']:.4f}; T2 {t2_all['ms'] * 1e3:.2f} us for the 12 probes; "
+        f"phase p took {time.time() - t_p:.1f} s  [{smi}]")
 
     print(smi, flush=True)
     k1_64, k2_64 = k1b[(64, True)], k2b[64]
@@ -2413,10 +2502,11 @@ def main() -> None:
     ]
 
     def tool(name, src, rep, r, launches, library_ms=None):
+        """An entry of an experiment kernel; r["bound"] is ``bound()``'s."""
         return dict(name=name, route="cuda", source=f"qwen3tts_tpu_torch/csrc/{src}",
                     replaces=f"tools/{rep}", launches=launches, max_abs_err=r["abs"],
-                    ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"], bound_by="bytes",
-                    library_ms=library_ms)
+                    ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+                    bound_by=r["bound"][1], library_ms=library_ms)
 
     kernels += [tool(f"weight_stream ({name})", "weight_stream.cu", "exp_weight_stream.py:123",
                      t7[name], t7_launches) for name in ("dma4", "dma12", "dma1")]
@@ -2425,6 +2515,15 @@ def main() -> None:
     kernels += [tool(f"colsum ({mb} MiB blocks)", "hbm_read.cu", "exp_hbm_peak.py:57",
                      dict(t3[mb], abs=0.0, bound=t3_bound), t3_launches, lib_ms)
                 for mb in thp.BLOCK_MIB]
+    kernels += [tool(f"attn_form (form {form}, n={n_t1})", "attn_forms.cu", "exp_attn_forms.py:86",
+                     t1[form], p_launches[form]) for form in taf.FORMS]
+    kernels += [tool(f"{name}_variant (I={h4[0]}, O={h4[1]})", "int4_repack.cu",
+                     "exp_int4_repack.py:72" if name == "mxu" else "exp_int4_repack.py:113",
+                     t4[(name,) + h4], p_launches[name]) for name in ("mxu", "plane")]
+    kernels += [tool("kv_append (L 28, B 32, T 256)", "kv_append.cu", "exp_kv_append.py:90", t5,
+                     p_launches["kv_append"], t5_lib_ms),
+                tool("cpk probes (p1-p6, p3a-c, p4a-c; one launch each)", "cpk_probes.cu",
+                     "exp_cpk.py:39", t2_all, p_launches["probes"])]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}), flush=True)

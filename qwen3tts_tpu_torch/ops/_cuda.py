@@ -55,7 +55,7 @@ LL = ctypes.c_longlong
 
 # argument types of the C entries, in order (csrc/talker_step.cu, cp_loop.cu,
 # quant_matmul.cu, decode_attention.cu, weight_stream.cu, talker_ablate.cu,
-# hbm_read.cu)
+# hbm_read.cu, attn_forms.cu, int4_repack.cu, kv_append.cu, cpk_probes.cu)
 _ARGTYPES = {
     "qt_quant_gemv": [I, I, I, I, I, P, P, P, P, P, P],  # O I bits group x_bf16 x w s b y stream
     "qt_decode_attention_chunks": [I],  # pos
@@ -104,6 +104,22 @@ _ARGTYPES = {
         P, P, P, P, P, P, P, P,  # hres xn attn gated ws sums tiles stream
     ],
     "qt_hbm_colsum": [P, LL, LL, I, I, I, P, P],  # x total_rows row0 rows blk_rows group out stream
+    "qt_attn_form": [I, I, I, I, I, P, P, P, P, P, P],  # k_transposed Bt M W n q k v part out stream
+    "qt_int4_mxu": [I, I, I, P, P, P, P, P, P],  # O I NG x packed scales biases y stream
+    "qt_int4_plane": [I, I, I, P, P, P, P, P, P],  # O I NG x lo hi scales y stream
+    "qt_kv_append": [I, I, I, I, I, P, P, P, P, P, P],  # L B H T D k_cache v_cache k_new v_new offsets stream
+    "qt_cpk_p1_reshape": [I, I, P, P, P],  # rows cols x out stream
+    "qt_cpk_p2_int8_dot": [I, I, P, P, P, P],  # K N x w out stream
+    "qt_cpk_p3_dynrow": [I, I, P, P, P],  # p cols x out stream
+    "qt_cpk_p3a_dynrow_f32": [I, I, P, P, P],
+    "qt_cpk_p3b_dynrow_bf16": [I, I, P, P, P],
+    "qt_cpk_p3c_where_row": [I, I, P, P, P],
+    "qt_cpk_p4_argmax_row": [I, I, I, P, P, P, P, P],  # N V E z emb codes row stream
+    "qt_cpk_p4a_argmax": [I, P, P, P],  # N z codes stream
+    "qt_cpk_p4b_argmax_row": [I, I, I, P, P, P, P],  # N V E z emb row stream
+    "qt_cpk_p4c_argmax_smem_row": [I, I, I, P, P, P, P],
+    "qt_cpk_p5_counter_bits": [U, I, P, P],  # seed n out stream
+    "qt_cpk_p6_convert_dot": [I, I, P, P, P, P],  # K N x w out stream
 }
 
 build_seconds: float | None = None  # wall time of this process's build, if it built

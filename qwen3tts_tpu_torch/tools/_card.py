@@ -1,6 +1,7 @@
 """What the experiment scripts of this package share: the card they need,
-its name and power limit (printed beside every number), CUDA-event timing,
-the bound of a memory-bound call, and the 0.6B int8 talker they stream."""
+its name and power limit (printed beside every number), CUDA-event,
+queued and profiler timing, the bound of a memory-bound call, and the 0.6B int8 talker
+they stream."""
 
 from __future__ import annotations
 
@@ -42,6 +43,71 @@ def event_ms(fn, iters: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Device ms per call of ``fn`` over ``iters`` calls that wait queued on
+    the card behind a spin kernel and then run back to back, whatever the
+    host's launch path costs (CUDA events around them; ``fn`` must not wait
+    on the card), after one warm-up call. No profiler: its windows can drop
+    records. If the spin ended before the host had queued every call, the
+    card waited on the host; the window is taken again with a spin twice as
+    long (six tries)."""
+    fn()
+    torch.cuda.synchronize()
+    spin = 1 << 24  # cycles, ~10 ms
+    for _ in range(6):
+        spun = torch.cuda.Event()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        spun.record()
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        queued = not spun.query()
+        torch.cuda.synchronize()
+        if queued:
+            return a.elapsed_time(b) / iters
+        spin *= 2
+    raise RuntimeError(f"the host did not queue {iters} calls within a spin of {spin // 2} cycles")
+
+
+def _is_kernel(name: str) -> bool:
+    """A device record of a kernel, not of a copy or a memset."""
+    return not name.startswith(("Memcpy", "Memset"))
+
+
+def device_ms(fn, iters: int, per_call: int | None = None) -> float:
+    """Device ms per call of ``fn``: the sum of its device records' times
+    (kernels, copies, memsets) over ``iters`` calls (torch.profiler),
+    without the host time between them, after one warm-up call.
+
+    A profiler window can drop records and then reads short (on an H100,
+    1 window in ~200 recorded a part of its kernels, and three in a row
+    recorded 0, 0 and 49 of 50). With ``per_call``, the kernels one call
+    launches, a window is read only if it recorded exactly
+    ``iters * per_call`` kernels; without it, only if it recorded any
+    device time. Ten windows at most, then it raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(10):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        recs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        t = sum(e.time_range.end - e.time_range.start for e in recs) / 1000 / iters
+        kernels = sum(_is_kernel(e.name) for e in recs)
+        seen.append(kernels)
+        if (kernels == iters * per_call) if per_call is not None else t > 0:
+            return t
+    want = f"{iters * per_call} kernels" if per_call is not None else "any device time"
+    raise RuntimeError(f"ten profiler windows recorded {seen} kernels, not {want}")
 
 
 def bound_ms(n_bytes: int) -> float:

@@ -21,7 +21,8 @@ stage of K1's and K2's sampler against ``sample_row`` on the kernels' own
 logits (equal but for a cut within rounding of the threshold), and
 ``generate_codes`` with top_p < 1 on the kernels. The experiment kernels of
 qwen3tts_tpu_torch/tools (T7 ``weight_stream``, T6 ``variant_step``, T3
-``colsum``) against their plain versions.
+``colsum``, T1 ``attn_form``, T4 ``mxu_variant`` / ``plane_variant``, T5
+``kv_append``, T2 ``probe``) against their plain versions.
 """
 
 import warnings
@@ -926,3 +927,97 @@ def test_colsum_matches_plain(dev, off, blk_rows):
     assert thp.colsum.launches == before + 1
     assert torch.equal(got, thp.colsum_ref(x, off * blk_rows, rows, blk_rows))
     assert torch.equal(got, x[off * blk_rows : off * blk_rows + rows].sum(0, dtype=torch.int32))
+
+
+# ---- the experiment kernels: T1, T4, T5, T2 (qwen3tts_tpu_torch/tools) ----
+
+@pytest.mark.parametrize("form,m", [("a", None), ("b", None), ("c", None), ("c2", None),
+                                    ("b", 40), ("c2", 128)])
+def test_attn_form_matches_plain(dev, form, m):
+    """T1: out within 1e-3 scaled of the plain version (the same f32
+    products summed in another order; a score that rounds the other way
+    to bf16 moves its product by one bf16 step), one launch per call. At
+    the script's shapes, or (m) m rows against 384 keys in 3 chunks (40
+    rows pad to 64: 4 row groups of 2 warps)."""
+    from qwen3tts_tpu_torch.tools import exp_attn_forms as taf
+
+    if m is None:
+        q, k, v = taf.inputs(form, 5, dev)
+    else:
+        g = torch.Generator(device=dev).manual_seed(m)
+        rnd = lambda *s: torch.randn(*s, generator=g, device=dev).mul(0.1).bfloat16()
+        q, v = rnd(2, m, 128), rnd(2, 384, 128)
+        k = rnd(2, 128, 384) if taf.K_TRANSPOSED[form] else rnd(2, 384, 128)
+    before = taf.attn_form.launches[form]
+    got = taf.attn_form(form, q, k, v, 3)
+    assert taf.attn_form.launches[form] == before + 1
+    assert scaled(got, taf.attn_form_ref(form, q, k, v, 3)) <= 1e-3
+    assert torch.equal(taf.attn_form(form, q, k, v, 0), torch.zeros(1, 128, device=dev))
+
+
+@pytest.mark.parametrize("variant", ["mxu", "plane"])
+@pytest.mark.parametrize("I,O", [(1024, 3072), (3072, 1024), (256, 40)])
+def test_int4_variants_match_plain(dev, variant, I, O):
+    """T4: within 1e-4 scaled of the plain version (exact products, f32
+    sums in another order), one launch per call."""
+    from qwen3tts_tpu_torch.tools import exp_int4_repack as tir
+
+    w = tir.weights(I, O, 9, dev)
+    fn, ref, args = {
+        "mxu": (tir.mxu_variant, tir.mxu_variant_ref, (w["x"], w["packed"], w["scales"], w["biases"])),
+        "plane": (tir.plane_variant, tir.plane_variant_ref, (w["x"], w["lo"], w["hi"], w["scales"])),
+    }[variant]
+    before = fn.launches
+    got = fn(*args)
+    assert fn.launches == before + 1
+    assert scaled(got, ref(*args)) <= 1e-4
+
+
+def test_kv_append_matches_plain(dev):
+    """T5: the caches bit-equal to the plain version's, in place, offsets
+    on both edges of the TPU's 8-row window and outside [0, T)."""
+    from qwen3tts_tpu_torch.tools import exp_kv_append as tka
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    rand = lambda *s: torch.randn(*s, generator=g, device=dev).bfloat16()
+    L, B, H, T, D = 3, 7, 8, 64, 128
+    k_new, v_new, kc, vc = rand(L, B, H, D), rand(L, B, H, D), rand(L, B, H, T, D), rand(L, B, H, T, D)
+    offs = torch.tensor([0, 7, 8, T - 1, 23, -2, T + 9], dtype=torch.int32, device=dev)
+    ref = tka.kv_append_ref(kc.clone(), vc.clone(), k_new, v_new, offs)
+    in_range = offs.clamp(0, T - 1)
+    lib = tka.kv_append_index_put(kc.clone(), vc.clone(), k_new, v_new, in_range)
+    lib_k = tka.kv_append(kc.clone(), vc.clone(), k_new, v_new, in_range)
+    before = tka.kv_append.launches
+    got = tka.kv_append(kc, vc, k_new, v_new, offs)
+    assert tka.kv_append.launches == before + 1
+    assert got[0] is kc and torch.equal(kc, ref[0]) and torch.equal(vc, ref[1])
+    assert torch.equal(lib[0], lib_k[0]) and torch.equal(lib[1], lib_k[1])  # the library call
+
+
+@pytest.mark.parametrize("name", ["p1", "p2", "p3", "p4", "p5", "p6", "p3a", "p3b", "p3c", "p4a",
+                                  "p4b", "p4c"])
+def test_cpk_probe_matches_plain(dev, name):
+    """T2: each probe on the script's inputs and on random ones, equal to
+    its plain version (p6 within 1e-5 scaled), one launch per call."""
+    from qwen3tts_tpu_torch.tools import exp_cpk as tcp
+
+    cases = [tcp.probe_inputs(name, dev), tcp.probe_random_inputs(name, dev, seed=8)]
+    for args in cases:
+        before = tcp.probe.launches[name]
+        got = tcp.probe(name, *args)
+        assert tcp.probe.launches[name] == before + 1
+        assert tcp.agree(name, got, tcp.probe_ref(name, *args)) <= 1e-5
+
+
+def test_queued_ms_times_the_card_not_the_host(dev):
+    """``queued_ms`` reads a probe's launches queued behind a spin: well under
+    the host-bound back-to-back time; a call that waits on the card cannot
+    be queued and raises instead of reading the host."""
+    from qwen3tts_tpu_torch.tools import exp_cpk as tcp
+    from qwen3tts_tpu_torch.tools._card import event_ms, queued_ms
+
+    args = tcp.probe_inputs("p1", dev)
+    queued = queued_ms(lambda: tcp.probe("p1", *args), 200)
+    assert 0 < queued < 0.5 * event_ms(lambda: tcp.probe("p1", *args), 200)
+    with pytest.raises(RuntimeError, match="did not queue"):
+        queued_ms(torch.cuda.synchronize, 2)

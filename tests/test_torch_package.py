@@ -37,7 +37,8 @@ SUBMODULES = (
     "ops.talker_kernel", "ops.cp_kernel", "ops.cp_kernel_old", "ops._cuda", "ops.attention",
     "utils.host_init", "utils.convert", "utils.loader",
     "tools", "tools._card", "tools.exp_weight_stream", "tools.exp_tk_b1_ablate",
-    "tools.exp_hbm_peak",
+    "tools.exp_hbm_peak", "tools.exp_attn_forms", "tools.exp_int4_repack",
+    "tools.exp_kv_append", "tools.exp_cpk",
 )
 
 
