@@ -31,12 +31,14 @@ kernels from csrc/, and runs, in order:
      codec head on an f32 row, the CP layers and lm_head), for int4 group
      64, int4 group 32 and int8 group 64: scaled error and us per call,
      timed over 64 MB of copies of the weight in turn;
-  8. K3 (csrc/decode_attention.cu) against its plain version at pos 40 and
-     4000 of a 4096-row cache, 6000 of 6144 and on a chunk boundary, in both
-     cache layouts: scaled error and ms per call, timed over the 28 layers'
-     caches in turn (K3's and K4's times are device time per call from
-     torch.profiler, beside the time per call of back-to-back calls from
-     Python, which the host bounds; neither finds its inputs in the L2);
+  8. K3 (csrc/decode_attention.cu, one launch a call) against its plain
+     version at pos 40 and 4000 of a 4096-row cache, 6000 of 6144 and on a
+     chunk boundary, in both cache layouts: scaled error and ms per call,
+     timed over the 28 layers' caches in turn (K3's and K4's times are
+     device time per call from torch.profiler, beside the time per call of
+     back-to-back calls from Python, which the host bounds; neither finds
+     its inputs in the L2); at pos 4000, K3 beside
+     ``scaled_dot_product_attention`` and its bound;
   9. the packed main path: a 0.6B int4 (group 64) MLX checkpoint written to
      a temporary directory by tests/synthetic_ckpt.py's numpy functions, then
      ``Qwen3TTSModel.from_pretrained(dir, keep_packed=True).generate()``:
@@ -55,7 +57,11 @@ kernels from csrc/, and runs, in order:
      both modes, on prefilled 128-row bf16 and 512-row int8 caches (within
      the bf16 bound), and at B=64 on a random 512-row int8 cache, where
      both are held against a float64 step written from the model's maths;
-  b. K2 at B = 8 and 64 against its plain version;
+  b. K2 at B = 8 and 64 against its plain version (its GEMVs on the tensor
+     cores at B > 1); at B=64 its device time split by kernel (GEMV,
+     attention, sampler, finishing) in ``wo_bf16`` and ``dyn_int8``, and
+     its batched GEMV alone at the CP's five shapes beside the CUDA-core
+     form and one library call (``torch.matmul``, ``torch._int_mm``);
   c. ``generate_batch`` of 8 texts on a bf16 and an int8 cache, one K1 and
      one K2 per lockstep frame;
   d. the batched grid: ``generate_codes_batch``, 66 frames, B in {8, 16,
@@ -303,7 +309,7 @@ def main() -> None:
     # device time per call (torch.profiler; a window that did not record
     # every kernel it was given, or no device time, taken again); both after
     # one warm-up call
-    from qwen3tts_tpu_torch.tools._card import device_ms
+    from qwen3tts_tpu_torch.tools._card import device_ms, device_ms_by_kernel
     from qwen3tts_tpu_torch.tools._card import event_ms as timed
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -659,6 +665,7 @@ def main() -> None:
 
     # ---- 8. K3 against its plain version ----
     from qwen3tts_tpu_torch.ops import attention as attn
+    from qwen3tts_tpu_torch.tools import time_k3_k2 as tkt
 
     L, NKV, D = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
     k3_err, k3_abs, k3_times = 0.0, 0.0, {}
@@ -687,15 +694,19 @@ def main() -> None:
                 run_k = rotating(lambda l: attn.decode_attention_inner(*a, layer=l))
                 run_p = rotating(lambda l: attn.decode_attention_ref(*a, layer=l))
             ms_k, ms_p = timed(run_k, 100), timed(run_p, 20)
-            # kernels per call: K3 2 (partials, combine), the plain version 8
-            dev_k, dev_p = device_ms(run_k, 56, 2), device_ms(run_p, 28, 8)
+            # kernels per call: K3 1 (chunks and merge in one launch), the plain version 8
+            dev_k, dev_p = device_ms(run_k, 56, 1), device_ms(run_p, 28, 8)
             k3_times[(T_c, pos_c, layer)] = (dev_k, dev_p)
             if (T_c, pos_c, layer) == (4096, 4000, L - 1):
                 # the yardstick: one library call over the valid prefix,
                 # never called by the port, over the layers in turn too
-                k3_lib_ms = device_ms(rotating(lambda l: torch.nn.functional.scaled_dot_product_attention(
+                run_lib = rotating(lambda l: torch.nn.functional.scaled_dot_product_attention(
                     qv, kc[l, :, :, : pos_c + 1], vc[l, :, :, : pos_c + 1], scale=D**-0.5,
-                    enable_gqa=True)), 56, 2)  # cuDNN's flash kernel and its reduction
+                    enable_gqa=True))
+                k3_lib_ms = device_ms(run_lib, 56)
+                # the profile: the same kernel stopped after each phase
+                k3_cuts = {name: device_ms(tkt.k3_cut(qv, kv, pos_c, cut, L), 56, 1)
+                           for cut, name in enumerate(tkt.CUTS, start=1)}
                 k3_bound = bound(nbytes(qv, kc[layer, :, :, : pos_c + 1], vc[layer, :, :, : pos_c + 1], ok_),
                                  4 * cfg.num_attention_heads * D * (pos_c + 1))
             log(f"[8] K3 pos {pos_c} of {T_c} ({'layer index' if layer is not None else 'one layer'}): "
@@ -706,8 +717,11 @@ def main() -> None:
     k3_ms, k3_plain_ms = k3_times[(4096, 4000, L - 1)]
     log(f"    K3 max scaled err {k3_err:.3g} (max abs {k3_abs:.3g}); at pos 4000 "
         f"x {L} layers: device {k3_ms * L:.3f} ms/step, plain {k3_plain_ms * L:.3f}; one call "
-        f"{k3_ms:.4f} ms against its bound {k3_bound[0]:.4f} ms ({k3_bound[1]}) and "
-        f"scaled_dot_product_attention {k3_lib_ms:.4f} ms  [{smi}]")
+        f"{k3_ms:.4f} ms against its bound {k3_bound[0]:.4f} ms ({k3_bound[1]}; "
+        f"{k3_bound[0] / k3_ms:.2f} of it) and scaled_dot_product_attention {k3_lib_ms:.4f} ms "
+        f"(target, no slower than it: {'met' if k3_ms <= k3_lib_ms else 'missed'})  [{smi}]")
+    log("    K3 at pos 4000 stopped after each phase (device ms/call): " + ", ".join(
+        f"{name} {t:.4f}" for name, t in k3_cuts.items()) + f", merged {k3_ms:.4f}")
 
     # ---- 9. the packed main path: from_pretrained(keep_packed=True) ----
     talker_json = dict(
@@ -935,7 +949,7 @@ def main() -> None:
     for _, a, b in sorted(iv, key=lambda r: r[1]):
         if b > end:
             busy, end = busy + b - max(a, end), b
-    groups = {"K4": ("quant_gemv_kernel",), "K3": ("attn_partial", "attn_combine")}
+    groups = {"K4": ("quant_gemv_kernel",), "K3": ("attn_chunk",)}
     dev_ms = {k: [0.0, 0] for k in (*groups, "other")}
     for name, a, b in iv:
         key = next((k for k, pats in groups.items() if any(p in name for p in pats)), "other")
@@ -1197,6 +1211,20 @@ def main() -> None:
                     f"{bnd[0]:.3f} ms ({bnd[1]}), plain {t_p:.3f} ms  [{smi}]")
             del cache, ck, cr
 
+    def library_launches(fn):
+        """Operations (kernel launches, memsets) one call of fn enqueues
+        through the kernel library, as the library counts them on the host
+        (``_cuda.launches``): exact. A profiler window can drop device
+        records (on an H100 one window recorded 207 of a K1 call's 232 and
+        670 of a K2 call's 695, and three windows of one call each came
+        short in another run), so it decides nothing here."""
+        fn()
+        torch.cuda.synchronize()
+        n0 = _cuda.launches()
+        fn()
+        torch.cuda.synchronize()
+        return _cuda.launches() - n0
+
     # ---- b. K2 at B = 8 and 64 against its plain version ----
     k2b = {}
     for B in (8, 64):
@@ -1249,6 +1277,29 @@ def main() -> None:
         log(f"    K2 B={B}: {t_k:.3f} ms/frame back to back, device {t_d:.3f} ms, bound "
             f"{bnd[0]:.3f} ms ({bnd[1]}; the design's re-read of the stack at 16 positions: "
             f"{k2_reread() / HBM_BYTES_S * 1e3:.3f} ms), plain {t_p:.3f} ms  [{smi}]")
+    # where K2's B=64 frame spends its device time, by kernel kind, in both
+    # modes (the B=64 rows above), from one profiler window that recorded
+    # every kernel of its calls (the library's and the wrapper's operand copies)
+    for k2_mode in ("wo_bf16", "dyn_int8"):
+        k2_kinds = {}
+        for name, t in device_ms_by_kernel(lambda: k2b_call(
+                cpk.predict_codes_fused, 0.9, (3, 4), mode=k2_mode), 5).items():
+            k2_kinds[tkt.kind_of(name)] = k2_kinds.get(tkt.kind_of(name), 0.0) + t
+        log(f"    K2 B=64 {k2_mode}: device {sum(k2_kinds.values()):.3f} ms/frame = " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(k2_kinds.items(), key=lambda kv: -kv[1]))
+            + f"  [{smi}]")
+    # the batched GEMV alone at B=64 at the CP's shapes: the tensor-core form
+    # K2 runs, the CUDA-core form K1 runs, and one library call as yardstick
+    # (torch.matmul on the weights in bf16; torch._int_mm on the quantized
+    # rows), which the port never calls
+    gemv_b64 = []
+    tkt.gemv_alone(dev, gemv_b64.append)
+    for g64 in gemv_b64:
+        g64_lib = g64["library_ms"]
+        log(f"    batched GEMV B=64 {g64['shape']} ({g64['I']} x {g64['O']}) {g64['mode']}: tensor "
+            f"cores {g64['mma_ms']:.4f} ms, CUDA cores {g64['fma_ms']:.4f}, {g64['library']} "
+            + (f"{g64_lib:.4f}" if isinstance(g64_lib, float) else str(g64_lib))
+            + f", bound {g64['bound_ms']:.4f} ({g64['bound_by']})")
 
     # ---- c. generate_batch(8 texts) on a bf16 and an int8 cache ----
     texts = ["Hello from the batched decode.", "The second voice reads a longer sentence here.",
@@ -1846,20 +1897,6 @@ def main() -> None:
             k1k[(B, kv_quant)] = k1_compare(f"dyn_int8 0.6B B={B}", talker_p, cfg, B, T, kv_quant,
                                             lo, hi_, 700 + B, sampled=1 if B > 1 else 2,
                                             iters=20 if B == 1 else 10, mode="dyn_int8")
-    def library_launches(fn):
-        """Operations (kernel launches, memsets) one call of fn enqueues
-        through the kernel library, as the library counts them on the host
-        (``_cuda.launches``): exact. A profiler window can drop device
-        records (on an H100 one window recorded 207 of a K1 call's 232 and
-        670 of a K2 call's 695, and three windows of one call each came
-        short in another run), so it decides nothing here."""
-        fn()
-        torch.cuda.synchronize()
-        n0 = _cuda.launches()
-        fn()
-        torch.cuda.synchronize()
-        return _cuda.launches() - n0
-
     # the amax of each activation row comes from the kernel that writes the
     # row: dyn_int8 adds no launch to a K1 step or a K2 frame. Expected, from
     # the C entries: K1 = rms_copy + 8 per layer (four GEMVs, attention,

@@ -22,8 +22,11 @@
 // arithmetic (2 x B flops per weight, f32 FMA on the CUDA cores) overtakes
 // the memory time near B = 8 for int8 (B = 16 for bf16, which moves twice
 // the bytes); at B = 64 a 0.6B talker step is ~57 GFLOP, ~0.85 ms of FMA at
-// the card's f32 peak against a ~0.13 ms memory floor, so tensor cores are
-// the later step.
+// the card's f32 peak against a ~0.13 ms memory floor. The tensor-core form
+// (``gemv_batched_mma``, ``gemv_batched_dq_mma``: mma.sync, csrc/mma.cuh)
+// stages the same tiles and runs the products on the tensor cores; the
+// template switch ``TC`` of ``gemv`` / ``layer_step`` selects it at B > 1.
+// K2 (cp_loop.cu) sets it; K1, T6 and T2's probes keep the CUDA-core form.
 //
 // dyn_int8 (the TPU kernels' ``dyn_int8`` mode, int8 weights only): each
 // activation row x is quantized with its own scale s = max(amax(|x|) *
@@ -63,6 +66,7 @@
 
 #include <type_traits>
 
+#include "mma.cuh"
 #include "reduce.cuh"
 
 typedef __nv_bfloat16 bf16;
@@ -97,11 +101,16 @@ constexpr int MAX_BATCH = 64;
 constexpr int GEMV_THREADS = 256;           // 8 warps split the rows
 constexpr int GEMV_MAX_SPLIT = 64;          // B=1: at most 64 splits
 constexpr int GEMV_MAX_PARTS = 512;         // B>1: splits x B <= 512 (the workspace holds 512 x O floats)
+constexpr int TC_MAX_PARTS = 1024;          // B>1 on the tensor cores: splits x B <= 1024
 constexpr int BG_COLS = 128;                // batched GEMV: columns per block, 16 groups of 8
 constexpr int BG_ROWS = 128;                // batched GEMV: weight rows staged per pass
 constexpr int BG_XS = BG_ROWS + 2;          // x row stride in shared memory (odd words: no conflicts)
 constexpr int BG_SMEM = 64 * 1024;          // batched GEMV: dynamic shared memory per block
 constexpr int BGQ_XS = BG_ROWS / 4 + 1;     // dyn_int8: x row stride in words of 4 int8
+constexpr int TC_WS = BG_COLS + 8;          // tensor-core GEMV: bf16 tile row stride (272 B)
+constexpr int TC_XS = BG_ROWS + 8;          // tensor-core GEMV: bf16 x row stride (272 B)
+constexpr int TCQ_WS = BG_COLS + 8;         // dyn_int8 tensor-core GEMV: tile row stride, words
+constexpr int TCQ_XS = BG_ROWS / 4 + 4;     // dyn_int8 tensor-core GEMV: x row stride, words
 constexpr int AMAX_SLOTS = 3;               // dyn_int8: amax of the normed input, attention, SwiGLU
 constexpr int MAX_SEGS = 3;                 // column segments of one unfused weight
 constexpr int SAMPLE_THREADS = 1024;
@@ -112,6 +121,9 @@ constexpr float NEG_BIG = -1e30f;
 static_assert(BG_ROWS * BG_COLS * 2 + MAX_BATCH * BG_XS * 2 <= BG_SMEM, "batched GEMV staging");
 static_assert(BG_ROWS * BG_COLS + MAX_BATCH * BGQ_XS * 4 <= BG_SMEM, "dyn_int8 GEMV staging");
 static_assert(16 * 8 * BG_COLS * 4 <= BG_SMEM, "batched GEMV reduction");
+static_assert(BG_ROWS * TC_WS * 2 + MAX_BATCH * TC_XS * 2 <= BG_SMEM, "tensor-core GEMV staging");
+static_assert(BG_ROWS / 4 * TCQ_WS * 4 + MAX_BATCH * TCQ_XS * 4 <= BG_SMEM,
+              "dyn_int8 tensor-core GEMV staging");
 
 __device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -131,6 +143,21 @@ __device__ __forceinline__ uint32_t quant_act(float x, float s) {
 __device__ __forceinline__ int pack4(const bf16* x, float s) {
   return (int)(quant_act(bf(x[0]), s) | quant_act(bf(x[1]), s) << 8 |
                quant_act(bf(x[2]), s) << 16 | quant_act(bf(x[3]), s) << 24);
+}
+// quant_act with a multiply where the divide cannot change the result:
+// with r = 1/s rounded, y = x * r lies within 3 x 2^-24 |x / s| of the
+// correctly rounded quotient, so where y is further than 2.4e-7 |y| from
+// the nearest half-integer both round to the same integer; nearer (ties
+// included) the divide decides. Bit-equal to quant_act.
+__device__ __forceinline__ uint32_t quant_act_r(float x, float s, float r) {
+  const float y = __fmul_rn(x, r);
+  const float k = rintf(y);
+  if (fabsf(fabsf(y - k) - 0.5f) > 2.4e-7f * fabsf(y)) return (uint32_t)(uint8_t)(int8_t)(int)k;
+  return quant_act(x, s);
+}
+__device__ __forceinline__ int pack4_r(const bf16* x, float s, float r) {
+  return (int)(quant_act_r(bf(x[0]), s, r) | quant_act_r(bf(x[1]), s, r) << 8 |
+               quant_act_r(bf(x[2]), s, r) << 16 | quant_act_r(bf(x[3]), s, r) << 24);
 }
 // max into a slot of non-negative floats (their bits order as ints)
 __device__ __forceinline__ void atomic_amax(float* slot, float v) {
@@ -537,6 +564,260 @@ gemv_batched_dq(const Mat m, const bf16* __restrict__ x, int B, const float* __r
   }
 }
 
+// ---------------------------------------------------------------------------
+// The batched GEMV on the tensor cores (B > 1), first pass: the function,
+// grid, split and partials of ``gemv_batched`` (f32 sums) and
+// ``gemv_batched_dq`` (exact int32 sums), so the same finishing kernels read
+// them. The products are mma.sync with the operands swapped: the weights
+// are the A operand (M = 16 output columns a tile, K = the rows I) and x the
+// B operand (N = 8 batch rows a tile), D = W^T x^T in registers. The batch
+// is the short side and comes in steps of 8 rows, so B = 8, 24, ... waste
+// nothing (x as A would pad B to 16). Each of the 8 warps owns one 16-column
+// tile of the block's 128 columns over the whole split and all ceil(B / 8)
+// row tiles: its accumulators never meet another warp's, so the block needs
+// no reduction and a warp's work grows with B in steps of 8 rows (B = 48
+// costs 6/8 of B = 64). Per 128-row pass the block stages the tile as
+// ``gemv_batched``/``_dq`` do (each weight read from device memory once),
+// but through registers loaded all at once (one memory latency a pass, the
+// next pass's loads in flight during this one's products) and into the mma
+// operand layouts, with row strides that keep the fragment loads on
+// distinct banks. The split goes up to TC_MAX_PARTS / B deep, twice the
+// CUDA-core form's, in whole 128-row passes where it can (``batched_splits``):
+//  - int8 ``wo_bf16`` and dense bf16 (``gemv_batched_mma``): the tile as
+//    bf16 [128 rows][TC_WS] (an int8 weight widened exactly), x as bf16
+//    [B][TC_XS]; A fragments by ``ldmatrix.trans`` of the [K][O] tile, B
+//    fragments by ``ldmatrix`` of x's rows; m16n8k16 bf16 -> f32. The
+//    per-column scale is applied after the split sum by the finishing
+//    kernels, as before.
+//  - ``dyn_int8`` (``gemv_batched_dq_mma``): the tile in dp4a words (4
+//    K-consecutive int8 of one column, ``transpose_4x16``) [32][TCQ_WS],
+//    which are the m16n8k32 s8 A operand as they stand, and x quantized per
+//    row into words [B][TCQ_XS] (``quant_act_r``: a multiply, the divide
+//    only next to a rounding tie; every block quantizes its rows, so this
+//    is most of the staging work); m16n8k32 s8 -> s32. Integer sums are
+//    exact in any order, so each split's partial equals the dp4a form's to
+//    the bit.
+// Rows of a pass past the split's end are zero in both operands. I, the
+// split rows and O are multiples of 16 (K2's wrapper checks the widths).
+// ---------------------------------------------------------------------------
+template <typename W>
+__global__ void __launch_bounds__(GEMV_THREADS, 2)
+gemv_batched_mma(const Mat m, const bf16* __restrict__ x, int B, float* __restrict__ part, int I,
+                 int O, int rows_per_split) {
+  constexpr int EPL = 16 / sizeof(W);                          // weights per 16-byte load
+  constexpr int WCH = BG_COLS / EPL;                           // 16-byte pieces of a tile row
+  constexpr int WL = BG_ROWS * WCH / GEMV_THREADS;             // a thread's pieces of the tile
+  constexpr int XL = MAX_BATCH * (BG_ROWS / 8) / GEMV_THREADS;  // a thread's pieces of x
+  extern __shared__ __align__(16) unsigned char bg_smem[];
+  bf16* ws = reinterpret_cast<bf16*>(bg_smem);  // [BG_ROWS][TC_WS]
+  bf16* xs = ws + BG_ROWS * TC_WS;              // [MAX_BATCH][TC_XS]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int NT = (B + 7) / 8;  // batch tiles of 8 rows
+  const int c0 = blockIdx.x * BG_COLS;
+  const int r0 = blockIdx.y * rows_per_split;
+  const int r1 = min(I, r0 + rows_per_split);
+  const bool live = c0 + warp * 16 < O;  // this warp's 16 columns exist (O % 16 == 0)
+  // ldmatrix row addresses: lane l gives row (l & 7) + 8 (l >> 4) of the
+  // 16-row slab at column offset 8 ((l >> 3) & 1): the four 8x8 matrices
+  // (rows 0-7, cols 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15)
+  const int lrow = (lane & 7) + ((lane >> 4) << 3), lcol = ((lane >> 3) & 1) << 3;
+  float acc[8][4];
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[t][j] = 0.f;
+  // a pass's weights and x, loaded into registers all at once (one memory
+  // latency a pass, and the next pass's loads fly during this one's products)
+  int4 wr[WL], xr[XL];
+  auto fetch = [&](int rc) {
+    const int nr = min(BG_ROWS, r1 - rc);
+#pragma unroll
+    for (int j = 0; j < WL; ++j) {
+      const int i = tid + j * GEMV_THREADS, r = i / WCH, c = c0 + (i % WCH) * EPL;
+      wr[j] = make_int4(0, 0, 0, 0);
+      if (r < nr && c < O) {
+        int ld;
+        wr[j] = __ldg(reinterpret_cast<const int4*>(wcol<W>(m, c, ld) + (size_t)(rc + r) * ld));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < XL; ++j) {
+      const int i = tid + j * GEMV_THREADS, b = i / (BG_ROWS / 8), r = (i % (BG_ROWS / 8)) * 8;
+      xr[j] = make_int4(0, 0, 0, 0);
+      if (b < B && r < nr) xr[j] = __ldg(reinterpret_cast<const int4*>(x + (size_t)b * I + rc + r));
+    }
+  };
+  fetch(r0);
+  for (int rc = r0; rc < r1; rc += BG_ROWS) {
+    const int nk = (min(BG_ROWS, r1 - rc) + 15) / 16;  // k16 steps (rows past the end are 0)
+#pragma unroll
+    for (int j = 0; j < WL; ++j) {
+      const int i = tid + j * GEMV_THREADS;
+      int4* dst = reinterpret_cast<int4*>(ws + (i / WCH) * TC_WS + (i % WCH) * EPL);
+      if constexpr (std::is_same<W, int8_t>::value) {  // widen: int8 is exact in bf16
+        const int8_t* b = reinterpret_cast<const int8_t*>(&wr[j]);
+        uint32_t p[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) p[k] = pack_bf16((float)b[2 * k], (float)b[2 * k + 1]);
+        dst[0] = make_int4((int)p[0], (int)p[1], (int)p[2], (int)p[3]);
+        dst[1] = make_int4((int)p[4], (int)p[5], (int)p[6], (int)p[7]);
+      } else {
+        dst[0] = wr[j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < XL; ++j) {
+      const int i = tid + j * GEMV_THREADS;
+      *reinterpret_cast<int4*>(xs + (i / (BG_ROWS / 8)) * TC_XS + (i % (BG_ROWS / 8)) * 8) = xr[j];
+    }
+    __syncthreads();
+    if (rc + BG_ROWS < r1) fetch(rc + BG_ROWS);
+    if (live) {
+      for (int ks = 0; ks < nk; ++ks) {
+        uint32_t a[4];
+        ldsm_x4_trans(a, ws + (ks * 16 + lrow) * TC_WS + warp * 16 + lcol);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          if (2 * p < NT) {  // batch tiles 2p and 2p + 1 (rows past B are never stored)
+            uint32_t b[4];
+            ldsm_x4(b, xs + (p * 16 + lrow) * TC_XS + ks * 16 + lcol);
+            // x's rows are the batch: tile 2p is matrices 0 (k 0-7) and 1
+            // (k 8-15), tile 2p + 1 matrices 2 and 3
+            mma_bf16(acc[2 * p], a, b[0], b[1]);
+            if (2 * p + 1 < NT) mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next pass overwrites the tiles
+  }
+  if (!live) return;
+  // D fragment: acc[t][0..1] columns g, batch rows 8t + 2c, 8t + 2c + 1;
+  // acc[t][2..3] columns g + 8, the same rows
+  const int g = lane >> 2, cq = lane & 3;
+  const int col = c0 + warp * 16 + g;
+  float* dst = part + (size_t)blockIdx.y * B * O;
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const int b = t * 8 + 2 * cq;
+    if (t < NT && b < B) {
+      dst[(size_t)b * O + col] = acc[t][0];
+      dst[(size_t)b * O + col + 8] = acc[t][2];
+    }
+    if (t < NT && b + 1 < B) {
+      dst[(size_t)(b + 1) * O + col] = acc[t][1];
+      dst[(size_t)(b + 1) * O + col + 8] = acc[t][3];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(GEMV_THREADS, 2)
+gemv_batched_dq_mma(const Mat m, const bf16* __restrict__ x, int B,
+                    const float* __restrict__ amax, int* __restrict__ part, int I, int O,
+                    int rows_per_split) {
+  constexpr int NCH = BG_COLS / 16;  // 16-column chunks of the tile
+  static_assert((BG_ROWS / 4) * NCH == GEMV_THREADS, "one 4 x 16 weight chunk a thread");
+  constexpr int XL = MAX_BATCH * (BG_ROWS / 8) / GEMV_THREADS;  // a thread's 8-value pieces of x
+  extern __shared__ __align__(16) unsigned char bg_smem[];
+  int* ws4 = reinterpret_cast<int*>(bg_smem);  // [BG_ROWS / 4][TCQ_WS]
+  int* xs4 = ws4 + (BG_ROWS / 4) * TCQ_WS;     // [MAX_BATCH][TCQ_XS]
+  __shared__ float s_row[MAX_BATCH], r_row[MAX_BATCH];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, cq = lane & 3;
+  const int NT = (B + 7) / 8;
+  const int c0 = blockIdx.x * BG_COLS;
+  const int r0 = blockIdx.y * rows_per_split;
+  const int r1 = min(I, r0 + rows_per_split);
+  const bool live = c0 + warp * 16 < O;
+  for (int b = tid; b < B; b += GEMV_THREADS) {
+    s_row[b] = act_scale(amax[b]);
+    r_row[b] = __frcp_rn(s_row[b]);
+  }
+  int acc[8][4];
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[t][j] = 0;
+  // this thread's weight chunk (group of 4 rows wg, 16 columns from wc) and
+  // x pieces, loaded into registers all at once, as in gemv_batched_mma
+  const int wg = tid / NCH, wc = c0 + (tid % NCH) * 16;
+  int4 wr[4], xr[XL];
+  auto fetch = [&](int rc) {
+    const int ng = min(BG_ROWS, r1 - rc) / 4;  // groups of 4 rows (I % 4 == 0)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wr[k] = make_int4(0, 0, 0, 0);
+    if (wg < ng && wc < O) {
+      int ld;
+      const int8_t* p = wcol<int8_t>(m, wc, ld) + (size_t)(rc + 4 * wg) * ld;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wr[k] = __ldg(reinterpret_cast<const int4*>(p + (size_t)k * ld));
+    }
+#pragma unroll
+    for (int j = 0; j < XL; ++j) {
+      const int i = tid + j * GEMV_THREADS, b = i / (BG_ROWS / 8), r = (i % (BG_ROWS / 8)) * 8;
+      xr[j] = make_int4(0, 0, 0, 0);
+      // one 16-byte load (quantizing reads it as bf16 elements, which a
+      // plain dereference would let the compiler split into 2-byte loads)
+      if (b < B && r < 4 * ng) xr[j] = __ldg(reinterpret_cast<const int4*>(x + (size_t)b * I + rc + r));
+    }
+  };
+  __syncthreads();  // s_row
+  fetch(r0);
+  for (int rc = r0; rc < r1; rc += BG_ROWS) {
+    const int ng8 = (min(BG_ROWS, r1 - rc) / 4 + 7) & ~7;  // k32 steps of 8 groups (past the end: 0)
+    {
+      int cols[16];
+      transpose_4x16(wr, cols);
+      int4* dst = reinterpret_cast<int4*>(ws4 + wg * TCQ_WS + (tid % NCH) * 16);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        dst[k] = make_int4(cols[4 * k], cols[4 * k + 1], cols[4 * k + 2], cols[4 * k + 3]);
+    }
+#pragma unroll
+    for (int j = 0; j < XL; ++j) {  // 8 values quantized into 2 words (zeros stay 0)
+      const int i = tid + j * GEMV_THREADS, b = i / (BG_ROWS / 8), r = (i % (BG_ROWS / 8)) * 8;
+      if (b < B) {
+        const bf16* v = reinterpret_cast<const bf16*>(&xr[j]);
+        const float s = s_row[b], rs = r_row[b];
+        xs4[b * TCQ_XS + r / 4] = pack4_r(v, s, rs);
+        xs4[b * TCQ_XS + r / 4 + 1] = pack4_r(v + 4, s, rs);
+      }
+    }
+    __syncthreads();
+    if (rc + BG_ROWS < r1) fetch(rc + BG_ROWS);
+    if (live) {
+      for (int ks = 0; ks < ng8 / 8; ++ks) {
+        const int* wk = ws4 + (ks * 8 + cq) * TCQ_WS + warp * 16 + g;
+        const uint32_t a[4] = {(uint32_t)wk[0], (uint32_t)wk[8], (uint32_t)wk[4 * TCQ_WS],
+                               (uint32_t)wk[4 * TCQ_WS + 8]};
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          if (t < NT) {
+            const int* xk = xs4 + (t * 8 + g) * TCQ_XS + ks * 8 + cq;
+            mma_s8(acc[t], a, (uint32_t)xk[0], (uint32_t)xk[4]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (!live) return;
+  const int col = c0 + warp * 16 + g;
+  int* dst = part + (size_t)blockIdx.y * B * O;
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const int b = t * 8 + 2 * cq;
+    if (t < NT && b < B) {
+      dst[(size_t)b * O + col] = acc[t][0];
+      dst[(size_t)b * O + col + 8] = acc[t][2];
+    }
+    if (t < NT && b + 1 < B) {
+      dst[(size_t)(b + 1) * O + col] = acc[t][1];
+      dst[(size_t)(b + 1) * O + col + 8] = acc[t][3];
+    }
+  }
+}
+
 inline int num_sms() {
   static int n = 0;
   if (n == 0) {
@@ -549,11 +830,13 @@ inline int num_sms() {
 }
 
 // The split of the reduction dimension: ``cols`` columns per block, a
-// multiple of ``align`` rows per split; returns the splits, sets ``rows``.
-inline int gemv_splits(int B, int I, int O, int cols, int align, int& rows) {
+// multiple of ``align`` rows per split, at most ``max_parts`` / B splits at
+// B > 1; returns the splits, sets ``rows``.
+inline int gemv_splits(int B, int I, int O, int cols, int align, int& rows,
+                       int max_parts = GEMV_MAX_PARTS) {
   const int col_blocks = (O + cols - 1) / cols;
   int splits = B == 1 ? (2 * num_sms()) / col_blocks : (2 * num_sms() + col_blocks - 1) / col_blocks;
-  splits = max(1, min(min(splits, B == 1 ? GEMV_MAX_SPLIT : GEMV_MAX_PARTS / B),
+  splits = max(1, min(min(splits, B == 1 ? GEMV_MAX_SPLIT : max_parts / B),
                       (I + align - 1) / align));
   rows = (I + splits - 1) / splits;
   rows = (rows + align - 1) / align * align;
@@ -565,7 +848,24 @@ inline void big_smem(K kernel) {
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BG_SMEM);
 }
 
-template <typename W>
+// The split of a batched GEMV (B > 1): ``rows`` per split. The tensor-core
+// form's blocks finish a pass in about a memory latency, so it takes up to
+// twice the splits (TC_MAX_PARTS) and, where a split would end in a part
+// pass (1024 rows in 6 splits: 176 = 128 + 48), splits deeper into whole
+// 128-row passes if the limit allows (8 splits of 128).
+inline int batched_splits(int B, int I, int O, int& rows, bool tc) {
+  if (!tc) return gemv_splits(B, I, O, BG_COLS, 16, rows);
+  const int splits = gemv_splits(B, I, O, BG_COLS, 16, rows, TC_MAX_PARTS);
+  const int whole = rows / BG_ROWS * BG_ROWS;
+  if (rows > BG_ROWS && rows % BG_ROWS && (I + whole - 1) / whole <= TC_MAX_PARTS / B) {
+    rows = whole;
+    return (I + rows - 1) / rows;
+  }
+  return splits;
+}
+
+// TC: the tensor-core form at B > 1 (B = 1 takes ``gemv_partial`` either way)
+template <typename W, bool TC = false>
 inline int gemv_t(const Mat& m, const bf16* x, int B, float* part, int I, int O, cudaStream_t st) {
   int rows;
   if (B == 1) {
@@ -575,17 +875,24 @@ inline int gemv_t(const Mat& m, const bf16* x, int B, float* part, int I, int O,
                                                                                  O, rows);
     return splits;
   }
-  static bool smem_set = false;  // one per weight type
+  static bool smem_set = false;  // one per weight type and form
   if (!smem_set) {
-    big_smem(gemv_batched<W>);
+    if constexpr (TC)
+      big_smem(gemv_batched_mma<W>);
+    else
+      big_smem(gemv_batched<W>);
     smem_set = true;
   }
-  const int splits = gemv_splits(B, I, O, BG_COLS, 16, rows);
-  gemv_batched<W><<<dim3((O + BG_COLS - 1) / BG_COLS, splits), GEMV_THREADS, BG_SMEM, st>>>(
-      m, x, B, part, I, O, rows);
+  const int splits = batched_splits(B, I, O, rows, TC);
+  const dim3 grid((O + BG_COLS - 1) / BG_COLS, splits);
+  if constexpr (TC)
+    gemv_batched_mma<W><<<grid, GEMV_THREADS, BG_SMEM, st>>>(m, x, B, part, I, O, rows);
+  else
+    gemv_batched<W><<<grid, GEMV_THREADS, BG_SMEM, st>>>(m, x, B, part, I, O, rows);
   return splits;
 }
 
+template <bool TC = false>
 inline int gemv_dq(const Mat& m, const bf16* x, int B, const float* amax, int* part, int I, int O,
                    cudaStream_t st) {
   int rows;
@@ -597,23 +904,31 @@ inline int gemv_dq(const Mat& m, const bf16* x, int B, const float* amax, int* p
   }
   static bool smem_set = false;
   if (!smem_set) {
-    big_smem(gemv_batched_dq);
+    if constexpr (TC)
+      big_smem(gemv_batched_dq_mma);
+    else
+      big_smem(gemv_batched_dq);
     smem_set = true;
   }
-  const int splits = gemv_splits(B, I, O, BG_COLS, 16, rows);
-  gemv_batched_dq<<<dim3((O + BG_COLS - 1) / BG_COLS, splits), GEMV_THREADS, BG_SMEM, st>>>(
-      m, x, B, amax, part, I, O, rows);
+  const int splits = batched_splits(B, I, O, rows, TC);
+  const dim3 grid((O + BG_COLS - 1) / BG_COLS, splits);
+  if constexpr (TC)
+    gemv_batched_dq_mma<<<grid, GEMV_THREADS, BG_SMEM, st>>>(m, x, B, amax, part, I, O, rows);
+  else
+    gemv_batched_dq<<<grid, GEMV_THREADS, BG_SMEM, st>>>(m, x, B, amax, part, I, O, rows);
   return splits;
 }
 
 // Launch the first pass of y[B, O] = x[B, I] @ W; returns the number of
 // splits written to ``part`` ([splits][B][O]): f32 sums (W int8 or bf16),
 // or with ``amax`` (dyn_int8, the rows' activation amax; W int8) int32 sums
-// of x quantized per row.
+// of x quantized per row. TC: on the tensor cores at B > 1.
+template <bool TC = false>
 inline int gemv(const Mat& m, const bf16* x, int B, float* part, int I, int O, const float* amax,
                 cudaStream_t st) {
-  if (amax) return gemv_dq(m, x, B, amax, reinterpret_cast<int*>(part), I, O, st);
-  return m.wbf16 ? gemv_t<bf16>(m, x, B, part, I, O, st) : gemv_t<int8_t>(m, x, B, part, I, O, st);
+  if (amax) return gemv_dq<TC>(m, x, B, amax, reinterpret_cast<int*>(part), I, O, st);
+  return m.wbf16 ? gemv_t<bf16, TC>(m, x, B, part, I, O, st)
+                 : gemv_t<int8_t, TC>(m, x, B, part, I, O, st);
 }
 
 // Sum of the splits of output ``idx``; consecutive splits lie ``stride``
@@ -1329,6 +1644,7 @@ inline void launch_sampler(const float* part, int splits, const Mat& head, int V
 // LAYER_FULL): LAYER_NOATTN takes q for the attention output
 // (``attn_step``'s NOATTN), LAYER_NOMLP ends the layer after o_proj + the
 // residual, whose finish applies ``next_norm`` (no gate_up, no down).
+// ``TC``: the four GEMVs on the tensor cores at B > 1 (``gemv``).
 constexpr int LAYER_FULL = 0, LAYER_NOATTN = 1, LAYER_NOMLP = 2;
 
 struct LayerW {
@@ -1336,7 +1652,7 @@ struct LayerW {
   const float *pln, *qn, *kn;
 };
 
-template <bool CP, bool KVQ, int PART = LAYER_FULL>
+template <bool CP, bool KVQ, int PART = LAYER_FULL, bool TC = false>
 inline int layer_step(const LayerW& w, const float* next_norm, int B, int H, int NQ, int NKV,
                       int I, float eps, float scale, const bf16* cosr, const bf16* sinr,
                       int rope_stride, const AttnCache& cache, int pos, const int* offs,
@@ -1346,7 +1662,7 @@ inline int layer_step(const LayerW& w, const float* next_norm, int B, int H, int
   float* a_xn = amax;                           // xn's amax (row-owning kernels write it)
   float* a_attn = amax ? amax + B : nullptr;    // the attention output's (atomic)
   float* a_gated = amax ? amax + 2 * B : nullptr;  // the SwiGLU output's (atomic)
-  int s = gemv(w.qkv, xn, B, ws, H, (NQ + 2 * NKV) * D, a_xn, st);
+  int s = gemv<TC>(w.qkv, xn, B, ws, H, (NQ + 2 * NKV) * D, a_xn, st);
   QT_CHECK_LAUNCH();
   // score tile: the rows read from the cache, up to ATTN_TILE (all of it
   // when the rows' positions live on the device)
@@ -1358,18 +1674,18 @@ inline int layer_step(const LayerW& w, const float* next_norm, int B, int H, int
       (typename std::conditional<KVQ, int8_t, bf16>::type*)cache.v, cache.ks, cache.vs, cache.T,
       pos, offs, NQ, NKV, scale, attn, a_attn);
   QT_CHECK_LAUNCH();
-  s = gemv(w.o, attn, B, ws, NQ * D, H, a_attn, st);
+  s = gemv<TC>(w.o, attn, B, ws, NQ * D, H, a_attn, st);
   QT_CHECK_LAUNCH();
   finish_residual_norm<<<B, 1024, 0, st>>>(ws, s, w.o, a_attn, h, nullptr,
                                            PART == LAYER_NOMLP ? next_norm : w.pln, xn, H, eps,
                                            a_xn);
   QT_CHECK_LAUNCH();
   if (PART == LAYER_NOMLP) return 0;
-  s = gemv(w.gu, xn, B, ws, H, 2 * I, a_xn, st);
+  s = gemv<TC>(w.gu, xn, B, ws, H, 2 * I, a_xn, st);
   QT_CHECK_LAUNCH();
   finish_swiglu<<<dim3((I + 255) / 256, B), 256, 0, st>>>(ws, s, w.gu, a_xn, I, gated, a_gated);
   QT_CHECK_LAUNCH();
-  s = gemv(w.d, gated, B, ws, I, H, a_gated, st);
+  s = gemv<TC>(w.d, gated, B, ws, I, H, a_gated, st);
   QT_CHECK_LAUNCH();
   finish_residual_norm<<<B, 1024, 0, st>>>(ws, s, w.d, a_gated, h, nullptr, next_norm, xn, H, eps,
                                            a_xn);

@@ -32,8 +32,22 @@
 // heads 62.9 MB: each read once is 0.066 ms, the re-read design's 16 x 157.3
 // + 62.9 MB ~ 2.58 GB is 0.770 ms. The 1.7B projection (2048 x 1024 bf16,
 // 4.2 MB) adds 0.001 ms read once, 67 MB (0.020 ms) as re-read at each of
-// the 16 positions. At larger B the f32 FMA work of the GEMVs (2 x B flops
-// per weight) takes over from the bytes. It fetches the sampled code's
+// the 16 positions. The arithmetic is 2 x B flops per weight per position:
+// ~161 GFLOP a frame at B=64, 0.163 ms at the card's dense bf16 rate (989
+// TFLOP/s; 0.081 ms in dyn_int8 at 1,979 int8 TOP/s), which the CUDA cores'
+// f32 FMAs and dp4a took ~18 and ~11 ms for. So at B > 1 every GEMV of the
+// frame (the layers' fused or unfused projections, the 15 heads, the
+// projection) runs on the tensor cores: ``layer_step<..., TC = true>`` and
+// ``gemv<true>`` select common.cuh's ``gemv_batched_mma`` (int8 widened to
+// bf16 in shared memory, or bf16 as it is; mma.sync m16n8k16 -> f32) and
+// ``gemv_batched_dq_mma`` (dyn_int8: the dp4a words as the m16n8k32 s8
+// operand -> exact s32). The operands are swapped, weights as A (16 output
+// columns a tile), x as B (8 batch rows a tile): the batch is the short side
+// and goes in steps of 8, where x as A would pad it to 16; this form was
+// chosen on that count and the other was not built. The partials and the
+// finishing kernels are the CUDA-core form's (the split may go twice as
+// deep, TC_MAX_PARTS), so the launches per call do not change. At B = 1 the GEMV stays ``gemv_partial``
+// (launch-bound, not arithmetic-bound). It fetches the sampled code's
 // embedding row by index (2-4 KB) instead of the TPU kernel's one-hot
 // matmul over the table, inside the sampler block. Layers run through the
 // same GEMV, attention and sampler kernels as K1 (common.cuh); the 16
@@ -90,7 +104,7 @@ extern "C" int qt_cp_loop(
   for (int p = 0; p < SLOTS; ++p) {
     const bf16* xin = p < 2 ? (const bf16*)x0 + (size_t)p * B * TH : xb;
     if (proj_w != nullptr) {  // h = bf16(bf16(xin @ proj_w) + proj_b), xn = rms(h)
-      const int s = gemv(proj, xin, B, (float*)ws, TH, H, nullptr, st);
+      const int s = gemv<true>(proj, xin, B, (float*)ws, TH, H, nullptr, st);
       QT_CHECK_LAUNCH();
       finish_residual_norm<<<B, 1024, 0, st>>>((const float*)ws, s, proj, nullptr, h,
                                                (const bf16*)proj_b, (const float*)iln, xnb, H,
@@ -110,7 +124,7 @@ extern "C" int qt_cp_loop(
       cache.v = (bf16*)v_cache + l * layer_kv;
       cache.ks = cache.vs = nullptr;
       cache.T = SLOTS;
-      const int err = layer_step<true, false>(
+      const int err = layer_step<true, false, LAYER_FULL, true>(
           w, next_norm, B, H, NQ, NKV, I, eps, scale, cosr, sinr, 0, cache, p, nullptr, h, xnb,
           (bf16*)attn, (bf16*)gated, (float*)ws, ax, st);
       if (err) return err;
@@ -119,7 +133,7 @@ extern "C" int qt_cp_loop(
     const int j = p - 1;  // head / embedding table of this position
     Mat head = mat(head_bf16 != 0);
     add_seg(head, lm_w, lm_s, j, H, V);
-    const int s = gemv(head, xnb, B, (float*)ws, H, V, head_ax, st);
+    const int s = gemv<true>(head, xnb, B, (float*)ws, H, V, head_ax, st);
     QT_CHECK_LAUNCH();
     SampleArgs a;
     a.supp = nullptr;
@@ -150,4 +164,41 @@ extern "C" int qt_cp_loop(
     QT_CHECK_LAUNCH();
   }
   return 0;
+}
+
+// The batched GEMV of a K2 call alone (B >= 2), for tests and timing: the
+// first pass of y[B, O] = x[B, I] @ W into part [splits][B][O] (f32 sums;
+// with ``dyn``, x quantized per row from ``amax`` [B] and int32 sums), W
+// int8 or (``w_bf16``) bf16 [I, O], on the tensor cores (``tc``, K2's form)
+// or the CUDA cores (K1's form), both at K2's split
+// (``qt_cp_gemv_splits``), so their partials compare split by split.
+extern "C" int qt_cp_gemv_splits(int B, int I, int O) {
+  int rows;
+  return batched_splits(B, I, O, rows, true);
+}
+
+extern "C" int qt_cp_gemv(int tc, int w_bf16, int dyn, int B, int I, int O, const void* w,
+                          const void* x, const void* amax, void* part, void* stream) {
+  if (B < 2 || B > MAX_BATCH || I % 16 != 0 || O % 16 != 0 || (dyn && (w_bf16 || !amax)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  Mat m = mat(w_bf16 != 0);
+  add_seg(m, w, nullptr, 0, I, O);
+  int rows;
+  const dim3 grid((O + BG_COLS - 1) / BG_COLS, batched_splits(B, I, O, rows, true));
+  const bf16* xb = (const bf16*)x;
+  const float* ax = (const float*)amax;
+#define QT_GEMV(kernel, ...)                                            \
+  do {                                                                  \
+    big_smem(kernel);                                                   \
+    kernel<<<grid, GEMV_THREADS, BG_SMEM, st>>>(m, xb, B, __VA_ARGS__); \
+  } while (0)
+  if (dyn && tc) QT_GEMV(gemv_batched_dq_mma, ax, (int*)part, I, O, rows);
+  else if (dyn) QT_GEMV(gemv_batched_dq, ax, (int*)part, I, O, rows);
+  else if (w_bf16 && tc) QT_GEMV(gemv_batched_mma<bf16>, (float*)part, I, O, rows);
+  else if (w_bf16) QT_GEMV(gemv_batched<bf16>, (float*)part, I, O, rows);
+  else if (tc) QT_GEMV(gemv_batched_mma<int8_t>, (float*)part, I, O, rows);
+  else QT_GEMV(gemv_batched<int8_t>, (float*)part, I, O, rows);
+#undef QT_GEMV
+  return (int)cudaGetLastError();
 }

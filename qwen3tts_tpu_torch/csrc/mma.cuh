@@ -1,6 +1,7 @@
 // Warp-level tensor-core building blocks (mma.sync m16n8k16, bf16 in, f32
-// accumulate, and ldmatrix from shared memory), shared by attn_forms.cu (T1)
-// and int4_repack.cu (T4).
+// accumulate; mma.sync m16n8k32, s8 in, s32 accumulate; ldmatrix from shared
+// memory), shared by attn_forms.cu (T1), int4_repack.cu (T4) and the batched
+// GEMV of common.cuh (K2 at B > 1).
 //
 // Fragment layout of mma.m16n8k16.row.col (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), for lane t with g = t / 4 and c = t % 4:
@@ -13,6 +14,13 @@
 //     (row g+8, cols 2c, 2c+1).
 // So the C tiles of columns 8j..8j+15 are, rounded to bf16, the A fragment
 // of a product that contracts over those 16 columns.
+//
+// mma.m16n8k32.row.col with s8 operands ("Matrix Fragments for
+// mma.m16n8k32"): A [16 x 32] in four registers of four int8 each, the lower
+// column in the low byte: a[0] (row g, cols 4c..4c+3), a[1] (row g+8, cols
+// 4c..4c+3), a[2] (row g, cols 16+4c..16+4c+3), a[3] (row g+8, cols
+// 16+4c..); B [32 x 8] in two: b0 (rows 4c..4c+3 of col g), b1 (rows
+// 16+4c..16+4c+3 of col g); C / D s32 laid out as the f32 C above.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,6 +59,17 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b on the tensor cores (s8 products, exact s32 sums; no
+// saturation: the callers' sums stay far inside the int32 range).
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -34,13 +34,13 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 
-def _header_ints(path: Path) -> dict[str, int]:
+def header_ints(path: Path) -> dict[str, int]:
     """The integer constants of a header: ``constexpr int NAME = value;``."""
     pat = re.compile(r"^constexpr (?:int|uint32_t) (\w+) = (\d+);", re.M)
     return {name: int(value) for name, value in pat.findall(path.read_text())}
 
 
-LIMITS = _header_ints(CSRC / "common.cuh")
+LIMITS = header_ints(CSRC / "common.cuh")
 MAX_BATCH = LIMITS["MAX_BATCH"]  # rows of one K1 / K2 call
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qwen3tts_tpu_torch"
 NVCC_FLAGS = (
@@ -58,10 +58,13 @@ LL = ctypes.c_longlong
 # hbm_read.cu, attn_forms.cu, int4_repack.cu, kv_append.cu, cpk_probes.cu)
 _ARGTYPES = {
     "qt_quant_gemv": [I, I, I, I, I, P, P, P, P, P, P],  # O I bits group x_bf16 x w s b y stream
-    "qt_decode_attention_chunks": [I],  # pos
     "qt_decode_attention": [
-        I, I, I, I, I, F,  # NQ NKV D T pos scale
-        P, P, P, P, P, P, P,  # q k v part_ml part_acc out stream
+        I, I, I, I, I, F, I,  # NQ NKV D T pos scale NC
+        P, P, P, P, P, P, P, P,  # q k v part_ml part_acc counters out stream
+    ],
+    "qt_decode_attention_cut": [
+        I, I, I, I, I, I, F, I,  # cut NQ NKV D T pos scale NC
+        P, P, P, P, P, P, P, P,  # q k v part_ml part_acc counters out stream
     ],
     "qt_talker_step": [
         I, I, I, I, I, I, I, I, I, I, P,  # L H NQ NKV D I V T B pos offs
@@ -90,6 +93,8 @@ _ARGTYPES = {
         P, P, P, P, P, P, P,  # hres xn attn gated ws xbuf amax
         P, P, P, P,  # codes_out esum logits_out stream
     ],
+    "qt_cp_gemv_splits": [I, I, I],  # B I O
+    "qt_cp_gemv": [I, I, I, I, I, I, P, P, P, P, P],  # tc w_bf16 dyn B I O w x amax part stream
     "qt_weight_stream": [
         I, P, P, P, P,  # n w[] layer_bytes[] esz[] tile[] (host arrays)
         I, I, I, I,  # L form B H
@@ -189,10 +194,13 @@ def launches() -> int:
     return int(library().qt_launches())
 
 
-def workspace_rows(batch: int) -> int:
+def workspace_rows(batch: int, tensor_cores: bool = False) -> int:
     """Rows of O floats the GEMV partial sums take (GEMV_MAX_SPLIT at one
-    row, GEMV_MAX_PARTS at more)."""
-    return LIMITS["GEMV_MAX_SPLIT"] if batch == 1 else LIMITS["GEMV_MAX_PARTS"]
+    row, GEMV_MAX_PARTS at more; TC_MAX_PARTS for the tensor-core form K2
+    runs at more)."""
+    if batch == 1:
+        return LIMITS["GEMV_MAX_SPLIT"]
+    return LIMITS["TC_MAX_PARTS" if tensor_cores else "GEMV_MAX_PARTS"]
 
 
 def amax_slots(batch: int, device) -> torch.Tensor:

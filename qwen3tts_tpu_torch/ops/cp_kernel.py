@@ -36,6 +36,10 @@ rows, of every row.
 ``force_codes`` (tests and comparisons) feeds the given codes forward in
 place of the sampled ones, which makes a greedy comparison teacher-forced;
 the returned codes stay the sampled ones.
+
+``batched_gemv`` runs the kernel's batched GEMV (B > 1) alone, in its
+tensor-core form (K2's) or its CUDA-core form (K1's), for tests and timing;
+the port's decode never calls it. ``batched_gemv_ref`` is its plain version.
 """
 
 from __future__ import annotations
@@ -260,8 +264,8 @@ def launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, temper
         torch.empty(B, H, dtype=torch.bfloat16, device=dev),  # normed input
         torch.empty(B, NQ * D, dtype=torch.bfloat16, device=dev),  # attention out
         torch.empty(B, I, dtype=torch.bfloat16, device=dev),  # SwiGLU out
-        torch.empty(_cuda.workspace_rows(B) * max(oqkv, 2 * I, H, V), dtype=torch.float32,
-                    device=dev),
+        torch.empty(_cuda.workspace_rows(B, tensor_cores=True) * max(oqkv, 2 * I, H, V),
+                    dtype=torch.float32, device=dev),
         torch.empty(B, TH, dtype=torch.bfloat16, device=dev),  # next position's input
         _cuda.amax_slots(B, dev) if dyn else None,
     ]
@@ -287,3 +291,49 @@ def launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, temper
 
 predict_codes_fused.launches = 0  # kernel launches (CUDA calls), not plain runs
 predict_codes_fused.mode_launches = dict.fromkeys(MODES, 0)  # the same, by the mode run
+
+
+def batched_gemv_ref(x, w, amax=None) -> torch.Tensor:
+    """Plain version of K2's batched GEMV, its split partials summed: x bf16
+    [B, I] @ w [I, O] (int8 values or bf16) in f32, unscaled; with ``amax``
+    (dyn_int8, f32 [B]) x quantized per row with s = max(amax * f32(1/127),
+    1e-12) and the exact int32 sum. Returns [B, O] f32 or int32."""
+    if amax is None:
+        return x.float() @ w.float()
+    s = torch.clamp_min(amax.float() * (1.0 / 127.0), 1e-12)
+    xq = torch.round(x.float() / s[:, None])
+    return (xq.double() @ w.double()).to(torch.int32)
+
+
+def batched_gemv(x, w, amax=None, *, tensor_cores: bool = True) -> torch.Tensor:
+    """The first pass of K2's batched GEMV alone: x bf16 [B, I] (2 <= B <=
+    64) @ w [I, O] (int8 or bf16; I, O multiples of 16), with ``amax`` the
+    dyn_int8 form. Returns the split partials [splits, B, O] (f32, or int32
+    in dyn_int8) of the tensor-core form K2 runs (``tensor_cores``) or of
+    the CUDA-core form K1 runs; on a CPU tensor the plain version's sum as
+    one split."""
+    if x.device.type == "cpu":
+        return batched_gemv_ref(x, w, amax)[None]
+    if x.device.type != "cuda":
+        raise ValueError(f"batched_gemv: unsupported device {x.device}")
+    (B, I), O = x.shape, w.shape[-1]
+    if x.dtype != torch.bfloat16 or w.dtype not in (torch.int8, torch.bfloat16) or w.shape[0] != I:
+        raise ValueError(f"batched_gemv: x {tuple(x.shape)} {x.dtype} against w {tuple(w.shape)} "
+                         f"{w.dtype}")
+    if amax is not None and (w.dtype != torch.int8 or amax.shape != (B,)):
+        raise ValueError("batched_gemv: dyn_int8 takes int8 weights and one amax per row")
+    lib = _cuda.library()
+    splits = lib.qt_cp_gemv_splits(B, I, O)
+    part = torch.empty(splits, B, O, dtype=torch.float32 if amax is None else torch.int32,
+                       device=x.device)
+    # operands stay referenced until the launch is enqueued
+    w, x = w.contiguous(), x.contiguous()
+    amax = None if amax is None else amax.float().contiguous()
+    rc = lib.qt_cp_gemv(int(tensor_cores), int(w.dtype == torch.bfloat16), int(amax is not None),
+                        B, I, O, *(_cuda.ptr(t) for t in (w, x, amax, part)), _cuda.stream_ptr())
+    _cuda.check(rc, "batched_gemv")
+    batched_gemv.launches += 1
+    return part
+
+
+batched_gemv.launches = 0  # kernel launches (CUDA calls), not plain runs

@@ -11,7 +11,10 @@ Small shapes (head_dim 128 as the kernels need). Bounds as in chip_smoke.py:
 scaled max|a - b| / max(1, max|b|) < 0.05 for K1/K2's bf16 outputs (same
 rounding points, f32 sums in another order), codes equal unless a logit
 near-tie within twice the observed logit error explains the difference;
-K4 (f32 out) <= 1e-4 scaled; K3 (bf16 out) <= 1e-2 scaled. K1 and K2 are
+K4 (f32 out) <= 1e-4 scaled; K3 (bf16 out) <= 1e-2 scaled, also against
+its plain split twin, and twice in a row bit-equal (its merge counters
+reset). K2's batched GEMV alone in its tensor-core and CUDA-core forms:
+dyn_int8 partials bit-equal, f32 sums within 1e-5 scaled of float64. K1 and K2 are
 held so in both weight modes (int8, dense bf16) and K2 also with the
 small-to-MTP projection of a CP narrower than its talker (the 1.7B shape);
 both also in the ``dyn_int8`` matmul mode (selected for ``generate_codes``
@@ -39,7 +42,9 @@ from qwen3tts_tpu_torch.models import talker as tk
 from qwen3tts_tpu_torch.ops import cp_kernel as cpk
 from qwen3tts_tpu_torch.ops import quant as q
 from qwen3tts_tpu_torch.ops import talker_kernel as tkk
-from qwen3tts_tpu_torch.ops.attention import decode_attention_inner, decode_attention_ref
+from qwen3tts_tpu_torch.ops.attention import (
+    decode_attention_inner, decode_attention_ref, decode_attention_split_ref,
+)
 from qwen3tts_tpu_torch.ops.decode_blocks import (
     NEG_BIG, gumbel_noise, sample_row, top_k_filter, top_p_cum, top_p_threshold,
 )
@@ -275,21 +280,67 @@ def test_k4_unsupported_single_row_raises(dev):
     assert tk._dense(x.expand(1, 3, 48), w).shape == (1, 3, 64)  # multi-row: plain
 
 
-@pytest.mark.parametrize("layered", [False, True])
-@pytest.mark.parametrize("T,pos", [(4096, 40), (4096, 127), (4096, 128), (4096, 4000), (6144, 6000)])
-def test_k3_matches_plain(dev, T, pos, layered):
+def _k3_case(dev, T, pos, layered):
     g = torch.Generator(device=dev).manual_seed(pos)
     lead = (3, 1) if layered else (1,)
     k = torch.randn(*lead, 8, T, 128, generator=g, device=dev).bfloat16()
     v = torch.randn(*lead, 8, T, 128, generator=g, device=dev).bfloat16()
     qv = torch.randn(1, 16, 1, 128, generator=g, device=dev).bfloat16()
-    layer = 2 if layered else None
+    return qv, k, v, 2 if layered else None
+
+
+# pos 0 and the main path's short prefixes (one chunk); both sides of chunk
+# edges (128-row chunks); 17 chunks (136 blocks, past one block per SM);
+# pos 4000 and 6000; the last row of each cache; 49 / 50 chunks at 8 kv heads
+# (392 / 400 blocks: one wave of 3 blocks per SM and the first past it)
+K3_CASES = [(4096, 0), (4096, 40), (4096, 127), (4096, 128), (4096, 255), (4096, 256),
+            (4096, 2047), (4096, 2048), (4096, 4000), (4096, 4095), (6144, 6000), (6144, 6143),
+            (8192, 6271), (8192, 6272), (8192, 8191)]
+
+
+@pytest.mark.parametrize("layered", [False, True])
+@pytest.mark.parametrize("T,pos", K3_CASES)
+def test_k3_matches_plain(dev, T, pos, layered):
+    qv, k, v, layer = _k3_case(dev, T, pos, layered)
     before = decode_attention_inner.launches
     out = decode_attention_inner(qv, k, v, pos, 128**-0.5, layer=layer)
     assert decode_attention_inner.launches == before + 1
     ref = decode_attention_ref(qv, k, v, pos, 128**-0.5, layer=layer)
     assert out.dtype == torch.bfloat16 and out.shape == (1, 16, 1, 128)
     assert scaled(out, ref) <= 1e-2
+    # the kernel's merge is the plain split twin's arithmetic
+    assert scaled(out, decode_attention_split_ref(qv, k, v, pos, 128**-0.5, layer=layer)) <= 1e-2
+
+
+def test_k3_phase_profile_runs(dev):
+    """K3's kernel stopped after each phase (the profile of
+    tools/time_k3_k2.py and chip_smoke phase 8) launches, and leaves the
+    merge counters at zero for the next full call."""
+    from qwen3tts_tpu_torch.ops import attention as attn
+    from qwen3tts_tpu_torch.tools import time_k3_k2 as tkt
+
+    qv, k, v, _ = _k3_case(dev, 4096, 4000, True)
+    kv = torch.stack([k, v])  # [2, L, 1, NKV, T, D]
+    for cut in range(1, len(tkt.CUTS) + 1):
+        tkt.k3_cut(qv, kv, 4000, cut, kv.shape[1])()
+    torch.cuda.synchronize()
+    assert not attn.head_counters(dev, 8).any()
+    out = decode_attention_inner(qv, k, v, 4000, 128**-0.5, layer=2)
+    assert scaled(out, decode_attention_ref(qv, k, v, 4000, 128**-0.5, layer=2)) <= 1e-2
+
+
+@pytest.mark.parametrize("T,pos", [(4096, 100), (4096, 4000), (6144, 6000)])
+def test_k3_twice_gives_the_same_result(dev, T, pos):
+    """The per-kv-head merge counters are left at zero: a second call (and
+    a call at another position in between) merges the same way."""
+    from qwen3tts_tpu_torch.ops import attention as attn
+
+    qv, k, v, _ = _k3_case(dev, T, pos, False)
+    first = decode_attention_inner(qv, k, v, pos, 128**-0.5)
+    decode_attention_inner(qv, k, v, pos // 2, 128**-0.5)
+    second = decode_attention_inner(qv, k, v, pos, 128**-0.5)
+    assert torch.equal(first, second)
+    assert not attn.head_counters(dev, 8).any()
 
 
 def test_packed_loop_runs_k4_k3_and_syncs_once_per_frame(dev):
@@ -401,7 +452,7 @@ def test_k1_int8_rows_written_bit_equal(dev, weights, B):
         assert torch.equal(sc[0, rows, :, pos], s_ref)
 
 
-@pytest.mark.parametrize("B", [3, 64])
+@pytest.mark.parametrize("B", [2, 3, 8, 17, 33, 48, 64])
 def test_k2_batched_matches_plain(dev, weights, B):
     tp, cp = weights
     g = torch.Generator(device=dev).manual_seed(B)
@@ -542,8 +593,12 @@ def test_k1_bf16_matches_plain(dev, bf16_weights, B, kv_quant):
         assert a_ == b_ or abs(float(z[b, a_] - z[b, b_])) <= 2 * err + 1e-6, b
 
 
-@pytest.mark.parametrize("mode,narrow,B", [("bf16", False, 3), ("bf16", True, 1),
-                                           ("int8", True, 64)])
+@pytest.mark.parametrize("mode,narrow,B", [
+    ("bf16", False, 3), ("bf16", True, 1), ("int8", True, 64),
+    ("bf16", False, 2), ("bf16", False, 8), ("bf16", False, 17), ("bf16", False, 33),
+    ("bf16", False, 48), ("bf16", False, 64), ("bf16", True, 17), ("bf16", True, 64),
+    ("int8", True, 2), ("int8", True, 33),
+])
 def test_k2_bf16_and_projection_match_plain(dev, bf16_weights, mode, narrow, B):
     """K2 on dense bf16 layers and heads, and with the small-to-MTP
     projection in both weight modes, against its plain version:
@@ -669,6 +724,9 @@ def _k2_check(cpc, cpp, tp, dev, B, mode, fn=None):
     ("dyn_int8", "fused", 3), ("dyn_int8", "fused", 64), ("wo_bf16", "unfused", 1),
     ("dyn_int8", "unfused", 1), ("wo_bf16", "unfused", 64), ("dyn_int8", "unfused", 64),
     ("dyn_int8", "projection", 1),
+    ("dyn_int8", "fused", 2), ("dyn_int8", "fused", 8), ("dyn_int8", "fused", 17),
+    ("dyn_int8", "fused", 33), ("dyn_int8", "fused", 48), ("wo_bf16", "unfused", 17),
+    ("dyn_int8", "unfused", 33), ("dyn_int8", "projection", 17), ("dyn_int8", "projection", 64),
 ])
 def test_k2_dyn_int8_and_unfused_match_plain(dev, weights, bf16_weights, mode, layers, B):
     """K2 in dyn_int8 (fused, unfused, and with the bf16 small-to-MTP
@@ -684,6 +742,42 @@ def test_k2_dyn_int8_and_unfused_match_plain(dev, weights, bf16_weights, mode, l
     before = cpk.predict_codes_fused.mode_launches[mode]
     _k2_check(cpc, cpp, tp, dev, B, mode)
     assert cpk.predict_codes_fused.mode_launches[mode] == before + 1
+
+
+# (I, O): the 0.6B CP's qkv, o, gate_up, down and head; a width of 272 (not
+# a multiple of 128 columns or of 32 rows: a half k32 step in dyn_int8)
+GEMV_SHAPES = [(1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024), (1024, 2048), (272, 272)]
+
+
+@pytest.mark.parametrize("mode", ["wo_bf16", "bf16", "dyn_int8"])
+@pytest.mark.parametrize("B", [2, 8, 17, 33, 48, 64])
+@pytest.mark.parametrize("I,O", GEMV_SHAPES)
+def test_batched_gemv_tensor_cores_match_cuda_cores(dev, I, O, B, mode):
+    """K2's batched GEMV alone in both forms (csrc/common.cuh): in dyn_int8
+    the int32 partial sums of every split are bit-equal (integer sums are
+    exact in any order); on int8 (wo_bf16) or bf16 weights both forms' f32
+    sums lie within 1e-5 scaled of the float64 sum (the products are exact
+    in f32; the sums are taken in other orders)."""
+    g = torch.Generator(device=dev).manual_seed(B * 7 + I)
+    x = torch.randn(B, I, generator=g, device=dev).mul(0.5).bfloat16()
+    if mode == "bf16":
+        w = torch.randn(I, O, generator=g, device=dev).mul(0.05).bfloat16()
+    else:
+        w = torch.randint(-127, 128, (I, O), generator=g, device=dev, dtype=torch.int8)
+    amax = x.float().abs().amax(1) if mode == "dyn_int8" else None
+    before = cpk.batched_gemv.launches
+    tc = cpk.batched_gemv(x, w, amax)
+    cc = cpk.batched_gemv(x, w, amax, tensor_cores=False)
+    assert cpk.batched_gemv.launches == before + 2
+    assert tc.shape == cc.shape and tc.shape[1:] == (B, O)
+    ref = cpk.batched_gemv_ref(x.cpu(), w.cpu(), None if amax is None else amax.cpu())
+    if mode == "dyn_int8":
+        assert tc.dtype == torch.int32 and torch.equal(tc, cc)
+        assert torch.equal(tc.sum(0, dtype=torch.int32).cpu(), ref)
+    else:
+        ref64 = x.cpu().double() @ w.cpu().double()
+        for part in (tc, cc):
+            assert scaled(part.sum(0).cpu().double(), ref64) <= 1e-5
 
 
 @pytest.mark.parametrize("mode", ["wo_bf16", "dyn_int8"])
