@@ -18,7 +18,8 @@ kernels from csrc/, and runs, in order:
      logit (the sampler's EOS restore; top-k 50 and 1); then the same
      bounds at position 6000 of a 6144-row cache (a tiled online softmax);
   4. K2 (csrc/cp_loop.cu) against its plain version at the 0.6B code
-     predictor shapes: greedy codes teacher-forced, esum, sampled codes;
+     predictor shapes: greedy codes teacher-forced, esum, sampled codes (at
+     B=1 one persistent cooperative launch per frame);
   5. the main path: ``Qwen3TTSModel.generate`` at the full 0.6B
      CustomVoice widths (synthetic host_init weights, fused and int8,
      full-size f32 vocoder), checking that K1 and K2 carried every frame
@@ -53,7 +54,8 @@ kernels from csrc/, and runs, in order:
      attention over all 4096 rows; then one torch.profiler window over 5
      packed frames: device busy share, device ms per frame in K4, K3 and
      the rest;
-  a. K1 at B = 8 and 64 rows at ragged offsets against its plain version,
+  a. K1 at B = 8 and 64 rows at ragged offsets against its plain version
+     (every GEMV on the tensor cores at B > 1, as K2's),
      both modes, on prefilled 128-row bf16 and 512-row int8 caches (within
      the bf16 bound), and at B=64 on a random 512-row int8 cache, where
      both are held against a float64 step written from the model's maths;
@@ -97,7 +99,9 @@ kernels from csrc/, and runs, in order:
      1.7B with its projection (which stays bf16); K2 on unfused int8 layers
      in both modes at B = 1 and 64; K5's port (ops/cp_kernel_old.py) at B=1
      in both modes. Each with events and device ms beside the same inputs'
-     ``wo_bf16`` times and the bound (operations over the int8 rate);
+     ``wo_bf16`` times and the bound (operations over the int8 rate); the
+     library's operations per call (K1 8 L + 3; K2 and K5 at B=1: 2, the
+     persistent frame's memset and launch);
   l. the main path in dyn_int8 (QWEN3TTS_TK_MODE and QWEN3TTS_CPK_MODE set
      in-process, then restored): ``generate()`` at 0.6B and 1.7B int8 with
      every K1 and K2 launch counted under dyn_int8 and no plain path; the
@@ -1898,20 +1902,20 @@ def main() -> None:
                                             lo, hi_, 700 + B, sampled=1 if B > 1 else 2,
                                             iters=20 if B == 1 else 10, mode="dyn_int8")
     # the amax of each activation row comes from the kernel that writes the
-    # row: dyn_int8 adds no launch to a K1 step or a K2 frame. Expected, from
-    # the C entries: K1 = rms_copy + 8 per layer (four GEMVs, attention,
-    # SwiGLU, two residual finishes) + head GEMV + sampler; K2 =
-    # the esum memset + per position (NCB + 1) rms_copy and 8 per layer, and
-    # per code (NCB) head GEMV + sampler
+    # row (K1), or from the block itself (K2's persistent frame): dyn_int8
+    # adds no launch to a K1 step or a K2 frame. Expected, from the C
+    # entries: K1 = rms_copy + 8 per layer (four GEMVs, attention, SwiGLU,
+    # two residual finishes) + head GEMV + sampler; K2 at B=1 (and K5's
+    # port, which launches it) = the memset of the persistent frame's
+    # barrier words + its one cooperative launch
     c3 = tk.KVCache(cache0.k.clone(), cache0.v.clone())  # phase 3's prefilled cache
     per_call = {m: (library_launches(lambda: k1(tkk.talker_decode_step, c3, 0.9, (3, 4), mode=m)),
-                    library_launches(lambda: k2(cpk.predict_codes_fused, 0.9, (3, 4), mode=m)))
+                    library_launches(lambda: k2(cpk.predict_codes_fused, 0.9, (3, 4), mode=m)),
+                    library_launches(lambda: k2(cpk_old.predict_codes_fused, 0.9, (3, 4), mode=m)))
                 for m in ("wo_bf16", "dyn_int8")}
-    ncb = cpc.num_code_groups - 1
-    expect = (8 * cfg.num_hidden_layers + 3,
-              1 + (ncb + 1) * (1 + 8 * cpc.num_hidden_layers) + 2 * ncb)
-    log(f"    library launches per call, K1 B=1 / K2 B=1: wo_bf16 {per_call['wo_bf16']}, "
-        f"dyn_int8 {per_call['dyn_int8']} (expected {expect})")
+    expect = (8 * cfg.num_hidden_layers + 3, 2, 2)
+    log(f"    library launches per call, K1 B=1 / K2 B=1 / K5 B=1: wo_bf16 "
+        f"{per_call['wo_bf16']}, dyn_int8 {per_call['dyn_int8']} (expected {expect})")
     check(per_call["wo_bf16"] == expect, f"K1/K2 launches {per_call['wo_bf16']}, expected {expect}")
     check(per_call["dyn_int8"] == per_call["wo_bf16"], "dyn_int8 changed the launches per call")
     del c3
@@ -2466,8 +2470,8 @@ def main() -> None:
              replaces="qwen3tts_tpu/ops/talker_kernel.py:656", launches=n1,
              max_abs_err=k1_abs, ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound[0],
              bound_by=k1_bound[1], library_ms=None),
-        dict(name="predict_codes_fused", route="cuda",
-             source="qwen3tts_tpu_torch/csrc/cp_loop.cu",
+        dict(name="predict_codes_fused (B=1: one persistent launch, 2 operations a call)",
+             route="cuda", source="qwen3tts_tpu_torch/csrc/cp_loop.cu",
              replaces="qwen3tts_tpu/ops/cp_kernel.py:619", launches=n2,
              max_abs_err=k2_abs, ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound[0],
              bound_by=k2_bound[1], library_ms=None),
@@ -2480,7 +2484,8 @@ def main() -> None:
              replaces="qwen3tts_tpu/ops/quant.py:134", launches=k4_launches,
              max_abs_err=k4_abs, ms=k4_ms, plain_ms=k4_plain_ms, bound_ms=k4_bound[0],
              bound_by=k4_bound[1], library_ms=None),
-        dict(name="talker_decode_step (B=64, int8 KV)", route="cuda",
+        dict(name="talker_decode_step (B=64, int8 KV; GEMVs on the tensor cores, 8 L + 3 operations "
+                  "a call)", route="cuda",
              source="qwen3tts_tpu_torch/csrc/talker_step.cu",
              replaces="qwen3tts_tpu/ops/talker_kernel.py:656", launches=grid_launches[0],
              max_abs_err=k1_64["abs"], ms=k1_64["ms"], plain_ms=k1_64["plain_ms"],
@@ -2503,16 +2508,21 @@ def main() -> None:
     j_bf16, j_17 = grid_j["bf16 checkpoint 0.6B"], grid_j["1.7B int8"]
     kernels += [
         entry("talker_decode_step (bf16 weights, B=1)", "K1", k1f[(1, False)], path_h[0]),
-        entry("talker_decode_step (bf16 weights, B=64)", "K1", k1f[(64, False)], j_bf16["launches"][0]),
+        entry("talker_decode_step (bf16 weights, B=64; tensor cores)", "K1", k1f[(64, False)],
+              j_bf16["launches"][0]),
         entry("talker_decode_step (1.7B int8, B=1)", "K1", k1g[("int8", 1)], path_i["int8"][0]),
         entry("talker_decode_step (1.7B bf16, B=1)", "K1", k1g[("bf16", 1)], path_i["bf16"][0]),
-        entry("talker_decode_step (1.7B int8, B=64)", "K1", k1g[("int8", 64)], j_17["launches"][0]),
-        entry("predict_codes_fused (bf16 weights, B=1)", "K2", k2g[("bf16 0.6B", 1)], path_h[1]),
+        entry("talker_decode_step (1.7B int8, B=64; tensor cores)", "K1", k1g[("int8", 64)],
+              j_17["launches"][0]),
+        entry("predict_codes_fused (bf16 weights, B=1; persistent)", "K2", k2g[("bf16 0.6B", 1)],
+              path_h[1]),
         entry("predict_codes_fused (bf16 weights, B=64)", "K2", k2g[("bf16 0.6B", 64)],
               j_bf16["launches"][1]),
-        entry("predict_codes_fused (1.7B projection, int8, B=1)", "K2", k2g[("int8 1.7B", 1)],
+        entry("predict_codes_fused (1.7B projection, int8, B=1; persistent)", "K2",
+              k2g[("int8 1.7B", 1)],
               path_i["int8"][1]),
-        entry("predict_codes_fused (1.7B projection, bf16, B=1)", "K2", k2g[("bf16 1.7B", 1)],
+        entry("predict_codes_fused (1.7B projection, bf16, B=1; persistent)", "K2",
+              k2g[("bf16 1.7B", 1)],
               path_i["bf16"][1]),
         entry("predict_codes_fused (1.7B projection, int8, B=64)", "K2", k2g[("int8 1.7B", 64)],
               j_17["launches"][1]),
@@ -2520,20 +2530,21 @@ def main() -> None:
     dyn64 = cell_l["dyn_int8"][0]["launches"]
     kernels += [
         entry("talker_decode_step (dyn_int8, B=1)", "K1", k1k[(1, False)], path_l[0]),
-        entry("talker_decode_step (dyn_int8, B=64)", "K1", k1k[(64, False)], dyn64[0]),
+        entry("talker_decode_step (dyn_int8, B=64; tensor cores)", "K1", k1k[(64, False)], dyn64[0]),
         entry("talker_decode_step (1.7B dyn_int8, B=1)", "K1", k1k[("1.7B", 1)], path_l17[0]),
-        entry("predict_codes_fused (dyn_int8, B=1)", "K2", k2k[("0.6B", 1)], path_l[1]),
+        entry("predict_codes_fused (dyn_int8, B=1; persistent)", "K2", k2k[("0.6B", 1)], path_l[1]),
         entry("predict_codes_fused (dyn_int8, B=64)", "K2", k2k[("0.6B", 64)], dyn64[1]),
-        entry("predict_codes_fused (1.7B dyn_int8, B=1)", "K2", k2k[("1.7B", 1)], path_l17[1]),
-        entry("predict_codes_fused (unfused int8 layers, B=1)", "K2",
+        entry("predict_codes_fused (1.7B dyn_int8, B=1; persistent)", "K2", k2k[("1.7B", 1)],
+              path_l17[1]),
+        entry("predict_codes_fused (unfused int8 layers, B=1; persistent)", "K2",
               k2k[("unfused", "wo_bf16", 1)], path_m[1]),
-        dict(entry("predict_codes_fused (K5's port, ops/cp_kernel_old.py, B=1)", "K2",
+        dict(entry("predict_codes_fused (K5's port, ops/cp_kernel_old.py, B=1; persistent)", "K2",
                    k2k[("K5", "wo_bf16")], k5_launches),
              replaces="qwen3tts_tpu/ops/cp_kernel_old.py:598"),
         entry("talker_decode_step (sampler with top_p 0.9, B=1)", "K1",
               dict(abs=k1_tp_abs, ms=k1_tp_ms, plain_ms=k1_tp_plain, bound=k1_bound),
               path_n[False][0]),
-        entry("predict_codes_fused (sampler with top_p 0.9, B=1)", "K2",
+        entry("predict_codes_fused (sampler with top_p 0.9, B=1; persistent)", "K2",
               dict(abs=k2_tp_abs, ms=k2_tp_ms, plain_ms=k2_tp_plain, bound=k2_bound),
               path_n[False][1]),
     ]

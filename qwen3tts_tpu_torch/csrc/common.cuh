@@ -24,9 +24,12 @@
 // the bytes); at B = 64 a 0.6B talker step is ~57 GFLOP, ~0.85 ms of FMA at
 // the card's f32 peak against a ~0.13 ms memory floor. The tensor-core form
 // (``gemv_batched_mma``, ``gemv_batched_dq_mma``: mma.sync, csrc/mma.cuh)
-// stages the same tiles and runs the products on the tensor cores; the
-// template switch ``TC`` of ``gemv`` / ``layer_step`` selects it at B > 1.
-// K2 (cp_loop.cu) sets it; K1, T6 and T2's probes keep the CUDA-core form.
+// stages the same tiles and runs the products on the tensor cores; ``gemv``
+// takes it at every B > 1 (K1, K2's loop and T6's ablated step). Only
+// ``qt_cp_gemv`` with tc = 0 reaches the CUDA-core form (``gemv_batched``,
+// ``gemv_batched_dq``): the tests and tools/time_k3_k2.py hold the two forms
+// against each other. K2 at B = 1 runs its own persistent frame
+// (cp_loop.cu) on these building blocks' arithmetic.
 //
 // dyn_int8 (the TPU kernels' ``dyn_int8`` mode, int8 weights only): each
 // activation row x is quantized with its own scale s = max(amax(|x|) *
@@ -206,7 +209,7 @@ __host__ __device__ inline Mat mat(bool wbf16) {
 
 // Append layer l's slice of a stacked weight [L, in, width] (and its scales
 // [L, width]) as the next segment.
-inline void add_seg(Mat& m, const void* w, const void* s, int l, int in, int width) {
+__host__ __device__ inline void add_seg(Mat& m, const void* w, const void* s, int l, int in, int width) {
   const int i = m.n++;
   const size_t esz = m.wbf16 ? 2 : 1;
   m.w[i] = (const char*)w + (size_t)l * in * width * esz;
@@ -853,8 +856,7 @@ inline void big_smem(K kernel) {
 // twice the splits (TC_MAX_PARTS) and, where a split would end in a part
 // pass (1024 rows in 6 splits: 176 = 128 + 48), splits deeper into whole
 // 128-row passes if the limit allows (8 splits of 128).
-inline int batched_splits(int B, int I, int O, int& rows, bool tc) {
-  if (!tc) return gemv_splits(B, I, O, BG_COLS, 16, rows);
+inline int batched_splits(int B, int I, int O, int& rows) {
   const int splits = gemv_splits(B, I, O, BG_COLS, 16, rows, TC_MAX_PARTS);
   const int whole = rows / BG_ROWS * BG_ROWS;
   if (rows > BG_ROWS && rows % BG_ROWS && (I + whole - 1) / whole <= TC_MAX_PARTS / B) {
@@ -864,8 +866,8 @@ inline int batched_splits(int B, int I, int O, int& rows, bool tc) {
   return splits;
 }
 
-// TC: the tensor-core form at B > 1 (B = 1 takes ``gemv_partial`` either way)
-template <typename W, bool TC = false>
+// B = 1: ``gemv_partial``; B > 1: the tensor-core form
+template <typename W>
 inline int gemv_t(const Mat& m, const bf16* x, int B, float* part, int I, int O, cudaStream_t st) {
   int rows;
   if (B == 1) {
@@ -875,24 +877,17 @@ inline int gemv_t(const Mat& m, const bf16* x, int B, float* part, int I, int O,
                                                                                  O, rows);
     return splits;
   }
-  static bool smem_set = false;  // one per weight type and form
+  static bool smem_set = false;  // one per weight type
   if (!smem_set) {
-    if constexpr (TC)
-      big_smem(gemv_batched_mma<W>);
-    else
-      big_smem(gemv_batched<W>);
+    big_smem(gemv_batched_mma<W>);
     smem_set = true;
   }
-  const int splits = batched_splits(B, I, O, rows, TC);
+  const int splits = batched_splits(B, I, O, rows);
   const dim3 grid((O + BG_COLS - 1) / BG_COLS, splits);
-  if constexpr (TC)
-    gemv_batched_mma<W><<<grid, GEMV_THREADS, BG_SMEM, st>>>(m, x, B, part, I, O, rows);
-  else
-    gemv_batched<W><<<grid, GEMV_THREADS, BG_SMEM, st>>>(m, x, B, part, I, O, rows);
+  gemv_batched_mma<W><<<grid, GEMV_THREADS, BG_SMEM, st>>>(m, x, B, part, I, O, rows);
   return splits;
 }
 
-template <bool TC = false>
 inline int gemv_dq(const Mat& m, const bf16* x, int B, const float* amax, int* part, int I, int O,
                    cudaStream_t st) {
   int rows;
@@ -904,39 +899,33 @@ inline int gemv_dq(const Mat& m, const bf16* x, int B, const float* amax, int* p
   }
   static bool smem_set = false;
   if (!smem_set) {
-    if constexpr (TC)
-      big_smem(gemv_batched_dq_mma);
-    else
-      big_smem(gemv_batched_dq);
+    big_smem(gemv_batched_dq_mma);
     smem_set = true;
   }
-  const int splits = batched_splits(B, I, O, rows, TC);
+  const int splits = batched_splits(B, I, O, rows);
   const dim3 grid((O + BG_COLS - 1) / BG_COLS, splits);
-  if constexpr (TC)
-    gemv_batched_dq_mma<<<grid, GEMV_THREADS, BG_SMEM, st>>>(m, x, B, amax, part, I, O, rows);
-  else
-    gemv_batched_dq<<<grid, GEMV_THREADS, BG_SMEM, st>>>(m, x, B, amax, part, I, O, rows);
+  gemv_batched_dq_mma<<<grid, GEMV_THREADS, BG_SMEM, st>>>(m, x, B, amax, part, I, O, rows);
   return splits;
 }
 
 // Launch the first pass of y[B, O] = x[B, I] @ W; returns the number of
 // splits written to ``part`` ([splits][B][O]): f32 sums (W int8 or bf16),
 // or with ``amax`` (dyn_int8, the rows' activation amax; W int8) int32 sums
-// of x quantized per row. TC: on the tensor cores at B > 1.
-template <bool TC = false>
+// of x quantized per row. At B > 1 on the tensor cores.
 inline int gemv(const Mat& m, const bf16* x, int B, float* part, int I, int O, const float* amax,
                 cudaStream_t st) {
-  if (amax) return gemv_dq<TC>(m, x, B, amax, reinterpret_cast<int*>(part), I, O, st);
-  return m.wbf16 ? gemv_t<bf16, TC>(m, x, B, part, I, O, st)
-                 : gemv_t<int8_t, TC>(m, x, B, part, I, O, st);
+  if (amax) return gemv_dq(m, x, B, amax, reinterpret_cast<int*>(part), I, O, st);
+  return m.wbf16 ? gemv_t<bf16>(m, x, B, part, I, O, st) : gemv_t<int8_t>(m, x, B, part, I, O, st);
 }
 
 // Sum of the splits of output ``idx``; consecutive splits lie ``stride``
 // apart (an int: splits x B x O < 2^31, and a 32-bit stride keeps the
-// address a single wide multiply).
+// address a single wide multiply). The partials are read through the L2
+// (``__ldcg``), never the non-coherent path: K2's persistent frame
+// (cp_loop.cu) reads partials that other blocks of the same launch wrote.
 __device__ __forceinline__ float split_sum(const float* part, int splits, int stride, int idx) {
   float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += __ldg(part + (size_t)k * stride + idx);
+  for (int k = 0; k < splits; ++k) s += __ldcg(part + (size_t)k * stride + idx);
   return s;
 }
 
@@ -944,7 +933,7 @@ __device__ __forceinline__ float split_sum(const float* part, int splits, int st
 __device__ __forceinline__ float split_isum(const float* part, int splits, int stride, int idx) {
   const int* p = reinterpret_cast<const int*>(part);
   int s = 0;
-  for (int k = 0; k < splits; ++k) s += __ldg(p + (size_t)k * stride + idx);
+  for (int k = 0; k < splits; ++k) s += __ldcg(p + (size_t)k * stride + idx);
   return __int2float_rn(s);
 }
 
@@ -1355,13 +1344,13 @@ struct SampleArgs {
   int H;
   bf16* x_next;          // [B, H]
   float* esum;           // [B, H]
-  const float* amax;     // dyn_int8 head: row b's input amax at amax[b], else null
+  const float* amax;     // dyn_int8 head (sample_kernel): row b's input amax at amax[b], else null
   int cp_head;           // dyn_int8: (f32(acc) * s) * scale (CP heads), else f32(acc) * (s * scale)
   float top_p_thr;       // top-p: keep a token iff its cumulative mass > this (f32(1 - p)); 0: off
   int ref_exact;         // top-p mass exp(z) unnormalized (the reference's), else softmax(z)
 };
 
-// Top-p on a row held in registers (SAMPLE_PER_THREAD values a thread, id
+// Top-p on a row held in registers (PT values a thread, id
 // tid + i * blockDim.x), after top-k: mass m_i = softmax(z)_i, or exp(z_i)
 // with ``ref_exact``; ids in ascending order of (z, id), the stable
 // ascending argsort; keep an id iff the cumulative mass up to and including
@@ -1370,7 +1359,7 @@ struct SampleArgs {
 // being sorted. The ids of positive mass (at most k with top-k on, the whole
 // row with it off) are compacted into shared memory as 64-bit keys (ordered
 // float bits, id) and sorted by a block-wide bitonic sort; a block scan
-// then sums the mass in f32 in the ascending order (4 consecutive ranks a
+// then sums the mass in f32 in the ascending order (PT consecutive ranks a
 // thread, then warp and block prefix sums: the terms of jnp.cumsum, in
 // another association), and the kept ids are the ranks from the first whose
 // cumulative mass exceeds thr up (a suffix of the order, as the sequential
@@ -1384,8 +1373,9 @@ __device__ __forceinline__ float top_p_mass(float z, float m, float sum, int ref
   return ref_exact ? expf(z) : __fdiv_rn(expf(z - m), sum);
 }
 
-__device__ void top_p_stage(float (&z)[SAMPLE_PER_THREAD], const bool (&valid)[SAMPLE_PER_THREAD],
-                            float thr, int ref_exact, float* red, unsigned long long* keys) {
+template <int PT>
+__device__ void top_p_stage(float (&z)[PT], const bool (&valid)[PT], float thr, int ref_exact,
+                            float* red, unsigned long long* keys) {
   __shared__ int n_sh, first_sh;
   __shared__ float scan[32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1393,21 +1383,21 @@ __device__ void top_p_stage(float (&z)[SAMPLE_PER_THREAD], const bool (&valid)[S
   if (!ref_exact) {
     float mx = -CUDART_INF_F;
 #pragma unroll
-    for (int i = 0; i < SAMPLE_PER_THREAD; ++i)
+    for (int i = 0; i < PT; ++i)
       if (valid[i]) mx = fmaxf(mx, z[i]);
     m = block_max(mx, red);
     float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < SAMPLE_PER_THREAD; ++i)
+    for (int i = 0; i < PT; ++i)
       if (valid[i]) s += expf(z[i] - m);
     sum = block_sum(s, red);
   }
   if (tid == 0) n_sh = 0;
   __syncthreads();
-  float mass[SAMPLE_PER_THREAD];
-  unsigned long long key[SAMPLE_PER_THREAD];
+  float mass[PT];
+  unsigned long long key[PT];
 #pragma unroll
-  for (int i = 0; i < SAMPLE_PER_THREAD; ++i) {
+  for (int i = 0; i < PT; ++i) {
     mass[i] = valid[i] ? top_p_mass(z[i], m, sum, ref_exact) : 0.f;
     // + 0.f: -0 and +0 compare equal and take the id order
     key[i] = (unsigned long long)float_key(z[i] + 0.f) << 32 | (uint32_t)(tid + i * blockDim.x);
@@ -1434,12 +1424,12 @@ __device__ void top_p_stage(float (&z)[SAMPLE_PER_THREAD], const bool (&valid)[S
       __syncthreads();
     }
   }
-  // ranks 4 tid .. 4 tid + 3: local cumulative mass, then the block's prefix
-  float cum[SAMPLE_PER_THREAD];
+  // ranks PT tid .. PT tid + PT - 1: local cumulative mass, then the block's prefix
+  float cum[PT];
   float run = 0.f;
 #pragma unroll
-  for (int i = 0; i < SAMPLE_PER_THREAD; ++i) {
-    const int r = tid * SAMPLE_PER_THREAD + i;
+  for (int i = 0; i < PT; ++i) {
+    const int r = tid * PT + i;
     if (r < n) run += top_p_mass(key_float((uint32_t)(keys[r] >> 32)), m, sum, ref_exact);
     cum[i] = run;
   }
@@ -1467,8 +1457,8 @@ __device__ void top_p_stage(float (&z)[SAMPLE_PER_THREAD], const bool (&valid)[S
   __syncthreads();
   const float before = (warp ? scan[warp - 1] : 0.f) + excl;
 #pragma unroll
-  for (int i = 0; i < SAMPLE_PER_THREAD; ++i) {
-    const int r = tid * SAMPLE_PER_THREAD + i;
+  for (int i = 0; i < PT; ++i) {
+    const int r = tid * PT + i;
     if (r < n && before + cum[i] > thr) {
       atomicMin(&first_sh, r);
       break;
@@ -1478,39 +1468,35 @@ __device__ void top_p_stage(float (&z)[SAMPLE_PER_THREAD], const bool (&valid)[S
   const int first = first_sh;
   const unsigned long long kmin = first < n ? keys[first] : ~0ull;
 #pragma unroll
-  for (int i = 0; i < SAMPLE_PER_THREAD; ++i)
+  for (int i = 0; i < PT; ++i)
     if (valid[i] && !(mass[i] > 0.f && first < n && key[i] >= kmin)) z[i] = NEG_BIG;
 }
 
-template <bool TOPP>
-__global__ void __launch_bounds__(SAMPLE_THREADS)
-sample_kernel(const float* __restrict__ part, int splits, const Mat head, int V, SampleArgs a) {
-  extern __shared__ unsigned long long top_p_keys[];  // TOPP: next_pow2(V) keys
+// Row b of the sampler in one block (up to PT ids a thread, V <= PT x
+// blockDim.x): ``logit(c)`` gives the row's f32 logit of id c (the head
+// GEMV's output); ``top_p_keys``: next_pow2(V) keys of shared memory (TOPP).
+template <bool TOPP, int PT, typename Logit>
+__device__ void sample_block(int V, const SampleArgs& a, int b, unsigned long long* top_p_keys,
+                             Logit logit) {
   __shared__ float redf[32];
   __shared__ int redi[32];
   __shared__ uint32_t hist[256];
   __shared__ uint32_t sel[2];
   __shared__ float eos_logit;
   __shared__ int code_sh;
-  const int tid = threadIdx.x, b = blockIdx.x;
-  const int stride = gridDim.x * V;
-  const int prow = b * V;
+  const int tid = threadIdx.x;
   const uint8_t* seen = a.seen ? a.seen + (size_t)b * V : nullptr;
   float* logits_out = a.logits_out ? a.logits_out + (size_t)b * a.logits_stride : nullptr;
   const uint32_t key = stream_key(a.seed0, a.seed1, a.stream + STREAMS_PER_ROW * (uint32_t)b);
-  const float s_act = a.amax ? act_scale(a.amax[b]) : 0.f;
-  float z[SAMPLE_PER_THREAD];
-  bool valid[SAMPLE_PER_THREAD];
+  float z[PT];
+  bool valid[PT];
 #pragma unroll
-  for (int i = 0; i < SAMPLE_PER_THREAD; ++i) {
+  for (int i = 0; i < PT; ++i) {
     const int c = tid + i * blockDim.x;
     valid[i] = c < V;
     float v = -CUDART_INF_F;
     if (valid[i]) {
-      v = a.amax && a.cp_head
-          ? __fmul_rn(__fmul_rn(split_isum(part, splits, stride, prow + c), s_act),
-                      col_scale(head, c))
-          : mv_out(part, splits, stride, prow + c, head, c, s_act);
+      v = logit(c);
       if (logits_out) logits_out[c] = v;
       if (a.supp) v = __fadd_rn(v, a.supp[c]);
       if (seen && a.rep != 1.0f && seen[c]) v = v < 0.f ? __fmul_rn(v, a.rep) : __fdiv_rn(v, a.rep);
@@ -1520,27 +1506,40 @@ sample_kernel(const float* __restrict__ part, int splits, const Mat head, int V,
   }
   if (!a.greedy) {
     if (a.top_k > 0 && a.top_k < V) {
-      uint32_t keys[SAMPLE_PER_THREAD];
+      uint32_t keys[PT];
 #pragma unroll
-      for (int i = 0; i < SAMPLE_PER_THREAD; ++i) keys[i] = float_key(z[i]);
+      for (int i = 0; i < PT; ++i) keys[i] = float_key(z[i]);
       uint32_t prefix = 0, mask = 0;
       int kk = a.top_k;
       for (int shift = 24; shift >= 0; shift -= 8) {
         for (int bin = tid; bin < 256; bin += blockDim.x) hist[bin] = 0;
         __syncthreads();
 #pragma unroll
-        for (int i = 0; i < SAMPLE_PER_THREAD; ++i)
+        for (int i = 0; i < PT; ++i)
           if (valid[i] && (keys[i] & mask) == prefix) atomicAdd(&hist[(keys[i] >> shift) & 255u], 1u);
         __syncthreads();
-        if (tid == 0) {
-          uint32_t cum = 0;
-          int d = 255;
-          for (; d > 0; --d) {
-            if (cum + hist[d] >= (uint32_t)kk) break;
-            cum += hist[d];
+        if (tid < 32) {  // the highest digit d >= 1 whose bins from d up hold kk, else 0
+          const int hi = 255 - 8 * tid;  // lane tid scans bins hi .. hi - 7, lane 0 the top
+          uint32_t v[8], sum = 0;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            v[i] = hist[hi - i];
+            sum += v[i];
           }
-          sel[0] = prefix | ((uint32_t)d << shift);
-          sel[1] = (uint32_t)kk - cum;
+          uint32_t incl = sum;  // the bins from hi - 7 up
+#pragma unroll
+          for (int o = 1; o < 32; o <<= 1) {
+            const uint32_t t = __shfl_up_sync(0xffffffffu, incl, o);
+            if (tid >= o) incl += t;
+          }
+          const unsigned hit = __ballot_sync(0xffffffffu, incl >= (uint32_t)kk);
+          if (tid == (hit ? __ffs(hit) - 1 : 31)) {
+            uint32_t cum = incl - sum;  // the bins above hi
+            int d = hi;
+            for (int i = 0; i < 8 && d > 0 && cum + v[i] < (uint32_t)kk; ++i, --d) cum += v[i];
+            sel[0] = prefix | ((uint32_t)d << shift);
+            sel[1] = (uint32_t)kk - cum;
+          }
         }
         __syncthreads();
         prefix = sel[0];
@@ -1549,13 +1548,13 @@ sample_kernel(const float* __restrict__ part, int splits, const Mat head, int V,
       }
       const float kth = key_float(prefix);
 #pragma unroll
-      for (int i = 0; i < SAMPLE_PER_THREAD; ++i)
+      for (int i = 0; i < PT; ++i)
         if (valid[i] && !(z[i] >= kth)) z[i] = NEG_BIG;
     }
     if (TOPP) top_p_stage(z, valid, a.top_p_thr, a.ref_exact, redf, top_p_keys);
     __syncthreads();  // eos_logit
 #pragma unroll
-    for (int i = 0; i < SAMPLE_PER_THREAD; ++i) {
+    for (int i = 0; i < PT; ++i) {
       const int c = tid + i * blockDim.x;
       if (!valid[i]) continue;
       if (c == a.eos_id) z[i] = eos_logit;
@@ -1569,7 +1568,7 @@ sample_kernel(const float* __restrict__ part, int splits, const Mat head, int V,
   float bv = -CUDART_INF_F;
   int bi = 0x7fffffff;
 #pragma unroll
-  for (int i = 0; i < SAMPLE_PER_THREAD; ++i) {
+  for (int i = 0; i < PT; ++i) {
     const int c = tid + i * blockDim.x;
     if (valid[i] && better(z[i], c, bv, bi)) {
       bv = z[i];
@@ -1620,6 +1619,23 @@ sample_kernel(const float* __restrict__ part, int splits, const Mat head, int V,
   }
 }
 
+// One block per row b of the head GEMV's splits ([splits][B][V]), the
+// logits finished as ``mv_out`` does (the code predictor's dyn_int8 heads:
+// (f32(acc) * s) * scale)
+template <bool TOPP>
+__global__ void __launch_bounds__(SAMPLE_THREADS)
+sample_kernel(const float* __restrict__ part, int splits, const Mat head, int V, SampleArgs a) {
+  extern __shared__ unsigned long long top_p_keys[];  // TOPP: next_pow2(V) keys
+  const int b = blockIdx.x, stride = gridDim.x * V, prow = b * V;
+  const float s_act = a.amax ? act_scale(a.amax[b]) : 0.f;
+  sample_block<TOPP, SAMPLE_PER_THREAD>(V, a, b, top_p_keys, [&](int c) {
+    return a.amax && a.cp_head
+               ? __fmul_rn(__fmul_rn(split_isum(part, splits, stride, prow + c), s_act),
+                           col_scale(head, c))
+               : mv_out(part, splits, stride, prow + c, head, c, s_act);
+  });
+}
+
 // One sampler launch for B rows: the top-p instance (its keys in
 // next_pow2(V) x 8 bytes of dynamic shared memory) when a.top_p_thr > 0.
 inline void launch_sampler(const float* part, int splits, const Mat& head, int V,
@@ -1644,7 +1660,6 @@ inline void launch_sampler(const float* part, int splits, const Mat& head, int V
 // LAYER_FULL): LAYER_NOATTN takes q for the attention output
 // (``attn_step``'s NOATTN), LAYER_NOMLP ends the layer after o_proj + the
 // residual, whose finish applies ``next_norm`` (no gate_up, no down).
-// ``TC``: the four GEMVs on the tensor cores at B > 1 (``gemv``).
 constexpr int LAYER_FULL = 0, LAYER_NOATTN = 1, LAYER_NOMLP = 2;
 
 struct LayerW {
@@ -1652,7 +1667,7 @@ struct LayerW {
   const float *pln, *qn, *kn;
 };
 
-template <bool CP, bool KVQ, int PART = LAYER_FULL, bool TC = false>
+template <bool CP, bool KVQ, int PART = LAYER_FULL>
 inline int layer_step(const LayerW& w, const float* next_norm, int B, int H, int NQ, int NKV,
                       int I, float eps, float scale, const bf16* cosr, const bf16* sinr,
                       int rope_stride, const AttnCache& cache, int pos, const int* offs,
@@ -1662,7 +1677,7 @@ inline int layer_step(const LayerW& w, const float* next_norm, int B, int H, int
   float* a_xn = amax;                           // xn's amax (row-owning kernels write it)
   float* a_attn = amax ? amax + B : nullptr;    // the attention output's (atomic)
   float* a_gated = amax ? amax + 2 * B : nullptr;  // the SwiGLU output's (atomic)
-  int s = gemv<TC>(w.qkv, xn, B, ws, H, (NQ + 2 * NKV) * D, a_xn, st);
+  int s = gemv(w.qkv, xn, B, ws, H, (NQ + 2 * NKV) * D, a_xn, st);
   QT_CHECK_LAUNCH();
   // score tile: the rows read from the cache, up to ATTN_TILE (all of it
   // when the rows' positions live on the device)
@@ -1674,18 +1689,18 @@ inline int layer_step(const LayerW& w, const float* next_norm, int B, int H, int
       (typename std::conditional<KVQ, int8_t, bf16>::type*)cache.v, cache.ks, cache.vs, cache.T,
       pos, offs, NQ, NKV, scale, attn, a_attn);
   QT_CHECK_LAUNCH();
-  s = gemv<TC>(w.o, attn, B, ws, NQ * D, H, a_attn, st);
+  s = gemv(w.o, attn, B, ws, NQ * D, H, a_attn, st);
   QT_CHECK_LAUNCH();
   finish_residual_norm<<<B, 1024, 0, st>>>(ws, s, w.o, a_attn, h, nullptr,
                                            PART == LAYER_NOMLP ? next_norm : w.pln, xn, H, eps,
                                            a_xn);
   QT_CHECK_LAUNCH();
   if (PART == LAYER_NOMLP) return 0;
-  s = gemv<TC>(w.gu, xn, B, ws, H, 2 * I, a_xn, st);
+  s = gemv(w.gu, xn, B, ws, H, 2 * I, a_xn, st);
   QT_CHECK_LAUNCH();
   finish_swiglu<<<dim3((I + 255) / 256, B), 256, 0, st>>>(ws, s, w.gu, a_xn, I, gated, a_gated);
   QT_CHECK_LAUNCH();
-  s = gemv<TC>(w.d, gated, B, ws, I, H, a_gated, st);
+  s = gemv(w.d, gated, B, ws, I, H, a_gated, st);
   QT_CHECK_LAUNCH();
   finish_residual_norm<<<B, 1024, 0, st>>>(ws, s, w.d, a_gated, h, nullptr, next_norm, xn, H, eps,
                                            a_xn);
@@ -1701,7 +1716,7 @@ struct StackW {
 
 // Layer l's slices of the stacked weights: int8 [L, in, out] with f32
 // scales [L, out], or bf16 [L, in, out] (``wbf16``; the scales are ignored).
-inline LayerW layer_weights(int l, int H, int NQ, int NKV, int I, bool wbf16, const StackW& s,
+__host__ __device__ inline LayerW layer_weights(int l, int H, int NQ, int NKV, int I, bool wbf16, const StackW& s,
                             const void* pln, const void* qn, const void* kn) {
   const int D = HEAD_DIM;
   LayerW w;

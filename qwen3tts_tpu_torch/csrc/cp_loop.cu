@@ -37,25 +37,922 @@
 // TFLOP/s; 0.081 ms in dyn_int8 at 1,979 int8 TOP/s), which the CUDA cores'
 // f32 FMAs and dp4a took ~18 and ~11 ms for. So at B > 1 every GEMV of the
 // frame (the layers' fused or unfused projections, the 15 heads, the
-// projection) runs on the tensor cores: ``layer_step<..., TC = true>`` and
-// ``gemv<true>`` select common.cuh's ``gemv_batched_mma`` (int8 widened to
-// bf16 in shared memory, or bf16 as it is; mma.sync m16n8k16 -> f32) and
+// projection) runs on the tensor cores: common.cuh's ``gemv`` takes
+// ``gemv_batched_mma`` (int8 widened to bf16 in shared memory, or bf16 as
+// it is; mma.sync m16n8k16 -> f32) and
 // ``gemv_batched_dq_mma`` (dyn_int8: the dp4a words as the m16n8k32 s8
 // operand -> exact s32). The operands are swapped, weights as A (16 output
 // columns a tile), x as B (8 batch rows a tile): the batch is the short side
 // and goes in steps of 8, where x as A would pad it to 16; this form was
 // chosen on that count and the other was not built. The partials and the
 // finishing kernels are the CUDA-core form's (the split may go twice as
-// deep, TC_MAX_PARTS), so the launches per call do not change. At B = 1 the GEMV stays ``gemv_partial``
-// (launch-bound, not arithmetic-bound). It fetches the sampled code's
-// embedding row by index (2-4 KB) instead of the TPU kernel's one-hot
-// matmul over the table, inside the sampler block. Layers run through the
-// same GEMV, attention and sampler kernels as K1 (common.cuh); the 16
-// positions are one host loop of launches with no host synchronisation
-// (one ctypes call per frame).
+// deep, TC_MAX_PARTS), so the launches per call do not change. At B > 1 the
+// 16 positions are one host loop of launches (1 + 16 (1 + 8 L) + 30) with no
+// host synchronisation (one ctypes call per frame); the sampler fetches the
+// sampled code's embedding row by index (2-4 KB) instead of the TPU
+// kernel's one-hot matmul over the table. Layers run through the same GEMV,
+// attention and sampler kernels as K1 (common.cuh).
+//
+// At B = 1 the frame is one persistent kernel (``cp_frame`` below; its note
+// gives the design): 687 launches of ~5 us each, each GEMV one memory
+// latency plus a launch, took 3.5-3.9 ms of device time for 0.386 ms of
+// bytes (NVIDIA H100 80GB HBM3, 700 W).
 #include "common.cuh"
 
 using namespace qt;
+
+// ---------------------------------------------------------------------------
+// The persistent frame at B = 1 (``cp_frame``): one cooperative launch of one
+// block of PF_THREADS threads per SM, all resident, that walks the frame's
+// phases in order with a grid-wide barrier between dependent ones.
+//
+// Phases. Each GEMV of the frame is one phase: this block's tiles of it (a
+// tile = 32 output columns over one split of the rows; a GEMV has S splits,
+// S ~ blocks / (O / 32), so that it has about one tile per block), then a
+// barrier. Everything between two GEMVs is the prologue of the next one,
+// recomputed by every block, so it needs no barrier of its own:
+//  - the residual stream h lives in each block's shared memory; the residual
+//    add and the RMSNorm after o_proj and down_proj (and the projection's
+//    bias at 1.7B) are computed by every block, bit-equal in all of them;
+//  - SwiGLU over all I columns, before the down GEMV;
+//  - the attention, before the o GEMV: each block attends the kv heads whose
+//    outputs its o tiles read (all of them in dyn_int8, whose input scale is
+//    the amax of the whole row); block kvh % blocks writes head kvh's new
+//    k/v row, which every block also holds itself;
+//  - dyn_int8: each GEMV input's amax and its quantized words, in every
+//    block (the slots and atomics of the multi-launch form are not needed).
+// A prologue first copies what it reads from the L2 into shared memory with
+// every load in flight at once (the last GEMV's partials and column scales;
+// the attention's cache rows), so it costs about one L2 round trip, not one
+// per element. What remains are the barriers: one after each GEMV (qkv, o,
+// gate_up, down per layer, the projection at 1.7B, the head per code) and
+// one after the sampler (block 0 alone: the sampled code feeds every
+// block's next position); position 0's last layer ends after its attention
+// (only its cache rows are used). At the 0.6B shapes 17 + 15 x 22 - 1 =
+// 346 barriers a frame, in place of ~690 launches. Two partial buffers
+// alternate by GEMV, so a block that runs ahead never overwrites partials a
+// slower block still reads.
+//
+// Weights. A GEMV reads its tiles from device memory, 8 loads of 16 bytes
+// a thread in flight. A tile's lanes each own one 16-byte column unit and
+// every EPL-th row; the reduction over a unit's lanes is a reduce-scatter
+// (``frame_reduce``: each lane ends with one column), then over the warps
+// through shared memory. dyn_int8 tiles take 4 rows at a time with dp4a on
+// words quantized in the prologue (exact int32 sums, as before). The
+// frame's bytes are 16 x 78.6 MB of int8 layers + 15 x 2 MB of heads at
+// 0.6B (0.386 ms at 3.35 TB/s).
+//
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W; tools/time_k3_k2.py's cut
+// profile, and a clock trace of each phase in blocks 0 and last that the
+// kernel no longer carries): not the bytes but the chain of ~346 phases of
+// ~12 us, each a barrier (~1.9 us, 0.64 ms a frame alone), a prologue's
+// copy round trip and block reductions (~3 us) and a tile (~3-4 us
+// whatever its size, 16-64 KB of weights). Tried and not kept,
+// each measured no faster: each block asking its share of the weights of
+// the GEMV 2 ahead into the L2 (``cp.async.bulk.prefetch.L2``: 0.1-0.4 ms
+// a frame slower than none; 4 ahead no better), a block's tiles of
+// the next GEMV copied into shared memory between the barrier's arrival and
+// its wait, 1024 threads a block (spills; the barriers alone 1.41 ms), a
+// back-off in the barrier's poll, every phase out of line (its code is
+// ~300 KB of SASS instead of ~590 KB, but the calls cost 0.15 ms).
+//
+// Coherence. Anything this launch writes and another block reads (the
+// partials, the next position's input row, the cache rows) is read through
+// the L2 (``cp.async.cg``, ``__ldcg``), never the non-coherent path;
+// weights and scales keep ``__ldg``. The barrier is a release add on one
+// counter and acquire polling; its spin is bounded: past ``budget_ns`` a
+// block sets the error word (every block leaves at its next wait) and a
+// mapped host word that the wrapper reads and raises on; a block that
+// leaves marks every code -1 (``frame_fail``).
+//
+// ``cut`` (timing only; 0 on every call of the port) stops the work after a
+// kind of phase: 1 the barriers alone, 2 + the GEMV tiles, 3 + the
+// prologues but the attention, 4 + the attention, 5 (= 0) + the sampler:
+// the frame's time split by phase, as K3's cut form splits its own.
+// ---------------------------------------------------------------------------
+namespace qt {
+namespace {
+
+constexpr int PF_THREADS = 512;             // one block per SM
+constexpr int PF_WARPS = PF_THREADS / 32;
+constexpr int PF_TILE = 32;                 // output columns of a tile
+constexpr int PF_ROUND = 4;                 // tiles a block works on at once
+constexpr int PF_MIN_ROWS = 64;             // the shortest split of a GEMV's rows
+constexpr int PF_LOADS = 8;                 // 16-byte weight loads a thread has in flight
+constexpr int PF_MAX_SPLIT = 32;            // a partial buffer holds 32 x O floats
+// ids a thread of the sampler (block 0) past 2048 ids: the multi-launch
+// form's vocabulary limit, SAMPLE_THREADS x SAMPLE_PER_THREAD = 4096, at
+// PF_THREADS
+constexpr int PF_SAMPLE_PER_THREAD = SAMPLE_THREADS * SAMPLE_PER_THREAD / PF_THREADS;
+static_assert(2 * PF_MAX_SPLIT <= GEMV_MAX_SPLIT, "two partial buffers in the B = 1 workspace");
+enum { CUT_BARRIERS = 1, CUT_GEMV, CUT_PROLOGUE, CUT_ATTENTION, CUT_SAMPLER };
+
+struct FrameArgs {
+  int L, H, NQ, NKV, I, V, NCB, TH, w_bf16, head_bf16, dyn;
+  int cut;  // timing only: a cut (0 on the port's calls)
+  float eps, scale;
+  const bf16* x0;  // [2, TH]
+  StackW stack;
+  const float *iln, *pln, *qn, *kn, *fnorm;
+  const void *lm_w, *lm_s;
+  const bf16 *emb, *proj_w, *proj_b, *cos_tab, *sin_tab;
+  bf16 *k_cache, *v_cache;  // [L, NKV, SLOTS, D]
+  float* part[2];           // the two partial buffers
+  bf16* xnext;              // [TH] the next position's input row
+  float* esum;              // [TH]
+  int* codes;               // [NCB]
+  float* logits;            // [NCB, V] or null
+  const int* force;         // [NCB] or null
+  SampleArgs sa;            // the sampler's fields shared by the positions
+  unsigned* bar;            // [0] arrivals, [1] the error word; zeroed before the launch
+  int* err_host;            // mapped host word: set when a barrier ran past its budget
+  unsigned long long budget_ns;
+};
+
+__host__ __device__ inline int frame_split(int K, int O, int blocks, int& rows) {
+  const int tiles = (O + PF_TILE - 1) / PF_TILE;
+  int S = max(1, (blocks + tiles / 2) / tiles);
+  S = max(1, min(min(S, PF_MAX_SPLIT), K / PF_MIN_ROWS));
+  rows = (K + S - 1) / S;
+  rows = (rows + 15) / 16 * 16;
+  return (K + rows - 1) / rows;
+}
+
+// One GEMV of the frame: its weight, rows K, outputs O, S splits of
+// ``rows`` rows, and what it is (G_*).
+enum { G_QKV = 0, G_O = 1, G_GU = 2, G_DOWN = 3, G_HEAD = 4, G_PROJ = 5 };
+
+struct Gemv {
+  Mat m;
+  int K, O, S, rows, kind;
+};
+
+// The distinct GEMVs of a frame: 4 per layer, the NCB heads, the projection
+__host__ __device__ inline int frame_descs(int L, int NCB) { return 4 * L + NCB + 1; }
+
+// Shared memory of a block, in floats: h [H], x [KMAX] (the GEMV input,
+// bf16 values in f32), xq [KMAX / 4] (its dyn_int8 words), the tile
+// reduction [PF_WARPS][33], the
+// staged partials [the most S x O of the frame's GEMVs] and column scales
+// [the widest O], the staged cache rows (k, v: [NKV][SLOTS - 1][D] bf16),
+// one region shared by the normed, roped q/k [NQ + NKV][D] with the new v
+// rows [NKV][D] and by the sampler's top-p keys (block 0, between
+// positions), and the small read-only vectors a prologue reads (a norm's
+// weights, the q/k-norm weights and rope rows), staged with its partials.
+struct FrameSmem {
+  int h, xs, xq, red, ps, pscale, kv, u, vec, table;
+  size_t bytes;
+};
+
+__host__ __device__ inline int up4(int x) { return (x + 3) / 4 * 4; }
+
+__host__ __device__ inline FrameSmem frame_smem(int L, int H, int TH, int NQ, int NKV, int I,
+                                                int V, int SLOTS, int blocks) {
+  const int D = HEAD_DIM, OQKV = (NQ + 2 * NKV) * D, NCB = SLOTS - 1;
+  const int kmax = max(max(H, TH), max(NQ * D, I));
+  const int shapes[6][2] = {{H, OQKV}, {NQ * D, H}, {H, 2 * I}, {I, H}, {H, V}, {TH, H}};
+  int pmax = 0, omax = 0, rows;
+  for (int i = 0; i < 6; ++i) {
+    pmax = max(pmax, frame_split(shapes[i][0], shapes[i][1], blocks, rows) * shapes[i][1]);
+    omax = max(omax, shapes[i][1]);
+  }
+  int n2 = 1;
+  while (n2 < V) n2 <<= 1;
+  FrameSmem f;
+  int o = 0;
+  f.h = o, o += up4(H);
+  f.xs = o, o += up4(kmax);
+  f.xq = o, o += up4(kmax / 4);
+  f.red = o, o += up4(PF_WARPS * 33);
+  f.ps = o, o += up4(pmax);
+  f.pscale = o, o += up4(omax);
+  f.kv = o, o += up4(NKV * (SLOTS - 1) * D);  // k and v rows in bf16: NKV (SLOTS - 1) D floats
+  f.u = o, o += up4(max((NQ + 2 * NKV) * D, 2 * n2));
+  f.vec = o, o += up4(H) + 3 * D;  // a norm's weights [H]; q/k-norm weights [2][D]; rope [2][D] bf16
+  f.table = o;  // the GEMV descriptors (``frame_desc``), 16-byte aligned
+  f.bytes = (size_t)o * sizeof(float) + (size_t)frame_descs(L, NCB) * sizeof(Gemv);
+  return f;
+}
+
+__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release_add(unsigned* p, unsigned v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The grid-wide barrier: after the block's own barrier, thread 0 adds one
+// to the arrival count with release semantics and polls it with acquire
+// loads until it reaches ``target`` (barriers so far x blocks); the block's
+// barrier then passes what thread 0 acquired to its other threads. (An
+// H100 measured 0.64 ms for a frame's 346 barriers this way, 0.87 ms with a
+// fence on each side and relaxed polling.) False, in every thread of the
+// block, if the error word is set or the wait ran past the budget (which
+// sets both error words): the caller leaves the kernel.
+__device__ bool grid_barrier(const FrameArgs& a, unsigned target) {
+  __shared__ int ok_sh;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    red_release_add(a.bar, 1u);
+    int ok = 1;
+    if (ld_acquire(a.bar) < target) {
+      const unsigned long long t0 = global_ns();
+      while (ld_acquire(a.bar) < target) {
+        if (ld_relaxed(a.bar + 1)) {
+          ok = 0;
+          break;
+        }
+        if (global_ns() - t0 > a.budget_ns) {
+          atomicExch(a.bar + 1, 1u);
+          *(volatile int*)a.err_host = 1;
+          __threadfence_system();
+          ok = 0;
+          break;
+        }
+      }
+    }
+    ok_sh = ok;
+  }
+  __syncthreads();
+  return ok_sh != 0;
+}
+
+// The frame's GEMVs in order: per position [projection] (qkv, o, gate_up,
+// down) per layer, and the head at positions 1..NCB; position 0 stops after
+// its last layer's qkv.
+__device__ __forceinline__ int frame_gemvs(const FrameArgs& a) {
+  const int pr = a.proj_w != nullptr;
+  return pr + 4 * (a.L - 1) + 1 + a.NCB * (pr + 4 * a.L + 1);
+}
+
+// Descriptor u of the distinct GEMVs: 4 l + kind for layer l's, 4 L + j for
+// head j, 4 L + NCB for the projection
+__device__ Gemv frame_desc(const FrameArgs& a, int u) {
+  const int D = HEAD_DIM;
+  Gemv g;
+  if (u == 4 * a.L + a.NCB) {
+    g.kind = G_PROJ;
+    g.m = mat(true);
+    if (a.proj_w != nullptr) add_seg(g.m, a.proj_w, nullptr, 0, a.TH, a.H);
+    g.K = a.TH, g.O = a.H;
+  } else if (u >= 4 * a.L) {
+    g.kind = G_HEAD;
+    g.m = mat(a.head_bf16 != 0);
+    add_seg(g.m, a.lm_w, a.lm_s, u - 4 * a.L, a.H, a.V);
+    g.K = a.H, g.O = a.V;
+  } else {
+    const LayerW w = layer_weights(u / 4, a.H, a.NQ, a.NKV, a.I, a.w_bf16 != 0, a.stack, a.pln,
+                                   a.qn, a.kn);
+    g.kind = u % 4;
+    if (g.kind == G_QKV) g.m = w.qkv, g.K = a.H, g.O = (a.NQ + 2 * a.NKV) * D;
+    else if (g.kind == G_O) g.m = w.o, g.K = a.NQ * D, g.O = a.H;
+    else if (g.kind == G_GU) g.m = w.gu, g.K = a.H, g.O = 2 * a.I;
+    else g.m = w.d, g.K = a.I, g.O = a.H;
+  }
+  g.S = frame_split(g.K, g.O, gridDim.x, g.rows);
+  return g;
+}
+
+// The distinct GEMV that the frame's GEMV n runs
+__device__ __forceinline__ int frame_index(const FrameArgs& a, int n) {
+  const int pr = a.proj_w != nullptr;
+  const int n0 = pr + 4 * (a.L - 1) + 1, n1 = pr + 4 * a.L + 1;
+  const int p = n < n0 ? 0 : 1 + (n - n0) / n1;
+  const int i = (n < n0 ? n : (n - n0) % n1) - pr;
+  return i < 0 ? 4 * a.L + a.NCB : p > 0 && i == 4 * a.L ? 4 * a.L + p - 1 : i;
+}
+
+// This block's tiles of a GEMV: [t0, t1) of S x ceil(O / 32)
+__device__ __forceinline__ void frame_tiles(const Gemv& g, int& t0, int& t1) {
+  const unsigned nt = g.S * ((g.O + PF_TILE - 1) / PF_TILE);  // nt x blocks < 2^32
+  t0 = (int)(nt * blockIdx.x / gridDim.x);
+  t1 = (int)(nt * (blockIdx.x + 1) / gridDim.x);
+}
+
+// 16 bytes from global to shared memory through the L2 (``cp.async.cg``:
+// coherent with other blocks' writes before the last barrier), no registers
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
+               "l"(__cvta_generic_to_global(gmem))
+               : "memory");
+}
+
+// Reduce-scatter of E values over the lanes that differ in bits O, O/2, ...:
+// at each step a lane keeps the half its bit selects and adds its partner's;
+// after log2(E) steps acc[0] holds one value, the one of index (lane / U)
+// with U = 32 / E, summed over those lanes.
+template <int N, int O, typename T, int E>
+__device__ __forceinline__ void frame_reduce(T (&acc)[E], int lane) {
+  if constexpr (N >= 1) {
+    const bool hi = lane & O;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const T send = hi ? acc[i] : acc[i + N];
+      const T keep = hi ? acc[i + N] : acc[i];
+      acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    frame_reduce<N / 2, O / 2>(acc, lane);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T lane_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// 16 bytes of weights widened to f32, exactly: int8 through the bits of
+// 2^23 + (b + 128) (a byte permute and one subtract each, where the
+// conversion instruction runs at a quarter of the FMA rate), bf16 by a shift
+__device__ __forceinline__ void widen(const int4& w, float (&f)[16]) {
+  const uint32_t* u = reinterpret_cast<const uint32_t*>(&w);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t x = u[i] ^ 0x80808080u;  // b + 128 in each byte
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[4 * i + j] = __int_as_float(__byte_perm(x, 0x4B000000u, 0x7650 + j)) - 8388736.0f;
+  }
+}
+__device__ __forceinline__ void widen(const int4& w, float (&f)[8]) {
+  const uint32_t* u = reinterpret_cast<const uint32_t*>(&w);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
+  }
+}
+
+// This block's tiles of GEMV g into ``part`` ([S][O]), up to PF_ROUND tiles
+// at once (PF_WARPS / n warps each). W: int8 or bf16 weights times x
+// (``xs``, f32 of bf16 values) in f32; DQ: int8 weights times x quantized
+// (``xq``, words of 4 int8) in exact int32. Lane l takes the 16-byte column
+// unit l % U of the tile (EPL columns) and every EPL-th row (DQ: group of 4
+// rows) of the warp's share of the split, PF_LOADS loads in flight at once
+// (a loop of one load an iteration waited one L2 round trip each).
+template <typename W, bool DQ>
+__device__ void frame_gemv_tiles(const Gemv& g, const float* xs, const int* xq, float* part,
+                                 float* red) {
+  constexpr int EPL = DQ ? 16 : 16 / (int)sizeof(W);
+  constexpr int U = PF_TILE / EPL;
+  using Acc = typename std::conditional<DQ, int, float>::type;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ct = (g.O + PF_TILE - 1) / PF_TILE;
+  const int u = lane % U, sub = lane / U;
+  Acc* redv = reinterpret_cast<Acc*>(red);
+  int t0, t1;
+  frame_tiles(g, t0, t1);
+  for (int base = t0; base < t1; base += PF_ROUND) {
+    const int nr = min(PF_ROUND, t1 - base), WPT = PF_WARPS / nr;
+    const int tl = warp / WPT, wl = warp % WPT;
+    Acc acc[EPL];
+#pragma unroll
+    for (int j = 0; j < EPL; ++j) acc[j] = 0;
+    if (tl < nr) {
+      const int ti = base + tl, split = ti / ct;
+      const int c = (ti % ct) * PF_TILE + u * EPL;
+      const int r0 = split * g.rows, r1 = min(g.K, r0 + g.rows);
+      if (c < g.O) {
+        int ld;
+        if constexpr (DQ) {  // PF_LOADS / 4 groups of 4 rows a batch
+          const int8_t* wc = wcol<int8_t>(g.m, c, ld);
+          const int step = EPL * WPT;
+          for (int q0 = r0 / 4 + sub + EPL * wl; q0 < r1 / 4; q0 += PF_LOADS / 4 * step) {
+            int4 w[PF_LOADS / 4][4];
+#pragma unroll
+            for (int j = 0; j < PF_LOADS / 4; ++j) {
+              const int q = q0 + j * step;
+              const int8_t* pw = wc + (size_t)(4 * q) * ld;
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+                w[j][k] = q < r1 / 4 ? __ldg(reinterpret_cast<const int4*>(pw + (size_t)k * ld))
+                                     : make_int4(0, 0, 0, 0);
+            }
+#pragma unroll
+            for (int j = 0; j < PF_LOADS / 4; ++j) {
+              const int q = q0 + j * step;
+              if (q >= r1 / 4) break;  // the same for the warp's lanes
+              int cols[16];
+              transpose_4x16(w[j], cols);
+              const int xw = xq[q];
+#pragma unroll
+              for (int k = 0; k < 16; ++k) acc[k] = __dp4a(cols[k], xw, acc[k]);
+            }
+          }
+        } else {  // PF_LOADS rows a batch
+          const W* wc = wcol<W>(g.m, c, ld);
+          const int step = EPL * WPT;
+          for (int r00 = r0 + sub + EPL * wl; r00 < r1; r00 += PF_LOADS * step) {
+            int4 w[PF_LOADS];
+#pragma unroll
+            for (int j = 0; j < PF_LOADS; ++j) {
+              const int r = r00 + j * step;
+              w[j] = r < r1 ? __ldg(reinterpret_cast<const int4*>(wc + (size_t)r * ld))
+                            : make_int4(0, 0, 0, 0);
+            }
+#pragma unroll
+            for (int j = 0; j < PF_LOADS; ++j) {
+              const int r = r00 + j * step;
+              if (r >= r1) break;  // the same for the warp's lanes (splits of whole 16-row steps)
+              const float xv = xs[r];
+              float wf[EPL];
+              widen(w[j], wf);
+#pragma unroll
+              for (int k = 0; k < EPL; ++k) acc[k] = fmaf(xv, wf[k], acc[k]);
+            }
+          }
+        }
+      }
+    }
+    frame_reduce<EPL / 2, 16>(acc, lane);  // acc[0]: column u * EPL + sub of the tile
+    redv[warp * 33 + lane] = acc[0];
+    __syncthreads();
+    for (int o = warp; o < nr * 32; o += PF_WARPS) {  // (tile o / 32, lane column o % 32)
+      const int tl2 = o / 32, lc = o % 32;
+      Acc v = lane < WPT ? redv[(tl2 * WPT + lane) * 33 + lc] : (Acc)0;
+      v = lane_sum(v);
+      const int ti = base + tl2;
+      const int col = (ti % ct) * PF_TILE + (lc % U) * EPL + lc / U;
+      if (lane == 0 && col < g.O) reinterpret_cast<Acc*>(part)[(size_t)(ti / ct) * g.O + col] = v;
+    }
+    __syncthreads();  // red is the next round's
+  }
+}
+
+// Wait for this thread's copies, then the block's
+__device__ __forceinline__ void cp_async_join() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+}
+
+// ``bytes`` (a multiple of 16) from global to shared memory, 16 a copy
+__device__ __forceinline__ void stage_vec(void* dst, const void* src, int bytes) {
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+    cp_async16((char*)dst + 16 * i, (const char*)src + 16 * i);
+}
+
+__device__ __forceinline__ float ldcg_bf(const bf16* p) {
+  return bf(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// A GEMV's output as the next prologue reads it: its partials ([S][O], f32
+// or int32) and column scales (int8 weights; null for bf16) copied into
+// shared memory with every copy in flight at once (one L2 round trip; a
+// loop of loads into registers took one a load).
+struct Staged {
+  const float* ps;
+  const float* scale;
+  int S, O;
+};
+
+__device__ Staged frame_stage_start(const Gemv& g, const float* part, float* ps, float* pscale) {
+  for (int i = threadIdx.x; i < g.S * g.O / 4; i += blockDim.x) cp_async16(ps + 4 * i, part + 4 * i);
+  if (!g.m.wbf16) {
+    for (int i = threadIdx.x; i < g.O / 4; i += blockDim.x) {
+      const int c = 4 * i, sg = seg_of(g.m, c);
+      cp_async16(pscale + c, g.m.s[sg] + (c - seg_start(g.m, sg)));
+    }
+  }
+  return Staged{ps, g.m.wbf16 ? nullptr : pscale, g.S, g.O};
+}
+
+__device__ Staged frame_stage(const Gemv& g, const float* part, float* ps, float* pscale) {
+  const Staged t = frame_stage_start(g, part, ps, pscale);
+  cp_async_join();
+  return t;
+}
+
+// ``mv_out`` on staged partials: output column c (the same operations)
+__device__ __forceinline__ float mvs(const Staged& t, int c, float s) {
+  if (s > 0.f) {
+    const int* p = reinterpret_cast<const int*>(t.ps);
+    int acc = 0;
+    for (int k = 0; k < t.S; ++k) acc += p[k * t.O + c];
+    return __fmul_rn(__int2float_rn(acc), __fmul_rn(s, t.scale[c]));
+  }
+  float sum = 0.f;
+  for (int k = 0; k < t.S; ++k) sum += t.ps[k * t.O + c];
+  return t.scale ? __fmul_rn(sum, t.scale[c]) : sum;
+}
+
+// xs = bf16(h * r * nw) with r = 1 / sqrt(mean(h^2) + eps), from each
+// thread's share of sum(h^2), nw staged; returns max |xs|.
+__device__ float frame_norm(const float* h, float ss, const float* nw, float* xs, int H, float eps,
+                            float* red) {
+  const float r = 1.0f / sqrtf(__fdiv_rn(block_sum(ss, red), (float)H) + eps);
+  float mx = 0.f;
+  for (int c = threadIdx.x; c < H; c += blockDim.x) {
+    const float o = rbf(__fmul_rn(__fmul_rn(h[c], r), nw[c]));
+    xs[c] = o;
+    mx = fmaxf(mx, fabsf(o));
+  }
+  return block_max(mx, red);
+}
+
+// finish_residual_norm for this block's copy of the stream: h = bf16(h +
+// bf16(y)) (or bf16(bias + bf16(y))), y the staged GEMV output (s: its
+// input's dyn_int8 scale, else 0), then xs = rms(h) * nw; returns max |xs|.
+__device__ float frame_residual_norm(const Staged& t, float s, const bf16* bias, float* h,
+                                     const float* nw, float* xs, int H, float eps, float* red) {
+  float ss = 0.f;
+  for (int c = threadIdx.x; c < H; c += blockDim.x) {
+    const float y = rbf(mvs(t, c, s));
+    const float hv = rbf(__fadd_rn(bias ? bf(bias[c]) : h[c], y));
+    h[c] = hv;
+    ss = fmaf(hv, hv, ss);
+  }
+  return frame_norm(h, ss, nw, xs, H, eps, red);
+}
+
+// finish_swiglu: xs[c] = bf16(g * sigmoid(g) * u) over the I columns; returns max |xs|
+__device__ float frame_swiglu(const Staged& t, float s, int I, float* xs, float* red) {
+  float mx = 0.f;
+  for (int c = threadIdx.x; c < I; c += blockDim.x) {
+    const float gg = rbf(mvs(t, c, s));
+    const float uu = rbf(mvs(t, I + c, s));
+    const float sig = 1.0f / (1.0f + expf(-gg));
+    const float o = rbf(__fmul_rn(__fmul_rn(gg, sig), uu));
+    xs[c] = o;
+    mx = fmaxf(mx, fabsf(o));
+  }
+  return block_max(mx, red);
+}
+
+// dyn_int8: x quantized with the row's scale into words of 4 int8 (x[0] in
+// byte 0); returns the scale
+__device__ float frame_quant(const float* xs, int K, float amax, int* xq) {
+  const float s = act_scale(amax);
+  for (int q = threadIdx.x; q < K / 4; q += blockDim.x) {
+    const float* v = xs + 4 * q;
+    xq[q] = (int)(quant_act(v[0], s) | quant_act(v[1], s) << 8 | quant_act(v[2], s) << 16 |
+                  quant_act(v[3], s) << 24);
+  }
+  return s;
+}
+
+// The kv heads whose attention outputs this block's tiles of the o GEMV read
+__device__ unsigned o_heads(const Gemv& go, int G) {
+  int t0, t1;
+  frame_tiles(go, t0, t1);
+  if (t0 >= t1) return 0u;
+  const int ct = (go.O + PF_TILE - 1) / PF_TILE;
+  const int lo = t0 / ct * go.rows, hi = min(go.K, ((t1 - 1) / ct + 1) * go.rows);
+  unsigned m = 0u;
+  for (int kvh = lo / (G * HEAD_DIM); kvh <= (hi - 1) / (G * HEAD_DIM); ++kvh) m |= 1u << kvh;
+  return m;
+}
+
+// attn_step's code-predictor form for B = 1 in one block, over the kv
+// heads in ``need``: the prefix rows [0, p) of their cache (layer l) and
+// the qkv GEMV's partials, with the layer's q/k-norm weights and the rope
+// rows at p, are copied into shared memory first (``kvs``: k then v rows,
+// bf16; ``ps``/``pscale``; ``vec``), all copies in flight at once. A
+// warp per q/k/v vector then finishes its 128 outputs (4 a lane), and for q
+// and k applies QK-norm and rope at position p in registers (the rope
+// partner d +- 64 sits in the same lane); block kvh % blocks writes head
+// kvh's new k/v row into the cache (slot p). Then a warp per q head: the
+// scores over rows [0, p] (the new row as this block computed it, the
+// value written), the softmax, probabilities rounded to bf16, and PV.
+// out[NQ * D]: bf16 values of the needed heads. Returns max |out| over them.
+__device__ float frame_attention(const FrameArgs& a, const Gemv& g, const float* part, float s,
+                                 int l, int p, unsigned need, float* ps, float* pscale, float* qk,
+                                 float* vrow, bf16* kvs, float* vec, float* out,
+                                 float* red) {
+  constexpr int D = HEAD_DIM;
+  const int NQ = a.NQ, NKV = a.NKV, G = NQ / NKV, SLOTS = a.NCB + 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  bf16* kl = a.k_cache + (size_t)l * NKV * SLOTS * D;
+  bf16* vl = a.v_cache + (size_t)l * NKV * SLOTS * D;
+  bf16* ks = kvs;                                  // [NKV][SLOTS - 1][D]
+  bf16* vs = kvs + (size_t)NKV * (SLOTS - 1) * D;  // the same
+  const int chunks = p * D / 8;                    // 16-byte pieces of a head's prefix
+  for (int i = tid; i < NKV * chunks; i += blockDim.x) {
+    const int kvh = i / chunks, r = i % chunks;
+    if (!(need >> kvh & 1u)) continue;
+    const size_t src = (size_t)kvh * SLOTS * D + (size_t)r * 8;
+    const size_t dst = (size_t)kvh * (SLOTS - 1) * D + (size_t)r * 8;
+    cp_async16(ks + dst, kl + src);
+    cp_async16(vs + dst, vl + src);
+  }
+  const Staged t = frame_stage_start(g, part, ps, pscale);
+  float* qkn = vec;                                       // [2][D] q-norm, k-norm weights
+  bf16* rope = reinterpret_cast<bf16*>(vec + 2 * D);      // [2][D] cos, sin at p
+  stage_vec(qkn, a.qn + (size_t)l * D, D * 4);
+  stage_vec(qkn + D, a.kn + (size_t)l * D, D * 4);
+  stage_vec(rope, a.cos_tab + (size_t)p * D, D * 2);
+  stage_vec(rope + D, a.sin_tab + (size_t)p * D, D * 2);
+  cp_async_join();
+  const bf16* cosr = rope;
+  const bf16* sinr = rope + D;
+  for (int v = warp; v < NQ + 2 * NKV; v += PF_WARPS) {  // q heads, k heads, v heads
+    const int kvh = v < NQ ? v / G : (v - NQ) % NKV;
+    if (!(need >> kvh & 1u)) continue;
+    float x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = rbf(mvs(t, v * D + lane + 32 * i, s));
+    const bool writer = kvh % (int)gridDim.x == (int)blockIdx.x;
+    if (v >= NQ + NKV) {  // a v head: raw, into the cache as it is
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        vrow[kvh * D + lane + 32 * i] = x[i];
+        if (writer) vl[((size_t)kvh * SLOTS + p) * D + lane + 32 * i] = __float2bfloat16_rn(x[i]);
+      }
+      continue;
+    }
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ss = fmaf(x[i], x[i], ss);
+    ss = warp_sum(ss);
+    const float r = 1.0f / sqrtf(__fdiv_rn(ss, (float)D) + a.eps);
+    const float* w = v < NQ ? qkn : qkn + D;
+    float y[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = lane + 32 * i, dp = d < D / 2 ? d + D / 2 : d - D / 2;
+      const float xd = rbf(__fmul_rn(__fmul_rn(x[i], r), w[d]));
+      const float xp = rbf(__fmul_rn(__fmul_rn(x[i ^ 2], r), w[dp]));
+      const float rot = d < D / 2 ? -xp : xp;
+      y[i] = rbf(__fadd_rn(rbf(__fmul_rn(xd, bf(cosr[d]))), rbf(__fmul_rn(rot, bf(sinr[d])))));
+      qk[v * D + d] = y[i];
+      if (v >= NQ && writer) kl[((size_t)kvh * SLOTS + p) * D + d] = __float2bfloat16_rn(y[i]);
+    }
+  }
+  __syncthreads();
+  // a warp per needed q head: its scores over rows [0, p] (row r's in lane
+  // r), the softmax, and PV with lane l holding outputs d = l + 32 i; no
+  // block barrier between them
+  float mx = 0.f;
+  for (int qh = warp; qh < NQ; qh += PF_WARPS) {
+    const int kvh = qh / G;
+    if (!(need >> kvh & 1u)) continue;
+    const float* q = qk + qh * D + lane * 4;
+    const bf16* kh = ks + (size_t)kvh * (SLOTS - 1) * D + lane * 4;
+    float sr = -CUDART_INF_F;
+    for (int r = 0; r <= p; ++r) {
+      float k[4];
+      if (r < p) {
+        const uint2 kv = *reinterpret_cast<const uint2*>(kh + (size_t)r * D);
+        const bf16* kb = reinterpret_cast<const bf16*>(&kv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) k[i] = bf(kb[i]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) k[i] = qk[(NQ + kvh) * D + lane * 4 + i];
+      }
+      float dot = q[0] * k[0];
+      dot = fmaf(q[1], k[1], dot);
+      dot = fmaf(q[2], k[2], dot);
+      dot = fmaf(q[3], k[3], dot);
+      dot = warp_sum(dot);
+      if (lane == r) sr = __fmul_rn(dot, a.scale);
+    }
+    const float m = warp_max(sr);
+    const float e = lane <= p ? expf(sr - m) : 0.f;
+    const float sum = warp_sum(e);
+    const float pw = lane <= p ? rbf(__fdiv_rn(e, sum)) : 0.f;
+    const bf16* vh = vs + (size_t)kvh * (SLOTS - 1) * D + lane;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int r = 0; r < p; ++r) {
+      const float w = __shfl_sync(0xffffffffu, pw, r);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i] = fmaf(w, bf(vh[(size_t)r * D + 32 * i]), acc[i]);
+    }
+    const float wp = __shfl_sync(0xffffffffu, pw, p);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float o = rbf(fmaf(wp, vrow[kvh * D + lane + 32 * i], acc[i]));
+      out[qh * D + lane + 32 * i] = o;
+      mx = fmaxf(mx, fabsf(o));
+    }
+  }
+  return block_max(mx, red);
+}
+
+// What a block carries from phase to phase
+struct FrameState {
+  const Gemv* table;  // the distinct GEMVs (shared memory)
+  const Gemv* last;   // the last GEMV run
+  int n, total, cut;  // the next GEMV, the frame's GEMVs, the timing cut
+  unsigned target;    // the barrier's next count
+  float amax;         // dyn_int8: the amax of the next GEMV's input
+  float s_in;         // dyn_int8: the scale of the last GEMV's input, else 0
+  float *xs, *red, *ps, *pscale;
+  int* xq;
+};
+
+// GEMV n on this block's tiles (x quantized if ``dq``), then the barrier
+__device__ __forceinline__ bool frame_step(const FrameArgs& a, FrameState& st, bool dq) {
+  st.last = st.table + frame_index(a, st.n);
+  if (st.cut >= CUT_GEMV) {
+    st.s_in = dq ? frame_quant(st.xs, st.last->K, st.amax, st.xq) : 0.f;
+    __syncthreads();
+    const Gemv& g = *st.last;
+    float* part = a.part[st.n & 1];
+    if (dq) frame_gemv_tiles<int8_t, true>(g, st.xs, st.xq, part, st.red);
+    else if (g.m.wbf16) frame_gemv_tiles<bf16, false>(g, st.xs, st.xq, part, st.red);
+    else frame_gemv_tiles<int8_t, false>(g, st.xs, st.xq, part, st.red);
+  }
+  ++st.n;
+  st.target += gridDim.x;
+  return grid_barrier(a, st.target);
+}
+
+// The sampler of code j in block 0, on the head GEMV's staged logits
+__device__ void frame_sample(const FrameArgs& a, FrameState& st, int j,
+                                          float head_amax, unsigned long long* keys) {
+  const Staged t = frame_stage(*st.last, a.part[(st.n - 1) & 1], st.ps, st.pscale);
+  const bool dq = a.dyn && !a.head_bf16;
+  const float s_head = dq ? act_scale(head_amax) : 0.f;
+  auto logit = [&](int c) {  // the code predictor's dyn_int8 heads: (f32(acc) * s) * scale
+    if (s_head > 0.f) {
+      const int* pi = reinterpret_cast<const int*>(t.ps);
+      int acc = 0;
+      for (int k = 0; k < t.S; ++k) acc += pi[k * t.O + c];
+      return __fmul_rn(__fmul_rn(__int2float_rn(acc), s_head), t.scale[c]);
+    }
+    return mvs(t, c, 0.f);
+  };
+  SampleArgs sa = a.sa;
+  sa.stream = (uint32_t)(j + 1);
+  sa.code_out = a.codes + j;
+  sa.logits_out = a.logits ? a.logits + (size_t)j * a.V : nullptr;
+  sa.force_code = a.force ? a.force + j : nullptr;
+  sa.emb = a.emb + (size_t)j * a.V * a.TH;
+  // 4 ids a thread up to the code predictor's 2048, PF_SAMPLE_PER_THREAD
+  // above (8 for every V spilled registers and made the whole frame ~0.35
+  // ms slower on an H100)
+  const bool narrow = a.V <= PF_THREADS * SAMPLE_PER_THREAD;
+  if (sa.top_p_thr > 0.f) {
+    if (narrow) sample_block<true, SAMPLE_PER_THREAD>(a.V, sa, 0, keys, logit);
+    else sample_block<true, PF_SAMPLE_PER_THREAD>(a.V, sa, 0, keys, logit);
+  } else {
+    if (narrow) sample_block<false, SAMPLE_PER_THREAD>(a.V, sa, 0, keys, logit);
+    else sample_block<false, PF_SAMPLE_PER_THREAD>(a.V, sa, 0, keys, logit);
+  }
+}
+
+// A block that leaves the frame on a barrier fault marks every code -1
+// (after block 0's own writes of them: ``grid_barrier`` ends in a block
+// barrier), so that no caller takes the frame's outputs for a result; the
+// host flag makes the wrapper raise.
+__device__ void frame_fail(const FrameArgs& a) {
+  for (int j = threadIdx.x; j < a.NCB; j += blockDim.x) a.codes[j] = -1;
+}
+
+__global__ void __launch_bounds__(PF_THREADS, 1) cp_frame(const FrameArgs a) {
+  extern __shared__ __align__(16) float fsm[];
+  constexpr int D = HEAD_DIM;
+  const int SLOTS = a.NCB + 1, H = a.H, G = a.NQ / a.NKV, tid = threadIdx.x;
+  const FrameSmem f = frame_smem(a.L, H, a.TH, a.NQ, a.NKV, a.I, a.V, SLOTS, gridDim.x);
+  float* h = fsm + f.h;
+  bf16* kvs = reinterpret_cast<bf16*>(fsm + f.kv);
+  float* qk = fsm + f.u;                   // [NQ + NKV][D] normed, roped q and k
+  float* vrow = qk + (a.NQ + a.NKV) * D;    // [NKV][D] the new v rows
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(fsm + f.u);
+  float* vec = fsm + f.vec;  // staged small vectors (a norm's weights first)
+  Gemv* table = reinterpret_cast<Gemv*>(fsm + f.table);
+  for (int u = tid; u < frame_descs(a.L, a.NCB); u += blockDim.x) table[u] = frame_desc(a, u);
+  __syncthreads();
+  FrameState st;
+  st.table = st.last = table;
+  st.n = 0, st.total = frame_gemvs(a), st.cut = a.cut == 0 ? CUT_SAMPLER : a.cut;
+  st.target = 0, st.amax = 0.f, st.s_in = 0.f;
+  st.xs = fsm + f.xs, st.red = fsm + f.red, st.ps = fsm + f.ps, st.pscale = fsm + f.pscale;
+  st.xq = reinterpret_cast<int*>(fsm + f.xq);
+  const bool proj = a.proj_w != nullptr;
+  unsigned writers = 0u;  // the kv heads whose new rows this block writes
+  for (int kvh = blockIdx.x; kvh < a.NKV; kvh += gridDim.x) writers |= 1u << kvh;
+  const unsigned all = a.NKV == 32 ? ~0u : (1u << a.NKV) - 1u;
+  if (blockIdx.x == 0)
+    for (int c = tid; c < a.TH; c += blockDim.x) a.esum[c] = 0.f;
+  const bool work = st.cut >= CUT_PROLOGUE;
+  // the last GEMV's output staged for its consumer, with the weights ``nw``
+  // of the norm that follows it (or none)
+  auto staged = [&](const float* nw) {
+    const Staged t = frame_stage_start(*st.last, a.part[(st.n - 1) & 1], st.ps, st.pscale);
+    if (nw) stage_vec(vec, nw, H * 4);
+    cp_async_join();
+    return t;
+  };
+  const bool dq_layers = a.dyn != 0, dq_head = a.dyn && !a.head_bf16;
+  for (int p = 0; p < SLOTS; ++p) {
+    const bf16* xin = p < 2 ? a.x0 + (size_t)p * a.TH : a.xnext;
+    if (proj) {  // h = bf16(bf16(xin @ proj_w) + proj_b), xs = rms(h)
+      if (work)
+        for (int c = tid; c < a.TH; c += blockDim.x)
+          st.xs[c] = p < 2 ? bf(xin[c]) : ldcg_bf(xin + c);
+      if (!frame_step(a, st, false)) return frame_fail(a);
+      if (work)
+        st.amax = frame_residual_norm(staged(a.iln), 0.f, a.proj_b, h, vec, st.xs, H, a.eps,
+                                      st.red);
+    } else if (work) {  // h = xin, xs = rms(h): the row (through the L2) and the norm staged
+      bf16* row = reinterpret_cast<bf16*>(st.ps);
+      stage_vec(row, xin, H * 2);
+      stage_vec(vec, a.iln, H * 4);
+      cp_async_join();
+      float ss = 0.f;
+      for (int c = tid; c < H; c += blockDim.x) {
+        const float v = bf(row[c]);
+        h[c] = v;
+        ss = fmaf(v, v, ss);
+      }
+      st.amax = frame_norm(h, ss, vec, st.xs, H, a.eps, st.red);
+    }
+    for (int l = 0; l < a.L; ++l) {
+      if (!frame_step(a, st, dq_layers)) return frame_fail(a);  // qkv
+      const bool last0 = p == 0 && l + 1 == a.L;  // only the new cache rows are used
+      if (st.cut >= CUT_ATTENTION) {
+        const unsigned need =
+            writers | (last0 ? 0u : dq_layers ? all : o_heads(table[frame_index(a, st.n)], G));
+        st.amax = frame_attention(a, *st.last, a.part[(st.n - 1) & 1], st.s_in, l, p, need,
+                                  st.ps, st.pscale, qk, vrow, kvs, vec, st.xs, st.red);
+      }
+      if (last0) break;
+      if (!frame_step(a, st, dq_layers)) return frame_fail(a);  // o
+      if (work)
+        st.amax = frame_residual_norm(staged(a.pln + (size_t)l * H), st.s_in, nullptr, h, vec,
+                                      st.xs, H, a.eps, st.red);
+      if (!frame_step(a, st, dq_layers)) return frame_fail(a);  // gate_up
+      if (work) st.amax = frame_swiglu(staged(nullptr), st.s_in, a.I, st.xs, st.red);
+      if (!frame_step(a, st, dq_layers)) return frame_fail(a);  // down
+      const float* nw = l + 1 < a.L ? a.iln + (size_t)(l + 1) * H : a.fnorm;
+      if (work)
+        st.amax = frame_residual_norm(staged(nw), st.s_in, nullptr, h, vec, st.xs, H, a.eps,
+                                      st.red);
+    }
+    if (p == 0) {
+      __syncthreads();  // the next position overwrites xs and h
+      continue;
+    }
+    const float head_amax = st.amax;
+    if (!frame_step(a, st, dq_head)) return frame_fail(a);
+    if (blockIdx.x == 0 && st.cut >= CUT_SAMPLER) frame_sample(a, st, p - 1, head_amax, keys);
+    if (p + 1 < SLOTS) {  // the sampled code's row feeds every block's next position
+      st.target += gridDim.x;
+      if (!grid_barrier(a, st.target)) return frame_fail(a);
+    }
+  }
+  // a block that timed out at the last barrier left while block 0 went on:
+  // block 0 reads the error word once more
+  if (blockIdx.x == 0) {
+    __shared__ int fault;
+    if (tid == 0) fault = ld_acquire(a.bar + 1) != 0;
+    __syncthreads();  // and the last code is written before the marks
+    if (fault) frame_fail(a);
+  }
+}
+
+// One frame at B = 1 through ``cp_frame``: the barrier words zeroed, then
+// one cooperative launch of ``blocks`` blocks (0: one per SM) if they can
+// all be resident at once, else cudaErrorCooperativeLaunchTooLarge with
+// nothing enqueued.
+int cp_frame_launch(FrameArgs& fa, int blocks, cudaStream_t st) {
+  const int nb = blocks > 0 ? blocks : num_sms();
+  const FrameSmem f = frame_smem(fa.L, fa.H, fa.TH, fa.NQ, fa.NKV, fa.I, fa.V, fa.NCB + 1, nb);
+  static size_t smem_set = 0;
+  if (f.bytes > smem_set) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(cp_frame, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)f.bytes);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = f.bytes;
+  }
+  int occ = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, cp_frame, PF_THREADS,
+                                                                      f.bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (occ * num_sms() < nb) return (int)cudaErrorCooperativeLaunchTooLarge;
+  cudaMemsetAsync(fa.bar, 0, 2 * sizeof(unsigned), st);
+  QT_CHECK_LAUNCH();
+  void* args[] = {&fa};
+  const cudaError_t le =
+      cudaLaunchCooperativeKernel((const void*)cp_frame, nb, PF_THREADS, args, f.bytes, st);
+  if (le != cudaSuccess) {
+    cudaGetLastError();
+    return (int)le;
+  }
+  QT_CHECK_LAUNCH();
+  return 0;
+}
+
+}  // namespace
+}  // namespace qt
 
 // x0 [2, B, TH] (position-major: the talker hidden rows, then the code-0
 // embedding rows); layers int8 with f32 scales or bf16 (``w_bf16``), fused
@@ -67,7 +964,12 @@ using namespace qt;
 // [L, B, NKV, NCB + 1, D] bf16; force_codes, codes_out [B, NCB]; esum
 // [B, TH]; xbuf [B, TH]; logits_out [NCB, B, V]. Row b draws its codebook j
 // from stream j + 1 + 16 b; top_p_thr is f32(1 - top_p) or 0 (no top-p
-// stage), see SampleArgs.
+// stage), see SampleArgs. At B = 1 (``cp_frame``): ``ctl`` two uint32 of
+// device memory (the barrier's words, zeroed here), ``err_host`` one int32
+// of pinned host memory (set to 1 if a barrier ran past ``budget_ns``),
+// ``blocks`` the grid (0: one block per SM); ``cut`` 0 on the port's calls
+// (for timing, a cut of the frame, see cp_frame); hres, xn, attn, gated and
+// amax are not used, and ws holds two buffers of PF_MAX_SPLIT x O floats.
 extern "C" int qt_cp_loop(
     int L, int H, int NQ, int NKV, int D, int I, int V, int NCB, int B, int TH, int w_bf16,
     int head_bf16, int dyn, float eps, float scale,
@@ -81,16 +983,65 @@ extern "C" int qt_cp_loop(
     int greedy, float inv_t, int top_k, float top_p_thr, int ref_exact, uint32_t seed0,
     uint32_t seed1, const void* force_codes,
     void* hres, void* xn, void* attn, void* gated, void* ws, void* xbuf, void* amax,
-    void* codes_out, void* esum, void* logits_out, void* stream) {
+    void* codes_out, void* esum, void* logits_out, void* ctl, void* err_host, int blocks,
+    long long budget_ns, int cut, void* stream) {
   const StackW stack = {q_w, q_s, k_w, k_s, v_w, v_s, o_w, o_s, g_w, g_s, u_w, u_s, d_w, d_s};
   if (D != HEAD_DIM || NQ % NKV != 0 || NQ / NKV > ATTN_MAX_GROUP || B < 1 || B > MAX_BATCH ||
       V > SAMPLE_THREADS * SAMPLE_PER_THREAD || NCB + 1 > ATTN_TILE ||
       (proj_w == nullptr && TH != H) || (proj_w != nullptr && proj_b == nullptr) ||
       !stack_ok(stack, w_bf16 != 0) || (!head_bf16 && lm_s == nullptr) ||
-      (dyn && (w_bf16 || amax == nullptr)))
+      (dyn && (w_bf16 || (B > 1 && amax == nullptr))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int SLOTS = NCB + 1;
+  if (B == 1) {
+    if (NKV > 32 || SLOTS > 32 || ctl == nullptr || err_host == nullptr || budget_ns <= 0 ||
+        cut < 0 || cut > CUT_SAMPLER)
+      return (int)cudaErrorInvalidValue;
+    FrameArgs fa;
+    fa.L = L, fa.H = H, fa.NQ = NQ, fa.NKV = NKV, fa.I = I, fa.V = V, fa.NCB = NCB, fa.TH = TH;
+    fa.w_bf16 = w_bf16, fa.head_bf16 = head_bf16, fa.dyn = dyn;
+    fa.cut = cut;
+    fa.eps = eps, fa.scale = scale;
+    fa.x0 = (const bf16*)x0;
+    fa.stack = stack;
+    fa.iln = (const float*)iln, fa.pln = (const float*)pln, fa.qn = (const float*)qn;
+    fa.kn = (const float*)kn, fa.fnorm = (const float*)fnorm;
+    fa.lm_w = lm_w, fa.lm_s = lm_s;
+    fa.emb = (const bf16*)emb, fa.proj_w = (const bf16*)proj_w, fa.proj_b = (const bf16*)proj_b;
+    fa.cos_tab = (const bf16*)cos_tab, fa.sin_tab = (const bf16*)sin_tab;
+    fa.k_cache = (bf16*)k_cache, fa.v_cache = (bf16*)v_cache;
+    const int max_o = max(max((NQ + 2 * NKV) * D, 2 * I), max(H, V));
+    fa.part[0] = (float*)ws;
+    fa.part[1] = (float*)ws + (size_t)PF_MAX_SPLIT * max_o;
+    fa.xnext = (bf16*)xbuf, fa.esum = (float*)esum, fa.codes = (int*)codes_out;
+    fa.logits = (float*)logits_out, fa.force = (const int*)force_codes;
+    SampleArgs& sa = fa.sa;
+    sa = SampleArgs{};
+    sa.rep = 1.0f;
+    sa.greedy = greedy;
+    sa.inv_t = inv_t;
+    sa.top_k = top_k;
+    sa.top_p_thr = top_p_thr;
+    sa.ref_exact = ref_exact;
+    sa.eos_id = -1;
+    sa.seed0 = seed0;
+    sa.seed1 = seed1;
+    sa.code_stride = NCB;
+    sa.logits_stride = V;
+    sa.force_stride = NCB;
+    sa.H = TH;
+    sa.x_next = (bf16*)xbuf;
+    sa.esum = (float*)esum;
+    sa.cp_head = 1;
+    fa.bar = (unsigned*)ctl;
+    void* err_dev = nullptr;
+    const cudaError_t e = cudaHostGetDevicePointer(&err_dev, err_host, 0);
+    if (e != cudaSuccess) return (int)e;
+    fa.err_host = (int*)err_dev;
+    fa.budget_ns = (unsigned long long)budget_ns;
+    return cp_frame_launch(fa, blocks, st);
+  }
   const size_t layer_kv = (size_t)B * NKV * SLOTS * D;
   float* ax = dyn ? (float*)amax : nullptr;
   const float* head_ax = head_bf16 ? nullptr : ax;  // dense heads stay bf16
@@ -104,7 +1055,7 @@ extern "C" int qt_cp_loop(
   for (int p = 0; p < SLOTS; ++p) {
     const bf16* xin = p < 2 ? (const bf16*)x0 + (size_t)p * B * TH : xb;
     if (proj_w != nullptr) {  // h = bf16(bf16(xin @ proj_w) + proj_b), xn = rms(h)
-      const int s = gemv<true>(proj, xin, B, (float*)ws, TH, H, nullptr, st);
+      const int s = gemv(proj, xin, B, (float*)ws, TH, H, nullptr, st);
       QT_CHECK_LAUNCH();
       finish_residual_norm<<<B, 1024, 0, st>>>((const float*)ws, s, proj, nullptr, h,
                                                (const bf16*)proj_b, (const float*)iln, xnb, H,
@@ -124,7 +1075,7 @@ extern "C" int qt_cp_loop(
       cache.v = (bf16*)v_cache + l * layer_kv;
       cache.ks = cache.vs = nullptr;
       cache.T = SLOTS;
-      const int err = layer_step<true, false, LAYER_FULL, true>(
+      const int err = layer_step<true, false>(
           w, next_norm, B, H, NQ, NKV, I, eps, scale, cosr, sinr, 0, cache, p, nullptr, h, xnb,
           (bf16*)attn, (bf16*)gated, (float*)ws, ax, st);
       if (err) return err;
@@ -133,7 +1084,7 @@ extern "C" int qt_cp_loop(
     const int j = p - 1;  // head / embedding table of this position
     Mat head = mat(head_bf16 != 0);
     add_seg(head, lm_w, lm_s, j, H, V);
-    const int s = gemv<true>(head, xnb, B, (float*)ws, H, V, head_ax, st);
+    const int s = gemv(head, xnb, B, (float*)ws, H, V, head_ax, st);
     QT_CHECK_LAUNCH();
     SampleArgs a;
     a.supp = nullptr;
@@ -166,15 +1117,23 @@ extern "C" int qt_cp_loop(
   return 0;
 }
 
-// The batched GEMV of a K2 call alone (B >= 2), for tests and timing: the
-// first pass of y[B, O] = x[B, I] @ W into part [splits][B][O] (f32 sums;
-// with ``dyn``, x quantized per row from ``amax`` [B] and int32 sums), W
-// int8 or (``w_bf16``) bf16 [I, O], on the tensor cores (``tc``, K2's form)
-// or the CUDA cores (K1's form), both at K2's split
-// (``qt_cp_gemv_splits``), so their partials compare split by split.
+// The batched GEMV of a K1 or K2 call alone (B >= 2), for tests and
+// timing: the first pass of y[B, O] = x[B, I] @ W into part [splits][B][O]
+// (f32 sums; with ``dyn``, x quantized per row from ``amax`` [B] and int32
+// sums), W int8 or (``w_bf16``) bf16 [I, O], on the tensor cores (``tc``,
+// the form K1 and K2 run) or the CUDA cores (the form they ran before), both
+// at the tensor-core split (``qt_cp_gemv_splits``), so their partials
+// compare split by split.
 extern "C" int qt_cp_gemv_splits(int B, int I, int O) {
   int rows;
-  return batched_splits(B, I, O, rows, true);
+  return batched_splits(B, I, O, rows);
+}
+
+// The rows of each split (the last may be shorter) of that split
+extern "C" int qt_cp_gemv_rows(int B, int I, int O) {
+  int rows;
+  batched_splits(B, I, O, rows);
+  return rows;
 }
 
 extern "C" int qt_cp_gemv(int tc, int w_bf16, int dyn, int B, int I, int O, const void* w,
@@ -185,7 +1144,7 @@ extern "C" int qt_cp_gemv(int tc, int w_bf16, int dyn, int B, int I, int O, cons
   Mat m = mat(w_bf16 != 0);
   add_seg(m, w, nullptr, 0, I, O);
   int rows;
-  const dim3 grid((O + BG_COLS - 1) / BG_COLS, batched_splits(B, I, O, rows, true));
+  const dim3 grid((O + BG_COLS - 1) / BG_COLS, batched_splits(B, I, O, rows));
   const bf16* xb = (const bf16*)x;
   const float* ax = (const float*)amax;
 #define QT_GEMV(kernel, ...)                                            \

@@ -21,22 +21,29 @@
 // 2,831.2 MB, 0.845 ms, in bf16. At B>1 the weights are still read once per
 // step for the whole batch (the batched GEMV of common.cuh stages each
 // weight tile in shared memory once and multiplies it into every row), so
-// the bytes barely grow with B but the f32 FMA work does: 2 x B flops per
-// weight, ~57 GFLOP at B=64 at 0.6B, which is above the memory floor from B
-// of about 8 on (about 16 in bf16). In dyn_int8 the operations are 2 x B
-// integer multiply-adds per weight, 4 to a dp4a instruction with no widening
-// of the weight: the int8 dense rate (1,979 TOP/s on tensor cores) is the
-// bound's yardstick; the CUDA cores' dp4a sits far below it.
+// the bytes barely grow with B but the multiply-adds do: 2 x B flops per
+// weight, ~57 GFLOP at B=64 at 0.6B: 0.058 ms at the card's dense bf16
+// tensor rate (989 TFLOP/s) against a 0.132 ms memory floor, where the
+// CUDA cores' f32 FMA took ~0.85 ms at their peak. In dyn_int8 the
+// operations are 2 x B integer multiply-adds per weight (the int8 dense
+// rate, 1,979 TOP/s, is the yardstick). So at B > 1 every GEMV of the step
+// (the four per layer and the codec head) runs on the tensor cores, as K2's
+// do: common.cuh's ``gemv`` takes ``gemv_batched_mma`` (int8 widened to bf16
+// in shared memory, or bf16 as it is; m16n8k16 -> f32) and
+// ``gemv_batched_dq_mma`` (dyn_int8: m16n8k32 s8 -> exact s32, partials
+// bit-equal to the dp4a form's); the workspace holds TC_MAX_PARTS rows of
+// partials (``_cuda.workspace_rows(B)``). At B = 1 the GEMV stays
+// ``gemv_partial`` / ``gemv_partial_dq``.
 //
 // Design: split-K GEMVs whose second pass is fused with the residual add
 // and the next RMSNorm (or SwiGLU); an attention block per (kv head, row)
 // that finishes the qkv GEMV, applies QK-norm and rope at the row's own
 // position, writes the new k/v row into the cache in place (quantized, with
 // its scale, for an int8 cache) and attends over the row's valid prefix with
-// the current token joining unquantized; one sampler block per row. The
-// steps run as a fixed sequence of ~200 launches from the host loop below
-// (one ctypes call per step); a persistent kernel or a CUDA graph that
-// removes the launch gaps is later work.
+// the current token joining unquantized; one sampler block per row. A step
+// is a fixed sequence of 8 L + 3 launches (227 at 28 layers) from the host
+// loop below (one ctypes call per step); a persistent form of the B = 1
+// step, as K2's B = 1 frame has (csrc/cp_loop.cu), is later work.
 #include "common.cuh"
 
 using namespace qt;

@@ -48,6 +48,7 @@ from . import code_predictor as cp
 from . import talker as tk
 from .generate import (
     _code0_mask, _cpk_mode, _frame_seeds, _use_cp_kernel, _use_talker_sample_kernel,
+    check_cp_frames,
 )
 
 
@@ -284,6 +285,7 @@ def generate_chunk_batch(
         active = ~c.done & (c.steps < max_steps)
         if not bool(active.any()):  # the frame's one host synchronisation
             break
+        check_cp_frames(dev)  # the last frame's K2 ran before that read
         seed_tok, cp_seed = _frame_seeds(c.seed_words, c.step)
         if use_tks:
             hidden, cache, code0 = tk.forward_batched_step_sample(
@@ -430,4 +432,5 @@ def generate_codes_batch(
         max_steps=torch.as_tensor(max_steps, dtype=torch.int32, device=dev),
         until_step=max_frames,
     )
+    check_cp_frames(dev, sync=True)  # the utterances' last frame
     return BatchResult(codes=carry.codes, n_frames=carry.frames, tokens=carry.tokens)

@@ -110,6 +110,17 @@ def _cpk_mode(cp_params) -> str:
     return mode if cp_layout(cp_params["layers"]) == "int8" else "bf16"
 
 
+def check_cp_frames(device, sync: bool = False) -> None:
+    """Raise ``cp_kernel.BarrierTimeout`` if a B = 1 frame of K2 that ran
+    before the last host synchronisation (with ``sync``: before now) had a
+    grid barrier time out; that frame's codes are -1. Nothing to do off
+    CUDA."""
+    if device.type == "cuda":
+        from ..ops.cp_kernel import check_barrier
+
+        check_barrier(device if sync else None)
+
+
 def _use_talker_sample_kernel(
     talker_params, talker_cfg, sampling, device, batch: int = 1, kv_quant: bool = False
 ) -> bool:
@@ -174,8 +185,9 @@ def _frame(
         )
     seen = seen.index_fill(0, code0.long(), True)
     is_eos = int(code0[0]) == eos_id
-    n_rest = cp_cfg.num_code_groups - 1
     dev = hidden_last.device
+    check_cp_frames(dev)  # the last frame's K2 ran before that read
+    n_rest = cp_cfg.num_code_groups - 1
     if is_eos:
         return code0, torch.zeros(1, n_rest, dtype=torch.int32, device=dev), True, seen, None
     if _use_cp_kernel(cp_params, cp_cfg, talker_cfg, sampling, dev):
@@ -389,6 +401,7 @@ def generate_codes(
     carry = generate_chunk(
         talker_params, cp_params, carry, **common, **stream, until_step=max_steps
     )
+    check_cp_frames(prefill_embeds.device, sync=True)  # the utterance's last frame
     return GenResult(codes=carry.codes, n_frames=carry.step, tokens=carry.tokens)
 
 

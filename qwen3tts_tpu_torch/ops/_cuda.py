@@ -41,6 +41,7 @@ def header_ints(path: Path) -> dict[str, int]:
 
 
 LIMITS = header_ints(CSRC / "common.cuh")
+FRAME_LIMITS = header_ints(CSRC / "cp_loop.cu")  # K2's persistent B = 1 frame (PF_*)
 MAX_BATCH = LIMITS["MAX_BATCH"]  # rows of one K1 / K2 call
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qwen3tts_tpu_torch"
 NVCC_FLAGS = (
@@ -91,9 +92,12 @@ _ARGTYPES = {
         I, F, I, F, I, U, U,  # greedy inv_t top_k top_p_thr ref_exact seed0 seed1
         P,  # force_codes
         P, P, P, P, P, P, P,  # hres xn attn gated ws xbuf amax
-        P, P, P, P,  # codes_out esum logits_out stream
+        P, P, P,  # codes_out esum logits_out
+        P, P, I, LL, I,  # ctl err_host blocks budget_ns cut
+        P,  # stream
     ],
     "qt_cp_gemv_splits": [I, I, I],  # B I O
+    "qt_cp_gemv_rows": [I, I, I],  # B I O
     "qt_cp_gemv": [I, I, I, I, I, I, P, P, P, P, P],  # tc w_bf16 dyn B I O w x amax part stream
     "qt_weight_stream": [
         I, P, P, P, P,  # n w[] layer_bytes[] esz[] tile[] (host arrays)
@@ -194,13 +198,11 @@ def launches() -> int:
     return int(library().qt_launches())
 
 
-def workspace_rows(batch: int, tensor_cores: bool = False) -> int:
-    """Rows of O floats the GEMV partial sums take (GEMV_MAX_SPLIT at one
-    row, GEMV_MAX_PARTS at more; TC_MAX_PARTS for the tensor-core form K2
-    runs at more)."""
-    if batch == 1:
-        return LIMITS["GEMV_MAX_SPLIT"]
-    return LIMITS["TC_MAX_PARTS" if tensor_cores else "GEMV_MAX_PARTS"]
+def workspace_rows(batch: int) -> int:
+    """Rows of O floats the GEMV partial sums take: GEMV_MAX_SPLIT at one
+    row, TC_MAX_PARTS at more (the tensor-core form every batched GEMV
+    runs)."""
+    return LIMITS["GEMV_MAX_SPLIT"] if batch == 1 else LIMITS["TC_MAX_PARTS"]
 
 
 def amax_slots(batch: int, device) -> torch.Tensor:

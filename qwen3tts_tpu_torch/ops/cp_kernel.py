@@ -7,6 +7,16 @@ csrc/cp_loop.cu (one C call per frame; that file's header gives the bound
 and the design); on a CPU tensor it runs ``predict_codes_fused_ref``, the
 plain PyTorch version. Any other device raises.
 
+At B = 1 the frame is one persistent cooperative kernel (two operations: a
+memset of its barrier words and the launch). If its grid cannot be
+resident at once the call raises (``CoResidencyError``), and a grid barrier
+that waits past ``BARRIER_BUDGET_NS`` sets a flag in pinned host memory
+that ``check_barrier`` raises on (``BarrierTimeout``): the decode loops
+(models/generate.py, models/batch_generate.py) check it at each frame's
+host synchronisation and at the end of a chunk, and the next B = 1 call
+checks it first. The faulted frame's codes are -1. Neither takes another
+path.
+
 It takes the layers int8 with per-channel scales, fused or unfused (q/k/v
 and gate/up apart, as the TPU kernel's gate allows, cp_kernel.py:466-474;
 the kernel reads the separate matrices as column segments of one weight,
@@ -59,6 +69,10 @@ from .talker_kernel import MODES, _dense_bf16, _layout, _weight, run_mode
 
 MAX_BATCH = _cuda.MAX_BATCH
 PROJ = "small_to_mtp_projection"
+BARRIER_BUDGET_NS = 2_000_000_000  # the longest a B = 1 frame's block waits at one barrier
+_COOP_TOO_LARGE = 720  # cudaErrorCooperativeLaunchTooLarge
+# the B = 1 frame cut after each kind of phase (csrc/cp_loop.cu's CUT_*), for timing
+FRAME_CUTS = ("barriers", "gemv", "prologue", "attention", "sampler")
 UNFUSED_KEYS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 # the kernel's seven weight operands: fused stacks fill q (qkv) and gate (gate_up)
 _FUSED_AS_SEVEN = ("qkv_proj", None, None, "o_proj", "gate_up_proj", None, "down_proj")
@@ -215,10 +229,50 @@ def predict_codes_fused(
     return out
 
 
+class CoResidencyError(RuntimeError):
+    """The B = 1 frame's grid cannot be resident on the card at once."""
+
+
+class BarrierTimeout(RuntimeError):
+    """A grid barrier of the B = 1 frame waited past its budget."""
+
+
+_err_flag: torch.Tensor | None = None  # pinned int32 [1], written by the card on a timeout
+
+
+def _barrier_flag() -> torch.Tensor:
+    global _err_flag
+    if _err_flag is None:
+        _err_flag = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+    return _err_flag
+
+
+def check_barrier(sync_device=None) -> None:
+    """Raise ``BarrierTimeout`` if a B = 1 frame that has finished had a
+    barrier run past its budget (its codes are then -1); the flag is
+    cleared. The frames enqueued before the caller's last synchronisation
+    have finished; with ``sync_device`` (a CUDA device) the host first waits
+    for all of that device's work. No B = 1 frame launched yet: nothing to
+    check."""
+    flag = _err_flag
+    if flag is None:
+        return
+    if sync_device is not None:
+        torch.cuda.synchronize(sync_device)
+    if int(flag[0]) != 0:
+        flag.zero_()
+        raise BarrierTimeout("K2 persistent barrier timed out")
+
+
 def launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, temperature, top_k,
-           top_p, ref_exact_top_p, force_codes, return_logits, dyn):
+           top_p, ref_exact_top_p, force_codes, return_logits, dyn, blocks: int = 0,
+           budget_ns: int = BARRIER_BUDGET_NS, cut: int = 0):
     """One call of the kernel in csrc/cp_loop.cu on CUDA tensors (the
-    wrappers count it: this one and ops/cp_kernel_old.py's)."""
+    wrappers count it: this one and ops/cp_kernel_old.py's). At B = 1:
+    ``blocks`` the persistent grid (0: one block per SM), ``budget_ns`` the
+    longest wait at one barrier (tests shrink both); for timing only, ``cut``
+    a cut of the frame (``FRAME_CUTS``; 0, the whole frame, on every call of
+    the port)."""
     H, TH = cp_cfg.hidden_size, last_hidden.shape[-1]
     B = last_hidden.shape[0]
     if not kernel_supported(cp_params, cp_cfg, TH, B):
@@ -259,16 +313,24 @@ def launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, temper
     ]
     force = None if force_codes is None else force_codes.to(torch.int32).reshape(-1).contiguous()
     oqkv = (NQ + 2 * NKV) * D
+    single = B == 1  # the persistent frame keeps its activations on chip
+    act = lambda n: None if single else torch.empty(B, n, dtype=torch.bfloat16, device=dev)
     bufs = [
-        torch.empty(B, H, dtype=torch.bfloat16, device=dev),  # residual stream
-        torch.empty(B, H, dtype=torch.bfloat16, device=dev),  # normed input
-        torch.empty(B, NQ * D, dtype=torch.bfloat16, device=dev),  # attention out
-        torch.empty(B, I, dtype=torch.bfloat16, device=dev),  # SwiGLU out
-        torch.empty(_cuda.workspace_rows(B, tensor_cores=True) * max(oqkv, 2 * I, H, V),
+        act(H),  # residual stream
+        act(H),  # normed input
+        act(NQ * D),  # attention out
+        act(I),  # SwiGLU out
+        torch.empty(_cuda.workspace_rows(B) * max(oqkv, 2 * I, H, V),
                     dtype=torch.float32, device=dev),
         torch.empty(B, TH, dtype=torch.bfloat16, device=dev),  # next position's input
-        _cuda.amax_slots(B, dev) if dyn else None,
+        _cuda.amax_slots(B, dev) if dyn and not single else None,
     ]
+    if single:
+        check_barrier()
+        ctl = torch.empty(2, dtype=torch.int32, device=dev)  # the barrier's words
+        flag = _barrier_flag()
+    else:
+        ctl = flag = None
     codes = torch.empty(B, NCB, dtype=torch.int32, device=dev)
     esum = torch.empty(B, TH, dtype=torch.float32, device=dev)
     logits = torch.empty(NCB, B, V, dtype=torch.float32, device=dev) if return_logits else None
@@ -281,8 +343,14 @@ def launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, temper
         seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF,
         _cuda.ptr(force),
         *(_cuda.ptr(t) for t in bufs),
-        _cuda.ptr(codes), _cuda.ptr(esum), _cuda.ptr(logits), _cuda.stream_ptr(),
+        _cuda.ptr(codes), _cuda.ptr(esum), _cuda.ptr(logits), _cuda.ptr(ctl),
+        None if flag is None else flag.data_ptr(), int(blocks), int(budget_ns), int(cut),
+        _cuda.stream_ptr(),
     )
+    if single and rc == _COOP_TOO_LARGE:
+        grid = f"{blocks} blocks" if blocks else "one block per SM"
+        raise CoResidencyError(f"predict_codes_fused: the B = 1 frame's grid ({grid}) cannot be "
+                               "resident on the card at once")
     _cuda.check(rc, "predict_codes_fused")
     if return_logits:
         return codes, esum, logits[:, 0] if B == 1 else logits

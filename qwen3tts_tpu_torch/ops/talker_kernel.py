@@ -254,8 +254,7 @@ def _launch(
     xn = torch.empty(B, H, dtype=torch.bfloat16, device=dev)
     attn = torch.empty(B, NQ * D, dtype=torch.bfloat16, device=dev)
     gated = torch.empty(B, I, dtype=torch.bfloat16, device=dev)
-    ws = torch.empty(_cuda.workspace_rows(B) * max(oqkv, 2 * I, H, V), dtype=torch.float32,
-                     device=dev)
+    ws = torch.empty(workspace_floats(B, oqkv, I, H, V), dtype=torch.float32, device=dev)
     amax = _cuda.amax_slots(B, dev) if dyn else None
     code = torch.empty(B, dtype=torch.int32, device=dev) if sample else None
     logits = torch.empty(B, V, dtype=torch.float32, device=dev) if sample and return_logits else None
@@ -275,6 +274,15 @@ def _launch(
     _cuda.check(rc, "talker_decode_step")
     out = xn if not sample else (xn, code, logits) if return_logits else (xn, code)
     return _one_row(out) if single else out
+
+
+def workspace_floats(B: int, oqkv: int, I: int, H: int, V: int) -> int:
+    """Floats of the GEMV partial sums of one step: the most splits x rows
+    of the step's GEMVs (``_cuda.workspace_rows``: the tensor-core form at
+    B > 1, which may split up to TC_MAX_PARTS rows deep) times the widest
+    output (qkv, gate_up, the residual stream or the codec head). A smaller
+    buffer would be written past its end without an error."""
+    return _cuda.workspace_rows(B) * max(oqkv, 2 * I, H, V)
 
 
 def _f32(v: float) -> float:

@@ -1,5 +1,6 @@
-"""Device times of K3 (long-prefix decode attention) and K2 (the CP loop)
-at the shapes their eighth-slice redesign targets, with their yardsticks.
+"""Device times of K3 (long-prefix decode attention), K2 (the CP loop) and
+K1 (the talker step) at the shapes of their redesigns, with their
+yardsticks.
 
 - K3 at pos 40 / 4000 / 6000 of 4096 / 4096 / 6144 rows, over the 0.6B
   talker's 28 layers in turn (no call finds the last one's bytes in the
@@ -14,12 +15,34 @@ at the shapes their eighth-slice redesign targets, with their yardsticks.
 - Where the tree has it, K2's batched GEMV alone at B=64 at the CP's five
   shapes: the tensor-core form, the CUDA-core form and one library call
   (``torch.matmul`` on bf16 weights; ``torch._int_mm`` in dyn_int8).
+- ``k1``: K1's step (sample mode, T = 0.9, top-k 50) at B in {1, 2, 8, 16,
+  33, 48, 64} on the 0.6B int8 talker in ``wo_bf16`` and ``dyn_int8``, and
+  the 1.7B int8 talker at B = 64, on a bf16 cache of 256 rows with the rows'
+  offsets in [64, 192): device ms (profiler) and events ms per step.
+- ``e2e``: the 0.6B int8 B=1 headline (66 frames, forbid_eos, T = 0.9,
+  top-k 50, repetition 1.05, f32 vocoder: wall, RTF, decode ms per frame
+  after the first) and the B=64 lockstep frame (``generate_codes_batch``,
+  66 frames, 128-row bf16 cache: ms per frame, codec tokens/s), as
+  chip_smoke phases 6 and d run them.
+- ``int4lib``: the library yardstick of K4 and T4, ``torch._weight_int4pack_mm``
+  (int4, group 64, M = 1) at the packed 0.6B shapes, on weights repacked
+  with ``torch._convert_weight_to_int4pack`` (MLX's ``scale * q + bias``
+  is int4pack's ``(q - 8) * scale + zero`` with ``zero = bias + 8 *
+  scale``, both rounded to bf16), beside K4 on the same weights.
+- ``k2b1``: K2 at B = 1 in every mode it takes (0.6B int8 fused and
+  unfused in both matmul modes, dense bf16, the 1.7B CP with its
+  projection in int8, dyn_int8 and bf16, top-p 0.9, K5's port): device ms
+  and events ms per frame, and events ms per frame of the same call
+  captured once in a CUDA graph and replayed (a graph of the multi-launch
+  loop in a tree that runs it at B = 1, of the persistent frame in one
+  that has it); where the tree has the persistent frame, its time split
+  by phase (the frame cut after each kind of phase).
 
 Every device time is a profiler window held to the kernels of its calls
 (``_card.device_ms``). Needs a CUDA device. Run from a checkout's root:
 
     python -m qwen3tts_tpu_torch.tools.time_k3_k2 [--label L] [--rounds N] \
-        [--parts k3,k2,gemv] [--out DIR]
+        [--parts k3,k2,gemv,k1,k2b1,e2e,int4lib] [--out DIR]
 
 It uses only entry points older trees share, so two trees compare on one
 card: copy this file and ``_card.py`` into the other tree's
@@ -34,6 +57,7 @@ import argparse
 import json
 import os
 
+import numpy as np
 import torch
 
 from ..config import CodePredictorConfig
@@ -42,7 +66,10 @@ from ..ops import attention as attn
 from ..ops import cp_kernel as cpk
 from ..ops.quant import quantize_decode_params_int8
 from ..utils import host_init as hi
-from ._card import HBM_BYTES_S, card, device_ms, device_ms_by_kernel, require_cuda
+from ._card import (
+    HBM_BYTES_S, card, device_ms, device_ms_by_kernel, event_ms, int8_talker, require_cuda,
+    talker_06b,
+)
 
 PEAK_BF16, PEAK_INT8 = 989e12, 1979e12  # H100 SXM dense tensor rates, 700 W
 BATCHES = (2, 8, 16, 17, 33, 48, 64)
@@ -190,11 +217,258 @@ def gemv_alone(dev, emit):
                       bound_ms=b[0], bound_by=b[1]))
 
 
+K1_BATCHES = (1, 2, 8, 16, 33, 48, 64)
+
+
+def talker_17b():
+    """The 1.7B talker's widths (``__graft_entry__._flagship_17b``)."""
+    import dataclasses
+
+    return dataclasses.replace(talker_06b(), hidden_size=2048, text_hidden_size=2048,
+                               intermediate_size=6144)
+
+
+def k1(dev, emit):
+    from ..models import talker as tk
+    from ..ops import talker_kernel as tkk
+    from ..ops.rope import mrope_cos_sin
+
+    def run(cfg, tp, B, mode, label):
+        T = 256
+        g = torch.Generator(device=dev).manual_seed(B)
+        cache = tk.make_cache(cfg, B, T, torch.bfloat16, dev)
+        cache.k.copy_(torch.randn(cache.k.shape, generator=g, device=dev).mul(0.5))
+        cache.v.copy_(torch.randn(cache.v.shape, generator=g, device=dev).mul(0.5))
+        offs = torch.randint(64, 192, (B,), generator=g, device=dev, dtype=torch.int32)
+        x = torch.randn(B, 1, cfg.hidden_size, generator=g, device=dev).mul(0.2).bfloat16()
+        cos, sin = mrope_cos_sin(offs.long()[None], cfg.head_dim, cfg.rope_theta,
+                                 cfg.mrope_section, torch.bfloat16)
+        cos, sin = cos[0], sin[0]
+        supp = torch.zeros(cfg.vocab_size, device=dev)
+        seen = torch.zeros(B, cfg.vocab_size, dtype=torch.bool, device=dev)
+        one = B == 1
+        off = int(offs[0]) if one else offs
+        args = (cos[0], sin[0], seen[0]) if one else (cos, sin, seen)
+        fn = lambda: tkk.talker_decode_step(tp, cfg, x, cache, off, args[0], args[1],
+                                            temperature=0.9, top_k=50, rep_penalty=1.05,
+                                            eos_id=-1, seed=(1, 2), suppress_add=supp,
+                                            seen=args[2], mode=mode)
+        emit(dict(kernel="K1", model=label, B=B, mode=mode, ms=device_ms(fn, 10),
+                  events_ms=event_ms(fn, 10)))
+        del cache
+
+    cfg = talker_06b()
+    tp = int8_talker(cfg, dev)
+    for B in K1_BATCHES:
+        for mode in ("wo_bf16", "dyn_int8"):
+            run(cfg, tp, B, mode, "0.6B int8")
+    del tp
+    cfg17 = talker_17b()
+    tp17 = int8_talker(cfg17, dev)
+    run(cfg17, tp17, 64, "wo_bf16", "1.7B int8")
+    del tp17
+
+
+def k2b1_cases(dev):
+    """(name, CP config, CP tree, talker tree, mode, top_p, entry point) of
+    every mode K2 takes at B = 1."""
+    import dataclasses
+
+    from ..models import talker as tk
+    from ..ops import cp_kernel_old as cpk_old
+
+    cpc, cp, talker = cp_weights(dev)
+    bf = hi.to_device(hi.host_init_cp_params(1, cpc, 1024), torch.bfloat16, dev)
+    bf["layers"] = tk.fuse_layer_projections(bf["layers"])
+    unfused = quantize_decode_params_int8(
+        hi.to_device(hi.host_init_cp_params(1, cpc, 1024), torch.bfloat16, dev), "lm_head")
+    g = torch.Generator(device=dev).manual_seed(5)
+    talker17 = {"codec_embedding": torch.randn(3072, 2048, generator=g, device=dev)
+                .mul(0.05).to(torch.bfloat16)}
+    p17 = {}
+    for w in ("int8", "bf16"):
+        t = hi.to_device(hi.host_init_cp_params(2, cpc, 2048), torch.bfloat16, dev)
+        t["layers"] = tk.fuse_layer_projections(t["layers"])
+        p17[w] = quantize_decode_params_int8(t, "lm_head") if w == "int8" else t
+    k2 = cpk.predict_codes_fused
+    return [
+        ("int8 fused", cpc, cp, talker, "wo_bf16", 1.0, k2),
+        ("int8 fused", cpc, cp, talker, "dyn_int8", 1.0, k2),
+        ("int8 unfused", cpc, unfused, talker, "wo_bf16", 1.0, k2),
+        ("int8 unfused", cpc, unfused, talker, "dyn_int8", 1.0, k2),
+        ("bf16", cpc, bf, talker, "wo_bf16", 1.0, k2),
+        ("1.7B projection int8", cpc, p17["int8"], talker17, "wo_bf16", 1.0, k2),
+        ("1.7B projection int8", cpc, p17["int8"], talker17, "dyn_int8", 1.0, k2),
+        ("1.7B projection bf16", cpc, p17["bf16"], talker17, "wo_bf16", 1.0, k2),
+        ("int8 fused, top_p 0.9", cpc, cp, talker, "wo_bf16", 0.9, k2),
+        ("K5's port, int8 fused", cpc, cp, talker, "wo_bf16", 1.0, cpk_old.predict_codes_fused),
+    ]
+
+
+def graph_ms(fn, iters: int = 20):
+    """Events ms per call of ``fn`` captured once in a CUDA graph and
+    replayed ``iters`` times back to back (warmed up on a side stream, as
+    graph capture asks), or why it could not be captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    except RuntimeError as e:
+        return f"not captured: {e}"[:300]
+    return event_ms(graph.replay, iters)
+
+
+def k2b1(dev, emit):
+    import inspect
+
+    persistent = "cut" in inspect.signature(cpk.launch).parameters
+    for name, cpc, cp, talker, mode, top_p, fn in k2b1_cases(dev):
+        TH = talker["codec_embedding"].shape[1]
+        g = torch.Generator(device=dev).manual_seed(1)
+        h = torch.randn(1, TH, generator=g, device=dev).mul(0.3).to(torch.bfloat16)
+        c0 = torch.tensor([17], dtype=torch.int32, device=dev)
+        call = lambda: fn(cp, cpc, talker, h, c0, (3, 4), temperature=0.9, top_k=50, top_p=top_p,
+                          mode=mode)
+        rec = dict(kernel="K2", B=1, case=name, mode=mode, ms=device_ms(call, 10),
+                   events_ms=event_ms(call, 20), graph_ms=graph_ms(call))
+        if persistent and name in ("int8 fused", "1.7B projection int8") and top_p == 1.0:
+            rec.update(frame_profile(cpc, cp, talker, h, c0, mode))
+        emit(rec)
+
+
+def frame_profile(cpc, cp, talker, h, c0, mode) -> dict:
+    """The persistent frame's device ms with its work cut after each kind of
+    phase (``cp_kernel.FRAME_CUTS``)."""
+    kw = dict(temperature=0.9, top_k=50, top_p=1.0, ref_exact_top_p=False, force_codes=None,
+              return_logits=False, dyn=mode == "dyn_int8")
+    args = (cp, cpc, talker, h, c0, (3, 4))
+    return dict(cut_ms={name: device_ms(lambda: cpk.launch(*args, cut=cut, **kw), 10)
+                        for cut, name in enumerate(cpk.FRAME_CUTS, start=1)})
+
+
+def e2e(dev, emit):
+    import statistics
+    import time
+
+    from ..config import TokenizerDecoderConfig
+    from ..models import batch_generate as bg
+    from ..models import generate as gen
+    from ..models import talker as tk
+    from ..tts import _generate_and_decode
+
+    cfg = talker_06b()
+    cpc = cfg.code_predictor_config
+    tp = int8_talker(cfg, dev)
+    cp = hi.to_device(hi.host_init_cp_params(1, cpc, cfg.hidden_size), torch.bfloat16, dev)
+    cp["layers"] = tk.fuse_layer_projections(cp["layers"])
+    cp = quantize_decode_params_int8(cp, "lm_head")
+    dec_cfg = TokenizerDecoderConfig()
+    voc = hi.init_vocoder_params(torch.Generator(device=dev).manual_seed(2), dec_cfg,
+                                 torch.float32, dev)
+    H, frames, p_len = cfg.hidden_size, 66, 24
+    sampling = gen.SamplingConfig(0.9, 50, 1.0, 1.05, forbid_eos=True)
+    p_bucket = gen.pad_to_bucket(p_len)
+    g = torch.Generator(device=dev).manual_seed(0)
+    prefill = torch.randn(1, p_bucket, H, generator=g, device=dev).mul(0.05).to(torch.bfloat16)
+    trailing = torch.randn(64, H, generator=g, device=dev).mul(0.05).to(torch.bfloat16)
+    pad = torch.zeros(H, dtype=torch.bfloat16, device=dev)
+    run = dict(talker_cfg=cfg, cp_cfg=cpc, sampling=sampling, prefill_embeds=prefill,
+               prefill_len=p_len, trailing_embeds=trailing, trailing_len=12, tts_pad_embed=pad,
+               max_frames=128)
+    cache_len = -(-(p_bucket + 128) // 128) * 128
+
+    def wall(seed):
+        torch.cuda.synchronize()
+        t = time.time()
+        _generate_and_decode(tp, cp, voc, dec_cfg=dec_cfg, **run, max_steps=frames, seed=seed,
+                             cache_len=cache_len)
+        torch.cuda.synchronize()
+        return time.time() - t
+
+    def decode_ms():
+        c = gen.prefill_start(tp, cp, **run, cache=tk.make_cache(cfg, 1, cache_len,
+                                                                 torch.bfloat16, dev), seed=9)
+        torch.cuda.synchronize()
+        t = time.time()
+        gen.generate_chunk(tp, cp, c, talker_cfg=cfg, cp_cfg=cpc, sampling=sampling,
+                           trailing_embeds=trailing, trailing_len=12, tts_pad_embed=pad,
+                           until_step=frames)
+        torch.cuda.synchronize()
+        return (time.time() - t) * 1000 / (frames - 1)
+
+    wall(0)
+    w = statistics.median(wall(s) for s in (1, 2, 3))
+    emit(dict(kernel="e2e", case="B=1 headline, 0.6B int8", wall_s=w, rtf=w / (frames / 12.5),
+              decode_ms=statistics.median(decode_ms() for _ in range(3))))
+    B = 64
+    gb = torch.Generator(device=dev).manual_seed(0)
+    pre = torch.randn(B, p_bucket, H, generator=gb, device=dev).mul(0.05).to(torch.bfloat16)
+    trail = torch.randn(B, 64, H, generator=gb, device=dev).mul(0.05).to(torch.bfloat16)
+    common = dict(talker_cfg=cfg, cp_cfg=cpc, sampling=sampling, trailing_embeds=trail,
+                  trailing_lens=torch.full((B,), 12, dtype=torch.int32, device=dev),
+                  tts_pad_embed=pad)
+
+    def lockstep_ms():
+        c = bg.prefill_start_batch(
+            tp, cp, **common, prefill_embeds=pre,
+            prefill_lens=torch.full((B,), p_len, dtype=torch.int32, device=dev),
+            cache=tk.make_cache(cfg, B, 128, torch.bfloat16, dev), max_frames=72, seed=0)
+        torch.cuda.synchronize()
+        t = time.time()
+        bg.generate_chunk_batch(tp, cp, c, **common,
+                                max_steps=torch.full((B,), frames, dtype=torch.int32, device=dev),
+                                until_step=72)
+        torch.cuda.synchronize()
+        return (time.time() - t) * 1000 / (frames - 1)
+
+    lockstep_ms()
+    ms = statistics.median(lockstep_ms() for _ in range(3))
+    emit(dict(kernel="e2e", case="B=64 lockstep frame, 0.6B int8, 128-row bf16 cache",
+              ms_per_frame=ms, codec_tokens_s=B * 16 * 1000 / ms))
+
+
+def int4lib(dev, emit):
+    from ..ops import quant as tq
+
+    shapes = {"q": (1024, 2048), "k/v": (1024, 1024), "o": (2048, 1024), "gate/up": (1024, 3072),
+              "down": (3072, 1024), "codec_head": (1024, 3072), "cp lm_head": (1024, 2048)}
+    rng = np.random.default_rng(4)
+    for name, (I, O) in shapes.items():
+        q, scales, biases = tq.pack_quantized(rng.standard_normal((O, I)).astype(np.float32) * 0.02)
+        w = tq.packed_from_numpy(q, scales, biases, 4, 64).to(dev)
+        x = torch.from_numpy(rng.standard_normal((1, I)).astype(np.float32)).to(dev).bfloat16()
+        ref = x.float() @ tq.dequantize(w.q, w.scales, w.biases).T
+        k4 = lambda: tq.quant_gemv(x, w.q, w.scales, w.biases)
+        rec = dict(kernel="K4 and its library yardstick", shape=name, I=I, O=O, k4_ms=device_ms(k4, 20),
+                   k4_scaled_err=float((k4() - ref).abs().max() / max(1.0, float(ref.abs().max()))))
+        try:  # MLX codes (8 nibbles a word along I) as int4pack's [O, I / 2] uint8, high nibble first
+            nib = torch.stack([(w.q >> (4 * i)) & 0xF for i in range(8)], -1).reshape(O, I)
+            packed = torch._convert_weight_to_int4pack(((nib[:, ::2] << 4) | nib[:, 1::2])
+                                                       .to(torch.uint8), 8)
+            zero = w.biases + 8 * w.scales  # (q - 8) * scale + zero = q * scale + bias
+            sz = torch.stack([w.scales.bfloat16(), zero.bfloat16()], -1).transpose(0, 1).contiguous()
+            lib = lambda: torch._weight_int4pack_mm(x, packed, 64, sz)
+            rec["library_ms"] = device_ms(lib, 20)
+            rec["library_scaled_err"] = float((lib().float() - ref).abs().max()
+                                              / max(1.0, float(ref.abs().max())))
+        except (RuntimeError, AttributeError, TypeError) as e:  # a build without the op
+            rec["library_ms"] = f"not available: {e}"[:300]
+        emit(rec)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="tree")
     ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("--parts", default="k3,k2,gemv", help="any of k3, k2, gemv")
+    ap.add_argument("--parts", default="k3,k2,gemv",
+                    help="any of k3, k2, gemv, k1, k2b1, e2e, int4lib")
     ap.add_argument("--out", default=None, help="a directory for the JSON lines file too")
     args = ap.parse_args()
     parts = args.parts.split(",")
@@ -219,6 +493,14 @@ def main() -> None:
             k2(dev, emit)
         if "gemv" in parts and hasattr(cpk, "batched_gemv"):
             gemv_alone(dev, emit)
+        if "k1" in parts:
+            k1(dev, emit)
+        if "k2b1" in parts:
+            k2b1(dev, emit)
+        if "e2e" in parts:
+            e2e(dev, emit)
+        if "int4lib" in parts:
+            int4lib(dev, emit)
     if out:
         out.close()
 

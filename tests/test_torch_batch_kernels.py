@@ -186,7 +186,7 @@ def test_kernel_limits_come_from_the_header():
     lim = _cuda.LIMITS
     assert tkk.MAX_BATCH == tcpk.MAX_BATCH == lim["MAX_BATCH"] == 64
     assert (_cuda.workspace_rows(1), _cuda.workspace_rows(2)) == (
-        lim["GEMV_MAX_SPLIT"], lim["GEMV_MAX_PARTS"]) == (64, 512)
+        lim["GEMV_MAX_SPLIT"], lim["TC_MAX_PARTS"]) == (64, 1024)
     assert (lim["HEAD_DIM"], lim["ATTN_MAX_GROUP"], STREAMS_PER_ROW) == (128, 4, 16)
 
 

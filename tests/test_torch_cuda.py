@@ -28,6 +28,7 @@ qwen3tts_tpu_torch/tools (T7 ``weight_stream``, T6 ``variant_step``, T3
 ``kv_append``, T2 ``probe``) against their plain versions.
 """
 
+import dataclasses
 import warnings
 
 import numpy as np
@@ -401,7 +402,7 @@ def _clone(cache):
 
 
 @pytest.mark.parametrize("kv_quant", [False, True])
-@pytest.mark.parametrize("B", [5, 64])
+@pytest.mark.parametrize("B", [2, 5, 8, 17, 33, 64])
 def test_k1_batched_matches_plain(dev, weights, B, kv_quant):
     """K1 at B rows and ragged offsets, both modes, against its plain
     version: hidden, logits and the new k/v rows within the bf16 bound,
@@ -559,7 +560,9 @@ def bf16_weights(dev):
     return tp, cp, narrow
 
 
-@pytest.mark.parametrize("B,kv_quant", [(1, False), (5, True), (64, False)])
+@pytest.mark.parametrize("B,kv_quant", [
+    (1, False), (5, True), (64, False), (2, True), (8, False), (17, True), (33, False), (64, True),
+])
 def test_k1_bf16_matches_plain(dev, bf16_weights, B, kv_quant):
     """K1 on dense bf16 weights against its plain version: hidden, logits
     and the new k/v rows within the bf16 bound, greedy code0 equal but for
@@ -594,7 +597,7 @@ def test_k1_bf16_matches_plain(dev, bf16_weights, B, kv_quant):
 
 
 @pytest.mark.parametrize("mode,narrow,B", [
-    ("bf16", False, 3), ("bf16", True, 1), ("int8", True, 64),
+    ("bf16", False, 3), ("bf16", True, 1), ("int8", True, 64), ("bf16", False, 1), ("int8", True, 1),
     ("bf16", False, 2), ("bf16", False, 8), ("bf16", False, 17), ("bf16", False, 33),
     ("bf16", False, 48), ("bf16", False, 64), ("bf16", True, 17), ("bf16", True, 64),
     ("int8", True, 2), ("int8", True, 33),
@@ -658,7 +661,9 @@ def _unfused_int8_cp(dev, cpc=CPC, seed=1):
     return quantize_decode_params_int8(cp, "lm_head")
 
 
-@pytest.mark.parametrize("B,kv_quant", [(1, False), (5, True), (64, False), (64, True)])
+@pytest.mark.parametrize("B,kv_quant", [
+    (1, False), (5, True), (64, False), (64, True), (2, False), (8, True), (17, False), (33, True),
+])
 def test_k1_dyn_int8_matches_plain(dev, weights, B, kv_quant):
     """K1 in dyn_int8 against its plain version: hidden, logits and the new
     k/v rows within the bf16 bound, greedy code0 equal but for near-ties,
@@ -723,7 +728,7 @@ def _k2_check(cpc, cpp, tp, dev, B, mode, fn=None):
 @pytest.mark.parametrize("mode,layers,B", [
     ("dyn_int8", "fused", 3), ("dyn_int8", "fused", 64), ("wo_bf16", "unfused", 1),
     ("dyn_int8", "unfused", 1), ("wo_bf16", "unfused", 64), ("dyn_int8", "unfused", 64),
-    ("dyn_int8", "projection", 1),
+    ("dyn_int8", "projection", 1), ("dyn_int8", "fused", 1),
     ("dyn_int8", "fused", 2), ("dyn_int8", "fused", 8), ("dyn_int8", "fused", 17),
     ("dyn_int8", "fused", 33), ("dyn_int8", "fused", 48), ("wo_bf16", "unfused", 17),
     ("dyn_int8", "unfused", 33), ("dyn_int8", "projection", 17), ("dyn_int8", "projection", 64),
@@ -744,16 +749,21 @@ def test_k2_dyn_int8_and_unfused_match_plain(dev, weights, bf16_weights, mode, l
     assert cpk.predict_codes_fused.mode_launches[mode] == before + 1
 
 
-# (I, O): the 0.6B CP's qkv, o, gate_up, down and head; a width of 272 (not
-# a multiple of 128 columns or of 32 rows: a half k32 step in dyn_int8)
-GEMV_SHAPES = [(1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024), (1024, 2048), (272, 272)]
+# (I, O): the 0.6B CP's qkv, o, gate_up, down and head (the 0.6B talker
+# layer has the same four shapes); the 1.7B talker layer's qkv, o, gate_up,
+# down; the talker's V = 3072 codec head at 0.6B and 1.7B; a width of 272
+# (not a multiple of 128 columns or of 32 rows: a half k32 step in dyn_int8)
+GEMV_SHAPES = [(1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024), (1024, 2048), (272, 272),
+               (2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048), (1024, 3072),
+               (2048, 3072)]
 
 
 @pytest.mark.parametrize("mode", ["wo_bf16", "bf16", "dyn_int8"])
 @pytest.mark.parametrize("B", [2, 8, 17, 33, 48, 64])
 @pytest.mark.parametrize("I,O", GEMV_SHAPES)
 def test_batched_gemv_tensor_cores_match_cuda_cores(dev, I, O, B, mode):
-    """K2's batched GEMV alone in both forms (csrc/common.cuh): in dyn_int8
+    """The batched GEMV of K1 and K2 alone in both forms (csrc/common.cuh),
+    at K2's and K1's layer and head shapes: in dyn_int8
     the int32 partial sums of every split are bit-equal (integer sums are
     exact in any order); on int8 (wo_bf16) or bf16 weights both forms' f32
     sums lie within 1e-5 scaled of the float64 sum (the products are exact
@@ -794,13 +804,15 @@ def test_k5_launches_the_cp_kernel(dev, weights, mode):
 
 
 @pytest.mark.parametrize("mode", ["wo_bf16", "dyn_int8"])
-@pytest.mark.parametrize("kernel", ["K1", "K2"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K2 B=3"])
 def test_library_launches_per_call(dev, weights, kernel, mode):
     """The operations one call enqueues, as the library counts them: K1 =
     rms_copy + 8 per layer (four GEMVs, attention, SwiGLU, two residual
-    finishes) + head GEMV + sampler; K2 = the esum memset +
-    (rms_copy + 8 per layer) per position + (head GEMV + sampler) per code.
-    dyn_int8 adds none (each row's amax comes from the kernel writing it)."""
+    finishes) + head GEMV + sampler; K2 at B = 1 = the memset of the
+    persistent frame's barrier words + its one launch; K2 at B > 1 = the
+    esum memset + (rms_copy + 8 per layer) per position + (head GEMV +
+    sampler) per code. dyn_int8 adds none (each row's amax comes from the
+    kernel writing it, or from the block itself in the persistent frame)."""
     from qwen3tts_tpu_torch.ops import _cuda
 
     tp, cp = weights
@@ -809,18 +821,188 @@ def test_library_launches_per_call(dev, weights, kernel, mode):
         call = lambda: _k1(tkk.talker_decode_step, tp, case, 70, temperature=0.9, mode=mode)
         expect = 8 * CFG.num_hidden_layers + 3
     else:
+        B = 1 if kernel == "K2" else 3
         g = torch.Generator(device=dev).manual_seed(2)
-        h = torch.randn(1, CFG.hidden_size, generator=g, device=dev).mul(0.3).bfloat16()
-        code0 = torch.tensor([5], dtype=torch.int32, device=dev)
+        h = torch.randn(B, CFG.hidden_size, generator=g, device=dev).mul(0.3).bfloat16()
+        code0 = torch.full((B,), 5, dtype=torch.int32, device=dev)
         call = lambda: cpk.predict_codes_fused(cp, CPC, tp, h, code0, (5, 6), temperature=0.9,
                                                top_k=50, mode=mode)
         ncb = CPC.num_code_groups - 1
-        expect = 1 + (ncb + 1) * (1 + 8 * CPC.num_hidden_layers) + 2 * ncb
+        expect = 2 if B == 1 else 1 + (ncb + 1) * (1 + 8 * CPC.num_hidden_layers) + 2 * ncb
     call()
     torch.cuda.synchronize()
     n0 = _cuda.launches()
     call()
     assert _cuda.launches() - n0 == expect
+
+
+def _k2_b1_cases(dev, weights, bf16_weights):
+    """(name, cp config, cp tree, mode, top_p) of every mode K2 takes at B = 1"""
+    tp, cp = weights
+    _, cp_bf16, narrow = bf16_weights
+    unfused = _unfused_int8_cp(dev)
+    return [
+        ("int8 fused", CPC, cp, "wo_bf16", 1.0), ("int8 fused dyn", CPC, cp, "dyn_int8", 1.0),
+        ("int8 unfused", CPC, unfused, "wo_bf16", 1.0),
+        ("int8 unfused dyn", CPC, unfused, "dyn_int8", 1.0),
+        ("bf16", CPC, cp_bf16, "wo_bf16", 1.0),
+        ("projection int8", CPC_N, narrow["int8"], "wo_bf16", 1.0),
+        ("projection int8 dyn", CPC_N, narrow["int8"], "dyn_int8", 1.0),
+        ("projection bf16", CPC_N, narrow["bf16"], "wo_bf16", 1.0),
+        ("top-p", CPC, cp, "wo_bf16", 0.8),
+    ]
+
+
+@pytest.mark.parametrize("k5", [False, True])
+def test_k2_b1_is_two_operations_in_every_mode(dev, weights, bf16_weights, k5):
+    """Every B = 1 call of K2 (and of K5's port), greedy or sampled, with
+    forced codes and logits or without, in every weight mode: two operations
+    by the library's count (the barrier words' memset and the persistent
+    launch)."""
+    from qwen3tts_tpu_torch.ops import _cuda
+    from qwen3tts_tpu_torch.ops import cp_kernel_old as cpk_old
+
+    tp = weights[0]
+    fn = cpk_old.predict_codes_fused if k5 else cpk.predict_codes_fused
+    h = torch.randn(1, CFG.hidden_size, device=dev).mul(0.3).bfloat16()
+    code0 = torch.tensor([9], dtype=torch.int32, device=dev)
+    force = torch.arange(15, dtype=torch.int32, device=dev).reshape(1, 15)
+    for name, cpc, cpp, mode, top_p in _k2_b1_cases(dev, weights, bf16_weights):
+        for kw in (dict(temperature=0.0, force_codes=force, return_logits=True),
+                   dict(temperature=0.9)):
+            fn(cpp, cpc, tp, h, code0, (1, 2), top_k=50, top_p=top_p, mode=mode, **kw)
+            torch.cuda.synchronize()
+            n0 = _cuda.launches()
+            fn(cpp, cpc, tp, h, code0, (1, 2), top_k=50, top_p=top_p, mode=mode, **kw)
+            assert _cuda.launches() - n0 == 2, (name, kw)
+
+
+def test_k2_b1_back_to_back_calls_are_bit_equal(dev, weights):
+    """200 greedy K2 calls at B = 1 on the same inputs, back to back with no
+    synchronisation between them: codes, esum and logits bit-equal to the
+    first call's (a race at a grid barrier of the persistent frame would
+    show as a difference)."""
+    tp, cp = weights
+    g = torch.Generator(device=dev).manual_seed(4)
+    h = torch.randn(1, CFG.hidden_size, generator=g, device=dev).mul(0.3).bfloat16()
+    code0 = torch.tensor([21], dtype=torch.int32, device=dev)
+    outs = [cpk.predict_codes_fused(cp, CPC, tp, h, code0, (5, 6), temperature=0.0, top_k=50,
+                                    return_logits=True) for _ in range(200)]
+    torch.cuda.synchronize()
+    cpk.check_barrier()
+    for c, e, lg in outs[1:]:
+        assert torch.equal(c, outs[0][0]) and torch.equal(e, outs[0][1])
+        assert torch.equal(lg, outs[0][2])
+
+
+def test_k2_b1_grid_and_barrier_faults_raise(dev, weights):
+    """The persistent frame takes no other path: a grid that cannot be
+    resident raises before anything is enqueued, and a barrier budget of
+    1 ns times out at the first wait: the faulted call's codes are all -1,
+    and it raises at ``check_barrier`` (after a synchronisation), at the
+    decode loops' check (which synchronises first) and at the next call; a
+    call after that runs and matches the plain version."""
+    tp, cp = weights
+    h = torch.randn(1, CFG.hidden_size, device=dev).mul(0.3).bfloat16()
+    code0 = torch.tensor([3], dtype=torch.int32, device=dev)
+    kw = dict(temperature=0.0, top_k=50, top_p=1.0, ref_exact_top_p=False, force_codes=None,
+              return_logits=True, dyn=False)
+    n = cpk.predict_codes_fused.launches
+    with pytest.raises(cpk.CoResidencyError):
+        cpk.launch(cp, CPC, tp, h, code0, (5, 6), blocks=100_000, **kw)
+    faulted = cpk.launch(cp, CPC, tp, h, code0, (5, 6), budget_ns=1, **kw)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(faulted, torch.full_like(faulted, -1))
+    with pytest.raises(cpk.BarrierTimeout, match="K2 persistent barrier timed out"):
+        cpk.check_barrier()
+    cpk.launch(cp, CPC, tp, h, code0, (5, 6), budget_ns=1, **kw)
+    with pytest.raises(cpk.BarrierTimeout):
+        gen.check_cp_frames(dev, sync=True)
+    cpk.launch(cp, CPC, tp, h, code0, (5, 6), budget_ns=1, **kw)
+    torch.cuda.synchronize()
+    with pytest.raises(cpk.BarrierTimeout):
+        cpk.launch(cp, CPC, tp, h, code0, (5, 6), **kw)
+    assert cpk.predict_codes_fused.launches == n  # the entry point's count is not touched
+    cr, er, lr = cpk.predict_codes_fused_ref(cp, CPC, tp, h, code0, (5, 6), temperature=0.0,
+                                             top_k=50, return_logits=True)
+    ck, ek, lk = cpk.predict_codes_fused(cp, CPC, tp, h, code0, (5, 6), temperature=0.0,
+                                         top_k=50, force_codes=cr, return_logits=True)
+    torch.cuda.synchronize()
+    cpk.check_barrier()
+    assert scaled(lk, lr) < 0.05 and torch.equal(ek, er)
+
+
+def test_generate_raises_on_a_faulted_frame(dev, weights, monkeypatch):
+    """``generate_codes`` whose B = 1 K2 frames time out at a barrier (every
+    launch given a 1 ns budget) raises ``BarrierTimeout`` at the next
+    frame's host synchronisation; it returns no codes."""
+    import functools
+
+    tp, cp = weights
+    monkeypatch.setattr(cpk, "launch", functools.partial(cpk.launch, budget_ns=1))
+    g = torch.Generator(device=dev).manual_seed(2)
+    with pytest.raises(cpk.BarrierTimeout, match="K2 persistent barrier timed out"):
+        gen.generate_codes(
+            tp, cp, talker_cfg=CFG, cp_cfg=CPC,
+            sampling=gen.SamplingConfig(0.9, 50, 1.0, 1.05, forbid_eos=True),
+            prefill_embeds=torch.randn(1, 64, 256, generator=g, device=dev).mul(0.1).bfloat16(),
+            prefill_len=20, trailing_embeds=torch.zeros(16, 256, dtype=torch.bfloat16, device=dev),
+            trailing_len=4, tts_pad_embed=torch.zeros(256, dtype=torch.bfloat16, device=dev),
+            max_steps=4, max_frames=8, seed=3, cache_len=128,
+        )
+    cpk.check_barrier(dev)  # the flag was cleared by the raise
+
+
+CPC_V = dataclasses.replace(CPC, vocab_size=4096)
+
+
+@pytest.fixture(scope="module")
+def wide_vocab_cp(dev):
+    """An int8 CP of CPC's widths with a vocabulary of 4096, the multi-launch
+    sampler's limit (8 ids a thread of the persistent frame's sampler)."""
+    cp = hi.to_device(hi.host_init_cp_params(3, CPC_V, CFG.hidden_size), torch.bfloat16, dev)
+    cp["layers"] = tk.fuse_layer_projections(cp["layers"])
+    return quantize_decode_params_int8(cp, "lm_head")
+
+
+@pytest.mark.parametrize("mode", ["wo_bf16", "dyn_int8"])
+def test_k2_b1_takes_a_4096_vocabulary(dev, weights, wide_vocab_cp, mode):
+    """K2 at B = 1 on a vocabulary of 4096: greedy and teacher-forced against
+    its plain version (``_k2_check``), then sampled with top-k 0 and top-p
+    0.8 against ``sample_row`` on the kernel's own logits."""
+    tp = weights[0]
+    assert cpk.kernel_supported(wide_vocab_cp, CPC_V, CFG.hidden_size, 1)
+    _k2_check(CPC_V, wide_vocab_cp, tp, dev, 1, mode)
+    g = torch.Generator(device=dev).manual_seed(6)
+    h = torch.randn(1, CFG.hidden_size, generator=g, device=dev).mul(0.3).bfloat16()
+    code0 = torch.tensor([33], dtype=torch.int32, device=dev)
+    codes, _, logits = cpk.predict_codes_fused(wide_vocab_cp, CPC_V, tp, h, code0, (7, 8),
+                                               temperature=0.9, top_k=0, top_p=0.8,
+                                               return_logits=True, mode=mode)
+    flips = 0
+    for j in range(15):
+        want = int(sample_row(logits[j], temperature=0.9, top_k=0, top_p=0.8, seed=(7, 8),
+                              stream=j + 1))
+        a = int(codes[0, j])
+        if a != want:
+            flips += 1
+            assert _top_p_flip_ok(top_k_filter(logits[j], 0), 0.8, False, a, want)
+    assert flips <= 1
+
+
+@pytest.mark.parametrize("B", [2, 17, 33, 64])
+def test_tensor_core_split_of_the_widest_gemv(dev, B):
+    """The tensor-core split at the 1.7B talker's gate_up (2048 x 12288):
+    splits x B within TC_MAX_PARTS (the workspace K1 allocates) and every
+    split but the last whole 128-row passes."""
+    from qwen3tts_tpu_torch.ops import _cuda
+
+    lib = _cuda.library()
+    I, O = 2048, 12288
+    splits, rows = lib.qt_cp_gemv_splits(B, I, O), lib.qt_cp_gemv_rows(B, I, O)
+    assert splits * B <= _cuda.LIMITS["TC_MAX_PARTS"]
+    assert splits == -(-I // rows) and rows % _cuda.LIMITS["BG_ROWS"] == 0
+    assert splits * B * O <= tkk.workspace_floats(B, 4096, 6144, 2048, 3072)
 
 
 @pytest.mark.parametrize("cp_layers", ["fused", "unfused"])

@@ -28,6 +28,7 @@ from qwen3tts_tpu.ops.attention import decode_attention_inner as jax_k3
 from qwen3tts_tpu_torch.ops import _cuda
 from qwen3tts_tpu_torch.ops import attention as attn
 from qwen3tts_tpu_torch.ops import cp_kernel as cpk
+from qwen3tts_tpu_torch.ops import talker_kernel as tkk
 from qwen3tts_tpu_torch.ops.decode_blocks import mv_f32, quantize_rows
 from qwen3tts_tpu_torch.ops.quant import Int8Linear
 
@@ -133,11 +134,31 @@ def test_batched_gemv_raises_off_the_card_and_cpu():
 
 
 def test_tensor_core_split_and_workspace():
-    """K2's tensor-core GEMV may split twice as deep as the CUDA-core form
-    (TC_MAX_PARTS, read from csrc/common.cuh): its workspace holds that many
-    rows at B > 1, while K1's stays at GEMV_MAX_PARTS and B = 1 at
-    GEMV_MAX_SPLIT."""
+    """The tensor-core GEMV that every batched GEMV runs (K1, K2, T6 at
+    B > 1) may split twice as deep as the CUDA-core form (TC_MAX_PARTS, read
+    from csrc/common.cuh): the workspaces hold that many rows at B > 1, and
+    GEMV_MAX_SPLIT at B = 1 (where K2's persistent frame keeps two buffers
+    of half as many)."""
     lim = _cuda.LIMITS
     assert (lim["GEMV_MAX_PARTS"], lim["TC_MAX_PARTS"]) == (512, 1024)
-    assert _cuda.workspace_rows(1, tensor_cores=True) == _cuda.workspace_rows(1) == 64
-    assert _cuda.workspace_rows(2) == 512 and _cuda.workspace_rows(64, tensor_cores=True) == 1024
+    assert _cuda.workspace_rows(1) == 64
+    assert _cuda.workspace_rows(2) == _cuda.workspace_rows(64) == 1024
+
+
+# (oqkv, I, H, V) of K1's step: the 0.6B and 1.7B talkers (16 q heads, 8 kv heads, V 3072)
+K1_WIDTHS = {"0.6B": (4096, 3072, 1024, 3072), "1.7B": (4096, 6144, 2048, 3072)}
+
+
+@pytest.mark.parametrize("B", [1, 2, 64])
+@pytest.mark.parametrize("size", ["0.6B", "1.7B"])
+def test_k1_workspace_holds_the_tensor_core_split(size, B):
+    """K1's wrapper sizes its partial sums with ``workspace_floats``: at
+    B > 1 TC_MAX_PARTS rows of the widest output (the tensor-core split may
+    reach 1024 rows; 25 MB at 0.6B and 50 MB at 1.7B, B = 64), at B = 1
+    GEMV_MAX_SPLIT rows."""
+    oqkv, I, H, V = K1_WIDTHS[size]
+    rows = _cuda.LIMITS["TC_MAX_PARTS"] if B > 1 else _cuda.LIMITS["GEMV_MAX_SPLIT"]
+    n = tkk.workspace_floats(B, oqkv, I, H, V)
+    assert n == rows * max(oqkv, 2 * I, H, V)
+    if B == 64:
+        assert 4 * n == {"0.6B": 1024 * 6144 * 4, "1.7B": 1024 * 12288 * 4}[size]
