@@ -10,8 +10,9 @@ kernels from csrc/, and runs, in order:
 
   1. the card: name, power limit, torch / CUDA / nvcc versions;
   2. the kernel build (its seconds);
-  3. K1 (csrc/talker_step.cu) against its plain PyTorch version at the
-     0.6B talker shapes on a prefilled cache: greedy code0 equal, hidden and
+  3. K1 at B = 1 (the persistent step of csrc/talker_frame.cu, one
+     cooperative launch; B > 1 runs csrc/talker_step.cu) against its
+     plain PyTorch version at the 0.6B talker shapes on a prefilled cache: greedy code0 equal, hidden and
      k/v rows within a bf16 bound, and sampled code0 equal over 32 seeds
      at temperature 0.9 / top-k 50 (a mismatch only on a logit near-tie),
      with EOS suppressed and with EOS unsuppressed just below the k-th
@@ -23,7 +24,8 @@ kernels from csrc/, and runs, in order:
   5. the main path: ``Qwen3TTSModel.generate`` at the full 0.6B
      CustomVoice widths (synthetic host_init weights, fused and int8,
      full-size f32 vocoder), checking that K1 and K2 carried every frame
-     (their launch counters) and that the waveform is finite and sized;
+     (their launch counters; every K1 step the persistent B = 1 one) and
+     that the waveform is finite and sized;
   6. the headline: a 66-frame ``forbid_eos`` utterance, wall time, RTF and
      ms per frame with the kernels beside the plain path's, and the times of
      the two once-per-utterance stages (prefill, vocoder);
@@ -31,7 +33,8 @@ kernels from csrc/, and runs, in order:
      single-row shape of the 0.6B path (talker q/k/v/o/gate/up/down, the
      codec head on an f32 row, the CP layers and lm_head), for int4 group
      64, int4 group 32 and int8 group 64: scaled error and us per call,
-     timed over 64 MB of copies of the weight in turn;
+     timed over 64 MB of copies of the weight in turn, and at 3072 x 1024
+     ``torch._weight_int4pack_mm`` on the same weights beside it;
   8. K3 (csrc/decode_attention.cu, one launch a call) against its plain
      version at pos 40 and 4000 of a 4096-row cache, 6000 of 6144 and on a
      chunk boundary, in both cache layouts: scaled error and ms per call,
@@ -100,8 +103,8 @@ kernels from csrc/, and runs, in order:
      in both modes at B = 1 and 64; K5's port (ops/cp_kernel_old.py) at B=1
      in both modes. Each with events and device ms beside the same inputs'
      ``wo_bf16`` times and the bound (operations over the int8 rate); the
-     library's operations per call (K1 8 L + 3; K2 and K5 at B=1: 2, the
-     persistent frame's memset and launch);
+     library's operations per call (K1, K2 and K5 at B=1: 2, the persistent
+     step's or frame's memset and launch);
   l. the main path in dyn_int8 (QWEN3TTS_TK_MODE and QWEN3TTS_CPK_MODE set
      in-process, then restored): ``generate()`` at 0.6B and 1.7B int8 with
      every K1 and K2 launch counted under dyn_int8 and no plain path; the
@@ -135,7 +138,17 @@ kernels from csrc/, and runs, in order:
      probes on the script's inputs), every launch counter from 0, each
      kernel launched in that run. Its kernels' times are queued on the card
      behind a spin kernel (no host, no profiler in the way); phases 7 and 8
-     read only profiler windows that recorded every kernel of their calls.
+     read only profiler windows that recorded every kernel of their calls;
+  q. K1's persistent B = 1 step (csrc/talker_frame.cu) against its plain
+     version in every mode it takes (0.6B int8 ``wo_bf16`` and
+     ``dyn_int8``, 0.6B and 1.7B dense bf16, 1.7B int8, bf16 and int8
+     caches, top_p 0.9, non-sample mode) at pos 40 of 256 rows and pos 4000
+     of a full-width 4096-row cache of random rows (split over the SMs):
+     greedy code0 equal but for near-ties, hidden, logits and the new k/v
+     rows within the bounds of phases 3 and a (dyn_int8 against the float64
+     step as phase k holds it), 2 operations a call where the multi-launch
+     step made 8 L + 3, ms per step by events beside the plain version's
+     and the bound.
 
 The K1 comparisons in dyn_int8 (phase k) hold kernel and plain version
 against a float64 step of the model's maths (the kernel within 1.5x of the
@@ -313,10 +326,18 @@ def main() -> None:
     # device time per call (torch.profiler; a window that did not record
     # every kernel it was given, or no device time, taken again); both after
     # one warm-up call
-    from qwen3tts_tpu_torch.tools._card import device_ms, device_ms_by_kernel
+    from qwen3tts_tpu_torch.tools._card import device_ms, device_ms_by_kernel, queued_ms
     from qwen3tts_tpu_torch.tools._card import event_ms as timed
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def b1_ms(fn, iters):
+        """Device ms per call of a persistent B = 1 kernel (K1's step, K2's
+        frame): CUDA events around calls queued behind a spin kernel.
+        torch.profiler records no cooperative launch (on an H100 its windows
+        held only the wrappers' operand copies), so ``device_ms`` cannot
+        read one."""
+        return queued_ms(fn, iters)
 
     def scaled(a, b):
         a, b = a.float(), b.float()
@@ -516,12 +537,14 @@ def main() -> None:
         tokenizer=StubTokenizer(cfg.text_vocab_size), dtype=torch.bfloat16, device=dev,
     )
     tkk.talker_decode_step.launches = 0
+    tkk.talker_decode_step.persistent_launches = 0
     cpk.predict_codes_fused.launches = 0
     t0 = time.time()
     wav, info = model.generate("Hello from the H100 port of the talker.", speaker="aiden",
                                language="english", seed=0, return_info=True)
     gen_s = time.time() - t0
     n1, n2 = tkk.talker_decode_step.launches, cpk.predict_codes_fused.launches
+    n1_persistent = tkk.talker_decode_step.persistent_launches
     n = info.generation_token_count
     max_steps = model._effective_max_tokens("Hello from the H100 port of the talker.", 2048)
     eos_hit = n < max_steps
@@ -529,6 +552,7 @@ def main() -> None:
         f"{len(wav)} samples, {gen_s:.2f} s; launches K1 {n1}, K2 {n2}")
     check(n2 == n, f"K2 ran {n2} times for {n} frames")
     check(n1 == n - 1 + int(eos_hit), f"K1 ran {n1} times for {n} frames")
+    check(n1_persistent == n1, f"{n1 - n1_persistent} of K1's {n1} steps not the persistent one")
     check(bool(__import__("numpy").isfinite(wav).all()), "waveform not finite")
     check(len(wav) % 1920 == 0 and 0 < len(wav) <= n * 1920, f"waveform length {len(wav)}")
 
@@ -665,7 +689,35 @@ def main() -> None:
             check(err <= 1e-4, f"K4 outside the 1e-4 bound at bits {bits} group {group} [{O}x{I}]")
     k4_ms, k4_plain_ms = k4_times[(4, 64, 3072, 1024, torch.bfloat16)]
     k4_bound = bound(*k4_io[(4, 64, 3072, 1024, torch.bfloat16)])
-    log(f"    K4 max scaled err {k4_err:.3g} (max abs {k4_abs:.3g})  [{smi}]")
+    # the library yardstick at the headline shape: torch._weight_int4pack_mm
+    # on the same int4 g64 weights (MLX's scale * q + bias as int4pack's
+    # (q - 8) * scale + zero, zero = bias + 8 * scale, both rounded to bf16),
+    # over the same 64 MB of copies in turn
+    k4_lib_ms = None
+    w_l = rs.standard_normal((3072, 1024), dtype=np.float32) / np.float32(32.0)
+    pw_l = tq.packed_from_numpy(*tq.pack_quantized(w_l, 4, 64), 4, 64).to(dev)
+    x_l = torch.randn(1, 1024, generator=g, device=dev).to(torch.bfloat16)
+    try:
+        nib = torch.stack([(pw_l.q >> (4 * i)) & 0xF for i in range(8)], -1).reshape(3072, 1024)
+        packed4 = torch._convert_weight_to_int4pack(((nib[:, ::2] << 4) | nib[:, 1::2])
+                                                    .to(torch.uint8), 8)
+        sz = torch.stack([pw_l.scales.bfloat16(), (pw_l.biases + 8 * pw_l.scales).bfloat16()],
+                         -1).transpose(0, 1).contiguous()
+        n_cp = -(-(64 << 20) // nbytes(packed4, sz))
+        lib_copies = [(packed4.clone(), sz.clone()) for _ in range(n_cp)]
+        turn = iter(range(1 << 30))
+
+        def run_l():
+            w4, sz4 = lib_copies[next(turn) % n_cp]
+            return torch._weight_int4pack_mm(x_l, w4, 64, sz4)
+
+        k4_lib_ms = device_ms(run_l, 2 * n_cp)
+        del lib_copies
+    except (RuntimeError, AttributeError, TypeError) as e:  # a build without the op
+        log(f"    torch._weight_int4pack_mm not available: {str(e)[:200]}")
+    log(f"    K4 max scaled err {k4_err:.3g} (max abs {k4_abs:.3g}); at 3072 x 1024 int4 g64 K4 "
+        f"{1000 * k4_ms:.2f} us/call, torch._weight_int4pack_mm "
+        f"{'n/a' if k4_lib_ms is None else f'{1000 * k4_lib_ms:.2f}'} us/call  [{smi}]")
 
     # ---- 8. K3 against its plain version ----
     from qwen3tts_tpu_torch.ops import attention as attn
@@ -1485,7 +1537,7 @@ def main() -> None:
         tk.forward(talker_p, cfg, prefill[:, :57], c1, 0)
         r57 = mrope_cos_sin(torch.full((1, 1), 57, device=dev), D, cfg.rope_theta,
                             cfg.mrope_section, torch.bfloat16)
-        k1_dev_b1[quant] = device_ms(lambda: tkk.talker_decode_step(
+        k1_dev_b1[quant] = b1_ms(lambda: tkk.talker_decode_step(
             talker_p, cfg, x, c1, 57, r57[0][0, 0], r57[1][0, 0], temperature=0.9, top_k=50,
             rep_penalty=1.05, eos_id=-1, seed=(3, 4), suppress_add=supp, seen=seen), 20)
         del c1
@@ -1578,7 +1630,8 @@ def main() -> None:
                           f"K1 {label} sampled code0 row {b} beyond a near-tie")
         def times(mode_):
             t_k = timed(lambda: call(tkk.talker_decode_step, ck, 0.9, (3, 4), False, mode_), iters)
-            t_d = device_ms(lambda: call(tkk.talker_decode_step, ck, 0.9, (3, 4), False, mode_), 10)
+            t_d = (b1_ms if B == 1 else device_ms)(
+                lambda: call(tkk.talker_decode_step, ck, 0.9, (3, 4), False, mode_), 10)
             return t_k, t_d
 
         dyn = mode == "dyn_int8"
@@ -1649,7 +1702,7 @@ def main() -> None:
                       f"K2 {label} sampled code ({b}, {j}) beyond a near-tie")
         def times(mode_):
             return (timed(lambda: call(fn, 0.9, (3, 4), mode_), iters),
-                    device_ms(lambda: call(fn, 0.9, (3, 4), mode_), 5))
+                    (b1_ms if B == 1 else device_ms)(lambda: call(fn, 0.9, (3, 4), mode_), 5))
 
         dyn = mode == "dyn_int8"
         (t_k, t_d), (t_kw, t_dw) = times(mode), times("wo_bf16") if dyn else (None, None)
@@ -1784,12 +1837,12 @@ def main() -> None:
         r57 = mrope_cos_sin(torch.full((1, 1), 57, device=dev), D, c.rope_theta, c.mrope_section,
                             torch.bfloat16)
         x57 = pre[:, 57:58].contiguous()
-        d1 = device_ms(lambda: tkk.talker_decode_step(
+        d1 = b1_ms(lambda: tkk.talker_decode_step(
             tp_, c, x57, c1, 57, r57[0][0, 0], r57[1][0, 0], temperature=0.9, top_k=50,
             rep_penalty=1.05, eos_id=-1, seed=(3, 4), suppress_add=supp, seen=seen), 20)
-        d2 = device_ms(lambda: cpk.predict_codes_fused(
-            cp_, cc, tp_, pre[0, :1], torch.tensor([5], dtype=torch.int32, device=dev), (3, 4),
-            temperature=0.9, top_k=50), 10)
+        code5 = torch.tensor([5], dtype=torch.int32, device=dev)  # made once: a copy would wait
+        d2 = b1_ms(lambda: cpk.predict_codes_fused(cp_, cc, tp_, pre[0, :1], code5, (3, 4),
+                                                   temperature=0.9, top_k=50), 10)
         wall_ = statistics.median(walls_)
         return dict(wall=wall_, walls=walls_, rtf=wall_ / (frames / 12.5), ms=ms_, k1_dev=d1,
                     k2_dev=d2)
@@ -1901,19 +1954,18 @@ def main() -> None:
             k1k[(B, kv_quant)] = k1_compare(f"dyn_int8 0.6B B={B}", talker_p, cfg, B, T, kv_quant,
                                             lo, hi_, 700 + B, sampled=1 if B > 1 else 2,
                                             iters=20 if B == 1 else 10, mode="dyn_int8")
-    # the amax of each activation row comes from the kernel that writes the
-    # row (K1), or from the block itself (K2's persistent frame): dyn_int8
-    # adds no launch to a K1 step or a K2 frame. Expected, from the C
-    # entries: K1 = rms_copy + 8 per layer (four GEMVs, attention, SwiGLU,
-    # two residual finishes) + head GEMV + sampler; K2 at B=1 (and K5's
-    # port, which launches it) = the memset of the persistent frame's
-    # barrier words + its one cooperative launch
+    # the amax of each activation row comes from the block itself (K1's
+    # persistent step, K2's persistent frame): dyn_int8 adds no launch to a
+    # K1 step or a K2 frame. Expected, from the C entries: K1 at B=1, K2 at
+    # B=1 (and K5's port, which launches it) = the memset of the persistent
+    # kernel's barrier words + its one cooperative launch (the multi-launch
+    # K1 step made 8 L + 3: rms_copy, 8 per layer, head GEMV, sampler)
     c3 = tk.KVCache(cache0.k.clone(), cache0.v.clone())  # phase 3's prefilled cache
     per_call = {m: (library_launches(lambda: k1(tkk.talker_decode_step, c3, 0.9, (3, 4), mode=m)),
                     library_launches(lambda: k2(cpk.predict_codes_fused, 0.9, (3, 4), mode=m)),
                     library_launches(lambda: k2(cpk_old.predict_codes_fused, 0.9, (3, 4), mode=m)))
                 for m in ("wo_bf16", "dyn_int8")}
-    expect = (8 * cfg.num_hidden_layers + 3, 2, 2)
+    expect = (2, 2, 2)
     log(f"    library launches per call, K1 B=1 / K2 B=1 / K5 B=1: wo_bf16 "
         f"{per_call['wo_bf16']}, dyn_int8 {per_call['dyn_int8']} (expected {expect})")
     check(per_call["wo_bf16"] == expect, f"K1/K2 launches {per_call['wo_bf16']}, expected {expect}")
@@ -2462,11 +2514,89 @@ def main() -> None:
         f"{t5['plain_ms']:.4f}; T2 {t2_all['ms'] * 1e3:.2f} us for the 12 probes; "
         f"phase p took {time.time() - t_p:.1f} s  [{smi}]")
 
+    # ---- q. K1 at B = 1: the persistent step in every mode ----
+    t_q = time.time()
+    log("[q] K1 at B = 1: the persistent step (csrc/talker_frame.cu) against its plain version")
+    q_cases = [  # (label, weights, config, mode, kv_quant, top_p, sample)
+        ("0.6B int8", talker_p, cfg, "wo_bf16", False, 1.0, True),
+        ("0.6B int8, int8 cache", talker_p, cfg, "wo_bf16", True, 1.0, True),
+        ("0.6B dyn_int8", talker_p, cfg, "dyn_int8", False, 1.0, True),
+        ("0.6B dyn_int8, int8 cache", talker_p, cfg, "dyn_int8", True, 1.0, True),
+        ("0.6B bf16 weights", talker_b, cfg, "wo_bf16", False, 1.0, True),
+        ("0.6B bf16 weights, int8 cache", talker_b, cfg, "wo_bf16", True, 1.0, True),
+        ("1.7B int8", trees17[2], cfg17, "wo_bf16", False, 1.0, True),
+        ("1.7B int8, int8 cache", trees17[2], cfg17, "wo_bf16", True, 1.0, True),
+        ("1.7B bf16 weights", trees17[0], cfg17, "wo_bf16", False, 1.0, True),
+        ("0.6B int8, top_p 0.9", talker_p, cfg, "wo_bf16", False, 0.9, True),
+        ("0.6B int8, non-sample", talker_p, cfg, "wo_bf16", False, 1.0, False),
+    ]
+    k1q = {}
+    for T_q, pos_q in ((256, 40), (4096, 4000)):
+        for label, p_, c_, mode, kv_quant, top_p, sample in q_cases:
+            cache, offs, xb, cos_q, sin_q, _ = batch_case(1, T_q, kv_quant, pos_q, pos_q + 1,
+                                                          pos_q + len(label), p=p_, c=c_)
+            temp = 0.9 if top_p < 1 else 0.0
+            kw = dict(sample=sample, temperature=temp, top_k=50, top_p=top_p, rep_penalty=1.05,
+                      eos_id=-1, seed=(1, 2), suppress_add=supp, seen=seen, mode=mode)
+            if sample:
+                kw["return_logits"] = True
+
+            def call(fn, c):
+                out = fn(p_, c_, xb, c, pos_q, cos_q[0], sin_q[0], **kw)
+                return out if sample else (out,)
+
+            ck, cr = clone(cache), clone(cache)
+            ok_, rk = call(tkk.talker_decode_step, ck), call(tkk.talker_decode_step_ref, cr)
+            torch.cuda.synchronize()
+            outs = dict(h=(ok_[0], rk[0]))
+            if sample:
+                outs["logits"] = (ok_[2], rk[2])
+            for i, name in enumerate("kv"):  # the new rows (dequantized on an int8 cache)
+                a, b = ck[i][:, 0, :, pos_q], cr[i][:, 0, :, pos_q]
+                if kv_quant:
+                    a = tk.dequantize_kv(a, ck[2 + i][:, 0, :, pos_q])
+                    b = tk.dequantize_kv(b, cr[2 + i][:, 0, :, pos_q])
+                outs[name] = (a, b)
+            errs = {n_: scaled(a, b) for n_, (a, b) in outs.items()}
+            if mode == "dyn_int8":  # against the float64 step, as phase k holds dyn_int8
+                ref = dict(zip(("h", "logits", "k", "v"), k1_wide(
+                    xb, cache, offs, cos_q, sin_q, tp_=p_, tc_=c_)))
+                ref["k"], ref["v"] = ref["k"][:, 0], ref["v"][:, 0]
+                wide_ = {n_: (scaled(a, ref[n_]), scaled(b, ref[n_])) for n_, (a, b) in outs.items()}
+                check(all(kd <= 1.5 * pd + 0.005 and pd < 0.25 for kd, pd in wide_.values()),
+                      f"K1 B=1 {label} at pos {pos_q} against the float64 step: {wide_}")
+            else:
+                check(max(errs.values()) < 0.05,
+                      f"K1 B=1 {label} at pos {pos_q} outside the bf16 bound: {errs}")
+            if sample:
+                a_, b_ = int(ok_[1]), int(rk[1])
+                z_q = pen(rk[2].reshape(-1)) + supp
+                if top_p == 1.0:
+                    check(a_ == b_ or near_tie(z_q, a_, b_, float((ok_[2] - rk[2]).abs().max())),
+                          f"K1 B=1 {label} at pos {pos_q}: greedy code0 {a_} vs {b_}")
+                else:
+                    check(0 <= a_ < V and float(z_q[a_]) > -1e29,
+                          f"K1 B=1 {label}: sampled code0 {a_} is not a kept id")
+            ops = library_launches(lambda: call(tkk.talker_decode_step, clone(cache)))
+            check(ops == 2, f"K1 B=1 {label}: {ops} operations a call, not 2")
+            kc = clone(cache)
+            ms_k = timed(lambda: call(tkk.talker_decode_step, kc), 10)
+            ms_p = timed(lambda: call(tkk.talker_decode_step_ref, clone(cache)), 1)
+            b_q = bound(*k1_io(1, pos_q, kv_quant, sample, logits=sample, p=p_, c=c_))
+            k1q[(label, pos_q)] = dict(abs=float((ok_[0].float() - rk[0].float()).abs().max()),
+                                       ms=ms_k, plain_ms=ms_p, bound=b_q)
+            log(f"    {label}, pos {pos_q} of {T_q}: scaled err "
+                + ", ".join(f"{n_} {e:.3g}" for n_, e in errs.items())
+                + (f"; code0 {int(ok_[1])} vs {int(rk[1])}" if sample else "")
+                + f"; {ms_k:.3f} ms/step (plain {ms_p:.1f}, bound {b_q[0]:.3f}); {ops} operations")
+            del cache, ck, cr, kc
+    log(f"    phase q took {time.time() - t_q:.1f} s  [{smi}]")
+
     print(smi, flush=True)
     k1_64, k2_64 = k1b[(64, True)], k2b[64]
     kernels = [
-        dict(name="talker_decode_step", route="cuda",
-             source="qwen3tts_tpu_torch/csrc/talker_step.cu",
+        dict(name="talker_decode_step (B=1: one persistent launch, 2 operations a call)",
+             route="cuda", source="qwen3tts_tpu_torch/csrc/talker_frame.cu",
              replaces="qwen3tts_tpu/ops/talker_kernel.py:656", launches=n1,
              max_abs_err=k1_abs, ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound[0],
              bound_by=k1_bound[1], library_ms=None),
@@ -2483,7 +2613,7 @@ def main() -> None:
         dict(name="quant_gemv", route="cuda", source="qwen3tts_tpu_torch/csrc/quant_matmul.cu",
              replaces="qwen3tts_tpu/ops/quant.py:134", launches=k4_launches,
              max_abs_err=k4_abs, ms=k4_ms, plain_ms=k4_plain_ms, bound_ms=k4_bound[0],
-             bound_by=k4_bound[1], library_ms=None),
+             bound_by=k4_bound[1], library_ms=k4_lib_ms),
         dict(name="talker_decode_step (B=64, int8 KV; GEMVs on the tensor cores, 8 L + 3 operations "
                   "a call)", route="cuda",
              source="qwen3tts_tpu_torch/csrc/talker_step.cu",
@@ -2499,6 +2629,7 @@ def main() -> None:
 
     def entry(name, kernel, r, launches):
         src, rep = {"K1": ("talker_step.cu", "talker_kernel.py:656"),
+                    "K1 B=1": ("talker_frame.cu", "talker_kernel.py:656"),
                     "K2": ("cp_loop.cu", "cp_kernel.py:619")}[kernel]
         return dict(name=name, route="cuda", source=f"qwen3tts_tpu_torch/csrc/{src}",
                     replaces=f"qwen3tts_tpu/ops/{rep}", launches=launches, max_abs_err=r["abs"],
@@ -2507,11 +2638,11 @@ def main() -> None:
 
     j_bf16, j_17 = grid_j["bf16 checkpoint 0.6B"], grid_j["1.7B int8"]
     kernels += [
-        entry("talker_decode_step (bf16 weights, B=1)", "K1", k1f[(1, False)], path_h[0]),
+        entry("talker_decode_step (bf16 weights, B=1)", "K1 B=1", k1f[(1, False)], path_h[0]),
         entry("talker_decode_step (bf16 weights, B=64; tensor cores)", "K1", k1f[(64, False)],
               j_bf16["launches"][0]),
-        entry("talker_decode_step (1.7B int8, B=1)", "K1", k1g[("int8", 1)], path_i["int8"][0]),
-        entry("talker_decode_step (1.7B bf16, B=1)", "K1", k1g[("bf16", 1)], path_i["bf16"][0]),
+        entry("talker_decode_step (1.7B int8, B=1)", "K1 B=1", k1g[("int8", 1)], path_i["int8"][0]),
+        entry("talker_decode_step (1.7B bf16, B=1)", "K1 B=1", k1g[("bf16", 1)], path_i["bf16"][0]),
         entry("talker_decode_step (1.7B int8, B=64; tensor cores)", "K1", k1g[("int8", 64)],
               j_17["launches"][0]),
         entry("predict_codes_fused (bf16 weights, B=1; persistent)", "K2", k2g[("bf16 0.6B", 1)],
@@ -2529,9 +2660,9 @@ def main() -> None:
     ]
     dyn64 = cell_l["dyn_int8"][0]["launches"]
     kernels += [
-        entry("talker_decode_step (dyn_int8, B=1)", "K1", k1k[(1, False)], path_l[0]),
+        entry("talker_decode_step (dyn_int8, B=1)", "K1 B=1", k1k[(1, False)], path_l[0]),
         entry("talker_decode_step (dyn_int8, B=64; tensor cores)", "K1", k1k[(64, False)], dyn64[0]),
-        entry("talker_decode_step (1.7B dyn_int8, B=1)", "K1", k1k[("1.7B", 1)], path_l17[0]),
+        entry("talker_decode_step (1.7B dyn_int8, B=1)", "K1 B=1", k1k[("1.7B", 1)], path_l17[0]),
         entry("predict_codes_fused (dyn_int8, B=1; persistent)", "K2", k2k[("0.6B", 1)], path_l[1]),
         entry("predict_codes_fused (dyn_int8, B=64)", "K2", k2k[("0.6B", 64)], dyn64[1]),
         entry("predict_codes_fused (1.7B dyn_int8, B=1; persistent)", "K2", k2k[("1.7B", 1)],
@@ -2541,13 +2672,22 @@ def main() -> None:
         dict(entry("predict_codes_fused (K5's port, ops/cp_kernel_old.py, B=1; persistent)", "K2",
                    k2k[("K5", "wo_bf16")], k5_launches),
              replaces="qwen3tts_tpu/ops/cp_kernel_old.py:598"),
-        entry("talker_decode_step (sampler with top_p 0.9, B=1)", "K1",
+        entry("talker_decode_step (sampler with top_p 0.9, B=1)", "K1 B=1",
               dict(abs=k1_tp_abs, ms=k1_tp_ms, plain_ms=k1_tp_plain, bound=k1_bound),
               path_n[False][0]),
         entry("predict_codes_fused (sampler with top_p 0.9, B=1; persistent)", "K2",
               dict(abs=k2_tp_abs, ms=k2_tp_ms, plain_ms=k2_tp_plain, bound=k2_bound),
               path_n[False][1]),
     ]
+
+    q_launches = {"0.6B int8": n1_persistent, "0.6B int8, int8 cache": n1_persistent,
+                  "0.6B dyn_int8": path_l[0], "0.6B dyn_int8, int8 cache": path_l[0],
+                  "0.6B bf16 weights": path_h[0], "0.6B bf16 weights, int8 cache": path_h[0],
+                  "1.7B int8": path_i["int8"][0], "1.7B int8, int8 cache": path_i["int8"][0],
+                  "1.7B bf16 weights": path_i["bf16"][0], "0.6B int8, top_p 0.9": path_n[False][0]}
+    kernels += [entry(f"talker_decode_step (B=1 persistent, {label}, pos {pos_q})", "K1 B=1",
+                      k1q[(label, pos_q)], q_launches[label])
+                for (label, pos_q) in k1q if label in q_launches]
 
     def tool(name, src, rep, r, launches, library_ms=None):
         """An entry of an experiment kernel; r["bound"] is ``bound()``'s."""

@@ -1751,5 +1751,426 @@ inline bool stack_ok(const StackW& s, bool wbf16) {
          ok(s.v, s.vs) && ok(s.o, s.os) && ok(s.g, s.gs) && ok(s.u, s.us) && ok(s.d, s.ds);
 }
 
+// ---------------------------------------------------------------------------
+// The persistent B = 1 kernels' building blocks (K2's ``cp_frame`` in
+// cp_loop.cu, K1's ``talker_frame`` in talker_frame.cu): one cooperative
+// launch of one block of PF_THREADS threads per SM that walks its phases
+// with a grid-wide barrier between dependent ones. A GEMV is split into
+// tiles of PF_TILE output columns over one split of the rows; each block
+// takes its share of the tiles (``frame_tiles``) and writes f32 (or int32)
+// partials that the next phase's prologue, recomputed in every block,
+// stages from the L2 and finishes. See cp_loop.cu's note for the design
+// and what it measured.
+// ---------------------------------------------------------------------------
+constexpr int PF_THREADS = 512;             // one block per SM
+constexpr int PF_WARPS = PF_THREADS / 32;
+constexpr int PF_TILE = 32;                 // output columns of a tile
+constexpr int PF_ROUND = 4;                 // tiles a block works on at once
+constexpr int PF_MIN_ROWS = 64;             // the shortest split of a GEMV's rows
+constexpr int PF_LOADS = 8;                 // 16-byte weight loads a thread has in flight
+constexpr int PF_MAX_SPLIT = 32;            // a partial buffer holds 32 x O floats
+// ids a thread of the sampler (block 0) past 2048 ids: the multi-launch
+// form's vocabulary limit, SAMPLE_THREADS x SAMPLE_PER_THREAD = 4096, at
+// PF_THREADS
+constexpr int PF_SAMPLE_PER_THREAD = SAMPLE_THREADS * SAMPLE_PER_THREAD / PF_THREADS;
+static_assert(2 * PF_MAX_SPLIT <= GEMV_MAX_SPLIT, "two partial buffers in the B = 1 workspace");
+
+__host__ __device__ inline int frame_split(int K, int O, int blocks, int& rows) {
+  const int tiles = (O + PF_TILE - 1) / PF_TILE;
+  int S = max(1, (blocks + tiles / 2) / tiles);
+  S = max(1, min(min(S, PF_MAX_SPLIT), K / PF_MIN_ROWS));
+  rows = (K + S - 1) / S;
+  rows = (rows + 15) / 16 * 16;
+  return (K + rows - 1) / rows;
+}
+
+// One GEMV of the frame: its weight, rows K, outputs O, S splits of
+// ``rows`` rows, and what it is (G_*).
+enum { G_QKV = 0, G_O = 1, G_GU = 2, G_DOWN = 3, G_HEAD = 4, G_PROJ = 5 };
+
+struct Gemv {
+  Mat m;
+  int K, O, S, rows, kind;
+};
+
+__host__ __device__ inline int up4(int x) { return (x + 3) / 4 * 4; }
+
+__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release_add(unsigned* p, unsigned v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The grid-wide barrier: after the block's own barrier, thread 0 adds one
+// to the arrival count with release semantics and polls it with acquire
+// loads until it reaches ``target`` (barriers so far x blocks); the block's
+// barrier then passes what thread 0 acquired to its other threads. (An
+// H100 measured 0.64 ms for a frame's 346 barriers this way, 0.87 ms with a
+// fence on each side and relaxed polling.) False, in every thread of the
+// block, if the error word is set or the wait ran past the budget (which
+// sets both error words): the caller leaves the kernel. ``bar``: [0] the
+// arrivals, [1] the error word, zeroed before the launch; ``err_host``: a
+// mapped host word set when a wait ran past ``budget_ns``.
+__device__ bool grid_barrier(unsigned* bar, int* err_host, unsigned long long budget_ns,
+                             unsigned target) {
+  __shared__ int ok_sh;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    red_release_add(bar, 1u);
+    int ok = 1;
+    if (ld_acquire(bar) < target) {
+      const unsigned long long t0 = global_ns();
+      while (ld_acquire(bar) < target) {
+        if (ld_relaxed(bar + 1)) {
+          ok = 0;
+          break;
+        }
+        if (global_ns() - t0 > budget_ns) {
+          atomicExch(bar + 1, 1u);
+          *(volatile int*)err_host = 1;
+          __threadfence_system();
+          ok = 0;
+          break;
+        }
+      }
+    }
+    ok_sh = ok;
+  }
+  __syncthreads();
+  return ok_sh != 0;
+}
+
+// This block's tiles of a GEMV: [t0, t1) of S x ceil(O / 32)
+__device__ __forceinline__ void frame_tiles(const Gemv& g, int& t0, int& t1) {
+  const unsigned nt = g.S * ((g.O + PF_TILE - 1) / PF_TILE);  // nt x blocks < 2^32
+  t0 = (int)(nt * blockIdx.x / gridDim.x);
+  t1 = (int)(nt * (blockIdx.x + 1) / gridDim.x);
+}
+
+// 16 bytes from global to shared memory through the L2 (``cp.async.cg``:
+// coherent with other blocks' writes before the last barrier), no registers
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
+               "l"(__cvta_generic_to_global(gmem))
+               : "memory");
+}
+
+// Reduce-scatter of E values over the lanes that differ in bits O, O/2, ...:
+// at each step a lane keeps the half its bit selects and adds its partner's;
+// after log2(E) steps acc[0] holds one value, the one of index (lane / U)
+// with U = 32 / E, summed over those lanes.
+template <int N, int O, typename T, int E>
+__device__ __forceinline__ void frame_reduce(T (&acc)[E], int lane) {
+  if constexpr (N >= 1) {
+    const bool hi = lane & O;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const T send = hi ? acc[i] : acc[i + N];
+      const T keep = hi ? acc[i + N] : acc[i];
+      acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    frame_reduce<N / 2, O / 2>(acc, lane);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T lane_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// 16 bytes of weights widened to f32, exactly: int8 through the bits of
+// 2^23 + (b + 128) (a byte permute and one subtract each, where the
+// conversion instruction runs at a quarter of the FMA rate), bf16 by a shift
+__device__ __forceinline__ void widen(const int4& w, float (&f)[16]) {
+  const uint32_t* u = reinterpret_cast<const uint32_t*>(&w);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t x = u[i] ^ 0x80808080u;  // b + 128 in each byte
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[4 * i + j] = __int_as_float(__byte_perm(x, 0x4B000000u, 0x7650 + j)) - 8388736.0f;
+  }
+}
+__device__ __forceinline__ void widen(const int4& w, float (&f)[8]) {
+  const uint32_t* u = reinterpret_cast<const uint32_t*>(&w);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
+  }
+}
+
+// This block's tiles of GEMV g into ``part`` ([S][O]), up to PF_ROUND tiles
+// at once (PF_WARPS / n warps each). W: int8 or bf16 weights times x
+// (``xs``, f32 of bf16 values) in f32; DQ: int8 weights times x quantized
+// (``xq``, words of 4 int8) in exact int32. Lane l takes the 16-byte column
+// unit l % U of the tile (EPL columns) and every EPL-th row (DQ: group of 4
+// rows) of the warp's share of the split, PF_LOADS loads in flight at once
+// (a loop of one load an iteration waited one L2 round trip each).
+// PIPE (K1's step; weight-only forms): batches of PF_LOADS / 2 rows, the
+// next batch's loads issued before this one's multiply-adds, so that a
+// split of many batches keeps loads in flight through its arithmetic.
+template <typename W, bool DQ, bool PIPE = false>
+__device__ void frame_gemv_tiles(const Gemv& g, const float* xs, const int* xq, float* part,
+                                 float* red) {
+  constexpr int EPL = DQ ? 16 : 16 / (int)sizeof(W);
+  constexpr int U = PF_TILE / EPL;
+  using Acc = typename std::conditional<DQ, int, float>::type;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ct = (g.O + PF_TILE - 1) / PF_TILE;
+  const int u = lane % U, sub = lane / U;
+  Acc* redv = reinterpret_cast<Acc*>(red);
+  int t0, t1;
+  frame_tiles(g, t0, t1);
+  for (int base = t0; base < t1; base += PF_ROUND) {
+    const int nr = min(PF_ROUND, t1 - base), WPT = PF_WARPS / nr;
+    const int tl = warp / WPT, wl = warp % WPT;
+    Acc acc[EPL];
+#pragma unroll
+    for (int j = 0; j < EPL; ++j) acc[j] = 0;
+    if (tl < nr) {
+      const int ti = base + tl, split = ti / ct;
+      const int c = (ti % ct) * PF_TILE + u * EPL;
+      const int r0 = split * g.rows, r1 = min(g.K, r0 + g.rows);
+      if (c < g.O) {
+        int ld;
+        if constexpr (DQ) {  // PF_LOADS / 4 groups of 4 rows a batch
+          const int8_t* wc = wcol<int8_t>(g.m, c, ld);
+          const int step = EPL * WPT;
+          for (int q0 = r0 / 4 + sub + EPL * wl; q0 < r1 / 4; q0 += PF_LOADS / 4 * step) {
+            int4 w[PF_LOADS / 4][4];
+#pragma unroll
+            for (int j = 0; j < PF_LOADS / 4; ++j) {
+              const int q = q0 + j * step;
+              const int8_t* pw = wc + (size_t)(4 * q) * ld;
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+                w[j][k] = q < r1 / 4 ? __ldg(reinterpret_cast<const int4*>(pw + (size_t)k * ld))
+                                     : make_int4(0, 0, 0, 0);
+            }
+#pragma unroll
+            for (int j = 0; j < PF_LOADS / 4; ++j) {
+              const int q = q0 + j * step;
+              if (q >= r1 / 4) break;  // the same for the warp's lanes
+              int cols[16];
+              transpose_4x16(w[j], cols);
+              const int xw = xq[q];
+#pragma unroll
+              for (int k = 0; k < 16; ++k) acc[k] = __dp4a(cols[k], xw, acc[k]);
+            }
+          }
+        } else if constexpr (PIPE) {
+          constexpr int NB = PF_LOADS / 2;  // rows a batch
+          const W* wc = wcol<W>(g.m, c, ld);
+          const int step = EPL * WPT;
+          int4 w[NB];
+          auto load = [&](int rb, int4 (&dst)[NB]) {
+#pragma unroll
+            for (int j = 0; j < NB; ++j) {
+              const int r = rb + j * step;
+              dst[j] = r < r1 ? __ldg(reinterpret_cast<const int4*>(wc + (size_t)r * ld))
+                              : make_int4(0, 0, 0, 0);
+            }
+          };
+          int r00 = r0 + sub + EPL * wl;
+          load(r00, w);
+          for (; r00 < r1; r00 += NB * step) {
+            int4 wn[NB];
+            load(r00 + NB * step, wn);  // past the split: no load, zeros
+#pragma unroll
+            for (int j = 0; j < NB; ++j) {
+              const int r = r00 + j * step;
+              if (r >= r1) break;  // the same for the warp's lanes (splits of whole 16-row steps)
+              const float xv = xs[r];
+              float wf[EPL];
+              widen(w[j], wf);
+#pragma unroll
+              for (int k = 0; k < EPL; ++k) acc[k] = fmaf(xv, wf[k], acc[k]);
+            }
+#pragma unroll
+            for (int j = 0; j < NB; ++j) w[j] = wn[j];
+          }
+        } else {  // PF_LOADS rows a batch
+          const W* wc = wcol<W>(g.m, c, ld);
+          const int step = EPL * WPT;
+          for (int r00 = r0 + sub + EPL * wl; r00 < r1; r00 += PF_LOADS * step) {
+            int4 w[PF_LOADS];
+#pragma unroll
+            for (int j = 0; j < PF_LOADS; ++j) {
+              const int r = r00 + j * step;
+              w[j] = r < r1 ? __ldg(reinterpret_cast<const int4*>(wc + (size_t)r * ld))
+                            : make_int4(0, 0, 0, 0);
+            }
+#pragma unroll
+            for (int j = 0; j < PF_LOADS; ++j) {
+              const int r = r00 + j * step;
+              if (r >= r1) break;  // the same for the warp's lanes (splits of whole 16-row steps)
+              const float xv = xs[r];
+              float wf[EPL];
+              widen(w[j], wf);
+#pragma unroll
+              for (int k = 0; k < EPL; ++k) acc[k] = fmaf(xv, wf[k], acc[k]);
+            }
+          }
+        }
+      }
+    }
+    frame_reduce<EPL / 2, 16>(acc, lane);  // acc[0]: column u * EPL + sub of the tile
+    redv[warp * 33 + lane] = acc[0];
+    __syncthreads();
+    for (int o = warp; o < nr * 32; o += PF_WARPS) {  // (tile o / 32, lane column o % 32)
+      const int tl2 = o / 32, lc = o % 32;
+      Acc v = lane < WPT ? redv[(tl2 * WPT + lane) * 33 + lc] : (Acc)0;
+      v = lane_sum(v);
+      const int ti = base + tl2;
+      const int col = (ti % ct) * PF_TILE + (lc % U) * EPL + lc / U;
+      if (lane == 0 && col < g.O) reinterpret_cast<Acc*>(part)[(size_t)(ti / ct) * g.O + col] = v;
+    }
+    __syncthreads();  // red is the next round's
+  }
+}
+
+// Wait for this thread's copies, then the block's
+__device__ __forceinline__ void cp_async_join() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+}
+
+// ``bytes`` (a multiple of 16) from global to shared memory, 16 a copy
+__device__ __forceinline__ void stage_vec(void* dst, const void* src, int bytes) {
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+    cp_async16((char*)dst + 16 * i, (const char*)src + 16 * i);
+}
+
+__device__ __forceinline__ float ldcg_bf(const bf16* p) {
+  return bf(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// A GEMV's output as the next prologue reads it: its partials ([S][O], f32
+// or int32) and column scales (int8 weights; null for bf16) copied into
+// shared memory with every copy in flight at once (one L2 round trip; a
+// loop of loads into registers took one a load).
+struct Staged {
+  const float* ps;
+  const float* scale;
+  int S, O;
+};
+
+__device__ Staged frame_stage_start(const Gemv& g, const float* part, float* ps, float* pscale) {
+  for (int i = threadIdx.x; i < g.S * g.O / 4; i += blockDim.x) cp_async16(ps + 4 * i, part + 4 * i);
+  if (!g.m.wbf16) {
+    for (int i = threadIdx.x; i < g.O / 4; i += blockDim.x) {
+      const int c = 4 * i, sg = seg_of(g.m, c);
+      cp_async16(pscale + c, g.m.s[sg] + (c - seg_start(g.m, sg)));
+    }
+  }
+  return Staged{ps, g.m.wbf16 ? nullptr : pscale, g.S, g.O};
+}
+
+__device__ Staged frame_stage(const Gemv& g, const float* part, float* ps, float* pscale) {
+  const Staged t = frame_stage_start(g, part, ps, pscale);
+  cp_async_join();
+  return t;
+}
+
+// ``mv_out`` on staged partials: output column c (the same operations)
+__device__ __forceinline__ float mvs(const Staged& t, int c, float s) {
+  if (s > 0.f) {
+    const int* p = reinterpret_cast<const int*>(t.ps);
+    int acc = 0;
+    for (int k = 0; k < t.S; ++k) acc += p[k * t.O + c];
+    return __fmul_rn(__int2float_rn(acc), __fmul_rn(s, t.scale[c]));
+  }
+  float sum = 0.f;
+  for (int k = 0; k < t.S; ++k) sum += t.ps[k * t.O + c];
+  return t.scale ? __fmul_rn(sum, t.scale[c]) : sum;
+}
+
+// xs = bf16(h * r * nw) with r = 1 / sqrt(mean(h^2) + eps), from each
+// thread's share of sum(h^2), nw staged; returns max |xs|.
+__device__ float frame_norm(const float* h, float ss, const float* nw, float* xs, int H, float eps,
+                            float* red) {
+  const float r = 1.0f / sqrtf(__fdiv_rn(block_sum(ss, red), (float)H) + eps);
+  float mx = 0.f;
+  for (int c = threadIdx.x; c < H; c += blockDim.x) {
+    const float o = rbf(__fmul_rn(__fmul_rn(h[c], r), nw[c]));
+    xs[c] = o;
+    mx = fmaxf(mx, fabsf(o));
+  }
+  return block_max(mx, red);
+}
+
+// finish_residual_norm for this block's copy of the stream: h = bf16(h +
+// bf16(y)) (or bf16(bias + bf16(y))), y the staged GEMV output (s: its
+// input's dyn_int8 scale, else 0), then xs = rms(h) * nw; returns max |xs|.
+__device__ float frame_residual_norm(const Staged& t, float s, const bf16* bias, float* h,
+                                     const float* nw, float* xs, int H, float eps, float* red) {
+  float ss = 0.f;
+  for (int c = threadIdx.x; c < H; c += blockDim.x) {
+    const float y = rbf(mvs(t, c, s));
+    const float hv = rbf(__fadd_rn(bias ? bf(bias[c]) : h[c], y));
+    h[c] = hv;
+    ss = fmaf(hv, hv, ss);
+  }
+  return frame_norm(h, ss, nw, xs, H, eps, red);
+}
+
+// finish_swiglu: xs[c] = bf16(g * sigmoid(g) * u) over the I columns; returns max |xs|
+__device__ float frame_swiglu(const Staged& t, float s, int I, float* xs, float* red) {
+  float mx = 0.f;
+  for (int c = threadIdx.x; c < I; c += blockDim.x) {
+    const float gg = rbf(mvs(t, c, s));
+    const float uu = rbf(mvs(t, I + c, s));
+    const float sig = 1.0f / (1.0f + expf(-gg));
+    const float o = rbf(__fmul_rn(__fmul_rn(gg, sig), uu));
+    xs[c] = o;
+    mx = fmaxf(mx, fabsf(o));
+  }
+  return block_max(mx, red);
+}
+
+// dyn_int8: x quantized with the row's scale into words of 4 int8 (x[0] in
+// byte 0); returns the scale
+__device__ float frame_quant(const float* xs, int K, float amax, int* xq) {
+  const float s = act_scale(amax);
+  for (int q = threadIdx.x; q < K / 4; q += blockDim.x) {
+    const float* v = xs + 4 * q;
+    xq[q] = (int)(quant_act(v[0], s) | quant_act(v[1], s) << 8 | quant_act(v[2], s) << 16 |
+                  quant_act(v[3], s) << 24);
+  }
+  return s;
+}
+
+// The kv heads whose attention outputs this block's tiles of the o GEMV read
+__device__ unsigned o_heads(const Gemv& go, int G) {
+  int t0, t1;
+  frame_tiles(go, t0, t1);
+  if (t0 >= t1) return 0u;
+  const int ct = (go.O + PF_TILE - 1) / PF_TILE;
+  const int lo = t0 / ct * go.rows, hi = min(go.K, ((t1 - 1) / ct + 1) * go.rows);
+  unsigned m = 0u;
+  for (int kvh = lo / (G * HEAD_DIM); kvh <= (hi - 1) / (G * HEAD_DIM); ++kvh) m |= 1u << kvh;
+  return m;
+}
+
 }  // namespace
 }  // namespace qt

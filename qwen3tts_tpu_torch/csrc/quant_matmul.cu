@@ -8,19 +8,31 @@
 // [O, I/group]. No [O, I] matrix is ever written.
 //
 // Bound on the H100: device-memory bandwidth on the packed words plus scales
-// and biases, read once each (bits 4, group 64: I/2 + 8*I/64 bytes per row,
-// scales and biases +25 %), one multiply-add per weight value. The TPU
-// kernel reduced groups with a 0/1 indicator matmul on its matrix unit. Here
-// a row is contiguous, so one warp owns one output row: lanes read 16-byte
-// chunks (4 words) with neighbouring lanes on neighbouring addresses, unpack
-// with shifts and multiply-add against x. The block stages x once in shared
-// memory as f32, word-strided (xs[j][k] = x[k*PW + j]), so a lane's float4
-// read of its 4 words' j-th values is free of bank conflicts. Each word's
-// dot product is scaled by its group's scale; the biases enter as
-// sum_g b[o, g] * XS[g], with the group sums XS of x computed once per
-// block. A warp-shuffle reduction finishes the row. At the 0.6B shapes one
-// matrix is 0.5-1.6 MB, about 0.5 us at full bandwidth, so a call is bound
-// by its launch rather than by the bytes.
+// and biases, read once each (bits 4, group 64: I/2 + 8*I/64 bytes per row;
+// 3072 x 1024 is 1.97 MB, 0.59 us at 3.35 TB/s), one multiply-add per
+// weight value. At the 0.6B shapes a call is a few microseconds of latency,
+// not bytes: the first form of this kernel (a block per 8 rows that staged x
+// in shared memory as f32 and took its group sums behind two block
+// barriers, then one 16-byte weight load a lane) read 2.97-5.64 us where
+// ``torch._weight_int4pack_mm`` read 2.16-3.48 us (NVIDIA H100 80GB HBM3,
+// 700 W, tools/time_k3_k2.py --parts int4lib).
+//
+// Design: no prologue and one memory round trip a pass. A warp owns R
+// consecutive rows; its lanes take the rows' 16-byte chunks (4 words: 32
+// int4 or 16 int8 values of neighbouring columns) two at a time (chunk c
+// and c + 32), so neighbouring lanes read neighbouring addresses. Each lane
+// issues, before any arithmetic, its x values of those columns (x is a few
+// KB and sits in L1/L2), the R x 2 weight chunks and the R x 2 scales and
+// biases of their groups (a group holds whole chunks, so one of each a
+// chunk; a warp's lanes read neighbouring scales). The bias term needs the
+// group sums of x: each lane adds b[o, g] * sum(its chunk's x), and the sum
+// over the lanes is b[o, g] * XS[g], so no shuffle or shared memory is
+// needed until the end, where a warp sum per row finishes it. Values are
+// widened exactly through the bits of 2^23 + q (a shift, a bit-or and a
+// subtract: the integer-to-float instruction runs at a quarter of the FMA
+// rate). The grid is sized to the SMs (at most two blocks of 8 warps each),
+// row groups strided across its warps; R (rows a warp, 1, 2, 4 or 8) is
+// chosen so that about one block a SM covers O.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,99 +43,173 @@ namespace {
 
 using qt::warp_sum;
 
-constexpr int QG_THREADS = 256;            // 8 warps
-constexpr int QG_ROWS = QG_THREADS / 32;   // one output row per warp
-constexpr int QG_SMEM_DEFAULT = 48 * 1024;
+constexpr int QG_THREADS = 256;  // 8 warps
+constexpr int QG_WARPS = QG_THREADS / 32;
+constexpr int QG_BLOCKS_PER_SM = 2;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+// value j of a word, exactly, as f32
+template <int BITS>
+__device__ __forceinline__ float qval(uint32_t u, int j) {
+  if (BITS == 4) return __int_as_float(0x4B000000u | ((u >> (4 * j)) & 0xFu)) - 8388608.0f;
+  return __int_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + j)) - 8388608.0f;
+}
 
-template <int BITS, typename XT>
-__global__ void __launch_bounds__(QG_THREADS)
-quant_gemv_kernel(const XT* __restrict__ x, const uint32_t* __restrict__ wq,
-                  const float* __restrict__ scales, const float* __restrict__ biases,
-                  float* __restrict__ y, int O, int I, int group) {
+// the N = 4 PW values of x in chunk c (columns c N .. c N + N - 1), as f32
+template <int N>
+__device__ __forceinline__ void load_x(const float* x, int c, float (&v)[N]) {
+  const float4* p = reinterpret_cast<const float4*>(x + (size_t)c * N);
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const float4 f = __ldg(p + i);
+    v[4 * i] = f.x, v[4 * i + 1] = f.y, v[4 * i + 2] = f.z, v[4 * i + 3] = f.w;
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_x(const __nv_bfloat16* x, int c, float (&v)[N]) {
+  const uint4* p = reinterpret_cast<const uint4*>(x + (size_t)c * N);
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    const uint4 u = __ldg(p + i);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[8 * i + 2 * k] = __uint_as_float(w[k] << 16);
+      v[8 * i + 2 * k + 1] = __uint_as_float(w[k] & 0xFFFF0000u);
+    }
+  }
+}
+
+// acc += s * (q . x) + b * sum(x) for one 16-byte chunk of a row
+template <int BITS, int N>
+__device__ __forceinline__ float chunk_dot(const uint4& w, const float (&x)[N], float xsum, float s,
+                                           float b, float acc) {
   constexpr int PW = 32 / BITS;
-  constexpr uint32_t MASK = (1u << BITS) - 1u;
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [PW][W]
-  const int W = I / PW, W4 = W / 4, NG = I / group, wpg = group / PW;
-  float* gs = xs + I;                           // [NG] group sums of x
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-
-  for (int t = threadIdx.x; t < I; t += QG_THREADS) {
-    const int j = t / W, k = t - j * W;
-    xs[t] = to_f(x[k * PW + j]);
-  }
-  __syncthreads();
-  for (int g = warp; g < NG; g += QG_ROWS) {  // one warp per group
-    float s = 0.f;
-    for (int i = g * group + lane; i < (g + 1) * group; i += 32) s += xs[(i % PW) * W + i / PW];
-    s = warp_sum(s);
-    if (lane == 0) gs[g] = s;
-  }
-  __syncthreads();
-
-  const int o = blockIdx.x * QG_ROWS + warp;
-  if (o >= O) return;
-  const uint4* row = reinterpret_cast<const uint4*>(wq + (size_t)o * W);
-  const float* srow = scales + (size_t)o * NG;
-  const float* brow = biases + (size_t)o * NG;
-  const float4* xs4 = smem4;
-  float acc = 0.f;
-#pragma unroll 2
-  for (int c = lane; c < W4; c += 32) {
-    const uint4 wv = __ldg(row + c);
-    float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+  float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
 #pragma unroll
     for (int j = 0; j < PW; ++j) {
-      const float4 xv = xs4[j * W4 + c];
-      d0 = fmaf((float)((wv.x >> (BITS * j)) & MASK), xv.x, d0);
-      d1 = fmaf((float)((wv.y >> (BITS * j)) & MASK), xv.y, d1);
-      d2 = fmaf((float)((wv.z >> (BITS * j)) & MASK), xv.z, d2);
-      d3 = fmaf((float)((wv.w >> (BITS * j)) & MASK), xv.w, d3);
+      const float q = qval<BITS>(u[k], j);
+      if (k & 1) d1 = fmaf(q, x[k * PW + j], d1);
+      else d0 = fmaf(q, x[k * PW + j], d0);
     }
-    const int k = 4 * c;  // first word of the chunk
-    acc = fmaf(d0, __ldg(srow + k / wpg), acc);
-    acc = fmaf(d1, __ldg(srow + (k + 1) / wpg), acc);
-    acc = fmaf(d2, __ldg(srow + (k + 2) / wpg), acc);
-    acc = fmaf(d3, __ldg(srow + (k + 3) / wpg), acc);
+  return fmaf(s, d0 + d1, fmaf(b, xsum, acc));
+}
+
+template <int BITS, typename XT, int R>
+__global__ void __launch_bounds__(QG_THREADS)
+quant_gemv_kernel(const XT* __restrict__ x, const uint4* __restrict__ wq,
+                  const float* __restrict__ scales, const float* __restrict__ biases,
+                  float* __restrict__ y, int O, int I, int group) {
+  constexpr int N = 128 / BITS;  // values of a 16-byte chunk
+  const int W4 = I / N, NG = I / group, cpg = group / N, lane = threadIdx.x & 31;
+  for (int rg = blockIdx.x * QG_WARPS + (threadIdx.x >> 5); rg * R < O;
+       rg += gridDim.x * QG_WARPS) {
+    const int o0 = rg * R;
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.f;
+    for (int c = lane; c < W4; c += 64) {  // chunks c and c + 32 of every row
+      const bool two = c + 32 < W4;
+      float xa[N], xb[N];
+      uint4 wa[R], wb[R];
+      float sa[R], ba[R], sb[R], bb[R];
+      load_x(x, c, xa);
+      if (two) load_x(x, c + 32, xb);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int o = min(o0 + r, O - 1);  // a row past O repeats the last, unwritten
+        const size_t row = (size_t)o * W4, grow = (size_t)o * NG;
+        wa[r] = __ldg(wq + row + c);
+        sa[r] = __ldg(scales + grow + c / cpg);
+        ba[r] = __ldg(biases + grow + c / cpg);
+        if (two) {
+          wb[r] = __ldg(wq + row + c + 32);
+          sb[r] = __ldg(scales + grow + (c + 32) / cpg);
+          bb[r] = __ldg(biases + grow + (c + 32) / cpg);
+        }
+      }
+      float xsa = 0.f, xsb = 0.f;
+#pragma unroll
+      for (int i = 0; i < N; ++i) xsa += xa[i];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = chunk_dot<BITS>(wa[r], xa, xsa, sa[r], ba[r], acc[r]);
+      if (two) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) xsb += xb[i];
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = chunk_dot<BITS>(wb[r], xb, xsb, sb[r], bb[r], acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float v = warp_sum(acc[r]);
+      if (lane == r && o0 + r < O) y[o0 + r] = v;
+    }
   }
-  for (int g = lane; g < NG; g += 32) acc = fmaf(__ldg(brow + g), gs[g], acc);
-  acc = warp_sum(acc);
-  if (lane == 0) y[o] = acc;
+}
+
+int num_sms() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
+
+// Rows a warp: the fewest whose row groups fit one block of warps a SM (on
+// an H100, 1 at O = 1024, 2 at 2048, 4 at 3072: the fastest of 1, 2, 4 and 8
+// at the packed 0.6B shapes, tools/time_k3_k2.py --parts int4lib)
+int rows_per_warp(int O) {
+  const int warps = num_sms() * QG_WARPS;
+  int R = 1;
+  while (R < 8 && (O + R - 1) / R > warps) R *= 2;
+  return R;
+}
+
+template <int BITS, typename XT, int R>
+int launch_r(const void* x, const void* w, const void* s, const void* b, void* y, int O, int I,
+             int group, cudaStream_t st) {
+  const int groups = (O + R - 1) / R;
+  const int blocks = min((groups + QG_WARPS - 1) / QG_WARPS, num_sms() * QG_BLOCKS_PER_SM);
+  quant_gemv_kernel<BITS, XT, R><<<blocks, QG_THREADS, 0, st>>>(
+      (const XT*)x, (const uint4*)w, (const float*)s, (const float*)b, (float*)y, O, I, group);
+  return (int)cudaGetLastError();
 }
 
 template <int BITS, typename XT>
 int launch(const void* x, const void* w, const void* s, const void* b, void* y, int O, int I,
-           int group, cudaStream_t st) {
-  const size_t smem = (size_t)(I + I / group) * sizeof(float);
-  auto* kern = quant_gemv_kernel<BITS, XT>;
-  if (smem > QG_SMEM_DEFAULT) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+           int group, int R, cudaStream_t st) {
+  switch (R) {
+    case 1: return launch_r<BITS, XT, 1>(x, w, s, b, y, O, I, group, st);
+    case 2: return launch_r<BITS, XT, 2>(x, w, s, b, y, O, I, group, st);
+    case 4: return launch_r<BITS, XT, 4>(x, w, s, b, y, O, I, group, st);
+    case 8: return launch_r<BITS, XT, 8>(x, w, s, b, y, O, I, group, st);
   }
-  kern<<<(O + QG_ROWS - 1) / QG_ROWS, QG_THREADS, smem, st>>>(
-      (const XT*)x, (const uint32_t*)w, (const float*)s, (const float*)b, (float*)y, O, I, group);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// y [O] f32 = x [I] (bf16 if x_bf16, else f32) . dequant(w)^T. Needs bits 4
-// or 8, group a multiple of 32/bits dividing I, and I*bits/32 words per row
-// a multiple of 4 (16-byte loads); returns cudaErrorInvalidValue otherwise.
+// y [O] f32 = x [I] (bf16 if x_bf16, else f32; 16-byte aligned) .
+// dequant(w)^T. Needs bits 4 or 8, a group that holds whole 16-byte chunks
+// (a multiple of 128 / bits) and divides I; ``rpw`` the rows a warp (1, 2,
+// 4 or 8; 0: chosen from O). Returns cudaErrorInvalidValue otherwise.
 extern "C" int qt_quant_gemv(int O, int I, int bits, int group, int x_bf16, const void* x,
-                             const void* w, const void* s, const void* b, void* y,
+                             const void* w, const void* s, const void* b, void* y, int rpw,
                              void* stream) {
-  if ((bits != 4 && bits != 8) || group <= 0 || group % (32 / bits) || I % group ||
-      (I / (32 / bits)) % 4 || O <= 0)
+  if ((bits != 4 && bits != 8) || group <= 0 || group % (128 / bits) || I % group || O <= 0 ||
+      (rpw != 0 && rpw != 1 && rpw != 2 && rpw != 4 && rpw != 8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const int R = rpw ? rpw : rows_per_warp(O);
   if (bits == 4)
-    return x_bf16 ? launch<4, __nv_bfloat16>(x, w, s, b, y, O, I, group, st)
-                  : launch<4, float>(x, w, s, b, y, O, I, group, st);
-  return x_bf16 ? launch<8, __nv_bfloat16>(x, w, s, b, y, O, I, group, st)
-                : launch<8, float>(x, w, s, b, y, O, I, group, st);
+    return x_bf16 ? launch<4, __nv_bfloat16>(x, w, s, b, y, O, I, group, R, st)
+                  : launch<4, float>(x, w, s, b, y, O, I, group, R, st);
+  return x_bf16 ? launch<8, __nv_bfloat16>(x, w, s, b, y, O, I, group, R, st)
+                : launch<8, float>(x, w, s, b, y, O, I, group, R, st);
 }

@@ -111,14 +111,17 @@ def _cpk_mode(cp_params) -> str:
 
 
 def check_cp_frames(device, sync: bool = False) -> None:
-    """Raise ``cp_kernel.BarrierTimeout`` if a B = 1 frame of K2 that ran
-    before the last host synchronisation (with ``sync``: before now) had a
-    grid barrier time out; that frame's codes are -1. Nothing to do off
-    CUDA."""
+    """Raise ``BarrierTimeout`` if a persistent B = 1 launch that ran before
+    the last host synchronisation (with ``sync``: before now) had a grid
+    barrier time out: a frame of K2 (its codes are -1) or a step of K1 (its
+    code0 -1, its hidden NaN). Nothing to do off CUDA."""
     if device.type == "cuda":
-        from ..ops.cp_kernel import check_barrier
+        from ..ops import cp_kernel, talker_kernel
 
-        check_barrier(device if sync else None)
+        if sync:
+            torch.cuda.synchronize(device)
+        cp_kernel.check_barrier()
+        talker_kernel.check_barrier()
 
 
 def _use_talker_sample_kernel(

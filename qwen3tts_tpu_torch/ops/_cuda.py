@@ -40,8 +40,8 @@ def header_ints(path: Path) -> dict[str, int]:
     return {name: int(value) for name, value in pat.findall(path.read_text())}
 
 
-LIMITS = header_ints(CSRC / "common.cuh")
-FRAME_LIMITS = header_ints(CSRC / "cp_loop.cu")  # K2's persistent B = 1 frame (PF_*)
+LIMITS = header_ints(CSRC / "common.cuh")  # also the persistent B = 1 kernels' PF_* constants
+TALKER_FRAME_LIMITS = header_ints(CSRC / "talker_frame.cu")  # K1's persistent B = 1 step (TF_*)
 MAX_BATCH = LIMITS["MAX_BATCH"]  # rows of one K1 / K2 call
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qwen3tts_tpu_torch"
 NVCC_FLAGS = (
@@ -54,11 +54,11 @@ F = ctypes.c_float
 U = ctypes.c_uint32
 LL = ctypes.c_longlong
 
-# argument types of the C entries, in order (csrc/talker_step.cu, cp_loop.cu,
+# argument types of the C entries, in order (csrc/talker_step.cu, talker_frame.cu, cp_loop.cu,
 # quant_matmul.cu, decode_attention.cu, weight_stream.cu, talker_ablate.cu,
 # hbm_read.cu, attn_forms.cu, int4_repack.cu, kv_append.cu, cpk_probes.cu)
 _ARGTYPES = {
-    "qt_quant_gemv": [I, I, I, I, I, P, P, P, P, P, P],  # O I bits group x_bf16 x w s b y stream
+    "qt_quant_gemv": [I, I, I, I, I, P, P, P, P, P, I, P],  # O I bits group x_bf16 x w s b y rpw stream
     "qt_decode_attention": [
         I, I, I, I, I, F, I,  # NQ NKV D T pos scale NC
         P, P, P, P, P, P, P, P,  # q k v part_ml part_acc counters out stream
@@ -79,6 +79,20 @@ _ARGTYPES = {
         F, I, F, I, F, I, I, U, U,  # rep greedy inv_t top_k top_p_thr ref_exact eos_id seed0 seed1
         P, P, P, P, P, P,  # hres xn attn gated ws amax
         P, P, P,  # code_out logits_out stream
+    ],
+    "qt_talker_frame": [
+        I, I, I, I, I, I, I, I, I, P,  # L H NQ NKV D I V T pos offs
+        I, I, I, I, F, F,  # kv_quant w_bf16 head_bf16 dyn eps scale
+        P,  # x
+        P, P, P, P, P, P, P, P,  # qkv_w qkv_s o_w o_s gu_w gu_s d_w d_s
+        P, P, P, P, P,  # iln pln qn kn fnorm
+        P, P, P, P,  # k_cache v_cache k_scale v_scale
+        P, P,  # cos sin
+        P, P, P, P,  # head_w head_s supp seen
+        F, I, F, I, F, I, I, U, U,  # rep greedy inv_t top_k top_p_thr ref_exact eos_id seed0 seed1
+        P, P, I, P,  # ws att cmax xn
+        P, P, P, P, I, LL, I,  # code_out logits_out ctl err_host blocks budget_ns cut
+        P,  # stream
     ],
     "qt_cp_loop": [
         I, I, I, I, I, I, I, I, I, I,  # L H NQ NKV D I V NCB B TH
@@ -209,6 +223,14 @@ def amax_slots(batch: int, device) -> torch.Tensor:
     """The per-row activation amax slots of one dyn_int8 call (AMAX_SLOTS x
     batch floats); the kernels set them before any read (common.cuh)."""
     return torch.empty(LIMITS["AMAX_SLOTS"] * batch, dtype=torch.float32, device=device)
+
+
+class CoResidencyError(RuntimeError):
+    """A persistent B = 1 kernel's grid cannot be resident on the card at once."""
+
+
+class BarrierTimeout(RuntimeError):
+    """A grid barrier of a persistent B = 1 kernel waited past its budget."""
 
 
 def check(code: int, what: str) -> None:

@@ -60,6 +60,7 @@ import torch
 
 from ..models.talker import _embed
 from . import _cuda
+from ._cuda import BarrierTimeout, CoResidencyError
 from .decode_blocks import (
     STREAMS_PER_ROW, layer_step, mv, mv_f32, rms, sample_row, top_p_threshold,
 )
@@ -227,14 +228,6 @@ def predict_codes_fused(
     predict_codes_fused.launches += 1
     predict_codes_fused.mode_launches[mode] += 1
     return out
-
-
-class CoResidencyError(RuntimeError):
-    """The B = 1 frame's grid cannot be resident on the card at once."""
-
-
-class BarrierTimeout(RuntimeError):
-    """A grid barrier of the B = 1 frame waited past its budget."""
 
 
 _err_flag: torch.Tensor | None = None  # pinned int32 [1], written by the card on a timeout

@@ -26,6 +26,10 @@ csrc/common.cuh, with the same rounding points:
   token attends with its own unquantized k/v, as the TPU kernel does. The
   kernel walks long caches in tiles with an online softmax; in f32 that
   differs from this one-pass softmax only in rounding order.
+* ``split_attend``: ``attend``'s talker form as K1's persistent B = 1 step
+  (csrc/talker_frame.cu) computes it: each kv head's rows [0, pos] cut into
+  chunks (``chunk_plan``, the kernel's ``tf_chunks``), each chunk's running
+  max, sum and unnormalised PV row in f32, merged in chunk order.
 * ``layer_step``: one transformer layer for one token of each of B rows,
   on fused or unfused (q/k/v, gate/up apart) projections.
 * ``sample_row``: the sampler (``sample_kernel``, one block per row; row b
@@ -59,7 +63,7 @@ from __future__ import annotations
 
 import torch
 
-from ._cuda import LIMITS
+from ._cuda import LIMITS, TALKER_FRAME_LIMITS
 from .norms import rms_norm
 from .quant import Int8Linear
 from .rope import rotate_half
@@ -167,6 +171,66 @@ def attend(
     return out.to(torch.bfloat16).reshape(B, nq * d)
 
 
+def chunk_plan(n: int, blocks: int, nkv: int) -> tuple[int, int]:
+    """(chunks C, rows a chunk) of a kv head's ``n`` attention rows (the
+    prefix and the current token) on a grid of ``blocks``: C =
+    ceil(n / TF_CHUNK), at most max(1, blocks // nkv), of n / C rows
+    rounded up to 16 (csrc/talker_frame.cu ``tf_chunks``)."""
+    lo = TALKER_FRAME_LIMITS["TF_CHUNK"]
+    c = max(1, min(-(-n // lo), blocks // nkv))
+    rows = -(-(-(-n // c)) // 16) * 16
+    return -(-n // rows), rows
+
+
+def split_attend(q, k_new, v_new, cache, pos, scale: float, blocks: int) -> torch.Tensor:
+    """``attend`` (talker form) cut into the chunks of ``chunk_plan`` and
+    merged as K1's persistent step merges them: per chunk m_c = max of its
+    scores, l_c = sum exp(s - m_c) and a_c = sum exp(s - m_c) [* v scale] v
+    in f32; then, chunk by chunk, M' = max(M, m_c), L = L e^(M - M') +
+    l_c e^(m_c - M'), A likewise, and out = bf16(A / L). The current token
+    (unquantized on an int8 cache) is the last row of the last chunk."""
+    B, nq, d = q.shape
+    nkv = k_new.shape[1]
+    kc, vc = cache[0], cache[1]
+    rows_b = torch.arange(B, device=q.device)
+    quant = len(cache) == 4
+    if quant:
+        (kq, ksc), (vq, vsc) = quantize_rows(k_new), quantize_rows(v_new)
+        kc[rows_b, :, pos], vc[rows_b, :, pos] = kq, vq
+        cache[2][rows_b, :, pos], cache[3][rows_b, :, pos] = ksc, vsc
+    else:
+        kc[rows_b, :, pos], vc[rows_b, :, pos] = k_new, v_new
+    out = []
+    for b in range(B):
+        p = int(pos[b])
+        kf, vf = kc[b, :, : p + 1].float(), vc[b, :, : p + 1].float()  # [NKV, n, D]
+        ones = torch.ones(nkv, p + 1, device=q.device)
+        ks = cache[2][b, :, : p + 1].clone() if quant else ones.clone()
+        vs = cache[3][b, :, : p + 1].clone() if quant else ones.clone()
+        if quant:  # the current token with its own k/v
+            kf[:, p], vf[:, p] = k_new[b].float(), v_new[b].float()
+            ks[:, p], vs[:, p] = 1.0, 1.0
+        qg = q[b].float().reshape(nkv, nq // nkv, d) * scale
+        s = torch.einsum("hgd,htd->hgt", qg, kf) * ks[:, None]
+        n_chunks, rows = chunk_plan(p + 1, blocks, nkv)
+        M = torch.full(s.shape[:2], float("-inf"), device=q.device)
+        L, A = torch.zeros_like(M), torch.zeros(*s.shape[:2], d, device=q.device)
+        for c in range(n_chunks):
+            sc = s[..., c * rows : (c + 1) * rows]
+            m_c = sc.amax(-1)
+            e = torch.exp(sc - m_c[..., None])
+            l_c = e.sum(-1)
+            a_c = torch.einsum("hgt,htd->hgd", e * vs[:, None, c * rows : (c + 1) * rows],
+                               vf[:, c * rows : (c + 1) * rows])
+            mn = torch.maximum(M, m_c)
+            e0, e1 = torch.exp(M - mn), torch.exp(m_c - mn)
+            L = L * e0 + l_c * e1
+            A = A * e0[..., None] + a_c * e1[..., None]
+            M = mn
+        out.append((A / L[..., None]).to(torch.bfloat16).reshape(nq * d))
+    return torch.stack(out)
+
+
 def _mv_cat(x, layers, l: int, fused: str, parts: tuple, mode: str) -> torch.Tensor:
     """The fused projection ``fused`` of layer l, or its unfused ``parts``
     side by side (each column is the same function of x either way)."""
@@ -176,7 +240,7 @@ def _mv_cat(x, layers, l: int, fused: str, parts: tuple, mode: str) -> torch.Ten
 
 
 def layer_step(layers, l: int, cfg, h, cos, sin, cache, pos, cp_form: bool,
-               mode: str = "wo_bf16", part: str = "full"):
+               mode: str = "wo_bf16", part: str = "full", split_blocks: int | None = None):
     """One transformer layer for one token of each row (``layer_step`` in
     common.cuh), in the matmul ``mode`` of ``mv``.
 
@@ -186,7 +250,8 @@ def layer_step(layers, l: int, cfg, h, cos, sin, cache, pos, cp_form: bool,
     ``part`` (T6's ablations, qwen3tts_tpu_torch/tools/exp_tk_b1_ablate.py;
     a bf16 cache): "noattn" writes the new k/v rows and takes q (normed,
     roped) for the attention output, "nomlp" ends after o_proj + residual.
-    Returns the new h."""
+    ``split_blocks`` (talker form): attend through ``split_attend`` with the
+    chunks of a grid of that many blocks. Returns the new h."""
     NQ, NKV, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
     B = h.shape[0]
@@ -200,6 +265,8 @@ def layer_step(layers, l: int, cfg, h, cos, sin, cache, pos, cp_form: bool,
         rows = torch.arange(B, device=h.device)
         cache[0][rows, :, pos], cache[1][rows, :, pos] = k, v
         attn = q.reshape(B, NQ * D)
+    elif split_blocks:
+        attn = split_attend(q, k, v, cache, pos, D**-0.5, split_blocks)
     else:
         attn = attend(q, k, v, cache, pos, D**-0.5, cp_form)
     h = h + mv(attn, layers["o_proj"][l], mode)

@@ -137,11 +137,14 @@ def quant_matmul(x: torch.Tensor, packed, scales, biases, bits: int = 4, group: 
     return torch.matmul(x.float(), w.transpose(-1, -2))
 
 
-def quant_gemv(x: torch.Tensor, packed, scales, biases, bits: int = 4, group: int = 64):
+def quant_gemv(x: torch.Tensor, packed, scales, biases, bits: int = 4, group: int = 64, *,
+               rows_per_warp: int = 0):
     """K4: y [1, O] = x [1, I] @ dequant(w).T in float32, without an [O, I]
     matrix in memory. x is bf16 or f32. A CPU tensor runs the plain
     :func:`quant_matmul`; a CUDA tensor launches csrc/quant_matmul.cu or
-    raises on a shape the kernel does not take."""
+    raises on a shape the kernel does not take. ``rows_per_warp`` (timing
+    only): the rows a warp of the kernel owns, 1, 2, 4 or 8; 0 lets the
+    kernel choose from O, as every call of the port does."""
     if x.device.type == "cpu":
         return quant_matmul(x, packed, scales, biases, bits, group)
     if x.device.type != "cuda":
@@ -153,6 +156,9 @@ def quant_gemv(x: torch.Tensor, packed, scales, biases, bits: int = 4, group: in
         raise ValueError(f"quant_gemv: bits {bits} / group {group} not supported at width {I}")
     if W % 4:
         raise ValueError(f"quant_gemv: {W} words per row is not a multiple of 4 (16-byte loads)")
+    if group % (4 * per_word):
+        raise ValueError(f"quant_gemv: a group of {group} does not hold whole 16-byte chunks "
+                         f"({4 * per_word} values at {bits} bits)")
     if x.shape != (1, I) or x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"quant_gemv: x must be bf16 or f32 [1, {I}], got {x.dtype} {tuple(x.shape)}")
     ng = I // group
@@ -162,11 +168,16 @@ def quant_gemv(x: torch.Tensor, packed, scales, biases, bits: int = 4, group: in
         raise ValueError("quant_gemv: scales and biases must be float32")
     if packed.data_ptr() % 16:
         raise ValueError("quant_gemv: packed rows must be 16-byte aligned")
+    if rows_per_warp not in (0, 1, 2, 4, 8):
+        raise ValueError(f"quant_gemv: rows_per_warp {rows_per_warp} is not 0, 1, 2, 4 or 8")
     x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernel reads x 16 bytes a load
+        x = x.clone()
     y = torch.empty(1, O, dtype=torch.float32, device=x.device)
     rc = _cuda.library().qt_quant_gemv(
         O, I, bits, group, int(x.dtype == torch.bfloat16),
-        *(_cuda.ptr(t) for t in (x, packed, scales, biases, y)), _cuda.stream_ptr(),
+        *(_cuda.ptr(t) for t in (x, packed, scales, biases, y)), int(rows_per_warp),
+        _cuda.stream_ptr(),
     )
     _cuda.check(rc, "quant_gemv")
     quant_gemv.launches += 1

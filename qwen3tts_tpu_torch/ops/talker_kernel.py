@@ -13,9 +13,19 @@ scales (the TPU kernel's ``wo_bf16`` mode) or dense bf16 weights (its
 quantizes each matvec's activation row to int8 with its own scale and sums
 s8 x s8 in int32: the layers give bf16(f32(acc) * (s * scale)), an int8
 codec head f32(acc) * (s * scale); a dense head stays bf16. On a CUDA
-tensor it launches the hand-written kernel in
-csrc/talker_step.cu (one C call, a fixed sequence of launches; see that
-file's header for the bound and the design); on a CPU tensor it runs
+tensor it launches a hand-written kernel: at B = 1 the persistent step of
+csrc/talker_frame.cu (one cooperative launch a step after a memset of its
+barrier words: 2 operations), at B > 1 the multi-launch step of
+csrc/talker_step.cu (one C call, 8 L + 3 launches); each file's header
+gives the bound and the design. The switch is the batch alone: every B = 1
+call, sample mode or not, on either cache, in every mode, takes the
+persistent step, and nothing falls back to the multi-launch form. If the
+persistent grid cannot be resident at once the call raises
+(``CoResidencyError``); a grid barrier that waits past
+``BARRIER_BUDGET_NS`` sets a pinned host flag that ``check_barrier`` raises
+on (``BarrierTimeout``; the decode loops check it with K2's at each
+frame's host synchronisation, and the next B = 1 call checks it first),
+and that step's code0 is -1 and its hidden NaN. On a CPU tensor it runs
 ``talker_decode_step_ref``, the plain PyTorch version of the same function.
 Any other device raises. The plain version is never the CUDA path: on the
 card it serves only comparisons and timings.
@@ -38,9 +48,13 @@ logits [B, V]).
 
 from __future__ import annotations
 
+import functools
+import weakref
+
 import torch
 
 from . import _cuda
+from ._cuda import BarrierTimeout, CoResidencyError
 from .decode_blocks import (
     STREAMS_PER_ROW, layer_step, mv_f32, out_dim, rms, sample_row, top_p_threshold,
 )
@@ -49,6 +63,10 @@ from .quant import Int8Linear
 _FUSED_KEYS = ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")
 MAX_BATCH = _cuda.MAX_BATCH
 MODES = ("wo_bf16", "bf16", "dyn_int8")  # the TPU kernels' matmul modes
+BARRIER_BUDGET_NS = 2_000_000_000  # the longest a B = 1 step's block waits at one barrier
+_COOP_TOO_LARGE = 720  # cudaErrorCooperativeLaunchTooLarge
+# the B = 1 step cut after each kind of phase (csrc/talker_frame.cu's TF_CUT_*), for timing
+STEP_CUTS = ("barriers", "gemv", "prologue", "attention", "sampler")
 
 
 def _dense_bf16(w) -> bool:
@@ -124,8 +142,13 @@ def talker_decode_step_ref(
     temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0, ref_exact_top_p: bool = False,
     rep_penalty: float = 1.0, eos_id: int = -1, seed: tuple[int, int] = (0, 0),
     suppress_add=None, seen=None, return_logits: bool = False, mode: str = "wo_bf16",
+    split_blocks: int | None = None,
 ):
-    """Plain PyTorch version of K1 (same rounding points as the kernel)."""
+    """Plain PyTorch version of K1 (same rounding points as the kernel).
+    ``split_blocks``: the attention cut into the persistent B = 1 step's
+    chunks for a grid of that many blocks and merged as it merges them
+    (``decode_blocks.split_attend``); None, one softmax over the rows,
+    which differs from it only in rounding order."""
     mode = run_mode(mode, _layout(params["layers"]), "talker_decode_step")
     if isinstance(offset, int):
         offs = torch.full((1,), offset, dtype=torch.int64, device=x.device)
@@ -133,14 +156,15 @@ def talker_decode_step_ref(
             params, cfg, x, cache, offs, cos, sin, sample=sample, temperature=temperature,
             top_k=top_k, top_p=top_p, ref_exact_top_p=ref_exact_top_p,
             rep_penalty=rep_penalty, eos_id=eos_id, seed=seed,
-            suppress_add=suppress_add, seen=seen, return_logits=return_logits, mode=mode))
+            suppress_add=suppress_add, seen=seen, return_logits=return_logits, mode=mode,
+            split_blocks=split_blocks))
     B, D = x.shape[0], cfg.head_dim
     pos = offset.to(torch.int64)
     cos, sin = (t.to(torch.bfloat16).reshape(-1, D).expand(B, D) for t in (cos, sin))
     h = x.reshape(B, cfg.hidden_size).to(torch.bfloat16)
     for l in range(cfg.num_hidden_layers):
         h = layer_step(params["layers"], l, cfg, h, cos, sin, tuple(c[l] for c in cache), pos,
-                       cp_form=False, mode=mode)
+                       cp_form=False, mode=mode, split_blocks=split_blocks)
     hn = rms(h, params["norm"], cfg.rms_norm_eps)
     if not sample:
         return hn
@@ -187,16 +211,23 @@ def talker_decode_step(
     if x.device.type != "cuda":
         raise ValueError(f"talker_decode_step: unsupported device {x.device}")
     mode = run_mode(mode, _layout(params["layers"]), "talker_decode_step")
-    out = _launch(params, cfg, x, cache, offset, cos, sin, dyn=mode == "dyn_int8", **kw)
+    out = launch(params, cfg, x, cache, offset, cos, sin, dyn=mode == "dyn_int8", **kw)
     talker_decode_step.launches += 1
     talker_decode_step.mode_launches[mode] += 1
+    talker_decode_step.persistent_launches += x.shape[0] == 1
     return out
 
 
-def _launch(
+def launch(
     params, cfg, x, cache, offset, cos, sin, *, sample, temperature, top_k, top_p,
     ref_exact_top_p, rep_penalty, eos_id, seed, suppress_add, seen, return_logits, dyn,
+    blocks: int = 0, budget_ns: int = BARRIER_BUDGET_NS, cut: int = 0,
 ):
+    """One call of the kernel on CUDA tensors (``talker_decode_step`` counts
+    it). At B = 1 (the persistent step): ``blocks`` the grid (0: one block
+    per SM), ``budget_ns`` the longest wait at one barrier (tests shrink
+    both); for timing only, ``cut`` stops the step after a kind of phase
+    (``STEP_CUTS``; 0, the whole step, on every call of the port)."""
     L, H = cfg.num_hidden_layers, cfg.hidden_size
     NQ, NKV, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     B = x.shape[0]
@@ -232,48 +263,145 @@ def _launch(
         if cos.shape != (B, D) or sin.shape != (B, D):
             raise ValueError("talker_decode_step: cos/sin must be [B, D] rope rows")
     dev = x.device
-    f32 = lambda t: t.float().contiguous()
-    bf16 = lambda t: t.to(torch.bfloat16).contiguous()
+    bf16 = lambda t: _aligned(t.to(torch.bfloat16).contiguous())
     # converted operands stay referenced until every launch is enqueued
     ins = [
-        x.contiguous(),
+        _aligned(x.contiguous()),
         *(t for k in _FUSED_KEYS for t in _weight(layers[k])),
-        f32(layers["input_layernorm"]), f32(layers["post_attention_layernorm"]),
-        f32(layers["q_norm"]), f32(layers["k_norm"]), f32(params["norm"]),
+        *(_f32_once(t) for t in (layers["input_layernorm"], layers["post_attention_layernorm"],
+                                 layers["q_norm"], layers["k_norm"], params["norm"])),
         cache.k, cache.v, cache.ks if quant else None, cache.vs if quant else None,
     ]
     rope = [bf16(cos), bf16(sin)]
     if sample:
         if suppress_add.numel() != V or seen.dtype != torch.bool or seen.numel() != B * V:
             raise ValueError("talker_decode_step: suppress_add must be [V], seen bool [B, V]")
-        tail = [*_weight(head), f32(suppress_add), seen.contiguous()]
+        tail = [*_weight(head), _f32_once(suppress_add), seen.contiguous()]
     else:
         tail = [None] * 4
     oqkv = out_dim(layers["qkv_proj"])
-    hres = torch.empty(B, H, dtype=torch.bfloat16, device=dev)
     xn = torch.empty(B, H, dtype=torch.bfloat16, device=dev)
-    attn = torch.empty(B, NQ * D, dtype=torch.bfloat16, device=dev)
-    gated = torch.empty(B, I, dtype=torch.bfloat16, device=dev)
-    ws = torch.empty(workspace_floats(B, oqkv, I, H, V), dtype=torch.float32, device=dev)
-    amax = _cuda.amax_slots(B, dev) if dyn else None
     code = torch.empty(B, dtype=torch.int32, device=dev) if sample else None
     logits = torch.empty(B, V, dtype=torch.float32, device=dev) if sample and return_logits else None
     inv_t = _f32(1.0 / temperature) if temperature > 0 else 0.0
-    rc = _cuda.library().qt_talker_step(
-        L, H, NQ, NKV, D, I, V, T, B, offset if single else 0, _cuda.ptr(offs), int(quant),
-        int(w_bf16), int(head_bf16), int(dyn), cfg.rms_norm_eps, D**-0.5,
-        *(_cuda.ptr(t) for t in ins),
-        *(_cuda.ptr(t) for t in rope), 0 if single else D,
-        *(_cuda.ptr(t) for t in tail),
-        float(rep_penalty), int(temperature <= 0), inv_t, int(top_k), top_p_threshold(top_p),
-        int(ref_exact_top_p), int(eos_id),
-        seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF,
-        *(_cuda.ptr(t) for t in (hres, xn, attn, gated, ws, amax, code, logits)),
-        _cuda.stream_ptr(),
-    )
+    sampling = (float(rep_penalty), int(temperature <= 0), inv_t, int(top_k),
+                top_p_threshold(top_p), int(ref_exact_top_p), int(eos_id),
+                seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF)
+    lib = _cuda.library()
+    if B == 1:
+        check_barrier()
+        grid = blocks or _num_sms(dev)
+        cmax = max(1, grid // NKV)
+        ws, att, ctl = _frame_workspace(dev, workspace_floats(1, oqkv, I, H, V),
+                                        NKV * cmax * (NQ // NKV) * (D + 4))
+        rc = lib.qt_talker_frame(
+            L, H, NQ, NKV, D, I, V, T, offset if single else 0, _cuda.ptr(offs), int(quant),
+            int(w_bf16), int(head_bf16), int(dyn), cfg.rms_norm_eps, D**-0.5,
+            *(_cuda.ptr(t) for t in ins), *(_cuda.ptr(t) for t in rope),
+            *(_cuda.ptr(t) for t in tail), *sampling,
+            _cuda.ptr(ws), _cuda.ptr(att), cmax, _cuda.ptr(xn), _cuda.ptr(code),
+            _cuda.ptr(logits), _cuda.ptr(ctl), _barrier_flag().data_ptr(), int(blocks),
+            int(budget_ns), int(cut), _cuda.stream_ptr(),
+        )
+        if rc == _COOP_TOO_LARGE:
+            what = f"{blocks} blocks" if blocks else "one block per SM"
+            raise CoResidencyError(f"talker_decode_step: the B = 1 step's grid ({what}) cannot "
+                                   "be resident on the card at once")
+    else:
+        hres = torch.empty(B, H, dtype=torch.bfloat16, device=dev)
+        attn = torch.empty(B, NQ * D, dtype=torch.bfloat16, device=dev)
+        gated = torch.empty(B, I, dtype=torch.bfloat16, device=dev)
+        ws = torch.empty(workspace_floats(B, oqkv, I, H, V), dtype=torch.float32, device=dev)
+        amax = _cuda.amax_slots(B, dev) if dyn else None
+        rc = lib.qt_talker_step(
+            L, H, NQ, NKV, D, I, V, T, B, offset if single else 0, _cuda.ptr(offs), int(quant),
+            int(w_bf16), int(head_bf16), int(dyn), cfg.rms_norm_eps, D**-0.5,
+            *(_cuda.ptr(t) for t in ins),
+            *(_cuda.ptr(t) for t in rope), 0 if single else D,
+            *(_cuda.ptr(t) for t in tail), *sampling,
+            *(_cuda.ptr(t) for t in (hres, xn, attn, gated, ws, amax, code, logits)),
+            _cuda.stream_ptr(),
+        )
     _cuda.check(rc, "talker_decode_step")
     out = xn if not sample else (xn, code, logits) if return_logits else (xn, code)
     return _one_row(out) if single else out
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data is not 16-byte aligned (the
+    persistent step stages its vectors 16 bytes a copy)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+# f32 copies of the norm weights (and the suppress mask), made once per
+# source tensor and version rather than at every step; keyed by the
+# source's id, dropped with it
+_F32: dict = {}
+
+
+def _f32_once(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
+    key = id(t)
+    hit = _F32.get(key)
+    if hit is None or hit[0]() is not t or hit[1] != t._version:
+        hit = (weakref.ref(t, lambda _, k=key: _F32.pop(k, None)), t._version,
+               t.float().contiguous())
+        _F32[key] = hit
+    return hit[2]
+
+
+@functools.cache
+def _num_sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+# The persistent step's buffers, allocated once for each device and size:
+# the two GEMV partial buffers, the attention items' partials, the barrier
+# words (zeroed by the step itself). Steps on one stream reuse them in turn.
+_WORKSPACES: dict = {}
+
+
+def _frame_workspace(dev, n_ws: int, n_att: int):
+    key = (dev, n_ws, n_att)
+    if key not in _WORKSPACES:
+        _WORKSPACES[key] = (torch.empty(n_ws, dtype=torch.float32, device=dev),
+                            torch.empty(n_att, dtype=torch.float32, device=dev),
+                            torch.empty(2, dtype=torch.int32, device=dev))
+    return _WORKSPACES[key]
+
+
+_err_flag: torch.Tensor | None = None  # pinned int32 [1], written by the card on a timeout
+
+
+def _barrier_flag() -> torch.Tensor:
+    global _err_flag
+    if _err_flag is None:
+        _err_flag = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+    return _err_flag
+
+
+def check_barrier(sync_device=None) -> None:
+    """Raise ``BarrierTimeout`` if a B = 1 step that has finished had a
+    barrier (or its weight copies) wait past its budget (its code0 is then
+    -1, its hidden NaN); the flag is cleared. With ``sync_device`` the host
+    first waits for that device's work. No B = 1 step launched yet: nothing
+    to check."""
+    flag = _err_flag
+    if flag is None:
+        return
+    if sync_device is not None:
+        torch.cuda.synchronize(sync_device)
+    if int(flag[0]) != 0:
+        flag.zero_()
+        raise BarrierTimeout("K1 persistent barrier timed out")
+
+
+def step_barriers(L: int, sample: bool) -> int:
+    """Grid barriers of one persistent B = 1 step: TF_BARRIERS_PER_LAYER a
+    layer (qkv, attention, o, gate_up, down) and the codec head's in sample
+    mode, where the multi-launch step made 8 L + 3 launches."""
+    return _cuda.TALKER_FRAME_LIMITS["TF_BARRIERS_PER_LAYER"] * L + int(sample)
 
 
 def workspace_floats(B: int, oqkv: int, I: int, H: int, V: int) -> int:
@@ -292,3 +420,4 @@ def _f32(v: float) -> float:
 
 talker_decode_step.launches = 0  # kernel launches (CUDA calls), not plain runs
 talker_decode_step.mode_launches = dict.fromkeys(MODES, 0)  # the same, by the mode run
+talker_decode_step.persistent_launches = 0  # the same, of the persistent B = 1 step

@@ -19,6 +19,18 @@ yardsticks.
   33, 48, 64} on the 0.6B int8 talker in ``wo_bf16`` and ``dyn_int8``, and
   the 1.7B int8 talker at B = 64, on a bf16 cache of 256 rows with the rows'
   offsets in [64, 192): device ms (profiler) and events ms per step.
+- ``k1b1``: K1 at B = 1 (sample mode, T = 0.9, top-k 50) on the 0.6B
+  talker in int8 ``wo_bf16``, ``dyn_int8`` and dense bf16 and on the 1.7B
+  int8 talker, on bf16 (and for 0.6B int8 also int8) caches of random rows,
+  at pos 40 / 4000 / 6000 of 256 / 4096 / 6144 rows, and at top_p 0.9: ms
+  per step by events (back to back) and queued (behind a spin kernel, the
+  host out of the way), and the same call captured once in a CUDA graph
+  and replayed (in a tree whose B = 1 step is the multi-launch loop, a
+  graph of its 8 L + 3 launches); the bound (weights and the prefix's
+  cache bytes once at 3.35 TB/s); the library's operations a call; the
+  host ms of one call (the wrapper's Python and the launch, not waited
+  for); where the tree has the persistent step, the step cut after each
+  kind of phase.
 - ``e2e``: the 0.6B int8 B=1 headline (66 frames, forbid_eos, T = 0.9,
   top-k 50, repetition 1.05, f32 vocoder: wall, RTF, decode ms per frame
   after the first) and the B=64 lockstep frame (``generate_codes_batch``,
@@ -28,21 +40,26 @@ yardsticks.
   (int4, group 64, M = 1) at the packed 0.6B shapes, on weights repacked
   with ``torch._convert_weight_to_int4pack`` (MLX's ``scale * q + bias``
   is int4pack's ``(q - 8) * scale + zero`` with ``zero = bias + 8 *
-  scale``, both rounded to bf16), beside K4 on the same weights.
+  scale``, both rounded to bf16), beside K4 on the same weights (int4 and
+  int8, group 64), by the profiler and queued; where the tree's K4 takes
+  it, K4 in each rows-a-warp form.
 - ``k2b1``: K2 at B = 1 in every mode it takes (0.6B int8 fused and
   unfused in both matmul modes, dense bf16, the 1.7B CP with its
-  projection in int8, dyn_int8 and bf16, top-p 0.9, K5's port): device ms
-  and events ms per frame, and events ms per frame of the same call
+  projection in int8, dyn_int8 and bf16, top-p 0.9, K5's port): queued ms
+  (torch.profiler records no cooperative launch) and events ms per frame,
+  and events ms per frame of the same call
   captured once in a CUDA graph and replayed (a graph of the multi-launch
   loop in a tree that runs it at B = 1, of the persistent frame in one
   that has it); where the tree has the persistent frame, its time split
   by phase (the frame cut after each kind of phase).
 
-Every device time is a profiler window held to the kernels of its calls
-(``_card.device_ms``). Needs a CUDA device. Run from a checkout's root:
+Every device time of a multi-launch call is a profiler window held to the
+kernels of its calls (``_card.device_ms``); a persistent B = 1 launch is
+read queued (``_card.queued_ms``) or by events, as the profiler records
+none. Needs a CUDA device. Run from a checkout's root:
 
     python -m qwen3tts_tpu_torch.tools.time_k3_k2 [--label L] [--rounds N] \
-        [--parts k3,k2,gemv,k1,k2b1,e2e,int4lib] [--out DIR]
+        [--parts k3,k2,gemv,k1,k1b1,k2b1,e2e,int4lib] [--out DIR]
 
 It uses only entry points older trees share, so two trees compare on one
 card: copy this file and ``_card.py`` into the other tree's
@@ -67,8 +84,8 @@ from ..ops import cp_kernel as cpk
 from ..ops.quant import quantize_decode_params_int8
 from ..utils import host_init as hi
 from ._card import (
-    HBM_BYTES_S, card, device_ms, device_ms_by_kernel, event_ms, int8_talker, require_cuda,
-    talker_06b,
+    HBM_BYTES_S, card, device_ms, device_ms_by_kernel, event_ms, int8_talker, queued_ms,
+    require_cuda, talker_06b,
 )
 
 PEAK_BF16, PEAK_INT8 = 989e12, 1979e12  # H100 SXM dense tensor rates, 700 W
@@ -269,6 +286,107 @@ def k1(dev, emit):
     del tp17
 
 
+def k1b1_cases(dev):
+    """(name, config, talker tree, mode, kv_quant, top_p) of the B = 1 cells:
+    each weight mode at the three positions (the 0.6B int8 talker also on an
+    int8 cache), and top_p 0.9."""
+    from ..models import talker as tk
+
+    cfg, cfg17 = talker_06b(), talker_17b()
+    tp = int8_talker(cfg, dev)
+    bf = hi.to_device(hi.host_init_talker_params(0, cfg), torch.bfloat16, dev)
+    bf["layers"] = tk.fuse_layer_projections(bf["layers"])
+    tp17 = int8_talker(cfg17, dev)
+    return [
+        ("0.6B int8", cfg, tp, "wo_bf16", False, 1.0),
+        ("0.6B int8, int8 cache", cfg, tp, "wo_bf16", True, 1.0),
+        ("0.6B dyn_int8", cfg, tp, "dyn_int8", False, 1.0),
+        ("0.6B bf16 weights", cfg, bf, "wo_bf16", False, 1.0),
+        ("1.7B int8", cfg17, tp17, "wo_bf16", False, 1.0),
+        ("1.7B int8, int8 cache", cfg17, tp17, "wo_bf16", True, 1.0),
+        ("0.6B int8, top_p 0.9", cfg, tp, "wo_bf16", False, 0.9),
+    ]
+
+
+K1B1_POSITIONS = ((256, 40), (4096, 4000), (6144, 6000))
+
+
+def k1b1(dev, emit):
+    import statistics
+    import time
+
+    from ..models import talker as tk
+    from ..ops import talker_kernel as tkk
+    from ..ops.rope import mrope_cos_sin
+
+    persistent = hasattr(tkk, "STEP_CUTS")
+    for name, cfg, tp, mode, kv_quant, top_p in k1b1_cases(dev):
+        layers = tp["layers"]
+        w_bytes = sum(t.numel() * t.element_size() for k in ("qkv_proj", "o_proj", "gate_up_proj",
+                                                              "down_proj")
+                      for t in ((layers[k].q, layers[k].scale) if hasattr(layers[k], "q")
+                                else (layers[k],)))
+        head = tp["codec_head"]
+        w_bytes += sum(t.numel() * t.element_size()
+                       for t in ((head.q, head.scale) if hasattr(head, "q") else (head,)))
+        for T, pos in K1B1_POSITIONS if top_p == 1.0 else K1B1_POSITIONS[:1]:
+            g = torch.Generator(device=dev).manual_seed(pos)
+            cache = tk.make_cache(cfg, 1, T, torch.bfloat16, dev, quantized=kv_quant)
+            if kv_quant:
+                cache.k.copy_(torch.randint(-127, 128, cache.k.shape, generator=g, device=dev))
+                cache.v.copy_(torch.randint(-127, 128, cache.v.shape, generator=g, device=dev))
+                cache.ks.copy_(torch.rand(cache.ks.shape, generator=g, device=dev).mul(0.02))
+                cache.vs.copy_(torch.rand(cache.vs.shape, generator=g, device=dev).mul(0.01))
+            else:
+                cache.k.copy_(torch.randn(cache.k.shape, generator=g, device=dev).mul(0.5))
+                cache.v.copy_(torch.randn(cache.v.shape, generator=g, device=dev).mul(0.5))
+            x = torch.randn(1, 1, cfg.hidden_size, generator=g, device=dev).mul(0.2).bfloat16()
+            cos, sin = mrope_cos_sin(torch.full((1, 1), pos, device=dev), cfg.head_dim,
+                                     cfg.rope_theta, cfg.mrope_section, torch.bfloat16)
+            cos, sin = cos[0, 0], sin[0, 0]
+            supp = torch.zeros(cfg.vocab_size, device=dev)
+            seen = torch.zeros(cfg.vocab_size, dtype=torch.bool, device=dev)
+            kw = dict(temperature=0.9, top_k=50, top_p=top_p, rep_penalty=1.05, eos_id=-1,
+                      seed=(1, 2), suppress_add=supp, seen=seen)
+            call = lambda: tkk.talker_decode_step(tp, cfg, x, cache, pos, cos, sin, mode=mode,
+                                                  **kw)
+            # each cached row read once: k and v (with their row scales on an int8 cache)
+            row = 2 * cfg.num_hidden_layers * cfg.num_key_value_heads * (
+                cfg.head_dim * (1 if kv_quant else 2) + (4 if kv_quant else 0))
+            b = bound(w_bytes + pos * row, 0, PEAK_BF16)
+            call()
+            torch.cuda.synchronize()
+            n0 = _cuda.launches()
+            call()
+            ops = _cuda.launches() - n0
+            host = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                host.append((time.perf_counter() - t0) * 1e3)
+            try:
+                q_ms = queued_ms(call, 4)
+            except RuntimeError as e:
+                q_ms = f"not measured: {e}"[:200]
+            rec = dict(kernel="K1", B=1, case=name, mode=mode, T=T, pos=pos, top_p=top_p,
+                       events_ms=event_ms(call, 10), queued_ms=q_ms, graph_ms=graph_ms(call, 10),
+                       bound_ms=b[0], bound_by=b[1], operations_per_call=ops,
+                       host_ms=statistics.median(host), persistent=persistent)
+            if persistent:
+                lkw = dict(sample=True, temperature=0.9, top_k=50, top_p=top_p,
+                           ref_exact_top_p=False, rep_penalty=1.05, eos_id=-1, seed=(1, 2),
+                           suppress_add=supp, seen=seen, return_logits=False,
+                           dyn=mode == "dyn_int8")
+                if top_p == 1.0:
+                    rec["cut_events_ms"] = {
+                        cut_name: event_ms(lambda: tkk.launch(tp, cfg, x, cache, pos, cos, sin,
+                                                              cut=cut, **lkw), 10)
+                        for cut, cut_name in enumerate(tkk.STEP_CUTS, start=1)}
+            emit(rec)
+            del cache
+
+
 def k2b1_cases(dev):
     """(name, CP config, CP tree, talker tree, mode, top_p, entry point) of
     every mode K2 takes at B = 1."""
@@ -336,7 +454,7 @@ def k2b1(dev, emit):
         c0 = torch.tensor([17], dtype=torch.int32, device=dev)
         call = lambda: fn(cp, cpc, talker, h, c0, (3, 4), temperature=0.9, top_k=50, top_p=top_p,
                           mode=mode)
-        rec = dict(kernel="K2", B=1, case=name, mode=mode, ms=device_ms(call, 10),
+        rec = dict(kernel="K2", B=1, case=name, mode=mode, queued_ms=queued_ms(call, 10),
                    events_ms=event_ms(call, 20), graph_ms=graph_ms(call))
         if persistent and name in ("int8 fused", "1.7B projection int8") and top_p == 1.0:
             rec.update(frame_profile(cpc, cp, talker, h, c0, mode))
@@ -344,12 +462,12 @@ def k2b1(dev, emit):
 
 
 def frame_profile(cpc, cp, talker, h, c0, mode) -> dict:
-    """The persistent frame's device ms with its work cut after each kind of
+    """The persistent frame's queued ms with its work cut after each kind of
     phase (``cp_kernel.FRAME_CUTS``)."""
     kw = dict(temperature=0.9, top_k=50, top_p=1.0, ref_exact_top_p=False, force_codes=None,
               return_logits=False, dyn=mode == "dyn_int8")
     args = (cp, cpc, talker, h, c0, (3, 4))
-    return dict(cut_ms={name: device_ms(lambda: cpk.launch(*args, cut=cut, **kw), 10)
+    return dict(cut_ms={name: queued_ms(lambda: cpk.launch(*args, cut=cut, **kw), 10)
                         for cut, name in enumerate(cpk.FRAME_CUTS, start=1)})
 
 
@@ -435,32 +553,49 @@ def e2e(dev, emit):
 
 
 def int4lib(dev, emit):
+    import inspect
+
     from ..ops import quant as tq
 
     shapes = {"q": (1024, 2048), "k/v": (1024, 1024), "o": (2048, 1024), "gate/up": (1024, 3072),
               "down": (3072, 1024), "codec_head": (1024, 3072), "cp lm_head": (1024, 2048)}
+    forms = "rows_per_warp" in inspect.signature(tq.quant_gemv).parameters
     rng = np.random.default_rng(4)
-    for name, (I, O) in shapes.items():
-        q, scales, biases = tq.pack_quantized(rng.standard_normal((O, I)).astype(np.float32) * 0.02)
-        w = tq.packed_from_numpy(q, scales, biases, 4, 64).to(dev)
-        x = torch.from_numpy(rng.standard_normal((1, I)).astype(np.float32)).to(dev).bfloat16()
-        ref = x.float() @ tq.dequantize(w.q, w.scales, w.biases).T
-        k4 = lambda: tq.quant_gemv(x, w.q, w.scales, w.biases)
-        rec = dict(kernel="K4 and its library yardstick", shape=name, I=I, O=O, k4_ms=device_ms(k4, 20),
-                   k4_scaled_err=float((k4() - ref).abs().max() / max(1.0, float(ref.abs().max()))))
-        try:  # MLX codes (8 nibbles a word along I) as int4pack's [O, I / 2] uint8, high nibble first
-            nib = torch.stack([(w.q >> (4 * i)) & 0xF for i in range(8)], -1).reshape(O, I)
-            packed = torch._convert_weight_to_int4pack(((nib[:, ::2] << 4) | nib[:, 1::2])
-                                                       .to(torch.uint8), 8)
-            zero = w.biases + 8 * w.scales  # (q - 8) * scale + zero = q * scale + bias
-            sz = torch.stack([w.scales.bfloat16(), zero.bfloat16()], -1).transpose(0, 1).contiguous()
-            lib = lambda: torch._weight_int4pack_mm(x, packed, 64, sz)
-            rec["library_ms"] = device_ms(lib, 20)
-            rec["library_scaled_err"] = float((lib().float() - ref).abs().max()
-                                              / max(1.0, float(ref.abs().max())))
-        except (RuntimeError, AttributeError, TypeError) as e:  # a build without the op
-            rec["library_ms"] = f"not available: {e}"[:300]
-        emit(rec)
+    for bits in (4, 8):
+        for name, (I, O) in shapes.items():
+            q, scales, biases = tq.pack_quantized(
+                rng.standard_normal((O, I)).astype(np.float32) * 0.02, bits)
+            w = tq.packed_from_numpy(q, scales, biases, bits, 64).to(dev)
+            x = torch.from_numpy(rng.standard_normal((1, I)).astype(np.float32)).to(dev).bfloat16()
+            ref = x.float() @ tq.dequantize(w.q, w.scales, w.biases, bits).T
+            k4 = lambda: tq.quant_gemv(x, w.q, w.scales, w.biases, bits)
+            n_bytes = sum(t.numel() * t.element_size() for t in (w.q, w.scales, w.biases, x))
+            rec = dict(kernel="K4 and its library yardstick", bits=bits, shape=name, I=I, O=O,
+                       k4_ms=device_ms(k4, 20), k4_queued_ms=queued_ms(k4, 20),
+                       k4_scaled_err=float((k4() - ref).abs().max()
+                                           / max(1.0, float(ref.abs().max()))),
+                       bound_ms=n_bytes / HBM_BYTES_S * 1e3)
+            if forms:
+                rec["k4_queued_ms_by_rows_per_warp"] = {
+                    r: queued_ms(lambda: tq.quant_gemv(x, w.q, w.scales, w.biases, bits,
+                                                       rows_per_warp=r), 20)
+                    for r in (1, 2, 4, 8)}
+            if bits == 4:
+                try:  # MLX codes (8 nibbles a word along I) as int4pack's [O, I / 2] uint8
+                    nib = torch.stack([(w.q >> (4 * i)) & 0xF for i in range(8)], -1).reshape(O, I)
+                    packed = torch._convert_weight_to_int4pack(((nib[:, ::2] << 4) | nib[:, 1::2])
+                                                               .to(torch.uint8), 8)
+                    zero = w.biases + 8 * w.scales  # (q - 8) * scale + zero = q * scale + bias
+                    sz = torch.stack([w.scales.bfloat16(), zero.bfloat16()], -1).transpose(0, 1) \
+                        .contiguous()
+                    lib = lambda: torch._weight_int4pack_mm(x, packed, 64, sz)
+                    rec["library_ms"] = device_ms(lib, 20)
+                    rec["library_queued_ms"] = queued_ms(lib, 20)
+                    rec["library_scaled_err"] = float((lib().float() - ref).abs().max()
+                                                      / max(1.0, float(ref.abs().max())))
+                except (RuntimeError, AttributeError, TypeError) as e:  # a build without the op
+                    rec["library_ms"] = f"not available: {e}"[:300]
+            emit(rec)
 
 
 def main() -> None:
@@ -468,7 +603,7 @@ def main() -> None:
     ap.add_argument("--label", default="tree")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--parts", default="k3,k2,gemv",
-                    help="any of k3, k2, gemv, k1, k2b1, e2e, int4lib")
+                    help="any of k3, k2, gemv, k1, k1b1, k2b1, e2e, int4lib")
     ap.add_argument("--out", default=None, help="a directory for the JSON lines file too")
     args = ap.parse_args()
     parts = args.parts.split(",")
@@ -495,6 +630,8 @@ def main() -> None:
             gemv_alone(dev, emit)
         if "k1" in parts:
             k1(dev, emit)
+        if "k1b1" in parts:
+            k1b1(dev, emit)
         if "k2b1" in parts:
             k2b1(dev, emit)
         if "e2e" in parts:

@@ -19,11 +19,13 @@ from qwen3tts_tpu_torch.utils import host_init as hi
 
 
 def test_frame_limits_are_read_from_the_kernel():
-    """The frame's constants come from csrc/cp_loop.cu: its sampler block of
-    512 threads takes a whole number of ids a thread up to the multi-launch
-    sampler's 4096, and the B = 1 workspace (GEMV_MAX_SPLIT rows) holds the
-    two partial buffers of PF_MAX_SPLIT rows each."""
-    fl, lim = _cuda.FRAME_LIMITS, _cuda.LIMITS
+    """The frame's constants come from the source (csrc/common.cuh, where
+    the persistent kernels' building blocks sit since K1's B = 1 step shares
+    them): its sampler block of 512 threads takes a whole number of ids a
+    thread up to the multi-launch sampler's 4096, and the B = 1 workspace
+    (GEMV_MAX_SPLIT rows) holds the two partial buffers of PF_MAX_SPLIT rows
+    each."""
+    fl = lim = _cuda.LIMITS
     per_thread, rest = divmod(lim["SAMPLE_THREADS"] * lim["SAMPLE_PER_THREAD"], fl["PF_THREADS"])
     assert (fl["PF_THREADS"], per_thread, rest) == (512, 8, 0)
     assert 2 * fl["PF_MAX_SPLIT"] <= _cuda.workspace_rows(1) == lim["GEMV_MAX_SPLIT"]
