@@ -148,7 +148,24 @@ kernels from csrc/, and runs, in order:
      rows within the bounds of phases 3 and a (dyn_int8 against the float64
      step as phase k holds it), 2 operations a call where the multi-launch
      step made 8 L + 3, ms per step by events beside the plain version's
-     and the bound.
+     and the bound;
+  r. streaming at phase 6's 66-frame ``forbid_eos`` utterance:
+     ``generate_stream(..., audio_chunk_frames=4)`` against ``generate()`` at
+     the same seed (TokenEvents equal to its code-0 tokens, the AudioEvent
+     bit-equal to its waveform, chunks tiling 66 x 1920 samples, one K1
+     and one K2 launch a frame), TTFT, TTFA and ms per frame; the stream
+     without audio chunks (its first read-back after the prefill) against
+     it; ``generate_stream_async``'s events equal to the stream's;
+  s. two host threads, each under its own ``torch.cuda.Stream``, streaming
+     two seeds at once, and an async stream beside a stream on the main
+     thread, both on the default stream: each seed's tokens and audio equal
+     to its run alone (the decodes take turns on the card,
+     ``generate.device_turn``), with the walls;
+  t. ``generate_voice_clone`` on a Base model at 0.6B with the speaker
+     encoder and the tokenizer encoder at their config widths
+     (``torch.Generator`` weights) and 3 s of reference audio: K1 and K2 on
+     every frame, a finite waveform in [-1, 1]; the encode and speaker
+     embedding ms, the ICL prompt's length and its prefill ms.
 
 The K1 comparisons in dyn_int8 (phase k) hold kernel and plain version
 against a float64 step of the model's maths (the kernel within 1.5x of the
@@ -2592,6 +2609,232 @@ def main() -> None:
             del cache, ck, cr, kc
     log(f"    phase q took {time.time() - t_q:.1f} s  [{smi}]")
 
+    # ---- r. streaming: generate_stream with and without audio chunks, the async stream ----
+    import threading
+
+    import numpy as np
+
+    import qwen3tts_tpu_torch.tts as tts_mod
+    from qwen3tts_tpu_torch.tts import AudioChunkEvent, AudioEvent, InfoEvent, TokenEvent
+
+    t_r = time.time()
+    log("[r] streaming: generate_stream of phase 6's 66-frame forbid_eos utterance against "
+        "generate() at the same seed, with and without audio chunks; generate_stream_async")
+    text_r, seed_r = "Streaming from the H100 port of the talker, sixty-six frames.", 11
+    # phase 6's sampling (forbid_eos, 66 frames) through the public entry points
+    model._sampling = lambda *a: sampling
+    kw_r = dict(speaker="aiden", language="english", max_tokens=frames)
+    rec = {}
+    orig_gd = tts_mod._generate_and_decode
+
+    def recording_gd(*a, **k):
+        out = orig_gd(*a, **k)
+        rec["codes"], rec["n"] = out[0].cpu(), out[1]
+        return out
+
+    tts_mod._generate_and_decode = recording_gd
+    try:
+        wav_r = model.generate(text_r, seed=seed_r, **kw_r)
+    finally:
+        tts_mod._generate_and_decode = orig_gd
+    check(rec["n"] == frames, f"generate(): {rec['n']} frames, not {frames}")
+    tokens_r = rec["codes"][:frames, 0].tolist()
+
+    def stream_events(fn, seed_, **kw):
+        """Events of one stream and the host seconds at which each arrived."""
+        t0_ = time.time()
+        evs, at = [], []
+        for ev in fn(text_r, seed=seed_, **kw_r, **kw):
+            evs.append(ev)
+            at.append(time.time() - t0_)
+        return evs, at
+
+    def same_events(a, b, what):
+        check([type(e) for e in a] == [type(e) for e in b], f"{what}: event kinds differ")
+        for x, y in zip(a, b):
+            if isinstance(x, TokenEvent):
+                check(x.token == y.token, f"{what}: tokens differ")
+            elif isinstance(x, AudioChunkEvent):
+                check(x.frame_offset == y.frame_offset and np.array_equal(x.audio, y.audio),
+                      f"{what}: chunk at frame {x.frame_offset} differs")
+            elif isinstance(x, AudioEvent):
+                check(np.array_equal(x.audio, y.audio), f"{what}: final audio differs")
+
+    torch.cuda.synchronize()
+    tkk.talker_decode_step.launches = tkk.talker_decode_step.persistent_launches = 0
+    cpk.predict_codes_fused.launches = 0
+    ev_r, at_r = stream_events(model.generate_stream, seed_r, audio_chunk_frames=4)
+    path_r = (tkk.talker_decode_step.launches, cpk.predict_codes_fused.launches)
+    check(path_r == (frames - 1, frames) and tkk.talker_decode_step.persistent_launches == frames - 1,
+          f"stream: K1 {path_r[0]}, K2 {path_r[1]} launches for {frames} frames")
+    tok_ev = [e.token for e in ev_r if isinstance(e, TokenEvent)]
+    chunks_r = [e for e in ev_r if isinstance(e, AudioChunkEvent)]
+    final_r = ev_r[-1]
+    check(isinstance(final_r, AudioEvent) and isinstance(ev_r[-2], InfoEvent),
+          "stream: the last events are not InfoEvent, AudioEvent")
+    check(tok_ev == tokens_r, "stream: TokenEvents differ from generate()'s code-0 tokens "
+          f"(first difference at frame {next((i for i, (a, b) in enumerate(zip(tok_ev, tokens_r)) if a != b), len(tok_ev))})")
+    check(np.array_equal(final_r.audio, wav_r), "stream: the AudioEvent differs from generate()'s "
+          f"waveform (max |diff| {np.abs(final_r.audio - wav_r).max() if final_r.audio.shape == wav_r.shape else 'shape'})")
+    pcm_r = np.concatenate([c.audio for c in chunks_r])
+    check(chunks_r[0].frame_offset == 0 and pcm_r.shape[0] == frames * 1920
+          and all(b.frame_offset * 1920 == a.frame_offset * 1920 + a.audio.shape[0]
+                  for a, b in zip(chunks_r, chunks_r[1:])),
+          "stream: the chunks do not tile the utterance")
+    check(bool(np.isfinite(pcm_r).all()) and float(np.abs(pcm_r).max()) <= 1.0,
+          "stream: chunk PCM not finite or outside [-1, 1]")
+    i_tok = next(i for i, e in enumerate(ev_r) if isinstance(e, TokenEvent))
+    i_aud = next(i for i, e in enumerate(ev_r) if isinstance(e, AudioChunkEvent))
+    i_last = max(i for i, e in enumerate(ev_r) if isinstance(e, TokenEvent))
+    first_chunk_r = min(model.stream_chunk_frames,
+                        model.STREAM_FIRST_AUDIO_FRAMES + model.STREAM_LOOKAHEAD_FRAMES)
+
+    def stream_times(at):
+        """TTFT, TTFA (ms from the call) and the stream's ms a frame after
+        its first chunk, of a run with ev_r's event sequence."""
+        return (at[i_tok] * 1e3, at[i_aud] * 1e3,
+                (at[i_last] - at[i_tok]) * 1e3 / (frames - first_chunk_r))
+
+    log(f"    stream of {frames} frames, audio_chunk_frames=4: {len(tok_ev)} TokenEvents equal to "
+        f"generate()'s code-0 tokens, the AudioEvent bit-equal to its waveform, {len(chunks_r)} "
+        f"chunks tiling {pcm_r.shape[0]} samples; launches K1 {path_r[0]}, K2 {path_r[1]}")
+    # the first stream met the vocoder windows' shapes cold; three warm runs time it
+    cold_r = stream_times(at_r)
+    warm_r = [stream_times(stream_events(model.generate_stream, seed_r, audio_chunk_frames=4)[1])
+              for _ in range(3)]
+    ttft_ms, ttfa_ms, stream_ms = (statistics.median(v) for v in zip(*warm_r))
+    tokens_only = [stream_events(model.generate_stream, seed_r) for _ in range(3)]
+    ttft_tokens_ms = statistics.median(at_[0] * 1e3 for _, at_ in tokens_only)
+    log(f"    TTFT (first TokenEvent, after {first_chunk_r} frames) {ttft_ms:.1f} ms, TTFA (first "
+        f"AudioChunkEvent) {ttfa_ms:.1f} ms, decode {stream_ms:.2f} ms/frame after the first "
+        f"chunk (host reads and vocoder windows included; phase 6's loop: {decode6_ms:.2f}), "
+        f"medians of 3 warm runs (the first, cold: {cold_r[0]:.1f}, {cold_r[1]:.1f}, "
+        f"{cold_r[2]:.2f}); without audio chunks (the first read-back after the prefill) TTFT "
+        f"{ttft_tokens_ms:.1f} ms  [{smi}]")
+
+    # Without audio chunks the first read-back comes after the prefill and
+    # the chunks end at other frames: the tokens and the final audio are
+    # held equal over the whole utterance.
+    ev_t = tokens_only[0][0]
+    check([e.token for e in ev_t if isinstance(e, TokenEvent)] == tok_ev,
+          "the stream without audio chunks: tokens differ from the stream with them")
+    check(np.array_equal(ev_t[-1].audio, final_r.audio),
+          "the stream without audio chunks: final audio differs from the stream with them")
+    async_ev = list(model.generate_stream_async(text_r, seed=seed_r, audio_chunk_frames=4, **kw_r))
+    same_events(ev_r, async_ev, "generate_stream_async against generate_stream")
+    log(f"    the stream without audio chunks: the same tokens and final audio over {frames} "
+        "frames; generate_stream_async: the same event sequence")
+    log(f"    phase r took {time.time() - t_r:.1f} s")
+
+    # ---- s. two streams at once: the decodes take turns on the card ----
+    t_s = time.time()
+    seeds_s = (seed_r, seed_r + 1)
+
+    def stream_codes(seed_):
+        evs = list(model.generate_stream(text_r, seed=seed_, **kw_r))
+        return [e.token for e in evs if isinstance(e, TokenEvent)], evs[-1].audio
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    alone = {s_: stream_codes(s_) for s_ in seeds_s}
+    alone_s = time.time() - t0
+    got_s, keys_s, errs_s = {}, {}, []  # keys_s: each thread's CUDA stream
+    start_s = threading.Barrier(len(seeds_s))
+
+    def worker(seed_):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                keys_s[seed_] = torch.cuda.current_stream(dev).cuda_stream
+                start_s.wait()
+                got_s[seed_] = stream_codes(seed_)
+        except BaseException as ex:  # noqa: BLE001  (reported by the check below)
+            errs_s.append(repr(ex))
+
+    workers = [threading.Thread(target=worker, args=(s_,)) for s_ in seeds_s]
+    t0 = time.time()
+    for w_ in workers:
+        w_.start()
+    for w_ in workers:
+        w_.join()
+    both_s = time.time() - t0
+    check(not errs_s, f"two streams: {errs_s}")
+    check(len(set(keys_s.values())) == 2, "two streams: the threads shared a stream")
+    for s_ in seeds_s:
+        check(got_s[s_][0] == alone[s_][0], f"two streams: seed {s_}'s tokens differ from its run alone")
+        check(np.array_equal(got_s[s_][1], alone[s_][1]),
+              f"two streams: seed {s_}'s audio differs from its run alone")
+    # the async producer and the main thread, both on the default stream
+    t0 = time.time()
+    async_s = model.generate_stream_async(text_r, seed=seeds_s[0], **kw_r)
+    main_s = stream_codes(seeds_s[1])
+    evs_s = list(async_s)
+    default_s = time.time() - t0
+    check([e.token for e in evs_s if isinstance(e, TokenEvent)] == alone[seeds_s[0]][0]
+          and np.array_equal(evs_s[-1].audio, alone[seeds_s[0]][1]),
+          f"async beside the main thread: seed {seeds_s[0]} differs from its run alone")
+    check(main_s[0] == alone[seeds_s[1]][0] and np.array_equal(main_s[1], alone[seeds_s[1]][1]),
+          f"async beside the main thread: seed {seeds_s[1]} differs from its run alone")
+    del model._sampling  # the class's again
+    log(f"[s] two threads, each under its own torch.cuda.Stream, streamed seeds {seeds_s} at once: "
+        f"tokens and audio equal to each seed run alone; {both_s:.3f} s at once against "
+        f"{alone_s:.3f} s one after the other; an async stream beside a stream on the main "
+        f"thread (the default stream): equal too, {default_s:.3f} s  [{smi}]")
+    log(f"    phase s took {time.time() - t_s:.1f} s")
+
+    # ---- t. voice clone at full width (the Base model's encoders) ----
+    from qwen3tts_tpu_torch.models import encoder as enc_mod
+    from qwen3tts_tpu_torch.models import speaker_encoder as spk_mod
+
+    t_t = time.time()
+    enc_cfg, spk_cfg = C.TokenizerEncoderConfig(), C.SpeakerEncoderConfig()
+    gt = torch.Generator(device=dev).manual_seed(5)
+    base = Qwen3TTSModel(
+        C.ModelConfig(talker_config=cfg, tts_model_type="base", tts_model_size="0b6",
+                      speaker_encoder_config=spk_cfg),
+        talker_p, cp_p, voc_p,
+        tokenizer_config=C.TokenizerConfig(decoder_config=dec_cfg, encoder_config=enc_cfg),
+        encoder_params=hi.init_encoder_params(gt, enc_cfg, torch.float32, dev),
+        speaker_encoder_params=hi.init_speaker_encoder_params(gt, spk_cfg, torch.float32, dev),
+        tokenizer=StubTokenizer(cfg.text_vocab_size), dtype=torch.bfloat16, device=dev,
+    )
+    check(base.supports_voice_cloning and base.has_voice_cloning, "Base model: no voice cloning")
+    ref_t = (np.random.default_rng(3).standard_normal(3 * 24000) * 0.1).astype(np.float32)
+    ref_text, text_t = "A reference transcript of three seconds.", "Hello from a cloned voice."
+    audio_t = torch.from_numpy(ref_t).to(dev)
+    enc_ms = stage_ms(lambda: enc_mod.encode(base.encoder_params, enc_cfg, audio_t[None]))
+    spk_ms = stage_ms(lambda: spk_mod.extract_embedding(base.speaker_encoder_params, spk_cfg,
+                                                        audio_t))
+    emb_t, trail_t, pad_t, ref_codes_t = base._prepare_icl_generation_inputs(text_t, ref_t,
+                                                                             ref_text)
+    check(tuple(ref_codes_t.shape) == (1, 16, 38), f"ref codes {tuple(ref_codes_t.shape)}")
+    steps_t = base._effective_max_tokens(text_t, 2048)
+    prep_t = base._prep_run(emb_t, trail_t, pad_t, steps_t)
+    cache_len_t = prep_t.pop("cache_len")
+    prep_t.pop("kv_quant")
+    icl_prefill_ms = stage_ms(lambda: gen.prefill_start(
+        talker_p, cp_p, talker_cfg=cfg, cp_cfg=cpc, sampling=base._sampling(0.9, 50, 1.0, 1.5),
+        **prep_t, seed=0, cache=tk.make_cache(cfg, 1, cache_len_t, torch.bfloat16, dev)))
+    torch.cuda.synchronize()
+    tkk.talker_decode_step.launches = tkk.talker_decode_step.persistent_launches = 0
+    cpk.predict_codes_fused.launches = 0
+    t0 = time.time()
+    wav_t = base.generate_voice_clone(text_t, ref_t, ref_text, seed=0)
+    clone_s = time.time() - t0
+    n_t = base.last_info.generation_token_count
+    path_t = (tkk.talker_decode_step.launches, cpk.predict_codes_fused.launches)
+    eos_t = n_t < steps_t
+    check(path_t[1] == n_t and path_t[0] == n_t - 1 + int(eos_t)
+          and tkk.talker_decode_step.persistent_launches == path_t[0],
+          f"clone: K1 {path_t[0]}, K2 {path_t[1]} launches for {n_t} frames")
+    check(bool(np.isfinite(wav_t).all()) and float(np.abs(wav_t).max()) <= 1.0 and len(wav_t) > 0,
+          "clone: waveform not finite, empty or outside [-1, 1]")
+    log(f"[t] generate_voice_clone at 0.6B (Base; speaker encoder and tokenizer encoder at their "
+        f"config widths): {n_t} frames (cap {steps_t}{', EOS' if eos_t else ''}), {len(wav_t)} "
+        f"samples, {clone_s:.2f} s; launches K1 {path_t[0]}, K2 {path_t[1]}; encode of 3 s "
+        f"{enc_ms:.2f} ms ({ref_codes_t.shape[-1]} frames), speaker embedding {spk_ms:.2f} ms, ICL "
+        f"prompt {emb_t.shape[1]} positions, prefill + first frame {icl_prefill_ms:.2f} ms  [{smi}]")
+    log(f"    phase t took {time.time() - t_t:.1f} s")
+
     print(smi, flush=True)
     k1_64, k2_64 = k1b[(64, True)], k2b[64]
     kernels = [
@@ -2698,8 +2941,9 @@ def main() -> None:
 
     kernels += [tool(f"weight_stream ({name})", "weight_stream.cu", "exp_weight_stream.py:123",
                      t7[name], t7_launches) for name in ("dma4", "dma12", "dma1")]
-    kernels += [tool(f"variant_step ({part})", "talker_ablate.cu", "exp_tk_b1_ablate.py:202",
-                     t6[part], t6_launches) for part in ("noattn", "nomlp", "dma")]
+    kernels += [tool(f"variant_step ({part})", "talker_ablate.cu" if part == "dma" else
+                     "talker_frame.cu", "exp_tk_b1_ablate.py:202", t6[part], t6_launches)
+                for part in ("noattn", "nomlp", "dma")]
     kernels += [tool(f"colsum ({mb} MiB blocks)", "hbm_read.cu", "exp_hbm_peak.py:57",
                      dict(t3[mb], abs=0.0, bound=t3_bound), t3_launches, lib_ms)
                 for mb in thp.BLOCK_MIB]

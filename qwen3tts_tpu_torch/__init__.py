@@ -6,6 +6,18 @@ stays the reference the tests hold this one against. This package imports
 ``torch`` and never ``jax``.
 """
 
-from .tts import GenerationInfo, Qwen3TTSError, Qwen3TTSModel
+from .tts import (
+    AsyncEventStream,
+    AudioChunkEvent,
+    AudioEvent,
+    GenerationInfo,
+    InfoEvent,
+    Qwen3TTSError,
+    Qwen3TTSModel,
+    TokenEvent,
+)
 
-__all__ = ["GenerationInfo", "Qwen3TTSError", "Qwen3TTSModel"]
+__all__ = [
+    "AsyncEventStream", "AudioChunkEvent", "AudioEvent", "GenerationInfo", "InfoEvent",
+    "Qwen3TTSError", "Qwen3TTSModel", "TokenEvent",
+]

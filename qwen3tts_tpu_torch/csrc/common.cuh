@@ -1099,11 +1099,7 @@ struct AttnCache {
 // scales (KVQ), as in AttnCache
 // dyn_int8: ``amax_in`` gives the qkv GEMV's activation scale, and each
 // warp's max |out| joins row b's atomic slot ``amax_out``.
-// NOATTN (T6's ``noattn`` ablation, talker form, bf16 cache): the new k/v
-// row is written as usual, the prefix walk and the softmax are skipped, and
-// the output is q itself after QK-norm and rope (unscaled).
-template <bool CP, bool KVQ, bool NOATTN = false,
-          typename KV = typename std::conditional<KVQ, int8_t, bf16>::type>
+template <bool CP, bool KVQ, typename KV = typename std::conditional<KVQ, int8_t, bf16>::type>
 __global__ void __launch_bounds__(ATTN_THREADS)
 attn_step(const float* __restrict__ part, int splits, const Mat qkv,
           const float* __restrict__ amax_in, const float* __restrict__ qn,
@@ -1156,7 +1152,7 @@ attn_step(const float* __restrict__ part, int splits, const Mat qkv,
     const float rot = d < D / 2 ? -xp : xp;
     const float y = rbf(__fadd_rn(rbf(__fmul_rn(xd, bf(cosr[d]))), rbf(__fmul_rn(rot, bf(sinr[d])))));
     // the talker form scales q before the dot
-    qk[which][d] = (!CP && !NOATTN && which < G) ? __fmul_rn(y, scale) : y;
+    qk[which][d] = (!CP && which < G) ? __fmul_rn(y, scale) : y;
   }
   __syncthreads();
   const size_t head = ((size_t)b * NKV + kvh) * T;  // this (row, kv head)'s first cache row
@@ -1201,7 +1197,7 @@ attn_step(const float* __restrict__ part, int splits, const Mat qkv,
 #pragma unroll
   for (int j = 0; j < ATTN_OWN; ++j) acc[j] = 0.f;
   // rows read from the cache: the prefix, and the new row but on an int8 cache
-  const int n = !in_range || NOATTN ? 0 : KVQ ? pos : pos + 1;
+  const int n = !in_range ? 0 : KVQ ? pos : pos + 1;
   const int TS = min(n, ATTN_TILE);
   for (int t0 = 0; t0 < n; t0 += ATTN_TILE) {
     const int nt = min(ATTN_TILE, n - t0);
@@ -1289,9 +1285,7 @@ attn_step(const float* __restrict__ part, int splits, const Mat qkv,
     const int i = tid + j * ATTN_THREADS;
     if (i < G * D) {
       const int g = i / D, d = i % D;
-      const bf16 o = __float2bfloat16_rn(NOATTN ? qk[g][d]
-                                         : CP   ? acc[j]
-                                                : __fdiv_rn(acc[j], l_run[g]));
+      const bf16 o = __float2bfloat16_rn(CP ? acc[j] : __fdiv_rn(acc[j], l_run[g]));
       out[(kvh * G + g) * D + d] = o;
       mx = fmaxf(mx, fabsf(bf(o)));
     }
@@ -1656,18 +1650,13 @@ inline void launch_sampler(const float* part, int splits, const Mat& head, int V
 // int8 with their scales, or bf16 with none. ``amax`` (dyn_int8, int8
 // weights): the [AMAX_SLOTS][B] activation amax slots, the first holding
 // xn's on entry (and on return); null in the weight-only modes.
-// ``PART`` (T6's ablations, csrc/talker_ablate.cu; K1 and K2 run
-// LAYER_FULL): LAYER_NOATTN takes q for the attention output
-// (``attn_step``'s NOATTN), LAYER_NOMLP ends the layer after o_proj + the
-// residual, whose finish applies ``next_norm`` (no gate_up, no down).
-constexpr int LAYER_FULL = 0, LAYER_NOATTN = 1, LAYER_NOMLP = 2;
 
 struct LayerW {
   Mat qkv, o, gu, d;
   const float *pln, *qn, *kn;
 };
 
-template <bool CP, bool KVQ, int PART = LAYER_FULL>
+template <bool CP, bool KVQ>
 inline int layer_step(const LayerW& w, const float* next_norm, int B, int H, int NQ, int NKV,
                       int I, float eps, float scale, const bf16* cosr, const bf16* sinr,
                       int rope_stride, const AttnCache& cache, int pos, const int* offs,
@@ -1682,7 +1671,7 @@ inline int layer_step(const LayerW& w, const float* next_norm, int B, int H, int
   // score tile: the rows read from the cache, up to ATTN_TILE (all of it
   // when the rows' positions live on the device)
   const int rows = offs ? ATTN_TILE : min(max(KVQ ? pos : pos + 1, 1), ATTN_TILE);
-  attn_step<CP, KVQ, PART == LAYER_NOATTN>
+  attn_step<CP, KVQ>
       <<<dim3(NKV, B), ATTN_THREADS, (NQ / NKV) * rows * sizeof(float), st>>>(
       ws, s, w.qkv, a_xn, w.qn, w.kn, eps, cosr, sinr, rope_stride,
       (typename std::conditional<KVQ, int8_t, bf16>::type*)cache.k,
@@ -1691,11 +1680,9 @@ inline int layer_step(const LayerW& w, const float* next_norm, int B, int H, int
   QT_CHECK_LAUNCH();
   s = gemv(w.o, attn, B, ws, NQ * D, H, a_attn, st);
   QT_CHECK_LAUNCH();
-  finish_residual_norm<<<B, 1024, 0, st>>>(ws, s, w.o, a_attn, h, nullptr,
-                                           PART == LAYER_NOMLP ? next_norm : w.pln, xn, H, eps,
+  finish_residual_norm<<<B, 1024, 0, st>>>(ws, s, w.o, a_attn, h, nullptr, w.pln, xn, H, eps,
                                            a_xn);
   QT_CHECK_LAUNCH();
-  if (PART == LAYER_NOMLP) return 0;
   s = gemv(w.gu, xn, B, ws, H, 2 * I, a_xn, st);
   QT_CHECK_LAUNCH();
   finish_swiglu<<<dim3((I + 255) / 256, B), 256, 0, st>>>(ws, s, w.gu, a_xn, I, gated, a_gated);

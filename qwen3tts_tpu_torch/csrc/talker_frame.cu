@@ -60,6 +60,14 @@
 // ``cut`` (timing only; 0 on every call of the port) stops the work after a
 // kind of phase: 1 the barriers alone, 2 + the GEMV tiles, 3 + the prologues (norms, SwiGLU, the attention merge), 4 + the
 // attention items, 5 (= 0) + the sampler.
+//
+// ``part`` (T6's ablations, tools/exp_tk_b1_ablate.py; 0 on every call of
+// the port) takes a part of each layer away from this same step: 1
+// ``noattn``, one item a kv head that writes the new k/v row and hands q
+// (QK-normed and roped, unscaled) to the o GEMV in place of the attention
+// (no prefix walk, no softmax); 2 ``nomlp``, each layer ends after o_proj
+// and the residual add, normed with the next layer's input norm (no
+// gate_up, no down). ``h_out`` takes h before the final norm.
 #include "common.cuh"
 
 using namespace qt;
@@ -72,6 +80,7 @@ constexpr int TF_SUB = 256;         // rows of a chunk scored at once (online so
 constexpr int TF_BARRIERS_PER_LAYER = 5;  // qkv, attention, o, gate_up, down
 constexpr int TF_MAX_KV_HEADS = 32;       // the kv heads a bit mask of a block's needs holds
 enum { TF_CUT_BARRIERS = 1, TF_CUT_GEMV, TF_CUT_PROLOGUE, TF_CUT_ATTENTION, TF_CUT_SAMPLER };
+enum { TF_PART_FULL = 0, TF_PART_NOATTN, TF_PART_NOMLP };  // T6's parts of the step
 
 // The attention's chunks of a kv head's n rows: C = ceil(n / TF_CHUNK)
 // chunks, at most max(1, blocks / NKV), of ``rows`` rows each (n / C
@@ -110,6 +119,7 @@ struct TalkerFrameArgs {
   int pos;          // the row's position, if offs is null
   const int* offs;  // [1] on the device, or null
   int cut;          // timing only (0 on the port's calls)
+  int layer_part;   // T6's parts (TF_PART_*; 0 on the port's calls)
   float eps, scale;
   const bf16* x;  // [H]
   StackW stack;
@@ -122,6 +132,7 @@ struct TalkerFrameArgs {
   float* att;      // [NKV][cmax][G][D + 4]: an item's max, sum, -, -, then its PV row
   int cmax;
   bf16* xn;        // [H] the hidden after the final norm
+  bf16* h_out;     // [H] h before the final norm, or null
   SampleArgs sa;
   unsigned* bar;   // [0] arrivals, [1] the error word; zeroed before the launch
   int* err_host;   // mapped host word: set when a wait ran past its budget
@@ -244,8 +255,9 @@ __device__ void tf_qkv(const TalkerFrameArgs& a, const Gemv& g, const float* par
         const float xp = rbf(__fmul_rn(__fmul_rn(x[i ^ 2], r), w[dp]));
         const float rot = d < D / 2 ? -xp : xp;
         y[i] = rbf(__fadd_rn(rbf(__fmul_rn(xd, bf(rope[d]))), rbf(__fmul_rn(rot, bf(rope[D + d])))));
-        // the talker form scales q before the dot; k is kept as it is stored
-        qk[v * D + d] = v < G ? __fmul_rn(y[i], a.scale) : y[i];
+        // the talker form scales q before the dot (T6's noattn hands it on
+        // unscaled); k is kept as it is stored
+        qk[v * D + d] = v < G && a.layer_part != TF_PART_NOATTN ? __fmul_rn(y[i], a.scale) : y[i];
         m = fmaxf(m, fabsf(y[i]));
       }
       if (v == G && put) {
@@ -464,10 +476,20 @@ __device__ __forceinline__ void tf_attention(const TalkerFrameArgs& a, const Gem
                                           const float* part, float s, int l, int pos, int n,
                                           int C, int rows, float* ps, float* pscale, float* vec,
                                           float* qk, float* sc, float* pv) {
+  constexpr int D = HEAD_DIM;
   const int G = a.NQ / a.NKV;
   for (int it = blockIdx.x; it < a.NKV * C; it += gridDim.x) {
     const int kvh = it / C, c = it % C;
     tf_qkv<KVQ>(a, g, part, s, l, kvh, pos, (c + 1) * rows >= n, ps, pscale, vec, qk);
+    if (a.layer_part == TF_PART_NOATTN) {  // T6: q itself, as one chunk of max 0 and sum 1
+      float* p = a.att + (size_t)kvh * a.cmax * G * (D + 4);
+      for (int i = threadIdx.x; i < G * (D + 4); i += blockDim.x) {
+        const int gq = i / (D + 4), d = i % (D + 4);
+        p[i] = d == 1 ? 1.f : d < 4 ? 0.f : qk[gq * D + d - 4];
+      }
+      __syncthreads();  // qk is read before the next item's tf_qkv writes it
+      continue;
+    }
     for (int g0 = 0; g0 < G; g0 += 2) {
       if (G - g0 >= 2) tf_item_heads<2, KVQ>(a, g0, l, n, kvh, c, rows, qk, sc, pv);
       else tf_item_heads<1, KVQ>(a, g0, l, n, kvh, c, rows, qk, sc, pv);
@@ -551,7 +573,8 @@ talker_frame(const __grid_constant__ TalkerFrameArgs a) {
   const int pos = a.offs ? a.offs[0] : a.pos;
   const int n_rows = pos >= 0 && pos < a.T ? pos + 1 : 1;  // out of range: the current token alone
   int crows;
-  const int C = tf_chunks(n_rows, gridDim.x, a.NKV, crows);
+  int C = tf_chunks(n_rows, gridDim.x, a.NKV, crows);
+  if (a.layer_part == TF_PART_NOATTN) C = 1, crows = n_rows;  // one item a kv head, no prefix walk
   const bool work = cut >= TF_CUT_PROLOGUE;
   unsigned target = 0;
   float amax = 0.f, s_in = 0.f;
@@ -612,19 +635,26 @@ talker_frame(const __grid_constant__ TalkerFrameArgs a) {
     if (!grid_barrier(a.bar, a.err_host, a.budget_ns, target)) { ok = false; break; }
     if (work) amax = tf_merge(a, C, dq ? all : o_heads(gemv_of(n + 1), G), xs, red);
     if (!gemv_phase(n + 1, dq)) { ok = false; break; }  // o
+    const float* nw = l + 1 < L ? a.iln + (size_t)(l + 1) * H : a.fnorm;
+    if (a.layer_part == TF_PART_NOMLP) {  // T6: the layer ends here
+      if (work) amax = frame_residual_norm(staged(n + 1, nw), s_in, nullptr, h, vec, xs, H, a.eps, red);
+      continue;
+    }
     if (work)
       amax = frame_residual_norm(staged(n + 1, a.pln + (size_t)l * H), s_in, nullptr, h, vec, xs,
                                  H, a.eps, red);
     if (!gemv_phase(n + 2, dq)) { ok = false; break; }  // gate_up
     if (work) amax = frame_swiglu(staged(n + 2, nullptr), s_in, a.I, xs, red);
     if (!gemv_phase(n + 3, dq)) { ok = false; break; }  // down
-    const float* nw = l + 1 < L ? a.iln + (size_t)(l + 1) * H : a.fnorm;
     if (work)
       amax = frame_residual_norm(staged(n + 3, nw), s_in, nullptr, h, vec, xs, H, a.eps, red);
   }
   if (!ok) return tf_fail(a);
-  if (blockIdx.x == 0)  // the hidden the code predictor consumes
-    for (int c = tid; c < H; c += blockDim.x) a.xn[c] = __float2bfloat16_rn(xs[c]);
+  if (blockIdx.x == 0)  // the hidden the code predictor consumes (and T6's h)
+    for (int c = tid; c < H; c += blockDim.x) {
+      a.xn[c] = __float2bfloat16_rn(xs[c]);
+      if (a.h_out) a.h_out[c] = __float2bfloat16_rn(h[c]);
+    }
   if (a.sample) {
     const float head_amax = amax;
     if (!gemv_phase(4 * L, dq_head)) return tf_fail(a);
@@ -728,9 +758,10 @@ int talker_frame_launch(TalkerFrameArgs& fa, int blocks, cudaStream_t st) {
 // [NKV][cmax][G][D + 4] with cmax >= max(1, blocks / NKV); ``ctl`` two uint32
 // of device memory (the barrier's words, zeroed here), ``err_host`` one
 // int32 of pinned host memory (set to 1 when a wait ran past ``budget_ns``);
-// ``blocks`` the grid (0: one block per SM); ``cut`` 0 on the port's calls. Sample mode when
-// ``head_w`` is given: code_out [1], logits_out [V] or null. xn [H] takes
-// the hidden after the final norm.
+// ``blocks`` the grid (0: one block per SM); ``cut``, ``part`` 0 and ``h_out``
+// null on the port's calls (T6 passes a part and [H] for h before the final
+// norm). Sample mode when ``head_w`` is given: code_out [1], logits_out [V]
+// or null. xn [H] takes the hidden after the final norm.
 extern "C" int qt_talker_frame(
     int L, int H, int NQ, int NKV, int D, int I, int V, int T, int pos, const void* offs,
     int kv_quant, int w_bf16, int head_bf16, int dyn, float eps, float scale,
@@ -744,7 +775,7 @@ extern "C" int qt_talker_frame(
     float rep, int greedy, float inv_t, int top_k, float top_p_thr, int ref_exact, int eos_id,
     uint32_t seed0, uint32_t seed1, void* ws, void* att, int cmax, void* xn,
     void* code_out, void* logits_out, void* ctl, void* err_host, int blocks,
-    long long budget_ns, int cut, void* stream) {
+    long long budget_ns, int cut, int part, void* h_out, void* stream) {
   const StackW stack = {qkv_w, qkv_s, nullptr, nullptr, nullptr, nullptr, o_w, o_s,
                         gu_w, gu_s, nullptr, nullptr, d_w, d_s};
   if (D != HEAD_DIM || NQ % NKV != 0 || NQ / NKV > ATTN_MAX_GROUP || NKV > TF_MAX_KV_HEADS ||
@@ -752,13 +783,14 @@ extern "C" int qt_talker_frame(
       (kv_quant && (k_scale == nullptr || v_scale == nullptr)) || !stack_ok(stack, w_bf16 != 0) ||
       (head_w != nullptr && !head_bf16 && head_s == nullptr) || (dyn && w_bf16) ||
       H % 16 || I % 16 || V % 16 || ctl == nullptr || err_host == nullptr || budget_ns <= 0 ||
-      cut < 0 || cut > TF_CUT_SAMPLER || att == nullptr || xn == nullptr)
+      cut < 0 || cut > TF_CUT_SAMPLER || part < TF_PART_FULL || part > TF_PART_NOMLP ||
+      att == nullptr || xn == nullptr)
     return (int)cudaErrorInvalidValue;
   TalkerFrameArgs fa;
   fa.L = L, fa.H = H, fa.NQ = NQ, fa.NKV = NKV, fa.I = I, fa.V = V, fa.T = T;
   fa.w_bf16 = w_bf16, fa.head_bf16 = head_bf16, fa.dyn = dyn, fa.kv_quant = kv_quant;
   fa.sample = head_w != nullptr;
-  fa.pos = pos, fa.offs = (const int*)offs, fa.cut = cut;
+  fa.pos = pos, fa.offs = (const int*)offs, fa.cut = cut, fa.layer_part = part;
   fa.eps = eps, fa.scale = scale;
   fa.x = (const bf16*)x;
   fa.stack = stack;
@@ -772,7 +804,7 @@ extern "C" int qt_talker_frame(
   fa.part[0] = (float*)ws;
   fa.part[1] = (float*)ws + (size_t)PF_MAX_SPLIT * max_o;
   fa.att = (float*)att, fa.cmax = cmax;
-  fa.xn = (bf16*)xn;
+  fa.xn = (bf16*)xn, fa.h_out = (bf16*)h_out;
   SampleArgs& sa = fa.sa;
   sa = SampleArgs{};
   sa.supp = (const float*)supp;

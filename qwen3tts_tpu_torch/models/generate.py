@@ -29,10 +29,16 @@ QWEN3TTS_TK_MODE (K1, ``talker._kernel_mode``) and QWEN3TTS_CPK_MODE (K2,
 path runs (talker.forward + codec_logits + the sampler, cp.predict_codes),
 in which a fused talker step on CUDA is still K1, in its non-sample mode.
 The cache is bf16 or int8 (``kv_quant``); K1 takes both.
+
+``prefill_start`` and ``generate_chunk`` each run in their device's turn
+(``device_turn``): decodes on several host threads take turns on one card,
+a prefill or a chunk at a time.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import NamedTuple
 
 import torch
@@ -122,6 +128,35 @@ def check_cp_frames(device, sync: bool = False) -> None:
             torch.cuda.synchronize(device)
         cp_kernel.check_barrier()
         talker_kernel.check_barrier()
+
+
+_TURNS: dict = {}  # one lock for each CUDA device's index
+
+
+@contextlib.contextmanager
+def device_turn(device: torch.device):
+    """Hold ``device``'s turn: one B = 1 prefill or chunk at a time on a
+    card, across host threads.
+
+    The persistent B = 1 launches keep one workspace, one set of barrier
+    words and one fault flag for each device (ops/talker_kernel.py,
+    ops/cp_kernel.py), and K3 one set of merge counters, so two decodes must
+    not have that work in flight on one device at once, whichever CUDA
+    streams they run on. A turn ends once the caller's current stream has
+    finished its work and the fault flags have been read
+    (``check_cp_frames``): another thread's decode then finds the device
+    idle, and a fault raises on the thread whose launch had it. Off CUDA
+    nothing is held."""
+    if device.type != "cuda":
+        yield
+        return
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    with _TURNS.setdefault(index, threading.Lock()):
+        try:
+            yield
+        finally:
+            torch.cuda.current_stream(device).synchronize()
+        check_cp_frames(device)
 
 
 def _use_talker_sample_kernel(
@@ -258,40 +293,41 @@ def prefill_start(
     the plain sampler its noise and, first, the two seed words of the
     kernels' counter generator."""
     dev = prefill_embeds.device
-    generator = torch.Generator(device=dev)
-    generator.manual_seed(seed)
-    words = torch.randint(0, 2**32, (2,), generator=generator, device=dev, dtype=torch.int64)
-    seed_words = tuple(int(w) for w in words.tolist())
-    vocab = talker_cfg.vocab_size
-    suppress_mask = _code0_mask(talker_cfg, sampling, dev)
-    codes = torch.zeros(max_frames, talker_cfg.num_code_groups, dtype=torch.int32, device=dev)
-    tokens = torch.zeros(max_frames, dtype=torch.int32, device=dev)
-    seen = torch.zeros(vocab, dtype=torch.bool, device=dev)
+    with device_turn(dev):
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(seed)
+        words = torch.randint(0, 2**32, (2,), generator=generator, device=dev, dtype=torch.int64)
+        seed_words = tuple(int(w) for w in words.tolist())
+        vocab = talker_cfg.vocab_size
+        suppress_mask = _code0_mask(talker_cfg, sampling, dev)
+        codes = torch.zeros(max_frames, talker_cfg.num_code_groups, dtype=torch.int32, device=dev)
+        tokens = torch.zeros(max_frames, dtype=torch.int32, device=dev)
+        seen = torch.zeros(vocab, dtype=torch.bool, device=dev)
 
-    hidden, cache = tk.forward(talker_params, talker_cfg, prefill_embeds, cache, 0)
-    hidden_last = hidden[:, prefill_len - 1]
-    logits_last = tk.codec_logits(talker_params, hidden_last[:, None])[:, 0]
-    _, cp_seed = _frame_seeds(seed_words, 0)
-    code0, rest, is_eos, seen, codec_sum = _frame(
-        talker_params, cp_params, talker_cfg, cp_cfg, sampling, suppress_mask,
-        hidden_last, logits_last, seen, generator, cp_seed,
-    )
-    codes, tokens = _record(codes, tokens, 0, code0, rest, is_eos)
-    return GenCarry(
-        step=0 if is_eos else 1,
-        eos=is_eos,
-        cur_input=_next_input(
-            cp_params, talker_params, trailing_embeds, trailing_len, tts_pad_embed, 0,
-            code0, rest, codec_sum,
-        ),
-        cache=cache,
-        offset=prefill_len,
-        seen=seen,
-        codes=codes,
-        tokens=tokens,
-        generator=generator,
-        seed_words=seed_words,
-    )
+        hidden, cache = tk.forward(talker_params, talker_cfg, prefill_embeds, cache, 0)
+        hidden_last = hidden[:, prefill_len - 1]
+        logits_last = tk.codec_logits(talker_params, hidden_last[:, None])[:, 0]
+        _, cp_seed = _frame_seeds(seed_words, 0)
+        code0, rest, is_eos, seen, codec_sum = _frame(
+            talker_params, cp_params, talker_cfg, cp_cfg, sampling, suppress_mask,
+            hidden_last, logits_last, seen, generator, cp_seed,
+        )
+        codes, tokens = _record(codes, tokens, 0, code0, rest, is_eos)
+        return GenCarry(
+            step=0 if is_eos else 1,
+            eos=is_eos,
+            cur_input=_next_input(
+                cp_params, talker_params, trailing_embeds, trailing_len, tts_pad_embed, 0,
+                code0, rest, codec_sum,
+            ),
+            cache=cache,
+            offset=prefill_len,
+            seen=seen,
+            codes=codes,
+            tokens=tokens,
+            generator=generator,
+            seed_words=seed_words,
+        )
 
 
 def generate_chunk(
@@ -309,61 +345,64 @@ def generate_chunk(
 ) -> GenCarry:
     """Advance the generation by up to (until_step - carry.step) frames."""
     dev = carry.cur_input.device
-    suppress_mask = _code0_mask(talker_cfg, sampling, dev)
-    limit = min(until_step, carry.codes.shape[0])
-    eos_id = talker_cfg.codec_eos_token_id
-    use_tks = _use_talker_sample_kernel(
-        talker_params, talker_cfg, sampling, dev, kv_quant=carry.cache.quantized
-    )
-    if use_tks:
-        suppress_add = torch.zeros(talker_cfg.vocab_size, device=dev).masked_fill_(
-            suppress_mask, -1e30
+    with device_turn(dev):
+        suppress_mask = _code0_mask(talker_cfg, sampling, dev)
+        limit = min(until_step, carry.codes.shape[0])
+        eos_id = talker_cfg.codec_eos_token_id
+        use_tks = _use_talker_sample_kernel(
+            talker_params, talker_cfg, sampling, dev, kv_quant=carry.cache.quantized
         )
-        T = carry.cache.max_len
-        rope = mrope_cos_sin(
-            torch.arange(T, device=dev)[None], talker_cfg.head_dim, talker_cfg.rope_theta,
-            talker_cfg.mrope_section, torch.bfloat16,
-        )
-        rope = (rope[0][0], rope[1][0])
-
-    c = carry
-    while not c.eos and c.step < limit:
-        seed_tok, cp_seed = _frame_seeds(c.seed_words, c.step)
         if use_tks:
-            hidden_last, cache, code0 = tk.forward_step_sample(
-                talker_params, talker_cfg, c.cur_input, c.cache, c.offset,
-                seen=c.seen, suppress_add=suppress_add, seed=seed_tok,
-                temperature=sampling.temperature, top_k=sampling.top_k,
-                repetition_penalty=sampling.repetition_penalty,
-                eos_token_id=None if sampling.forbid_eos else eos_id,
-                rope=rope, top_p=sampling.top_p, ref_exact_top_p=sampling.ref_exact_top_p,
+            suppress_add = torch.zeros(talker_cfg.vocab_size, device=dev).masked_fill_(
+                suppress_mask, -1e30
             )
-            code0, rest, is_eos, seen, codec_sum = _frame(
-                talker_params, cp_params, talker_cfg, cp_cfg, sampling, suppress_mask,
-                hidden_last[:, 0], None, c.seen, c.generator, cp_seed, code0=code0,
+            T = carry.cache.max_len
+            rope = mrope_cos_sin(
+                torch.arange(T, device=dev)[None], talker_cfg.head_dim, talker_cfg.rope_theta,
+                talker_cfg.mrope_section, torch.bfloat16,
             )
-        else:
-            hidden, cache = tk.forward(talker_params, talker_cfg, c.cur_input, c.cache, c.offset)
-            logits_last = tk.codec_logits(talker_params, hidden)[:, 0]
-            code0, rest, is_eos, seen, codec_sum = _frame(
-                talker_params, cp_params, talker_cfg, cp_cfg, sampling, suppress_mask,
-                hidden[:, 0], logits_last, c.seen, c.generator, cp_seed,
+            rope = (rope[0][0], rope[1][0])
+
+        c = carry
+        while not c.eos and c.step < limit:
+            seed_tok, cp_seed = _frame_seeds(c.seed_words, c.step)
+            if use_tks:
+                hidden_last, cache, code0 = tk.forward_step_sample(
+                    talker_params, talker_cfg, c.cur_input, c.cache, c.offset,
+                    seen=c.seen, suppress_add=suppress_add, seed=seed_tok,
+                    temperature=sampling.temperature, top_k=sampling.top_k,
+                    repetition_penalty=sampling.repetition_penalty,
+                    eos_token_id=None if sampling.forbid_eos else eos_id,
+                    rope=rope, top_p=sampling.top_p, ref_exact_top_p=sampling.ref_exact_top_p,
+                )
+                code0, rest, is_eos, seen, codec_sum = _frame(
+                    talker_params, cp_params, talker_cfg, cp_cfg, sampling, suppress_mask,
+                    hidden_last[:, 0], None, c.seen, c.generator, cp_seed, code0=code0,
+                )
+            else:
+                hidden, cache = tk.forward(
+                    talker_params, talker_cfg, c.cur_input, c.cache, c.offset
+                )
+                logits_last = tk.codec_logits(talker_params, hidden)[:, 0]
+                code0, rest, is_eos, seen, codec_sum = _frame(
+                    talker_params, cp_params, talker_cfg, cp_cfg, sampling, suppress_mask,
+                    hidden[:, 0], logits_last, c.seen, c.generator, cp_seed,
+                )
+            codes, tokens = _record(c.codes, c.tokens, c.step, code0, rest, is_eos)
+            c = c._replace(
+                step=c.step + (0 if is_eos else 1),
+                eos=is_eos,
+                cur_input=_next_input(
+                    cp_params, talker_params, trailing_embeds, trailing_len, tts_pad_embed,
+                    c.step, code0, rest, codec_sum,
+                ),
+                cache=cache,
+                offset=c.offset + 1,
+                seen=seen,
+                codes=codes,
+                tokens=tokens,
             )
-        codes, tokens = _record(c.codes, c.tokens, c.step, code0, rest, is_eos)
-        c = c._replace(
-            step=c.step + (0 if is_eos else 1),
-            eos=is_eos,
-            cur_input=_next_input(
-                cp_params, talker_params, trailing_embeds, trailing_len, tts_pad_embed,
-                c.step, code0, rest, codec_sum,
-            ),
-            cache=cache,
-            offset=c.offset + 1,
-            seen=seen,
-            codes=codes,
-            tokens=tokens,
-        )
-    return c
+        return c
 
 
 def generate_codes(
@@ -401,10 +440,9 @@ def generate_codes(
         talker_params, cp_params, **common, **stream, prefill_embeds=prefill_embeds,
         prefill_len=prefill_len, cache=cache, max_frames=max_frames, seed=seed,
     )
-    carry = generate_chunk(
+    carry = generate_chunk(  # its turn's end reads the last frame's fault flags
         talker_params, cp_params, carry, **common, **stream, until_step=max_steps
     )
-    check_cp_frames(prefill_embeds.device, sync=True)  # the utterance's last frame
     return GenResult(codes=carry.codes, n_frames=carry.step, tokens=carry.tokens)
 
 

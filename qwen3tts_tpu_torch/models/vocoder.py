@@ -16,7 +16,7 @@ from typing import Any
 import torch
 
 from ..config import TokenizerDecoderConfig
-from ..ops.conv import causal_conv1d, causal_conv1d_transpose
+from ..ops.conv import causal_conv1d, causal_conv1d_transpose, exact_f32
 from ..ops.norms import layer_norm, rms_norm, silu, snake_beta
 
 Params = dict[str, Any]
@@ -146,16 +146,8 @@ def decode(params: Params, cfg: TokenizerDecoderConfig, codes: torch.Tensor, fra
     must be trimmed. Valid length = (#frames with first-codebook code > 0)
     * 1920.
     """
-    # cuDNN runs f32 convolutions in TF32 by default (about three decimal
-    # digits), which would change the f32 vocoder's numbers against the
-    # reference; the matmul flag is cleared too so the linear layers stay f32.
-    # Both hold only for this call: the caller's settings come back after it.
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with exact_f32():  # the f32 vocoder's numbers as the reference's
         wav = decode_latents(params, cfg, codes, frames)
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
     B, T = codes.shape[:2]
     limit = T if frames is None else _frames_per_row(frames, B, codes.device)[:, None]
     in_range = torch.arange(T, device=codes.device)[None] < limit

@@ -92,6 +92,7 @@ _ARGTYPES = {
         F, I, F, I, F, I, I, U, U,  # rep greedy inv_t top_k top_p_thr ref_exact eos_id seed0 seed1
         P, P, I, P,  # ws att cmax xn
         P, P, P, P, I, LL, I,  # code_out logits_out ctl err_host blocks budget_ns cut
+        I, P,  # part h_out
         P,  # stream
     ],
     "qt_cp_loop": [
@@ -118,13 +119,10 @@ _ARGTYPES = {
         I, I, I, I,  # L form B H
         P, P, P, P, P,  # x h sums tiles stream
     ],
-    "qt_talker_ablate": [
-        I, I, I, I, I, I, I, I, I, I, F, F,  # part L H NQ NKV D I T B pos eps scale
-        P,  # x
-        P, P, P, P, P, P, P, P,  # qkv_w qkv_s o_w o_s gu_w gu_s d_w d_s
-        P, P, P, P, P,  # iln pln qn kn fnorm
-        P, P, P, P,  # k_cache v_cache cos sin
-        P, P, P, P, P, P, P, P,  # hres xn attn gated ws sums tiles stream
+    "qt_talker_ablate_dma": [
+        I, I, I, I, I, I, I, I, I,  # L H NQ NKV D I T B pos
+        P, P, P, P, P,  # x qkv_w o_w gu_w d_w
+        P, P, P, P, P, P,  # k_cache v_cache hres sums tiles stream
     ],
     "qt_hbm_colsum": [P, LL, LL, I, I, I, P, P],  # x total_rows row0 rows blk_rows group out stream
     "qt_attn_form": [I, I, I, I, I, P, P, P, P, P, P],  # k_transposed Bt M W n q k v part out stream

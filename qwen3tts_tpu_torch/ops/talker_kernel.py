@@ -67,6 +67,8 @@ BARRIER_BUDGET_NS = 2_000_000_000  # the longest a B = 1 step's block waits at o
 _COOP_TOO_LARGE = 720  # cudaErrorCooperativeLaunchTooLarge
 # the B = 1 step cut after each kind of phase (csrc/talker_frame.cu's TF_CUT_*), for timing
 STEP_CUTS = ("barriers", "gemv", "prologue", "attention", "sampler")
+# the B = 1 step with a part of each layer taken away (TF_PART_*), T6's ablations
+STEP_PARTS = ("full", "noattn", "nomlp")
 
 
 def _dense_bf16(w) -> bool:
@@ -221,13 +223,17 @@ def talker_decode_step(
 def launch(
     params, cfg, x, cache, offset, cos, sin, *, sample, temperature, top_k, top_p,
     ref_exact_top_p, rep_penalty, eos_id, seed, suppress_add, seen, return_logits, dyn,
-    blocks: int = 0, budget_ns: int = BARRIER_BUDGET_NS, cut: int = 0,
+    blocks: int = 0, budget_ns: int = BARRIER_BUDGET_NS, cut: int = 0, part: str = "full",
+    h_out=None,
 ):
     """One call of the kernel on CUDA tensors (``talker_decode_step`` counts
     it). At B = 1 (the persistent step): ``blocks`` the grid (0: one block
     per SM), ``budget_ns`` the longest wait at one barrier (tests shrink
     both); for timing only, ``cut`` stops the step after a kind of phase
-    (``STEP_CUTS``; 0, the whole step, on every call of the port)."""
+    (``STEP_CUTS``; 0, the whole step, on every call of the port), and
+    ``part`` takes a part of each layer away (``STEP_PARTS``, T6's
+    ablations; "full" on every call of the port), with ``h_out`` (bf16 [H])
+    taking h before the final norm."""
     L, H = cfg.num_hidden_layers, cfg.hidden_size
     NQ, NKV, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     B = x.shape[0]
@@ -301,7 +307,8 @@ def launch(
             *(_cuda.ptr(t) for t in tail), *sampling,
             _cuda.ptr(ws), _cuda.ptr(att), cmax, _cuda.ptr(xn), _cuda.ptr(code),
             _cuda.ptr(logits), _cuda.ptr(ctl), _barrier_flag().data_ptr(), int(blocks),
-            int(budget_ns), int(cut), _cuda.stream_ptr(),
+            int(budget_ns), int(cut), STEP_PARTS.index(part), _cuda.ptr(h_out),
+            _cuda.stream_ptr(),
         )
         if rc == _COOP_TOO_LARGE:
             what = f"{blocks} blocks" if blocks else "one block per SM"

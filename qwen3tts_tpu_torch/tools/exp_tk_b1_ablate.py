@@ -15,11 +15,13 @@ of four parts:
 It returns the script's value: h before the final norm [B, H] and the new
 k/v rows [L, B, NKV, D], which it writes into the cache at ``pos`` in place
 (K1's contract; the script writes them there after the call), returned as
-views of the cache. On a CUDA tensor it launches csrc/talker_ablate.cu, whose
-first three parts are template switches of K1's own layer sequence and whose
-``dma`` is T7's kernel (csrc/weight_stream.cu); on a CPU tensor it runs
-``variant_step_ref``, the plain version (ops/decode_blocks.py's layer with
-its ``part``, T7's plain stream).
+views of the cache. On a CUDA tensor ``full``, ``noattn`` and ``nomlp``
+(B = 1) launch K1's persistent step itself (csrc/talker_frame.cu) with that
+part of each layer taken away (``talker_kernel.launch(..., part=)``), so
+each part subtracts from the step that serves; ``dma`` launches
+csrc/talker_ablate.cu (T7's kernel, csrc/weight_stream.cu, and the zero
+rows). On a CPU tensor it runs ``variant_step_ref``, the plain version
+(ops/decode_blocks.py's layer with its ``part``, T7's plain stream).
 
 The script times each part over a 66-step loop at the 0.6B shapes (a
 256-row bf16 cache, prefill offset 24), with ``full`` being K1 itself in
@@ -38,7 +40,8 @@ import time
 import torch
 
 from ..ops import _cuda
-from ..ops.decode_blocks import layer_step, out_dim
+from ..ops import talker_kernel as tkk
+from ..ops.decode_blocks import layer_step
 from ..ops.talker_kernel import MAX_BATCH, _layout
 from .exp_weight_stream import nbytes, weight_stream_ref
 
@@ -109,37 +112,28 @@ def _launch(params, cfg, x, cache, pos, cos, sin, part):
     L, H = cfg.num_hidden_layers, cfg.hidden_size
     NQ, NKV, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     B, T = x.shape[0], cache.k.shape[3]
-    layers = params["layers"]
-    I = out_dim(layers["gate_up_proj"]) // 2
     dev = x.device
-    f32 = lambda t: t.float().contiguous()
-    # converted operands stay referenced until every launch is enqueued
-    ins = [
-        x.contiguous(),
-        *(t for k in _MATS for t in (layers[k].q, layers[k].scale)),
-        f32(layers["input_layernorm"]), f32(layers["post_attention_layernorm"]),
-        f32(layers["q_norm"]), f32(layers["k_norm"]), f32(params["norm"]),
-        cache.k, cache.v,
-        cos.to(torch.bfloat16).reshape(D).contiguous(),
-        sin.to(torch.bfloat16).reshape(D).contiguous(),
-    ]
-    oqkv = out_dim(layers["qkv_proj"])
-    bufs = [
-        torch.empty(B, H, dtype=torch.bfloat16, device=dev),  # h before the final norm
-        torch.empty(B, H, dtype=torch.bfloat16, device=dev),  # normed input
-        torch.empty(B, NQ * D, dtype=torch.bfloat16, device=dev),  # attention out
-        torch.empty(B, I, dtype=torch.bfloat16, device=dev),  # SwiGLU out
-        torch.empty(_cuda.workspace_rows(B) * max(oqkv, 2 * I, H), dtype=torch.float32,
-                    device=dev),
-        torch.empty(4 * L + 1, dtype=torch.int64, device=dev),  # dma: T7's checksums
-        torch.empty(4 * L, dtype=torch.float32, device=dev),  # dma: T7's tile sums
-    ]
-    rc = _cuda.library().qt_talker_ablate(
-        PARTS.index(part), L, H, NQ, NKV, D, I, T, B, pos, cfg.rms_norm_eps, D**-0.5,
-        *(_cuda.ptr(t) for t in ins), *(_cuda.ptr(t) for t in bufs), _cuda.stream_ptr(),
+    h = torch.empty(B, H, dtype=torch.bfloat16, device=dev)  # h before the final norm
+    if part != "dma":  # K1's persistent step with the part taken away
+        if B != 1:
+            raise ValueError(f"variant_step: the {part} part runs K1's B = 1 step, not B = {B}")
+        tkk.launch(params, cfg, x, cache, pos, cos, sin, sample=False, temperature=0.0,
+                   top_k=0, top_p=1.0, ref_exact_top_p=False, rep_penalty=1.0, eos_id=-1,
+                   seed=(0, 0), suppress_add=None, seen=None, return_logits=False, dyn=False,
+                   part=part, h_out=h)
+        return (h, *_new_rows(cache, pos))
+    layers = params["layers"]
+    I = layers["gate_up_proj"].q.shape[-1] // 2
+    sums = torch.empty(4 * L + 1, dtype=torch.int64, device=dev)  # T7's checksums
+    tiles = torch.empty(4 * L, dtype=torch.float32, device=dev)  # T7's tile sums
+    x = x.contiguous()  # operands stay referenced until the launches are enqueued
+    rc = _cuda.library().qt_talker_ablate_dma(
+        L, H, NQ, NKV, D, I, T, B, pos, _cuda.ptr(x),
+        *(_cuda.ptr(layers[k].q) for k in _MATS), _cuda.ptr(cache.k), _cuda.ptr(cache.v),
+        _cuda.ptr(h), _cuda.ptr(sums), _cuda.ptr(tiles), _cuda.stream_ptr(),
     )
     _cuda.check(rc, "variant_step")
-    return (bufs[0], *_new_rows(cache, pos))
+    return (h, *_new_rows(cache, pos))
 
 
 variant_step.launches = 0  # kernel launches (CUDA calls), not plain runs
@@ -158,7 +152,6 @@ def part_bytes(params, part: str, prefix_rows: int, cfg) -> int:
 
 def main(argv: list[str]) -> None:
     from ..models import talker as tk
-    from ..ops import talker_kernel as tkk
     from ..ops.rope import mrope_cos_sin
     from ._card import bound_ms, card, int8_talker, require_cuda, talker_06b
 
@@ -179,7 +172,7 @@ def main(argv: list[str]) -> None:
         x = torch.zeros(1, 1, H, dtype=torch.bfloat16, device=dev)
         for i in range(FRAMES):
             off = PREFILL_LEN + i
-            if part == "full":
+            if part == "full":  # K1 itself, the step that serves
                 h = tkk.talker_decode_step(params, cfg, x, cache, off, cos[off], sin[off],
                                            sample=False)
             else:

@@ -1,5 +1,5 @@
-"""Public Qwen3-TTS API (port of qwen3tts_tpu/tts.py): one utterance and
-lockstep batches.
+"""Public Qwen3-TTS API (port of qwen3tts_tpu/tts.py): one utterance,
+streaming, voice cloning and lockstep batches.
 
 ``Qwen3TTSModel.from_pretrained(dir)`` loads a checkpoint directory
 (utils/loader.py); ``Qwen3TTSModel(...)`` is built from parameter trees
@@ -8,32 +8,45 @@ and raise ``Qwen3TTSError`` when no card is present. ``generate`` /
 ``generate_custom_voice`` / ``generate_voice_design`` build the prompt on
 the host, run prefill and the decode loop (models/generate.py), then the
 vocoder on the smallest ``GEN_BUCKETS`` prefix that covers the generated
-frames. ``generate_batch`` runs B utterances in lockstep decodes of at most
-64 each (models/batch_generate.py), with one batched vocoder call per group.
+frames; with ``on_token`` the decode runs in chunks and each new code-0
+token is handed to the callback at its chunk's end. ``generate_stream``
+yields ``TokenEvent``s while the utterance is generated (optionally
+``AudioChunkEvent``s of windowed vocoder PCM), then one ``InfoEvent`` and
+the final ``AudioEvent``; ``generate_stream_async`` runs it on a producer
+thread (``AsyncEventStream``). ``generate_voice_clone`` encodes reference
+audio to codes (models/encoder.py) and a speaker embedding
+(models/speaker_encoder.py) into an in-context prompt. ``generate_batch``
+runs B utterances in lockstep decodes of at most 64 each
+(models/batch_generate.py), with one batched vocoder call per group.
 ``kv_cache_dtype="int8"`` keeps the talker's KV cache in int8 with per-row
-scales. Streaming, voice cloning, continuous batching and serving are not
-ported yet.
+scales. Continuous batching and serving are not ported yet.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import queue
+import threading
 import time
 import warnings
 from dataclasses import dataclass
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
 
 from .config import ModelConfig, TalkerConfig
+from .models import encoder as enc_mod
 from .models import generate as gen_mod
+from .models import speaker_encoder as spk_mod
 from .models import talker as tk_mod
 from .models import vocoder as vc_mod
 from .models.generate import SamplingConfig, pad_to_bucket
 from .ops.talker_kernel import MAX_BATCH
 
 CHAT_ASSISTANT = "<|im_start|>assistant\n{}<|im_end|>\n<|im_start|>assistant\n"
+CHAT_ASSISTANT_CLOSED = "<|im_start|>assistant\n{}<|im_end|>\n"
 CHAT_USER = "<|im_start|>user\n{}<|im_end|>\n"
 
 # Frame-count buckets for the max_frames cap and the vocoder's decode length
@@ -62,6 +75,32 @@ class GenerationInfo:
             f"{self.tokens_per_second:.2f} tokens/s, {self.generate_time:.3f}s\n"
             f"Peak Memory Usage: {self.peak_memory_usage:.3f} GB"
         )
+
+
+@dataclass
+class TokenEvent:
+    token: int
+
+
+@dataclass
+class InfoEvent:
+    info: GenerationInfo
+
+
+@dataclass
+class AudioEvent:
+    audio: np.ndarray
+
+
+@dataclass
+class AudioChunkEvent:
+    """Incremental PCM for frames [frame_offset, frame_offset + n_frames),
+    asked for with ``generate_stream(..., audio_chunk_frames=N)``. Chunks
+    concatenate into a coherent waveform; the final AudioEvent still
+    carries the whole utterance's decode."""
+
+    audio: np.ndarray
+    frame_offset: int
 
 
 def _generate_and_decode(
@@ -129,6 +168,8 @@ class Qwen3TTSModel:
         cp_params,
         vocoder_params=None,
         tokenizer_config=None,
+        encoder_params=None,
+        speaker_encoder_params=None,
         tokenizer=None,
         dtype=torch.bfloat16,
         device=None,
@@ -145,13 +186,19 @@ class Qwen3TTSModel:
         self.cp_params = cp_params
         self.vocoder_params = vocoder_params
         self.tokenizer_config = tokenizer_config
+        self.encoder_params = encoder_params
+        self.speaker_encoder_params = speaker_encoder_params
         self.tokenizer = tokenizer
         self.dtype = dtype
         self.device = _device(device)
         # int8 KV cache with per-row scales: half the bytes the decode
         # attention reads; opt-in, as int8 rounding perturbs attention
         self.kv_quant = kv_cache_dtype == "int8"
+        # streaming chunk size (frames between host reads); 25 = 2 s of audio
+        self.stream_chunk_frames = 25
         self.ref_exact_top_p = False
+        # the most recent utterance's info, whichever thread ran it (a
+        # stream's InfoEvent carries its own)
         self.last_info: GenerationInfo | None = None
 
     # ------------------------------------------------------------------
@@ -249,6 +296,8 @@ class Qwen3TTSModel:
             cp_params=ckpt.cp_params,
             vocoder_params=ckpt.vocoder_params,
             tokenizer_config=ckpt.tokenizer_config,
+            encoder_params=ckpt.encoder_params,
+            speaker_encoder_params=ckpt.speaker_encoder_params,
             tokenizer=tokenizer,
             dtype=dtype,
             device=device,
@@ -266,6 +315,14 @@ class Qwen3TTSModel:
     @property
     def supported_speakers(self) -> list[str]:
         return sorted(self.talker_cfg.speaker_ids)
+
+    @property
+    def has_voice_cloning(self) -> bool:
+        return self.speaker_encoder_params is not None
+
+    @property
+    def supports_voice_cloning(self) -> bool:
+        return self.config.tts_model_type == "base" and self.encoder_params is not None
 
     # ------------------------------------------------------------------
     # Prompt construction
@@ -361,6 +418,64 @@ class Qwen3TTSModel:
             trailing = tts_eos
         return input_embeds, trailing[0], tts_pad[0, 0]
 
+    def _prepare_icl_generation_inputs(
+        self, text: str, ref_audio: np.ndarray, ref_text: str, language: str = "auto"
+    ):
+        """ICL (voice-clone) prefill: the reference audio's codes and both
+        texts in context. Returns (input_embeds [1, P, h], trailing [1, h],
+        tts_pad [h], ref_codes [1, 16, T] int32)."""
+        cfg = self.talker_cfg
+        if self.encoder_params is None or self.tokenizer_config is None:
+            raise Qwen3TTSError("Speech tokenizer encoder not available")
+        audio = torch.as_tensor(np.asarray(ref_audio, np.float32), device=self.device)
+        ref_codes = enc_mod.encode(
+            self.encoder_params, self.tokenizer_config.encoder_config, audio[None],
+            self.tokenizer_config.encoder_valid_num_quantizers,
+        )  # [1, 16, T]
+
+        ref_ids = self._encode_text(CHAT_ASSISTANT_CLOSED.format(ref_text))
+        ref_text_ids = ref_ids[:, 3 : ref_ids.shape[1] - 2]
+        target_ids = self._encode_text(CHAT_ASSISTANT.format(text))
+        text_ids = target_ids[:, 3 : target_ids.shape[1] - 5]
+
+        tts_bos, tts_eos, tts_pad = self._tts_special_embeds()
+        combined_ids = torch.cat([ref_text_ids, text_ids], dim=1)
+        text_embed = torch.cat([self._embed_project(combined_ids), tts_eos], dim=1)
+        text_lens = text_embed.shape[1]
+
+        # codec side: codec_bos + the summed 16-codebook embeddings of the ref codes
+        ref_codec = tk_mod.embed_codec(self.talker_params, ref_codes[:, 0])
+        for i in range(cfg.num_code_groups - 1):
+            ref_codec = ref_codec + self.cp_params["codec_embedding"][i][ref_codes[:, i + 1].long()]
+        codec_bos = tk_mod.embed_codec(
+            self.talker_params, torch.tensor([[cfg.codec_bos_id]], device=self.device)
+        )
+        codec_icl = torch.cat([codec_bos, ref_codec.to(codec_bos.dtype)], dim=1)
+        codec_lens = codec_icl.shape[1]
+
+        # non-streaming overlay: text + codec_pad || codec + tts_pad
+        codec_pad = tk_mod.embed_codec(
+            self.talker_params, torch.tensor([[cfg.codec_pad_id]], device=self.device)
+        )
+        h = codec_pad.shape[-1]
+        text_part = text_embed + codec_pad.expand(1, text_lens, h)
+        codec_part = codec_icl + tts_pad.expand(1, codec_lens, h)
+        icl_embed = torch.cat([text_part, codec_part], dim=1)
+
+        speaker_embed = None
+        if self.speaker_encoder_params is not None:
+            speaker_embed = spk_mod.extract_embedding(
+                self.speaker_encoder_params, self.config.speaker_encoder_config, audio
+            )
+        codec_prefix = self._build_codec_prefix(self._resolve_language_id(language, None),
+                                                speaker_embed)
+        prefix_len = codec_prefix.shape[1]
+        role_embed = self._embed_project(target_ids[:, 0:3])
+        combined_prefix = torch.cat([tts_pad.expand(1, prefix_len - 2, h), tts_bos], dim=1)
+        combined_prefix = combined_prefix + codec_prefix[:, : prefix_len - 1]
+        input_embeds = torch.cat([role_embed, combined_prefix, icl_embed], dim=1)
+        return input_embeds, tts_pad[0], tts_pad[0, 0], ref_codes
+
     # ------------------------------------------------------------------
     # Synthesis entry points
     # ------------------------------------------------------------------
@@ -403,7 +518,7 @@ class Qwen3TTSModel:
         peak = 0.0
         if self.device.type == "cuda":
             peak = torch.cuda.max_memory_allocated(self.device) / 1e9
-        self.last_info = GenerationInfo(
+        info = GenerationInfo(
             prompt_token_count=prompt_tokens,
             generation_token_count=n_tokens,
             prefill_time=prefill_t,
@@ -411,7 +526,56 @@ class Qwen3TTSModel:
             tokens_per_second=n_tokens / max(gen_t, 1e-9),
             peak_memory_usage=peak,
         )
-        return self.last_info
+        self.last_info = info
+        return info
+
+    def _run_generation(
+        self,
+        input_embeds,
+        trailing,
+        tts_pad,
+        *,
+        sampling: SamplingConfig,
+        max_steps: int,
+        seed: int,
+        on_token: Callable[[int], None] | None = None,
+    ) -> tuple[np.ndarray, int]:
+        """Prefill and the decode loop; returns (codes [max_frames, 16] numpy
+        int32, n_frames). Without ``on_token`` the loop runs whole
+        (``generate_codes``); with it, in the chunks of ``_stream_codes``,
+        and each new code-0 token goes to ``on_token`` at its chunk's end."""
+        if self.cp_params is None or self.cp_cfg is None:
+            raise Qwen3TTSError("Code predictor not available")
+        prep = self._prep_run(input_embeds, trailing, tts_pad, max_steps)
+        if on_token is None:
+            t0 = time.time()
+            res = gen_mod.generate_codes(
+                self.talker_params, self.cp_params,
+                talker_cfg=self.talker_cfg, cp_cfg=self.cp_cfg, sampling=sampling,
+                **prep, max_steps=max_steps, seed=seed,
+            )
+            codes = res.codes.cpu().numpy()
+            gen_t = time.time() - t0
+            if res.n_frames == 0:
+                raise Qwen3TTSError("No tokens generated")
+            # prefill runs inside the same call; reported as 0 rather than
+            # guessed (the chunked path measures it)
+            self._set_info(res.n_frames, input_embeds.shape[1], 0.0, gen_t)
+            return codes, res.n_frames
+
+        t0 = time.time()
+        codes, n, prefill_t = None, 0, 0.0
+        for new_tokens, step, codes_np, done, prefill_t in self._stream_codes(
+            prep, sampling, max_steps, seed
+        ):
+            for t in new_tokens:
+                on_token(t)
+            if done:
+                codes, n = codes_np, step
+        if n == 0:
+            raise Qwen3TTSError("No tokens generated")
+        self._set_info(n, input_embeds.shape[1], prefill_t, time.time() - t0 - prefill_t)
+        return codes, n
 
     def _run_generation_audio(self, input_embeds, trailing, tts_pad, *, sampling, max_steps, seed):
         """Generate and vocode one utterance; returns the waveform (numpy f32)."""
@@ -437,6 +601,92 @@ class Qwen3TTSModel:
             out = out[:valid]
         return out
 
+    def _stream_codes(
+        self, prep: dict, sampling: SamplingConfig, max_steps: int, seed: int,
+        audio: bool = False,
+    ):
+        """Prefill, then the decode loop in chunks, yielding between them.
+
+        Yields (new_tokens, total_frames, codes [max_frames, 16] numpy,
+        done, prefill_t): the host reads the tokens and codes back at each
+        chunk's end, so a consumer sees the tokens while the utterance is
+        still being generated; ``prefill_t`` is this stream's prefill wall
+        time (s). The first read-back comes after the prefill, then after
+        a chunk just big enough to clear the vocoder's lookahead and the
+        first audio emit (``min(stream_chunk_frames,
+        STREAM_FIRST_AUDIO_FRAMES + STREAM_LOOKAHEAD_FRAMES)`` frames), and
+        so does the second; later chunks are ``stream_chunk_frames``. With
+        ``audio`` the prefill and the first chunk run before the first
+        read-back, which then carries the first audio window's frames (the
+        reference's schedule when it streams audio).
+
+        The decode loop reads code 0 back once a frame (models/generate.py),
+        so the next chunk cannot be queued on the device ahead of the
+        consumer as a device-resident loop could: it runs after the
+        consumer has taken this one. The events, not that overlap, are the
+        contract. The prefill and each chunk run in the device's turn
+        (``generate.device_turn``), whose end reads the persistent B = 1
+        launches' fault flags, so a barrier fault raises at the chunk that
+        had it."""
+        common = dict(talker_cfg=self.talker_cfg, cp_cfg=self.cp_cfg, sampling=sampling)
+        chunk_args = dict(
+            trailing_embeds=prep["trailing_embeds"],
+            trailing_len=prep["trailing_len"],
+            tts_pad_embed=prep["tts_pad_embed"],
+        )
+        chunk = self.stream_chunk_frames
+        first_chunk = min(chunk, self.STREAM_FIRST_AUDIO_FRAMES + self.STREAM_LOOKAHEAD_FRAMES)
+        prep = dict(prep)
+        cache = tk_mod.make_cache(
+            self.talker_cfg, 1, prep.pop("cache_len"), prep["prefill_embeds"].dtype,
+            prep["prefill_embeds"].device, quantized=prep.pop("kv_quant"),
+        )
+        t0 = time.time()
+        carry = gen_mod.prefill_start(
+            self.talker_params, self.cp_params, **common, **prep, cache=cache, seed=seed
+        )
+        prefill_t = time.time() - t0
+        if audio:
+            carry = gen_mod.generate_chunk(
+                self.talker_params, self.cp_params, carry, **chunk_args, **common,
+                until_step=min(first_chunk, max_steps),
+            )
+        emitted = 0
+        while True:
+            step = carry.step
+            done = carry.eos or step >= max_steps
+            tokens = carry.tokens.cpu().numpy()[:step]
+            new = [int(t) for t in tokens[emitted:] if t >= 0]
+            emitted = step
+            yield new, step, carry.codes.cpu().numpy(), done, prefill_t
+            if done:
+                return
+            cur = first_chunk if emitted <= first_chunk else chunk
+            carry = gen_mod.generate_chunk(
+                self.talker_params, self.cp_params, carry, **chunk_args, **common,
+                until_step=min(step + cur, max_steps),
+            )
+
+    def _decode_audio(self, codes: np.ndarray, n_frames: int) -> np.ndarray:
+        """The vocoder on the smallest GEN_BUCKETS bucket that covers
+        ``n_frames`` rows of ``codes`` (numpy [rows, 16]), trimmed to the
+        valid samples."""
+        if self.vocoder_params is None or self.tokenizer_config is None:
+            raise Qwen3TTSError("Speech tokenizer not loaded")
+        dec_cfg = self.tokenizer_config.decoder_config
+        t_bucket = pad_to_bucket(n_frames, GEN_BUCKETS)
+        buf = np.zeros((1, t_bucket, dec_cfg.num_quantizers), np.int32)
+        buf[0, : min(n_frames, codes.shape[0])] = codes[:n_frames]
+        wav, lengths = vc_mod.decode(
+            self.vocoder_params, dec_cfg, torch.from_numpy(buf).to(self.device), n_frames
+        )
+        valid = int(lengths[0])
+        # the padded tail is read back and cut on the host
+        out = wav[0].float().cpu().numpy()[: n_frames * dec_cfg.total_upsample]
+        if 0 < valid < out.shape[0]:
+            out = out[:valid]
+        return out
+
     # ------------------------------------------------------------------
     # Public generation entry points
     # ------------------------------------------------------------------
@@ -452,16 +702,31 @@ class Qwen3TTSModel:
         repetition_penalty: float = 1.05,
         max_tokens: int = 2048,
         seed: int = 0,
+        on_token: Callable[[int], None] | None = None,
     ) -> np.ndarray:
-        """VoiceDesign synthesis."""
+        """VoiceDesign synthesis; ``on_token`` receives each code-0 token as
+        the decode produces it."""
         embeds, trailing, pad = self._prepare_generation_inputs(
             text, language=language, speaker=None, instruct=instruct
         )
-        return self._run_generation_audio(
-            embeds, trailing, pad,
-            sampling=self._sampling(temperature, top_k, top_p, repetition_penalty),
-            max_steps=self._effective_max_tokens(text, max_tokens), seed=seed,
+        return self._synthesize(embeds, trailing, pad, text, temperature, top_k, top_p,
+                                repetition_penalty, max_tokens, seed, on_token)
+
+    def _synthesize(self, embeds, trailing, pad, text, temperature, top_k, top_p,
+                    repetition_penalty, max_tokens, seed, on_token) -> np.ndarray:
+        """One utterance's audio: the one-call path, or with ``on_token`` the
+        chunked decode and then the vocoder."""
+        sampling = self._sampling(temperature, top_k, top_p, repetition_penalty)
+        max_steps = self._effective_max_tokens(text, max_tokens)
+        if on_token is None:
+            return self._run_generation_audio(
+                embeds, trailing, pad, sampling=sampling, max_steps=max_steps, seed=seed
+            )
+        codes, n = self._run_generation(
+            embeds, trailing, pad, sampling=sampling, max_steps=max_steps, seed=seed,
+            on_token=on_token,
         )
+        return self._decode_audio(codes, n)
 
     def generate_custom_voice(
         self,
@@ -475,8 +740,10 @@ class Qwen3TTSModel:
         repetition_penalty: float = 1.05,
         max_tokens: int = 2048,
         seed: int = 0,
+        on_token: Callable[[int], None] | None = None,
     ) -> np.ndarray:
-        """CustomVoice/Base synthesis."""
+        """CustomVoice/Base synthesis; ``on_token`` as in
+        ``generate_voice_design``."""
         speakers = self.talker_cfg.speaker_ids
         if not speakers:
             raise Qwen3TTSError("This model does not support CustomVoice. No speakers defined.")
@@ -488,11 +755,53 @@ class Qwen3TTSModel:
         embeds, trailing, pad = self._prepare_generation_inputs(
             text, language=language, speaker=speaker, instruct=instruct
         )
-        return self._run_generation_audio(
+        return self._synthesize(embeds, trailing, pad, text, temperature, top_k, top_p,
+                                repetition_penalty, max_tokens, seed, on_token)
+
+    def generate_voice_clone(
+        self,
+        text: str,
+        reference_audio: np.ndarray,
+        reference_text: str,
+        language: str = "auto",
+        temperature: float = 0.9,
+        top_k: int = 50,
+        top_p: float = 1.0,
+        repetition_penalty: float = 1.5,
+        max_tokens: int = 2048,
+        seed: int = 0,
+        on_token: Callable[[int], None] | None = None,
+    ) -> np.ndarray:
+        """ICL voice cloning: ``reference_audio`` (24 kHz f32) and its
+        transcript ``reference_text`` go into the prompt as codes and text
+        (with the speaker embedding, where the model has a speaker
+        encoder). The vocoder decodes the reference codes ahead of the
+        generated ones for context, and the reference's share of the
+        waveform is cut off again."""
+        if self.vocoder_params is None:
+            raise Qwen3TTSError("Speech tokenizer not loaded")
+        if self.encoder_params is None:
+            raise Qwen3TTSError(
+                "Voice cloning (ICL mode) requires the speech tokenizer encoder. "
+                "Make sure to load a model with encoder weights."
+            )
+        embeds, trailing, pad, ref_codes = self._prepare_icl_generation_inputs(
+            text, reference_audio, reference_text, language
+        )
+        codes, n = self._run_generation(
             embeds, trailing, pad,
             sampling=self._sampling(temperature, top_k, top_p, repetition_penalty),
-            max_steps=self._effective_max_tokens(text, max_tokens), seed=seed,
+            max_steps=self._effective_max_tokens(text, max_tokens), seed=seed, on_token=on_token,
         )
+        # reference codes ahead for the vocoder's context, then a proportional trim
+        ref = ref_codes[0].T.cpu().numpy()  # [T_ref, 16]
+        full = np.concatenate([ref, codes[:n]], axis=0)
+        ref_len, total_len = ref.shape[0], full.shape[0]
+        audio = self._decode_audio(full, total_len)
+        cut = int(ref_len / max(total_len, 1) * audio.shape[0])
+        if 0 < cut < audio.shape[0]:
+            audio = audio[cut:]
+        return audio
 
     def generate(
         self,
@@ -506,12 +815,15 @@ class Qwen3TTSModel:
         repetition_penalty: float = 1.05,
         max_tokens: int = 2048,
         seed: int = 0,
+        on_token: Callable[[int], None] | None = None,
         return_info: bool = False,
     ):
-        """Route by model type; ``return_info`` adds the GenerationInfo."""
+        """Route by model type; ``return_info`` adds the GenerationInfo;
+        ``on_token`` receives each code-0 token as the decode produces it."""
         kwargs = dict(
             language=language, temperature=temperature, top_k=top_k, top_p=top_p,
             repetition_penalty=repetition_penalty, max_tokens=max_tokens, seed=seed,
+            on_token=on_token,
         )
         mode = self.config.tts_model_type
         if mode == "voice_design":
@@ -530,6 +842,163 @@ class Qwen3TTSModel:
         else:
             audio = self.generate_voice_design(text, instruct=instruct, **kwargs)
         return (audio, self.last_info) if return_info else audio
+
+    # ------------------------------------------------------------------
+    # Streaming
+    # ------------------------------------------------------------------
+
+    def _route_stream_inputs(self, text, speaker, instruct, language):
+        """Mode routing and validation for streaming (as ``generate()``)."""
+        mode = self.config.tts_model_type
+        if mode == "voice_design":
+            if instruct is None:
+                raise Qwen3TTSError("VoiceDesign model requires 'instruct' to describe the voice")
+            speaker = None
+        elif mode in ("custom_voice", "base"):
+            if speaker is None:
+                raise Qwen3TTSError(
+                    f"{'CustomVoice' if mode == 'custom_voice' else 'Base'} model "
+                    "requires 'speaker'. Available speakers: " + ", ".join(self.supported_speakers)
+                )
+            if speaker.lower() not in self.talker_cfg.speaker_ids:
+                raise Qwen3TTSError(
+                    f"Speaker '{speaker}' not found. Available speakers: "
+                    + ", ".join(self.supported_speakers)
+                )
+            if mode == "base":
+                instruct = None
+        return self._prepare_generation_inputs(
+            text, language=language, speaker=speaker, instruct=instruct
+        )
+
+    # frames of PCM held back while the vocoder's bidirectional
+    # pre-transformer can still see new right context, and the causal convs'
+    # left-context frames decoded again with each window
+    STREAM_LOOKAHEAD_FRAMES = 8
+    STREAM_CTX_FRAMES = 32
+    # the first PCM leaves as soon as this many frames clear the lookahead
+    # (later chunks follow audio_chunk_frames): small, for time to first audio
+    STREAM_FIRST_AUDIO_FRAMES = 4
+    # vocoder buckets of the streaming windows: the first window is about
+    # FIRST_AUDIO + LOOKAHEAD frames and later ones CTX + chunk + LOOKAHEAD,
+    # well below GEN_BUCKETS' smallest
+    STREAM_BUCKETS = (16, 32, 64) + GEN_BUCKETS
+
+    def _decode_audio_window(
+        self, codes: np.ndarray, start_f: int, end_f: int, n_valid: int
+    ) -> np.ndarray:
+        """PCM of frames [start_f, end_f) from codes[:n_valid]: the window
+        starts STREAM_CTX_FRAMES early so that every causal conv runs on real
+        history, and reaches frame n_valid so that the pre-transformer sees
+        every frame generated so far. Its outputs are approximate only within
+        STREAM_LOOKAHEAD_FRAMES of the window's end, which the caller holds
+        back until more frames arrive. The window is cut on the host."""
+        dec_cfg = self.tokenizer_config.decoder_config
+        s = max(0, start_f - self.STREAM_CTX_FRAMES)
+        w = n_valid - s
+        bucket = pad_to_bucket(w, self.STREAM_BUCKETS)
+        buf = np.zeros((1, bucket, dec_cfg.num_quantizers), np.int32)
+        buf[0, :w] = codes[s:n_valid]
+        wav, _ = vc_mod.decode(self.vocoder_params, dec_cfg, torch.from_numpy(buf).to(self.device), w)
+        up = dec_cfg.total_upsample
+        return wav[0].float().cpu().numpy()[(start_f - s) * up : (end_f - s) * up]
+
+    def generate_stream(
+        self,
+        text: str,
+        speaker: str | None = None,
+        instruct: str | None = None,
+        language: str = "auto",
+        temperature: float = 0.9,
+        top_k: int = 50,
+        top_p: float = 1.0,
+        repetition_penalty: float = 1.05,
+        max_tokens: int = 2048,
+        seed: int = 0,
+        audio_chunk_frames: int | None = None,
+    ) -> Iterator[TokenEvent | AudioChunkEvent | InfoEvent | AudioEvent]:
+        """Streaming generation: a ``TokenEvent`` for each code-0 token while
+        the utterance is generated (read back at each chunk of
+        ``stream_chunk_frames``), then one ``InfoEvent``, then one final
+        ``AudioEvent``.
+
+        ``audio_chunk_frames=N`` also yields ``AudioChunkEvent``s of
+        incremental PCM about every N frames (N * 80 ms of audio), the first
+        after STREAM_FIRST_AUDIO_FRAMES; they concatenate into one waveform,
+        and the closing AudioEvent still carries the whole decode. The first
+        TokenEvents then come with the first chunk's, after the prefill and
+        ``STREAM_FIRST_AUDIO_FRAMES + STREAM_LOOKAHEAD_FRAMES`` frames.
+
+        Validation and prompt construction run at the call (this is a plain
+        function that returns a generator): a bad speaker or instruct raises
+        ``Qwen3TTSError`` here, before any event."""
+        if self.vocoder_params is None or self.tokenizer_config is None:
+            raise Qwen3TTSError("Speech tokenizer not loaded")
+        embeds, trailing, pad = self._route_stream_inputs(text, speaker, instruct, language)
+        sampling = self._sampling(temperature, top_k, top_p, repetition_penalty)
+        max_steps = self._effective_max_tokens(text, max_tokens)
+        prep = self._prep_run(embeds, trailing, pad, max_steps)
+        return self._generate_stream_events(text, prep, sampling, max_steps, seed,
+                                            audio_chunk_frames)
+
+    def _generate_stream_events(self, text, prep, sampling, max_steps, seed, audio_chunk_frames):
+        start = time.time()
+        n_final = 0
+        codes_final: np.ndarray | None = None
+        audio_emitted = 0  # frames whose PCM has been yielded
+        prefill_t = 0.0
+        for new_tokens, step, codes, done, prefill_t in self._stream_codes(
+            prep, sampling, max_steps, seed, audio=bool(audio_chunk_frames)
+        ):
+            for t in new_tokens:
+                yield TokenEvent(t)
+            if audio_chunk_frames and step > 0:
+                upto = step if done else max(step - self.STREAM_LOOKAHEAD_FRAMES, 0)
+                if done:
+                    need = 1
+                elif audio_emitted == 0:
+                    # a ramped first emit: a few frames of PCM leave as early
+                    # as they can, then the chunk cadence
+                    need = min(audio_chunk_frames, self.STREAM_FIRST_AUDIO_FRAMES)
+                else:
+                    need = audio_chunk_frames
+                if upto - audio_emitted >= need:
+                    pcm = self._decode_audio_window(codes, audio_emitted, upto, step)
+                    yield AudioChunkEvent(pcm, audio_emitted)
+                    audio_emitted = upto
+            if done:
+                n_final, codes_final = step, codes
+        if n_final == 0:
+            raise Qwen3TTSError("No tokens generated")
+
+        total = time.time() - start
+        prompt_tokens = len(self.tokenizer.encode(text)) if self.tokenizer else 0
+        yield InfoEvent(
+            self._set_info(n_final, prompt_tokens, prefill_t, max(total - prefill_t, 1e-9))
+        )
+        yield AudioEvent(self._decode_audio(codes_final, n_final))
+
+    def generate_stream_async(self, *args, max_pending: int = 64, **kwargs) -> "AsyncEventStream":
+        """``generate_stream`` driven by a producer thread: events queue up
+        while the caller does other work. Same arguments and event sequence.
+        The queue holds at most ``max_pending`` events: a consumer that stops
+        reading pauses the generation instead of piling up PCM. ``close()``
+        (or leaving a ``with`` block) abandons the stream; the generator is
+        closed on the producer thread, so no further chunk is decoded. The
+        producer's prefill and chunks take turns on the card with any other
+        thread's (``generate.device_turn``)."""
+        return AsyncEventStream(self.generate_stream(*args, **kwargs), maxsize=max_pending)
+
+    def extract_speaker_embedding(self, audio: np.ndarray, sample_rate: int = 24000):
+        """The speaker encoder's x-vector of 24 kHz ``audio``: [1, enc_dim] f32."""
+        if sample_rate != 24000:
+            raise Qwen3TTSError("Only 24kHz audio is supported for speaker embedding extraction")
+        if self.speaker_encoder_params is None:
+            raise Qwen3TTSError("Speaker encoder not available for this model")
+        return spk_mod.extract_embedding(
+            self.speaker_encoder_params, self.config.speaker_encoder_config,
+            torch.as_tensor(np.asarray(audio, np.float32), device=self.device),
+        )
 
     # ------------------------------------------------------------------
     # Batched synthesis
@@ -695,3 +1164,90 @@ class Qwen3TTSModel:
                 samples = samples[:valid]
             out.append(samples)
         return out
+
+
+class AsyncEventStream:
+    """Iterator over the events a background generation thread produces
+    (``Qwen3TTSModel.generate_stream_async``).
+
+    Events queue up as they are produced, at most ``maxsize``: when the
+    consumer lags that far behind, the producer blocks before it advances
+    the generator. An exception of the generation thread is raised again on
+    the consumer at the point of iteration. ``pending()`` counts the queued
+    events. ``close()`` wakes the producer and closes the generator on the
+    producer thread (GeneratorExit at its current yield), so an abandoned
+    stream stops decoding within one event."""
+
+    _SENTINEL = object()
+
+    def __init__(self, gen, maxsize: int = 64):
+        self._q: queue.Queue = queue.Queue(maxsize=max(1, maxsize))
+        self._stop = threading.Event()
+        self._exc: BaseException | None = None
+
+        def put_or_stop(ev) -> bool:
+            """A blocking put that close() wakes; False if the stream closed."""
+            while not self._stop.is_set():
+                try:
+                    self._q.put(ev, timeout=0.05)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def run():
+            try:
+                for ev in gen:
+                    if not put_or_stop(ev):
+                        break
+            except BaseException as ex:  # noqa: BLE001  (raised again on the consumer)
+                self._exc = ex
+            finally:
+                # closed here, on the producer thread: an abandoned
+                # generate_stream stops at its current yield now, not at
+                # garbage collection
+                try:
+                    gen.close()
+                except Exception:  # noqa: BLE001  (the stream is over either way)
+                    pass
+                # the sentinel always lands so that a consumer ends; after
+                # close() the consumer may be gone, so make room
+                while True:
+                    try:
+                        self._q.put(self._SENTINEL, timeout=0.05)
+                        break
+                    except queue.Full:
+                        if self._stop.is_set():
+                            try:
+                                self._q.get_nowait()
+                            except queue.Empty:
+                                pass
+
+        self._thread = threading.Thread(target=run, name="qwen3tts-stream", daemon=True)
+        self._thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        ev = self._q.get()
+        if ev is self._SENTINEL:
+            self._thread.join()
+            if self._exc is not None:
+                raise self._exc
+            raise StopIteration
+        return ev
+
+    def pending(self) -> int:
+        """Events already produced but not yet consumed."""
+        return self._q.qsize()
+
+    def close(self):
+        """Abandon the stream: wake a blocked producer and stop generation."""
+        self._stop.set()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -7,7 +7,10 @@ same weights (tests/test_torch_package.py pins this). ``init_vocoder_params``
 is the counterpart of ``vocoder.init_vocoder_params``: same tree, shapes and
 distributions, drawn from a torch generator on the target device (it does not
 reproduce ``jax.random``'s values; tests move JAX vocoder weights across with
-utils/convert.py instead).
+utils/convert.py instead). ``init_encoder_params`` and
+``init_speaker_encoder_params`` are the voice-clone encoders' counterparts
+(``encoder.init_encoder_params``, ``speaker_encoder.
+init_speaker_encoder_params``), built the same way.
 """
 
 from __future__ import annotations
@@ -17,7 +20,10 @@ import zlib
 import numpy as np
 import torch
 
-from ..config import CodePredictorConfig, TalkerConfig, TokenizerDecoderConfig
+from ..config import (
+    CodePredictorConfig, SpeakerEncoderConfig, TalkerConfig, TokenizerDecoderConfig,
+    TokenizerEncoderConfig,
+)
 from ..ops.quant import PackedLinear, pack_quantized, packed_from_numpy
 
 
@@ -164,11 +170,11 @@ class _Init:
     def full(self, *shape, value: float = 0.0) -> torch.Tensor:
         return torch.full(shape, value, device=self.device, dtype=self.dtype)
 
-    def conv(self, k, c_in, c_out, groups=1):
-        return {
-            "w": self.normal(k, c_in // groups, c_out, scale=1.0 / np.sqrt(c_in * k / groups)),
-            "b": self.full(c_out),
-        }
+    def conv(self, k, c_in, c_out, groups=1, bias=True):
+        p = {"w": self.normal(k, c_in // groups, c_out, scale=1.0 / np.sqrt(c_in * k / groups))}
+        if bias:
+            p["b"] = self.full(c_out)
+        return p
 
     def convt(self, k, c_in, c_out):
         return {"w": self.normal(k, c_out, c_in, scale=1.0 / np.sqrt(c_in * k)), "b": self.full(c_out)}
@@ -263,4 +269,115 @@ def init_vocoder_params(
             "out_snake": r.snake(out_dim),
             "out_conv": r.conv(7, out_dim, 1),
         },
+    }
+
+
+# ---------------------------------------------------------------------------
+# Voice-clone encoders (counterparts of qwen3tts_tpu/models/encoder.py::
+# init_encoder_params and speaker_encoder.py::init_speaker_encoder_params)
+# ---------------------------------------------------------------------------
+
+
+def init_encoder_params(
+    generator: torch.Generator, cfg: TokenizerEncoderConfig, dtype=torch.float32, device=None
+) -> dict:
+    """Random speech-tokenizer encoder parameters at the configured shapes,
+    made on ``device`` (the codebooks' sums and usages f32)."""
+    r = _Init(generator, device, dtype)
+    nf, d = cfg.num_filters, cfg.hidden_size
+    layers = []
+    mult = 1
+    for ratio in reversed(cfg.upsampling_ratios):
+        dim = mult * nf
+        hidden = dim // cfg.compress
+        layers.append({
+            "residuals": [
+                {"block": [r.conv(cfg.residual_kernel_size, dim, hidden), r.conv(1, hidden, dim)]}
+                for _ in range(cfg.num_residual_layers)
+            ],
+            "downsample": r.conv(ratio * 2, dim, dim * 2),
+        })
+        mult *= 2
+    L = cfg.num_hidden_layers
+    hd = d // cfg.num_attention_heads
+    kv = cfg.num_key_value_heads * hd
+
+    def stack(d_in, d_out):
+        return r.normal(L, d_in, d_out, scale=1.0 / np.sqrt(d_in))
+
+    transformer = {
+        "layers": {
+            "q_proj": stack(d, d),
+            "k_proj": stack(d, kv),
+            "v_proj": stack(d, kv),
+            "o_proj": stack(d, d),
+            "norm1": {"w": r.full(L, d, value=1.0), "b": r.full(L, d)},
+            "norm2": {"w": r.full(L, d, value=1.0), "b": r.full(L, d)},
+            "linear1": stack(d, cfg.intermediate_size),
+            "linear2": stack(cfg.intermediate_size, d),
+            "layer_scale_1": r.full(L, d, value=cfg.layer_scale_initial_scale),
+            "layer_scale_2": r.full(L, d, value=cfg.layer_scale_initial_scale),
+        }
+    }
+    f32 = _Init(generator, device, torch.float32)
+
+    def rvq(nq):
+        return {
+            "input_proj": r.normal(d, cfg.codebook_dim, scale=1.0 / np.sqrt(d)),
+            "output_proj": r.normal(cfg.codebook_dim, d, scale=1.0 / np.sqrt(cfg.codebook_dim)),
+            "layers": [
+                {"embedding_sum": f32.normal(cfg.codebook_size, cfg.codebook_dim),
+                 "cluster_usage": f32.full(cfg.codebook_size, value=1.0)}
+                for _ in range(nq)
+            ],
+        }
+
+    ratio_prod = int(np.prod(cfg.upsampling_ratios))
+    stride = int((cfg.sampling_rate / ratio_prod) / cfg.frame_rate)
+    return {
+        "seanet": {
+            "init_conv": r.conv(cfg.kernel_size, cfg.audio_channels, nf),
+            "layers": layers,
+            "final_conv": r.conv(cfg.last_kernel_size, mult * nf, d),
+        },
+        "transformer": transformer,
+        "downsample": {"w": r.conv(2 * stride, d, d, bias=False)["w"]},
+        "quantizer": {"rvq_first": rvq(1), "rvq_rest": rvq(cfg.num_quantizers - 1)},
+    }
+
+
+def init_speaker_encoder_params(
+    generator: torch.Generator, cfg: SpeakerEncoderConfig, dtype=torch.float32, device=None
+) -> dict:
+    """Random ECAPA-TDNN speaker encoder parameters at the configured
+    shapes, made on ``device``."""
+    r = _Init(generator, device, dtype)
+    ch, ksz, scale = cfg.enc_channels, cfg.enc_kernel_sizes, cfg.enc_res2net_scale
+
+    def se_res2net(c_in, c_out, k):
+        return {
+            "tdnn1": r.conv(1, c_in, c_out),
+            "res2net_block": {
+                "blocks": [r.conv(k, c_out // scale, c_out // scale) for _ in range(scale - 1)]
+            },
+            "tdnn2": r.conv(1, c_out, c_out),
+            "se_block": {
+                "conv1": r.conv(1, c_out, cfg.enc_se_channels),
+                "conv2": r.conv(1, cfg.enc_se_channels, c_out),
+            },
+        }
+
+    return {
+        "blocks": [
+            r.conv(ksz[0], cfg.mel_dim, ch[0]),
+            se_res2net(ch[0], ch[1], ksz[1]),
+            se_res2net(ch[1], ch[2], ksz[2]),
+            se_res2net(ch[2], ch[3], ksz[3]),
+        ],
+        "mfa": r.conv(ksz[4], ch[1] + ch[2] + ch[3], ch[4]),
+        "asp": {
+            "tdnn": r.conv(1, ch[4] * 3, cfg.enc_attention_channels),
+            "conv": r.conv(1, cfg.enc_attention_channels, ch[4]),
+        },
+        "fc": r.conv(1, ch[4] * 2, cfg.enc_dim),
     }

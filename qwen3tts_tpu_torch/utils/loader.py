@@ -33,9 +33,11 @@ from ..config import (
     CodePredictorConfig,
     ModelConfig,
     QuantizationConfig,
+    SpeakerEncoderConfig,
     TalkerConfig,
     TokenizerConfig,
     TokenizerDecoderConfig,
+    TokenizerEncoderConfig,
 )
 from ..ops.quant import PackedLinear, packed_from_numpy
 
@@ -471,6 +473,124 @@ def load_vocoder(w: _W, cfg: TokenizerDecoderConfig, dtype=torch.float32) -> Par
 
 
 # ---------------------------------------------------------------------------
+# Voice-clone encoders: the speaker encoder (ECAPA-TDNN) and the speech
+# tokenizer's encoder
+# ---------------------------------------------------------------------------
+
+
+def load_speaker_encoder(w: _W, cfg: SpeakerEncoderConfig, dtype=torch.float32) -> Params:
+    p = "speaker_encoder"
+
+    def conv(key):
+        return {"w": _convw(w.get(f"{key}.weight"), dtype), "b": _to_dtype(w.get(f"{key}.bias"), dtype)}
+
+    def se_res2net(i):
+        blk = f"{p}.blocks.{i}"
+        return {
+            "tdnn1": conv(f"{blk}.tdnn1.conv"),
+            "res2net_block": {
+                "blocks": [conv(f"{blk}.res2net_block.blocks.{j}.conv")
+                           for j in range(cfg.enc_res2net_scale - 1)]
+            },
+            "tdnn2": conv(f"{blk}.tdnn2.conv"),
+            "se_block": {"conv1": conv(f"{blk}.se_block.conv1"), "conv2": conv(f"{blk}.se_block.conv2")},
+        }
+
+    return {
+        "blocks": [conv(f"{p}.blocks.0.conv"), se_res2net(1), se_res2net(2), se_res2net(3)],
+        "mfa": conv(f"{p}.mfa.conv"),
+        "asp": {"tdnn": conv(f"{p}.asp.tdnn.conv"), "conv": conv(f"{p}.asp.conv")},
+        "fc": conv(f"{p}.fc"),
+    }
+
+
+# SEANet numeric layer index -> (stage, role)
+_SEANET_LAYOUT = {
+    0: "init",
+    1: (0, "res"), 3: (0, "down"),
+    4: (1, "res"), 6: (1, "down"),
+    7: (2, "res"), 9: (2, "down"),
+    10: (3, "res"), 12: (3, "down"),
+    14: "final",
+}
+
+
+def load_encoder(w: _W, cfg: TokenizerEncoderConfig, dtype=torch.float32) -> Params:
+    def conv(key):
+        p = {"w": _convw(w.get(f"{key}.weight"), dtype)}
+        if w.has(f"{key}.bias"):
+            p["b"] = _to_dtype(w.get(f"{key}.bias"), dtype)
+        return p
+
+    layers: list[Params] = [
+        {"residuals": [{}], "downsample": None} for _ in range(len(cfg.upsampling_ratios))
+    ]
+    seanet: Params = {"layers": layers}
+    for idx, role in _SEANET_LAYOUT.items():
+        base = f"encoder.encoder.layers.{idx}"
+        if role == "init":
+            seanet["init_conv"] = conv(f"{base}.conv")
+        elif role == "final":
+            seanet["final_conv"] = conv(f"{base}.conv")
+        elif role[1] == "res":  # the residual block's convs: block.1, block.3
+            layers[role[0]]["residuals"][0] = {
+                "block": [conv(f"{base}.block.1.conv"), conv(f"{base}.block.3.conv")]
+            }
+        else:
+            layers[role[0]]["downsample"] = conv(f"{base}.conv")
+
+    L = cfg.num_hidden_layers
+    et = "encoder.encoder_transformer"
+
+    def et_lin(name):
+        return _to_dtype(np.stack([w.get(f"{et}.layers.{i}.{name}").T for i in range(L)]), dtype)
+
+    def et_vec(name):
+        return _to_dtype(np.stack([w.get(f"{et}.layers.{i}.{name}") for i in range(L)]), dtype)
+
+    transformer = {
+        "layers": {
+            "q_proj": et_lin("self_attn.q_proj.weight"),
+            "k_proj": et_lin("self_attn.k_proj.weight"),
+            "v_proj": et_lin("self_attn.v_proj.weight"),
+            "o_proj": et_lin("self_attn.o_proj.weight"),
+            "norm1": {"w": et_vec("input_layernorm.weight"), "b": et_vec("input_layernorm.bias")},
+            "norm2": {"w": et_vec("post_attention_layernorm.weight"),
+                      "b": et_vec("post_attention_layernorm.bias")},
+            "linear1": et_lin("mlp.fc1.weight"),
+            "linear2": et_lin("mlp.fc2.weight"),
+            "layer_scale_1": et_vec("self_attn_layer_scale.scale"),
+            "layer_scale_2": et_vec("mlp_layer_scale.scale"),
+        }
+    }
+
+    def rvq(kind, nq):
+        base = f"encoder.quantizer.{kind}_residual_vector_quantizer"
+        return {
+            # 1x1 convs [O, I, 1] -> [I, O] matmuls
+            "input_proj": _to_dtype(w.get(f"{base}.input_proj.weight")[:, :, 0].T, dtype),
+            "output_proj": _to_dtype(w.get(f"{base}.output_proj.weight")[:, :, 0].T, dtype),
+            "layers": [
+                {"embedding_sum": _to_dtype(w.get(f"{base}.layers.{i}.codebook.embed_sum"),
+                                            torch.float32),
+                 "cluster_usage": _to_dtype(w.get(f"{base}.layers.{i}.codebook.cluster_usage"),
+                                            torch.float32)}
+                for i in range(nq)
+            ],
+        }
+
+    return {
+        "seanet": seanet,
+        "transformer": transformer,
+        "downsample": {"w": _convw(w.get("encoder.downsample.conv.weight"), dtype)},
+        "quantizer": {
+            "rvq_first": rvq("semantic", 1),
+            "rvq_rest": rvq("acoustic", cfg.num_quantizers - 1),
+        },
+    }
+
+
+# ---------------------------------------------------------------------------
 # Top-level checkpoint loading
 # ---------------------------------------------------------------------------
 
@@ -485,10 +605,11 @@ def to_device(tree, device):
 
 
 class Checkpoint:
-    """Everything the one-utterance path loads from a model directory: the
-    talker, the code predictor and the vocoder, on ``device``. The voice-clone
-    parts (speaker encoder, tokenizer encoder) are not loaded yet:
-    ``speaker_encoder_params`` and ``encoder_params`` stay None."""
+    """Everything loaded from a model directory, on ``device``: the talker,
+    the code predictor, the vocoder and, where the checkpoint has them, the
+    voice-clone encoders (the speaker encoder, f32; the speech tokenizer's
+    encoder, f32); ``speaker_encoder_params`` and ``encoder_params`` are None
+    without them."""
 
     def __init__(
         self, model_dir: str, dtype=torch.bfloat16, keep_packed: bool | None = None, device="cpu"
@@ -508,17 +629,29 @@ class Checkpoint:
             to_device(load_code_predictor(w, cp_cfg, dtype), device) if cp_cfg is not None else None
         )
         self.speaker_encoder_params = None
-        self.encoder_params = None
+        if self.config.speaker_encoder_config is not None and w.has(
+            "speaker_encoder.blocks.0.conv.weight"
+        ):
+            self.speaker_encoder_params = to_device(
+                load_speaker_encoder(w, self.config.speaker_encoder_config, torch.float32), device
+            )
 
-        # speech_tokenizer/ subdirectory: the vocoder
+        # speech_tokenizer/ subdirectory: the vocoder and the encoder
         self.tokenizer_config: TokenizerConfig | None = None
         self.vocoder_params = None
+        self.encoder_params = None
         st_dir = os.path.join(model_dir, "speech_tokenizer")
         if os.path.isdir(st_dir):
             with open(os.path.join(st_dir, "config.json")) as f:
                 self.tokenizer_config = TokenizerConfig.from_dict(json.load(f))
+            st = _W(load_safetensors_dir(st_dir), None)
             if self.tokenizer_config.decoder_config is not None:
-                st = _W(load_safetensors_dir(st_dir), None)
                 self.vocoder_params = to_device(
                     load_vocoder(st, self.tokenizer_config.decoder_config, torch.float32), device
+                )
+            if self.tokenizer_config.encoder_config is not None and st.has(
+                "encoder.encoder.layers.0.conv.weight"
+            ):
+                self.encoder_params = to_device(
+                    load_encoder(st, self.tokenizer_config.encoder_config, torch.float32), device
                 )

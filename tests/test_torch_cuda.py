@@ -237,7 +237,8 @@ def _count_syncs(fn):
 @pytest.mark.parametrize("forbid_eos", [True, False])
 def test_kernel_loop_syncs_once_per_frame(dev, weights, forbid_eos):
     """K1 + K2 frames read the device back once each (the EOS check), plus
-    one copy of code 0's suppress mask per chunk."""
+    one copy of code 0's suppress mask per chunk and the stream
+    synchronisation that ends the chunk's turn (``generate.device_turn``)."""
     tp, cp = weights
     g = torch.Generator(device=dev).manual_seed(5)
     common = dict(talker_cfg=CFG, cp_cfg=CPC,
@@ -251,7 +252,7 @@ def test_kernel_loop_syncs_once_per_frame(dev, weights, forbid_eos):
     n1 = tkk.talker_decode_step.launches
     carry, syncs = _count_syncs(lambda: gen.generate_chunk(tp, cp, carry, **common, until_step=9))
     frames = tkk.talker_decode_step.launches - n1
-    assert frames >= 1 and syncs == frames + 1, (frames, syncs)
+    assert frames >= 1 and syncs == frames + 2, (frames, syncs)
 
 
 def _packed_weight(dev, O, I, bits, group, seed=0):
@@ -352,7 +353,8 @@ def test_packed_loop_runs_k4_k3_and_syncs_once_per_frame(dev):
     """Packed weights (host_init packer, int4, group 64) on a 4096-row cache:
     the plain loop of generate_chunk takes K4 for every single-row matmul and
     K3 for every decode step's attention, and reads the device back once per
-    frame (the EOS check), plus once per chunk for the suppress mask."""
+    frame (the EOS check), plus once per chunk for the suppress mask and
+    once as the chunk's turn ends (``generate.device_turn``)."""
     tp = hi.to_device(hi.pack_linear_params(hi.host_init_talker_params(0, CFG)), torch.bfloat16, dev)
     cp = hi.to_device(hi.pack_linear_params(hi.host_init_cp_params(1, CPC, CFG.hidden_size)),
                       torch.bfloat16, dev)
@@ -373,7 +375,7 @@ def test_packed_loop_runs_k4_k3_and_syncs_once_per_frame(dev):
     assert carry.step == 9
     assert q.quant_gemv.launches - n4 == 1 + per_cp + 8 * (7 * L + 1 + per_cp)
     assert decode_attention_inner.launches - n3 == 8 * L
-    assert syncs == 8 + 1, syncs
+    assert syncs == 8 + 2, syncs
 
 
 def _batched_case(dev, B, T, kv_quant, seed=0):
@@ -1464,3 +1466,66 @@ def test_k1_b1_grid_and_barrier_faults_raise(dev, weights):
     torch.cuda.synchronize()
     tkk.check_barrier()
     assert scaled(hk, hr) < 0.05 and scaled(lk, lr) < 0.05
+
+
+def _stream_codes(dev, tp, cp, seed):
+    """The codes of one B = 1 ``generate_codes`` run (K1 and K2 every frame)
+    on the caller's current stream."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    res = gen.generate_codes(
+        tp, cp, talker_cfg=CFG, cp_cfg=CPC,
+        sampling=gen.SamplingConfig(0.9, 50, 1.0, 1.05, forbid_eos=True),
+        prefill_embeds=torch.randn(1, 64, 256, generator=g, device=dev).mul(0.1).bfloat16(),
+        prefill_len=20, trailing_embeds=torch.zeros(16, 256, dtype=torch.bfloat16, device=dev),
+        trailing_len=4, tts_pad_embed=torch.zeros(256, dtype=torch.bfloat16, device=dev),
+        max_steps=24, max_frames=32, seed=seed, cache_len=128,
+    )
+    return res.codes[: res.n_frames].cpu()
+
+
+def test_two_threads_decode_in_turns(dev, weights):
+    """Two B = 1 decodes from two host threads, each under its own
+    ``torch.cuda.Stream``, give the codes of the same seeds run alone: their
+    prefills and chunks take turns on the card (``generate.device_turn``),
+    so K1's workspace and barrier words and both kernels' fault flags are
+    never in use by both at once."""
+    import threading
+
+    tp, cp = weights
+    alone = {s: _stream_codes(dev, tp, cp, s) for s in (3, 4)}
+    out, streams, errors = {}, {}, []
+    start = threading.Barrier(2)
+
+    def run(seed):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                streams[seed] = torch.cuda.current_stream(dev).cuda_stream
+                start.wait()
+                out[seed] = _stream_codes(dev, tp, cp, seed)
+        except BaseException as ex:  # noqa: BLE001  (re-raised on the test's thread)
+            errors.append(ex)
+
+    threads = [threading.Thread(target=run, args=(s,)) for s in (3, 4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert streams[3] != streams[4]
+    for s in (3, 4):
+        assert torch.equal(out[s], alone[s]), s
+
+
+def test_a_fault_raises_at_the_end_of_its_turn(dev, weights):
+    """A K1 step that times out inside a turn raises as the turn ends, once;
+    the next turn on the device passes."""
+    tp, _ = weights
+    x, cache, cos, sin, supp, seen = _b1_case(dev, 128, 70, False, seed=3)
+    kw = dict(sample=True, temperature=0.0, top_k=50, top_p=1.0, ref_exact_top_p=False,
+              rep_penalty=1.05, eos_id=-1, seed=(1, 2), suppress_add=supp, seen=seen,
+              return_logits=False, dyn=False)
+    with pytest.raises(tkk.BarrierTimeout, match="K1 persistent barrier timed out"):
+        with gen.device_turn(dev):
+            tkk.launch(tp, CFG, x, _clone(cache), 70, cos, sin, budget_ns=1, **kw)
+    with gen.device_turn(dev):
+        tkk.launch(tp, CFG, x, _clone(cache), 70, cos, sin, **kw)

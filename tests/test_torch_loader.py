@@ -116,10 +116,10 @@ def test_checkpoint_trees_equal_jax(dirs, which, keep_packed):
         assert isinstance(t.talker_params["layers"]["q_proj"], PackedLinear)
         assert isinstance(t.cp_params["lm_head"], PackedLinear)
         assert isinstance(t.cp_params["small_to_mtp_projection"]["w"], PackedLinear)
-    for attr in ("talker_params", "cp_params", "vocoder_params"):
+    for attr in ("talker_params", "cp_params", "vocoder_params", "encoder_params",
+                 "speaker_encoder_params"):
         _assert_trees_equal(getattr(t, attr), getattr(j, attr))
     assert repr(t.config) == repr(j.config)
-    assert t.speaker_encoder_params is None and t.encoder_params is None
 
 
 def _jax_int8_eager(path):

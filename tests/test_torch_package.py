@@ -32,13 +32,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBMODULES = (
     "config", "tts",
     "models.talker", "models.code_predictor", "models.generate", "models.batch_generate",
-    "models.vocoder",
+    "models.vocoder", "models.encoder", "models.speaker_encoder",
     "ops.quant", "ops.norms", "ops.rope", "ops.sampling", "ops.conv", "ops.decode_blocks",
     "ops.talker_kernel", "ops.cp_kernel", "ops.cp_kernel_old", "ops._cuda", "ops.attention",
     "utils.host_init", "utils.convert", "utils.loader",
     "tools", "tools._card", "tools.exp_weight_stream", "tools.exp_tk_b1_ablate",
     "tools.exp_hbm_peak", "tools.exp_attn_forms", "tools.exp_int4_repack",
-    "tools.exp_kv_append", "tools.exp_cpk",
+    "tools.exp_kv_append", "tools.exp_cpk", "tools.check_b1_frames", "tools.time_k3_k2",
 )
 
 

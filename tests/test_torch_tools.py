@@ -221,6 +221,38 @@ def test_t6_plain_matches_pallas_interpret(weights, part):
     assert tab.variant_step.launches == 0
 
 
+def test_t6_parts_are_switches_of_the_persistent_step(weights):
+    """T6's noattn and nomlp are switches of K1's persistent B = 1 step
+    (csrc/talker_frame.cu's TF_PART_*, in the order of
+    ``talker_kernel.STEP_PARTS``), so they take their parts away from the
+    step that serves; only ``dma`` keeps a kernel of its own
+    (csrc/talker_ablate.cu: T7's stream and the zero rows, no layer
+    sequence). On a CPU tensor each part runs the plain version, which
+    writes the new k/v rows in place."""
+    import re
+
+    from qwen3tts_tpu_torch.ops import _cuda
+    from qwen3tts_tpu_torch.ops import talker_kernel as tkk
+
+    enum = re.search(r"enum \{ (TF_PART_FULL = 0[^}]*)\}", (_cuda.CSRC / "talker_frame.cu").read_text())
+    names = [p.strip().split()[0][len("TF_PART_"):].lower() for p in enum.group(1).split(",")]
+    assert names == list(tkk.STEP_PARTS) == list(tab.PARTS[:3])
+    ablate = (_cuda.CSRC / "talker_ablate.cu").read_text()
+    assert "qt_talker_ablate_dma" in ablate and "layer_step" not in ablate
+    cfg, H, pos, T = KCFG, KCFG.hidden_size, 9, 32
+    tp = weights[1]
+    x = torch.randn(1, 1, H, generator=torch.Generator().manual_seed(0)).mul(0.2).bfloat16()
+    cos, sin = mrope_cos_sin(torch.full((1, 1), pos), cfg.head_dim, cfg.rope_theta,
+                             cfg.mrope_section, torch.bfloat16)
+    for part in tkk.STEP_PARTS:
+        cache = ttk.make_cache(cfg, 1, T, torch.bfloat16, "cpu")
+        h, k, v = tab.variant_step(tp, cfg, x, cache, pos, cos[0, 0], sin[0, 0], part)
+        assert h.shape == (1, H) and torch.isfinite(h.float()).all()
+        assert k.abs().sum() > 0 and torch.equal(k, cache.k[:, :, :, pos])
+        assert not cache.k[:, :, :, pos + 1 :].any()
+    assert tab.variant_step.launches == 0
+
+
 # ---- T3 ----
 
 def _t3_kern(off_ref, x_ref, o_ref):
