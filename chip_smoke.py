@@ -165,7 +165,23 @@ kernels from csrc/, and runs, in order:
      encoder and the tokenizer encoder at their config widths
      (``torch.Generator`` weights) and 3 s of reference audio: K1 and K2 on
      every frame, a finite waveform in [-1, 1]; the encode and speaker
-     embedding ms, the ICL prompt's length and its prefill ms.
+     embedding ms, the ICL prompt's length and its prefill ms;
+  u. serving: K1 and K2 with per-row sampling values (serving's
+     per-request mode) at B = 8 and 64, each row's codes against
+     ``sample_row`` with its own values on the kernels' logits (equal but
+     for counted flips at the top-p cut), a uniform table equal to the
+     scalar call, ms per call beside the scalar sampler's in turns;
+     ``model.serve(slots=16)`` with 32 requests of ragged caps (20-66
+     frames), without and with per-request sampling (mixed rows), in
+     turns: every future a finite waveform of whole frames, K1 on every
+     lockstep frame and K2 on every lockstep and admission frame, the plain
+     CP loop and the plain per-layer step raising, codec tokens/s and
+     per-request latency p50 / p95, and the run's split into admissions,
+     lockstep chunks and vocoder calls (host seconds of calls that end
+     synchronised); a served run on an int8 KV cache; one greedy request's
+     codes alone and behind sampled neighbours equal; the HTTP front end on
+     127.0.0.1 (a NaN sampling value refused with 400, a WAV, a chunked
+     WAV, a 429).
 
 The K1 comparisons in dyn_int8 (phase k) hold kernel and plain version
 against a float64 step of the model's maths (the kernel within 1.5x of the
@@ -2835,6 +2851,292 @@ def main() -> None:
         f"prompt {emb_t.shape[1]} positions, prefill + first frame {icl_prefill_ms:.2f} ms  [{smi}]")
     log(f"    phase t took {time.time() - t_t:.1f} s")
 
+    # ---- u. serving: per-row sampling in K1 and K2, model.serve(), HTTP ----
+    import http.client
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from qwen3tts_tpu_torch import serving as srv_mod
+    from qwen3tts_tpu_torch.ops.decode_blocks import row_sampling, samp_rows
+    from qwen3tts_tpu_torch.serving_http import make_server
+
+    t_u = time.time()
+    # (temperature, top_k, top_p, repetition_penalty) rows, cycled over a batch:
+    # greedy, plain, top-k 1, top-p alone, both with a penalty, a truncated top-k
+    per_row = np.asarray([
+        [0.0, 0, 1.0, 1.0], [0.9, 50, 1.0, 1.05], [0.7, 1, 1.0, 1.2], [1.1, 0, 0.8, 1.0],
+        [0.9, 20, 0.9, 1.3], [0.0, 20, 0.8, 1.2], [1.3, 7.9, 0.5, 1.05], [0.8, 100, 0.95, 1.0],
+    ], np.float32)
+
+    def flip_at_cut(r, z, a_, b_):
+        return r["temperature"] > 0 and 0 < r["top_p"] < 1 and top_p_flip_ok(
+            top_k_filter(z, r["top_k"]), r["top_p"], False, a_, b_)
+
+    k1u, k2u = {}, {}
+    log("[u] per-row sampling values in K1 and K2 (a [B, 5] table the sampler reads row by row; "
+        "no launch added): codes against sample_row with each row's values on the kernels' logits")
+    for B in (8, 64):
+        cache_u, offs_u, x_u, cos_u, sin_u, seen_u = batch_case(B, 128, False, 20, 120, 1600 + B)
+        vec_u = np.resize(per_row, (B, 4))
+        rows_u = samp_rows(vec_u, dev)
+        uni_u = samp_rows(np.tile([[0.9, 50, 0.9, 1.05]], (B, 1)), dev)
+
+        def k1u_call(c, seed=(3, 4), rows=rows_u, logits=False, fn=tkk.talker_decode_step):
+            return fn(talker_p, cfg, x_u, c, offs_u, cos_u, sin_u, temperature=0.9, top_k=50,
+                      top_p=0.9, rep_penalty=1.05, eos_id=-1, seed=seed, suppress_add=supp,
+                      seen=seen_u, return_logits=logits, rows=rows)
+
+        check(torch.equal(k1u_call(clone(cache_u), rows=uni_u)[1],
+                          k1u_call(clone(cache_u), rows=None)[1]),
+              f"K1 B={B}: a uniform per-row table differs from the scalar call")
+        flips1 = 0
+        for s_ in range(2):
+            _, code_k, lg_k = k1u_call(clone(cache_u), (s_, 21), logits=True)
+            for b in range(B):
+                r = row_sampling(vec_u[b])
+                want = int(sample_row(lg_k[b], **r, seen=seen_u[b], suppress_add=supp,
+                                      seed=(s_, 21), stream=16 * b))
+                if int(code_k[b]) != want:
+                    flips1 += 1
+                    z = torch.where(seen_u[b], torch.where(lg_k[b] < 0, lg_k[b] * r["rep_penalty"],
+                                                           lg_k[b] / r["rep_penalty"]), lg_k[b])
+                    check(flip_at_cut(r, z + supp, int(code_k[b]), want),
+                          f"K1 B={B} row {b}: per-row code beyond a top-p cut")
+        check(flips1 <= max(1, B // 8), f"K1 B={B}: {flips1} per-row flips")
+        _, _, lr_u = k1u_call(clone(cache_u), logits=True, fn=tkk.talker_decode_step_ref)
+        abs1 = float((lg_k - lr_u).abs().max())
+        c_t = clone(cache_u)
+        ms1 = {}
+        table_of = {"scalar": None, "uniform": uni_u, "per-row": rows_u}
+        for form in ("scalar", "uniform", "per-row") * 2:
+            ms1.setdefault(form, []).append(timed(lambda: k1u_call(c_t, rows=table_of[form]), 10))
+        plain1 = timed(lambda: k1u_call(clone(cache_u), fn=tkk.talker_decode_step_ref), 1)
+        k1u[B] = dict(abs=abs1, ms=statistics.median(ms1["per-row"]), plain_ms=plain1,
+                      bound=bound(*k1_io(B, int(offs_u.sum()), False, True)))
+        del cache_u, c_t
+        gb = torch.Generator(device=dev).manual_seed(1700 + B)
+        h_u = torch.randn(B, H, generator=gb, device=dev).mul(0.3).to(torch.bfloat16)
+        c0_u = torch.randint(0, 2048, (B,), generator=gb, device=dev, dtype=torch.int32)
+
+        def k2u_call(seed=(5, 6), rows=rows_u, fn=cpk.predict_codes_fused, **kw):
+            return fn(cp_p, cpc, talker_p, h_u, c0_u, seed, temperature=0.9, top_k=50, top_p=0.9,
+                      rows=rows, **kw)
+
+        check(torch.equal(k2u_call(rows=uni_u)[0], k2u_call(rows=None)[0]),
+              f"K2 B={B}: a uniform per-row table differs from the scalar call")
+        codes_k, _, lg2 = k2u_call(return_logits=True)
+        lg2 = lg2.reshape(15, B, -1)
+        flips2 = 0
+        for b in range(B):
+            r = row_sampling(vec_u[b])
+            r.pop("rep_penalty")  # the CP applies no penalty
+            for j in range(15):
+                want = int(sample_row(lg2[j, b], **r, seed=(5, 6), stream=j + 1 + 16 * b))
+                if int(codes_k[b, j]) != want:
+                    flips2 += 1
+                    check(flip_at_cut(dict(r, rep_penalty=1.0), lg2[j, b], int(codes_k[b, j]),
+                                      want), f"K2 B={B} ({b}, {j}): per-row code beyond a cut")
+        check(flips2 <= max(1, B // 8), f"K2 B={B}: {flips2} per-row flips")
+        _, _, lr2 = k2u_call(fn=cpk.predict_codes_fused_ref, force_codes=codes_k,
+                             return_logits=True)
+        abs2 = float((lg2 - lr2.reshape(15, B, -1)).abs().max())
+        ms2 = {}
+        for form in ("scalar", "uniform", "per-row") * 2:
+            ms2.setdefault(form, []).append(timed(lambda: k2u_call(rows=table_of[form]), 10))
+        plain2 = timed(lambda: k2u_call(fn=cpk.predict_codes_fused_ref), 1)
+        k2u[B] = dict(abs=abs2, ms=statistics.median(ms2["per-row"]), plain_ms=plain2,
+                      bound=bound(*k2_io(B)))
+        log(f"    B={B}: K1 {2 * B - flips1}/{2 * B} codes equal ({flips1} at the top-p cut), "
+            f"logits max abs {abs1:.3g} against the plain version; K2 {15 * B - flips2}/{15 * B} "
+            f"({flips2} at the cut), logits {abs2:.3g}; ms a call in turns, scalar (top-k 50, "
+            f"top-p 0.9) / the same values as a table / the mixed rows: K1 " + " / ".join(
+                ", ".join(f"{t:.3f}" for t in ms1[k]) for k in table_of) + ", K2 " + " / ".join(
+                ", ".join(f"{t:.3f}" for t in ms2[k]) for k in table_of)
+            + f"; plain K1 {plain1:.1f}, K2 {plain2:.1f}; bound K1 {k1u[B]['bound'][0]:.3f} "
+            f"({k1u[B]['bound'][1]}), K2 {k2u[B]['bound'][0]:.3f} ({k2u[B]['bound'][1]})  [{smi}]")
+
+    # model.serve(slots=16): 32 requests of ragged caps, the whole batch
+    # submitted at once; after admission the plain CP loop and the plain
+    # per-layer decode step raise (a raise in the worker fails every future)
+    def plain_ran(*a, **k):
+        raise AssertionError("the plain CP loop ran on the card")
+
+    def no_plain_step(q, *a, **k):
+        if q.shape[2] == 1:
+            raise AssertionError("a plain per-layer decode step ran on the card")
+        return real_attend(q, *a, **k)
+
+    cpm_mod.predict_codes, tk._attend = plain_ran, no_plain_step
+    serve_texts = [f"Request {i} asks the served model for a sentence of its own." for i in
+                   range(32)]
+    serve_caps = [20 + (46 * i) // 31 for i in range(32)]  # 20..66 frames
+    frames_seen = []
+
+    def serve_run(m, per_request, n_req=32, slots=16, **kw):
+        """Submit n_req requests at once; returns (wall s, latencies s,
+        frames a request, lockstep frames, (K1, K2) launches, spans). The
+        spans are the host seconds of each admission and each chunk (both
+        end in the device turn's synchronisation) and of each vocoder call
+        (it ends in its copy to the host; the worker runs it in the
+        request's completion callback, between chunks)."""
+        real_decode = m._decode_codes_list
+        real_admit, real_chunk = srv_mod.bg.admit_slot, srv_mod.bg.generate_chunk_batch
+        spans = {"admit": [], "chunk": [], "vocode": []}
+
+        def span(name, fn):
+            def run(*a, **k):
+                t_ = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    spans[name].append(time.perf_counter() - t_)
+            return run
+
+        def counting_decode(codes):
+            frames_seen.extend(c.shape[0] for c in codes)
+            return real_decode(codes)
+
+        m._decode_codes_list = span("vocode", counting_decode)
+        srv_mod.bg.admit_slot = span("admit", real_admit)
+        srv_mod.bg.generate_chunk_batch = span("chunk", real_chunk)
+        frames_seen.clear()
+        tkk.talker_decode_step.launches = tkk.talker_decode_step.persistent_launches = 0
+        cpk.predict_codes_fused.launches = 0
+        done_at = [0.0] * n_req
+        with m.serve(slots=slots, chunk_frames=8, max_frames=72, per_request_sampling=per_request,
+                     **kw) as svc:
+            torch.cuda.synchronize()
+            t0_ = time.time()
+            futs = []
+            for i in range(n_req):
+                over = {}
+                if per_request:
+                    r = row_sampling(per_row[i % len(per_row)])
+                    over = dict(temperature=r["temperature"], top_k=r["top_k"], top_p=r["top_p"],
+                                repetition_penalty=r["rep_penalty"])
+                f = svc.submit(serve_texts[i], speaker="aiden", language="english", seed=i,
+                               max_tokens=serve_caps[i], **over)
+                f.add_done_callback(lambda _, i=i: done_at.__setitem__(i, time.time()))
+                futs.append(f)
+            wavs = [f.result(timeout=600) for f in futs]
+            wall_ = time.time() - t0_
+            iters = svc._server.total_iterations
+        del m._decode_codes_list
+        srv_mod.bg.admit_slot, srv_mod.bg.generate_chunk_batch = real_admit, real_chunk
+        n1_, n2_ = tkk.talker_decode_step.launches, cpk.predict_codes_fused.launches
+        # whole frames (an EOS on the first frame gives none; a frame whose
+        # code 0 is 0 is trimmed, as generate() trims it)
+        bad = [(i, len(w), c) for i, (w, c) in enumerate(zip(wavs, serve_caps))
+               if not (bool(np.isfinite(w).all()) and len(w) <= c * 1920 and len(w) % 1920 == 0)]
+        check(not bad, f"served waveforms malformed (request, samples, cap): {bad}")
+        check(len(frames_seen) == sum(len(w) > 0 for w in wavs) and n1_ == iters
+              and n2_ == iters + n_req and tkk.talker_decode_step.persistent_launches == 0,
+              f"served run: K1 {n1_}, K2 {n2_} for {iters} lockstep frames and {n_req} admissions "
+              f"({len(frames_seen)} vocoded)")
+        return wall_, [d - t0_ for d in done_at], list(frames_seen), iters, (n1_, n2_), spans
+
+    serve_u = {}
+    for per_request in (False, True, False, True):
+        serve_u.setdefault(per_request, []).append(serve_run(model, per_request))
+    for per_request, runs in serve_u.items():
+        tps = [16 * sum(r[2]) / r[0] for r in runs]
+        lat = [np.percentile(r[1], [50, 95]) for r in runs]
+        log(f"    serve(slots=16), 32 requests (caps 20-66), per_request_sampling={per_request}: "
+            f"{sum(runs[0][2])} frames in {runs[0][3]} lockstep frames; codec tokens/s "
+            f"{', '.join(f'{t:.0f}' for t in tps)}; per-request latency p50 "
+            f"{', '.join(f'{l[0]:.3f}' for l in lat)} s, p95 "
+            f"{', '.join(f'{l[1]:.3f}' for l in lat)} s (in turns); launches K1 "
+            f"{runs[0][4][0]}, K2 {runs[0][4][1]}  [{smi}]")
+        for r in runs:
+            adm, chk, voc = (sum(r[5][k]) for k in ("admit", "chunk", "vocode"))
+            log(f"      split of a {r[0]:.3f} s run: {len(r[5]['admit'])} admissions "
+                f"{adm:.3f} s ({1e3 * adm / max(len(r[5]['admit']), 1):.2f} ms each), "
+                f"{len(r[5]['chunk'])} chunks {chk:.3f} s ({r[3]} lockstep frames, "
+                f"{1e3 * chk / max(r[3], 1):.2f} ms a frame), the rest {r[0] - adm - chk:.3f} s, "
+                f"of it {len(r[5]['vocode'])} vocoder calls on the worker {voc:.3f} s "
+                f"({1e3 * voc / max(len(r[5]['vocode']), 1):.2f} ms each)")
+    serve_launches = serve_u[True][0][4]
+    model_q = Qwen3TTSModel(model.config, talker_p, cp_p, voc_p,
+                            tokenizer_config=model.tokenizer_config, tokenizer=model.tokenizer,
+                            dtype=torch.bfloat16, device=dev, kv_cache_dtype="int8")
+    wall_q, _, frames_q, iters_q, launches_q, _ = serve_run(model_q, True, n_req=16)
+    log(f"    serve on an int8 KV cache, 16 per-request requests: {sum(frames_q)} frames, "
+        f"{iters_q} lockstep frames, {wall_q:.2f} s, launches K1 {launches_q[0]}, K2 "
+        f"{launches_q[1]}")
+    cpm_mod.predict_codes, tk._attend = real_pc, real_attend
+
+    # one greedy request alone, then behind five sampled neighbours: another
+    # slot, other neighbours, the same codes
+    with model.serve(slots=16, chunk_frames=8, max_frames=72, per_request_sampling=True) as svc:
+        def served(text, seed, **over):
+            item = svc._item(text, "aiden", None, "english", seed, 40, over.get("temperature"),
+                             over.get("top_k"), over.get("top_p"), over.get("repetition_penalty"))
+            return svc._server.submit(item)  # the server exists once an item was built
+
+        greedy_kw = dict(temperature=0.0, top_k=0, top_p=1.0, repetition_penalty=1.0)
+        alone_u = served(serve_texts[0], 0, **greedy_kw).result(timeout=300)
+        futs_u = [served(serve_texts[i], i, temperature=0.9, top_k=50, top_p=0.9,
+                         repetition_penalty=1.1) for i in range(1, 6)]
+        again_u = served(serve_texts[0], 0, **greedy_kw).result(timeout=300)
+        [f.result(timeout=300) for f in futs_u]
+    check(alone_u.n_frames == again_u.n_frames > 0 and (alone_u.codes == again_u.codes).all(),
+          "a greedy request's codes depend on its slot or neighbours")
+    log(f"    a greedy request alone and behind 5 sampled neighbours: {alone_u.n_frames} frames, "
+        "codes equal")
+
+    # HTTP on 127.0.0.1: one /synthesize, one /synthesize_stream, a 429
+    def post(port_, path, body):
+        req = urllib.request.Request(f"http://127.0.0.1:{port_}{path}",
+                                     data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    for kw in (dict(slots=4, per_request_sampling=True), dict(slots=1, max_queue=1)):
+        with model.serve(chunk_frames=8, max_frames=72, **kw) as svc:
+            http_srv = make_server(svc, "127.0.0.1", 0)
+            http_port = http_srv.server_address[1]
+            threading.Thread(target=http_srv.serve_forever, daemon=True).start()
+            try:
+                body_u = {"text": "Hello over HTTP.", "speaker": "aiden", "max_tokens": 30}
+                if kw["slots"] == 4:
+                    # values the sampler cannot take: refused at the door, the worker unharmed
+                    code_nan = [post(http_port, "/synthesize", dict(body_u, **bad))[0]
+                                for bad in ({"temperature": float("nan")}, {"top_p": "nan"})]
+                    check(code_nan == [400, 400], f"HTTP: NaN sampling values gave {code_nan}")
+                    code_h, wav_h = post(http_port, "/synthesize", dict(body_u, top_p=0.9))
+                    conn = http.client.HTTPConnection("127.0.0.1", http_port, timeout=300)
+                    conn.request("POST", "/synthesize_stream", body=json.dumps(body_u),
+                                 headers={"Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    stream_h = resp.read()
+                    conn.close()
+                    check(code_h == 200 and wav_h[:4] == b"RIFF" and resp.status == 200
+                          and stream_h[:4] == b"RIFF" and (len(stream_h) - 44) % (2 * 1920) == 0,
+                          f"HTTP: /synthesize {code_h}, /synthesize_stream {resp.status}")
+                else:
+                    codes_h = []
+                    flood = [threading.Thread(target=lambda i=i: codes_h.append(post(
+                        http_port, "/synthesize", dict(body_u, text=f"flood {i}"))[0]))
+                        for i in range(6)]
+                    for t_ in flood:
+                        t_.start()
+                    for t_ in flood:
+                        t_.join()
+                    check(429 in codes_h and 200 in codes_h and set(codes_h) <= {200, 429},
+                          f"HTTP flood: {codes_h}")
+            finally:
+                http_srv.shutdown()
+                http_srv.server_close()
+    log(f"    HTTP: a NaN temperature and a NaN top_p {code_nan}, then /synthesize a "
+        f"{len(wav_h)}-byte WAV, /synthesize_stream a chunked {len(stream_h)}-byte WAV, a flood of 6 on one slot with one waiting place: "
+        f"{sorted(codes_h)}")
+    log(f"    phase u took {time.time() - t_u:.1f} s")
+
     print(smi, flush=True)
     k1_64, k2_64 = k1b[(64, True)], k2b[64]
     kernels = [
@@ -2921,6 +3223,10 @@ def main() -> None:
         entry("predict_codes_fused (sampler with top_p 0.9, B=1; persistent)", "K2",
               dict(abs=k2_tp_abs, ms=k2_tp_ms, plain_ms=k2_tp_plain, bound=k2_bound),
               path_n[False][1]),
+        entry("talker_decode_step (per-row sampling values, B=64; launches: the served "
+              "per-request run at 16 slots)", "K1", k1u[64], serve_launches[0]),
+        entry("predict_codes_fused (per-row sampling values, B=64; launches: the served "
+              "per-request run at 16 slots)", "K2", k2u[64], serve_launches[1]),
     ]
 
     q_launches = {"0.6B int8": n1_persistent, "0.6B int8, int8 cache": n1_persistent,
@@ -2957,7 +3263,8 @@ def main() -> None:
                 tool("cpk probes (p1-p6, p3a-c, p4a-c; one launch each)", "cpk_probes.cu",
                      "exp_cpk.py:39", t2_all, p_launches["probes"])]
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                              "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)
 
 

@@ -118,6 +118,7 @@ constexpr int AMAX_SLOTS = 3;               // dyn_int8: amax of the normed inpu
 constexpr int MAX_SEGS = 3;                 // column segments of one unfused weight
 constexpr int SAMPLE_THREADS = 1024;
 constexpr int SAMPLE_PER_THREAD = 4;        // vocabularies up to 4096
+constexpr int SAMPLE_ROW_VALUES = 5;        // per-row sampling: rep, greedy, inv_t, top_k, top_p_thr
 constexpr float NEG_BIG = -1e30f;
 
 // the staged tile of the wider weight type (bf16) and x
@@ -1305,7 +1306,11 @@ attn_step(const float* __restrict__ part, int splits, const Mat qkv,
 // restore, z * inv_t + Gumbel noise on the row's stream, argmax. Ties go to
 // the lowest id. With ``emb`` the block then copies row ``code`` (or the
 // forced code) of emb [V, H] to the row's x_next and adds it to its esum
-// (f32).
+// (f32). With ``rows`` (per-request sampling) row b takes its own rep,
+// greedy, inv_t, top_k and top_p_thr from rows[b][0..4] (f32; top_k
+// truncated to an int) in place of the scalars: the host derives them as
+// it derives the scalars, so a row samples as a scalar call with its
+// values would.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ uint32_t float_key(float f) {
   const uint32_t u = __float_as_uint(f);
@@ -1342,6 +1347,8 @@ struct SampleArgs {
   int cp_head;           // dyn_int8: (f32(acc) * s) * scale (CP heads), else f32(acc) * (s * scale)
   float top_p_thr;       // top-p: keep a token iff its cumulative mass > this (f32(1 - p)); 0: off
   int ref_exact;         // top-p mass exp(z) unnormalized (the reference's), else softmax(z)
+  const float* rows;     // [B][SAMPLE_ROW_VALUES] per-row rep, greedy, inv_t, top_k, top_p_thr,
+                         // or null (the scalars above); with rows, top_p_thr is their largest
 };
 
 // Top-p on a row held in registers (PT values a thread, id
@@ -1482,6 +1489,12 @@ __device__ void sample_block(int V, const SampleArgs& a, int b, unsigned long lo
   const uint8_t* seen = a.seen ? a.seen + (size_t)b * V : nullptr;
   float* logits_out = a.logits_out ? a.logits_out + (size_t)b * a.logits_stride : nullptr;
   const uint32_t key = stream_key(a.seed0, a.seed1, a.stream + STREAMS_PER_ROW * (uint32_t)b);
+  float rep = a.rep, inv_t = a.inv_t, thr = a.top_p_thr;
+  int greedy = a.greedy, top_k = a.top_k;
+  if (a.rows) {
+    const float* r = a.rows + (size_t)b * SAMPLE_ROW_VALUES;
+    rep = r[0], greedy = r[1] != 0.f, inv_t = r[2], top_k = (int)r[3], thr = r[4];
+  }
   float z[PT];
   bool valid[PT];
 #pragma unroll
@@ -1493,18 +1506,18 @@ __device__ void sample_block(int V, const SampleArgs& a, int b, unsigned long lo
       v = logit(c);
       if (logits_out) logits_out[c] = v;
       if (a.supp) v = __fadd_rn(v, a.supp[c]);
-      if (seen && a.rep != 1.0f && seen[c]) v = v < 0.f ? __fmul_rn(v, a.rep) : __fdiv_rn(v, a.rep);
+      if (seen && rep != 1.0f && seen[c]) v = v < 0.f ? __fmul_rn(v, rep) : __fdiv_rn(v, rep);
       if (c == a.eos_id) eos_logit = v;
     }
     z[i] = v;
   }
-  if (!a.greedy) {
-    if (a.top_k > 0 && a.top_k < V) {
+  if (!greedy) {
+    if (top_k > 0 && top_k < V) {
       uint32_t keys[PT];
 #pragma unroll
       for (int i = 0; i < PT; ++i) keys[i] = float_key(z[i]);
       uint32_t prefix = 0, mask = 0;
-      int kk = a.top_k;
+      int kk = top_k;
       for (int shift = 24; shift >= 0; shift -= 8) {
         for (int bin = tid; bin < 256; bin += blockDim.x) hist[bin] = 0;
         __syncthreads();
@@ -1545,7 +1558,9 @@ __device__ void sample_block(int V, const SampleArgs& a, int b, unsigned long lo
       for (int i = 0; i < PT; ++i)
         if (valid[i] && !(z[i] >= kth)) z[i] = NEG_BIG;
     }
-    if (TOPP) top_p_stage(z, valid, a.top_p_thr, a.ref_exact, redf, top_p_keys);
+    // a row whose stage is off skips it in the TOPP instance too (block-uniform):
+    // at threshold 0 the stage would still drop an id whose f32 mass is 0
+    if (TOPP && thr > 0.f) top_p_stage(z, valid, thr, a.ref_exact, redf, top_p_keys);
     __syncthreads();  // eos_logit
 #pragma unroll
     for (int i = 0; i < PT; ++i) {
@@ -1556,7 +1571,7 @@ __device__ void sample_block(int V, const SampleArgs& a, int b, unsigned long lo
       const float u = __fadd_rn(__fmul_rn((float)(bits & 0xFFFFFFu), 5.9604644775390625e-08f),
                                 2.98023223876953125e-08f);
       const float gumbel = -logf(-logf(u));
-      z[i] = __fadd_rn(__fmul_rn(z[i], a.inv_t), gumbel);
+      z[i] = __fadd_rn(__fmul_rn(z[i], inv_t), gumbel);
     }
   }
   float bv = -CUDART_INF_F;
@@ -1597,6 +1612,9 @@ __device__ void sample_block(int V, const SampleArgs& a, int b, unsigned long lo
       }
     }
     if (tid == 0) {
+      // no winner only when every score is NaN: take id 0, as argmax does,
+      // so that the embedding gather below stays inside the table
+      if (bi >= V) bi = 0;
       a.code_out[(size_t)b * a.code_stride] = bi;
       code_sh = a.force_code ? a.force_code[(size_t)b * a.force_stride] : bi;
     }
@@ -1631,7 +1649,8 @@ sample_kernel(const float* __restrict__ part, int splits, const Mat head, int V,
 }
 
 // One sampler launch for B rows: the top-p instance (its keys in
-// next_pow2(V) x 8 bytes of dynamic shared memory) when a.top_p_thr > 0.
+// next_pow2(V) x 8 bytes of dynamic shared memory) when a.top_p_thr > 0
+// (with per-row values: when any row has the stage on).
 inline void launch_sampler(const float* part, int splits, const Mat& head, int V,
                            const SampleArgs& a, int B, cudaStream_t st) {
   if (a.top_p_thr > 0.f) {

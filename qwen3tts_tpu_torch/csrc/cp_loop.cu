@@ -595,7 +595,11 @@ int cp_frame_launch(FrameArgs& fa, int blocks, cudaStream_t st) {
 // [L, B, NKV, NCB + 1, D] bf16; force_codes, codes_out [B, NCB]; esum
 // [B, TH]; xbuf [B, TH]; logits_out [NCB, B, V]. Row b draws its codebook j
 // from stream j + 1 + 16 b; top_p_thr is f32(1 - top_p) or 0 (no top-p
-// stage), see SampleArgs. At B = 1 (``cp_frame``): ``ctl`` two uint32 of
+// stage), see SampleArgs; ``samp_rows`` (B > 1, or null) the per-row
+// sampling values [B][5] f32 (rep, greedy, inv_t, top_k, top_p_thr; rep is
+// not read, as the CP applies no penalty), with top_p_thr then their
+// largest; at B = 1 it must be null (row 0's values come as the scalars).
+// At B = 1 (``cp_frame``): ``ctl`` two uint32 of
 // device memory (the barrier's words, zeroed here), ``err_host`` one int32
 // of pinned host memory (set to 1 if a barrier ran past ``budget_ns``),
 // ``blocks`` the grid (0: one block per SM); ``cut`` 0 on the port's calls
@@ -612,7 +616,7 @@ extern "C" int qt_cp_loop(
     const void* lm_w, const void* lm_s, const void* emb, const void* proj_w, const void* proj_b,
     const void* cos_tab, const void* sin_tab, void* k_cache, void* v_cache,
     int greedy, float inv_t, int top_k, float top_p_thr, int ref_exact, uint32_t seed0,
-    uint32_t seed1, const void* force_codes,
+    uint32_t seed1, const void* samp_rows, const void* force_codes,
     void* hres, void* xn, void* attn, void* gated, void* ws, void* xbuf, void* amax,
     void* codes_out, void* esum, void* logits_out, void* ctl, void* err_host, int blocks,
     long long budget_ns, int cut, void* stream) {
@@ -627,7 +631,7 @@ extern "C" int qt_cp_loop(
   const int SLOTS = NCB + 1;
   if (B == 1) {
     if (NKV > 32 || SLOTS > 32 || ctl == nullptr || err_host == nullptr || budget_ns <= 0 ||
-        cut < 0 || cut > CUT_SAMPLER)
+        cut < 0 || cut > CUT_SAMPLER || samp_rows != nullptr)
       return (int)cudaErrorInvalidValue;
     FrameArgs fa;
     fa.L = L, fa.H = H, fa.NQ = NQ, fa.NKV = NKV, fa.I = I, fa.V = V, fa.NCB = NCB, fa.TH = TH;
@@ -742,6 +746,7 @@ extern "C" int qt_cp_loop(
     a.esum = (float*)esum;
     a.amax = head_ax;
     a.cp_head = 1;
+    a.rows = (const float*)samp_rows;
     launch_sampler((const float*)ws, s, head, V, a, B, st);
     QT_CHECK_LAUNCH();
   }

@@ -59,7 +59,9 @@ extern "C" unsigned long long qt_launches(void) { return qt::launch_count(); }
 // Caches [L, B, NKV, T, D] (bf16, or int8 with kv_quant and scales
 // [L, B, NKV, T]); rope rows cos/sin at ``cosr + b * rope_stride``.
 // Sample mode when ``head_w`` is given: code_out [B], logits_out [B, V];
-// top_p_thr is f32(1 - top_p) or 0 (no top-p stage), see SampleArgs.
+// top_p_thr is f32(1 - top_p) or 0 (no top-p stage), see SampleArgs;
+// ``samp_rows`` (or null) the per-row sampling values [B][5] f32 (rep,
+// greedy, inv_t, top_k, top_p_thr), with top_p_thr then their largest.
 // On return xn holds rms(h, final norm) [B, H], the hidden the CP consumes.
 extern "C" int qt_talker_step(
     int L, int H, int NQ, int NKV, int D, int I, int V, int T, int B, int pos, const void* offs,
@@ -72,7 +74,8 @@ extern "C" int qt_talker_step(
     const void* cosr, const void* sinr, int rope_stride,
     const void* head_w, const void* head_s, const void* supp, const void* seen,
     float rep, int greedy, float inv_t, int top_k, float top_p_thr, int ref_exact, int eos_id,
-    uint32_t seed0, uint32_t seed1, void* hres, void* xn, void* attn, void* gated, void* ws, void* amax,
+    uint32_t seed0, uint32_t seed1, const void* samp_rows,
+    void* hres, void* xn, void* attn, void* gated, void* ws, void* amax,
     void* code_out, void* logits_out, void* stream) {
   if (D != HEAD_DIM || NQ % NKV != 0 || NQ / NKV > ATTN_MAX_GROUP || B < 1 || B > MAX_BATCH ||
       V > SAMPLE_THREADS * SAMPLE_PER_THREAD || (offs == nullptr && (pos < 0 || pos >= T)) ||
@@ -142,6 +145,7 @@ extern "C" int qt_talker_step(
   a.esum = nullptr;
   a.amax = head_ax;
   a.cp_head = 0;
+  a.rows = (const float*)samp_rows;
   launch_sampler((const float*)ws, s, head, V, a, B, st);
   QT_CHECK_LAUNCH();
   return 0;

@@ -19,7 +19,7 @@ from ..config import CodePredictorConfig
 from ..ops.norms import rms_norm
 from ..ops.quant import PackedLinear, embed_lookup
 from ..ops.rope import apply_rotary, rope_cos_sin
-from ..ops.sampling import sample_token_inner
+from ..ops.sampling import sample_token_inner, sample_token_vec
 from .talker import _attend, _dense, _embed, _layer, _project_qkv, _swiglu_mlp
 
 Params = dict[str, Any]
@@ -105,13 +105,22 @@ def predict_codes(
     top_k: int,
     top_p: float,
     ref_exact_top_p: bool = False,
+    samp_vec=None,  # [B, 4] per-row (temperature, top_k, top_p, repetition_penalty)
 ) -> torch.Tensor:
     """Codebooks 2..16 for one frame: codes [B, 15] int32, sampled with the
-    shared temperature/top-k/top-p and no penalty, suppression or EOS."""
+    shared temperature/top-k/top-p and no penalty, suppression or EOS.
+    ``samp_vec`` (serving's per-request sampling) gives each row its own
+    temperature, top_k and top_p (columns 0-2; column 3, the penalty, is
+    not used: the reference's CP loop applies none)."""
     B = code0.shape[0]
     cache = make_cp_cache(cfg, B, last_hidden.dtype, last_hidden.device)
 
     def sample(logits):
+        if samp_vec is not None:
+            return sample_token_vec(
+                generator, logits, temperature=samp_vec[:, 0], top_k=samp_vec[:, 1],
+                top_p=samp_vec[:, 2], ref_exact_top_p=ref_exact_top_p,
+            )
         return sample_token_inner(
             generator, logits, temperature=temperature, top_k=top_k, top_p=top_p,
             ref_exact_top_p=ref_exact_top_p,

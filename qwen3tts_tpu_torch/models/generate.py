@@ -57,7 +57,12 @@ class SamplingConfig(NamedTuple):
 
     ``forbid_eos`` suppresses EOS entirely (benchmarking: forces generation
     to the step cap regardless of weights). ``ref_exact_top_p`` reproduces
-    the reference's unnormalized-exp top-p.
+    the reference's unnormalized-exp top-p. ``per_request`` (serving): the
+    batched paths take a ``samp_vec`` [B, 4] table (temperature, top_k,
+    top_p, repetition_penalty per row) and sample each row with its own
+    values; the scalar fields are the defaults of rows that override
+    nothing. Unlike the TPU's, K1 and K2 stay on in this mode: their
+    sampler reads the rows (``decode_blocks.SampRows``).
     """
 
     temperature: float = 0.9
@@ -66,6 +71,7 @@ class SamplingConfig(NamedTuple):
     repetition_penalty: float = 1.05
     forbid_eos: bool = False
     ref_exact_top_p: bool = False
+    per_request: bool = False
 
 
 class GenCarry(NamedTuple):

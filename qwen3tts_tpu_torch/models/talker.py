@@ -401,11 +401,13 @@ def forward_batched_step_sample(
     rope: tuple[torch.Tensor, torch.Tensor],
     top_p: float = 1.0,
     ref_exact_top_p: bool = False,
+    rows=None,  # decode_blocks.SampRows: per-row sampling values (per_request)
 ):
     """Batched decode step + codec head + per-row code0 sampler through K1
     (the batched twin of :func:`forward_step_sample`); each sequence writes
-    its k/v row at its own offset. Returns (hidden [B, 1, h] post-final-norm,
-    cache, code0 [B] int32)."""
+    its k/v row at its own offset. ``rows`` replaces temperature, top_k,
+    top_p and repetition_penalty with each row's own. Returns (hidden
+    [B, 1, h] post-final-norm, cache, code0 [B] int32)."""
     from ..ops.talker_kernel import talker_decode_step
 
     pos = offsets.long()
@@ -420,6 +422,7 @@ def forward_batched_step_sample(
         seed=seed,
         suppress_add=suppress_add,
         seen=seen,
+        rows=rows,
     )
     return h[:, None], cache, code0
 

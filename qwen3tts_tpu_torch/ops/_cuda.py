@@ -77,6 +77,7 @@ _ARGTYPES = {
         P, P, I,  # cos sin rope_stride
         P, P, P, P,  # head_w head_s supp seen
         F, I, F, I, F, I, I, U, U,  # rep greedy inv_t top_k top_p_thr ref_exact eos_id seed0 seed1
+        P,  # samp_rows
         P, P, P, P, P, P,  # hres xn attn gated ws amax
         P, P, P,  # code_out logits_out stream
     ],
@@ -105,7 +106,7 @@ _ARGTYPES = {
         P, P, P, P, P,  # lm_w lm_s emb proj_w proj_b
         P, P, P, P,  # cos_tab sin_tab k_cache v_cache
         I, F, I, F, I, U, U,  # greedy inv_t top_k top_p_thr ref_exact seed0 seed1
-        P,  # force_codes
+        P, P,  # samp_rows force_codes
         P, P, P, P, P, P, P,  # hres xn attn gated ws xbuf amax
         P, P, P,  # codes_out esum logits_out
         P, P, I, LL, I,  # ctl err_host blocks budget_ns cut

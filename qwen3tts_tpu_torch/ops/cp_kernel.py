@@ -39,7 +39,12 @@ its ``codec_embedding[j]`` row. Positions 1..15 apply ``lm_head[j]``
 Gumbel-max on stream j + 1 + 16 b of the counter generator for row b, so
 row 0 draws what a single-sequence call draws; no penalty, mask or EOS).
 Each row attends over its own 16 slots (the TPU kernel's block-diagonal
-mask over one flat cache).
+mask over one flat cache). ``rows`` (``decode_blocks.SampRows``, serving's
+per-request sampling) gives each row its own temperature, top-k and top-p
+(columns 0-2; the CP applies no penalty, as the JAX
+``code_predictor.predict_codes`` says): at B > 1 the kernel reads them from
+a device table, at B = 1 the persistent frame takes row 0's as its
+scalars; no launch is added.
 Returns the 15 codes and ``esum``, the f32 sum of the 15 sampled embedding
 rows, of every row.
 
@@ -62,7 +67,8 @@ from ..models.talker import _embed
 from . import _cuda
 from ._cuda import BarrierTimeout, CoResidencyError
 from .decode_blocks import (
-    STREAMS_PER_ROW, layer_step, mv, mv_f32, rms, sample_row, top_p_threshold,
+    STREAMS_PER_ROW, inv_temperature, layer_step, mv, mv_f32, rms, row_sampling, sample_row,
+    top_p_any, top_p_threshold,
 )
 from .quant import Int8Linear
 from .rope import rope_cos_sin
@@ -150,9 +156,10 @@ def _rope_tables(cp_cfg, device):
 def predict_codes_fused_ref(
     cp_params, cp_cfg, talker_params, last_hidden, code0, seed: tuple[int, int], *,
     temperature: float, top_k: int, top_p: float = 1.0, ref_exact_top_p: bool = False,
-    force_codes=None, return_logits: bool = False, mode: str = "wo_bf16",
+    force_codes=None, return_logits: bool = False, mode: str = "wo_bf16", rows=None,
 ):
-    """Plain PyTorch version of K2 (same rounding points as the kernel)."""
+    """Plain PyTorch version of K2 (same rounding points as the kernel).
+    ``rows``: row b samples with ``_cp_sampling(rows, b)``."""
     mode = run_mode(mode, cp_layout(cp_params["layers"]), "predict_codes_fused")
     L = cp_cfg.num_hidden_layers
     NKV, D = cp_cfg.num_key_value_heads, cp_cfg.head_dim
@@ -167,6 +174,8 @@ def predict_codes_fused_ref(
     proj = cp_params.get(PROJ)
     esum = torch.zeros(B, x0.shape[-1], dtype=torch.float32, device=dev)  # talker width
     forced = None if force_codes is None else force_codes.reshape(B, NCB).long()
+    scalars = dict(temperature=temperature, top_k=top_k, top_p=top_p)
+    per_row = [scalars if rows is None else _cp_sampling(rows, b) for b in range(B)]
     codes, all_logits = [], []
     x = x0[:, 0]
     for p in range(SLOTS):
@@ -184,8 +193,7 @@ def predict_codes_fused_ref(
         hn = rms(h, cp_params["norm"], cp_cfg.rms_norm_eps)
         logits = mv_f32(hn, _head(cp_params["lm_head"], j), mode, cp_head=True)
         code = torch.cat([
-            sample_row(logits[b], temperature=temperature, top_k=top_k, top_p=top_p,
-                       ref_exact_top_p=ref_exact_top_p, seed=seed,
+            sample_row(logits[b], **per_row[b], ref_exact_top_p=ref_exact_top_p, seed=seed,
                        stream=j + 1 + STREAMS_PER_ROW * b)
             for b in range(B)
         ])
@@ -204,19 +212,21 @@ def predict_codes_fused_ref(
 def predict_codes_fused(
     cp_params, cp_cfg, talker_params, last_hidden, code0, seed: tuple[int, int], *,
     temperature: float, top_k: int, top_p: float = 1.0, ref_exact_top_p: bool = False,
-    force_codes=None, return_logits: bool = False, mode: str = "wo_bf16",
+    force_codes=None, return_logits: bool = False, mode: str = "wo_bf16", rows=None,
 ):
     """The CP inner loop for one frame of B rows.
 
     last_hidden [B, talker_h]; code0 [B] int32; seed: two 32-bit words;
     force_codes [B, 15]; top_p / ref_exact_top_p: the sampler's top-p stage
-    (off at top_p >= 1); mode: see ``talker_kernel.run_mode``. Returns
+    (off at top_p >= 1); rows: per-row sampling values
+    (``decode_blocks.SampRows`` of B rows) in place of temperature, top_k
+    and top_p; mode: see ``talker_kernel.run_mode``. Returns
     (codes [B, 15] int32, esum [B, talker_h] f32[, logits f32 [15, V] at
     B=1, else [15, B, V]]).
     """
     kw = dict(temperature=temperature, top_k=top_k, top_p=top_p,
               ref_exact_top_p=ref_exact_top_p, force_codes=force_codes,
-              return_logits=return_logits)
+              return_logits=return_logits, rows=rows)
     if last_hidden.device.type == "cpu":
         return predict_codes_fused_ref(cp_params, cp_cfg, talker_params, last_hidden, code0, seed,
                                        mode=mode, **kw)
@@ -257,8 +267,15 @@ def check_barrier(sync_device=None) -> None:
         raise BarrierTimeout("K2 persistent barrier timed out")
 
 
+def _cp_sampling(rows, b: int) -> dict:
+    """Row b's temperature, top_k and top_p (the CP applies no penalty)."""
+    kw = row_sampling(rows.vec[b])
+    del kw["rep_penalty"]
+    return kw
+
+
 def launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, temperature, top_k,
-           top_p, ref_exact_top_p, force_codes, return_logits, dyn, blocks: int = 0,
+           top_p, ref_exact_top_p, force_codes, return_logits, dyn, rows=None, blocks: int = 0,
            budget_ns: int = BARRIER_BUDGET_NS, cut: int = 0):
     """One call of the kernel in csrc/cp_loop.cu on CUDA tensors (the
     wrappers count it: this one and ops/cp_kernel_old.py's). At B = 1:
@@ -327,13 +344,21 @@ def launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, temper
     codes = torch.empty(B, NCB, dtype=torch.int32, device=dev)
     esum = torch.empty(B, TH, dtype=torch.float32, device=dev)
     logits = torch.empty(NCB, B, V, dtype=torch.float32, device=dev) if return_logits else None
-    inv_t = torch.tensor(1.0 / temperature if temperature > 0 else 0.0, dtype=torch.float32).item()
+    table, top_p_thr = None, top_p_threshold(top_p)
+    if rows is not None:
+        if rows.vec.shape[0] != B:
+            raise ValueError(f"predict_codes_fused: {rows.vec.shape[0]} sampling rows for {B} rows")
+        # at B = 1 the persistent frame takes row 0's values as its scalars
+        row0 = _cp_sampling(rows, 0)
+        temperature, top_k = row0["temperature"], row0["top_k"]
+        table, top_p_thr = (rows.table if B > 1 else None), top_p_any(rows)
     rc = _cuda.library().qt_cp_loop(
         L, H, NQ, NKV, D, I, V, NCB, B, TH, int(w_bf16), int(head_bf16), int(dyn),
         cp_cfg.rms_norm_eps, D**-0.5,
         *(_cuda.ptr(t) for t in ins),
-        int(temperature <= 0), inv_t, int(top_k), top_p_threshold(top_p), int(ref_exact_top_p),
-        seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF,
+        int(temperature <= 0), inv_temperature(temperature), int(top_k), top_p_thr,
+        int(ref_exact_top_p),
+        seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF, _cuda.ptr(table),
         _cuda.ptr(force),
         *(_cuda.ptr(t) for t in bufs),
         _cuda.ptr(codes), _cuda.ptr(esum), _cuda.ptr(logits), _cuda.ptr(ctl),

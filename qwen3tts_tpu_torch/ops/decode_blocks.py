@@ -33,7 +33,9 @@ csrc/common.cuh, with the same rounding points:
 * ``layer_step``: one transformer layer for one token of each of B rows,
   on fused or unfused (q/k/v, gate/up apart) projections.
 * ``sample_row``: the sampler (``sample_kernel``, one block per row; row b
-  draws from stream ``stream + 16 * b``).
+  draws from stream ``stream + 16 * b``). With per-request sampling each
+  row takes its own values (``SampRows``; ``row_sampling`` gives row b's
+  as ``sample_row``'s keywords).
 
 The plain versions of K1 and K2 (ops/talker_kernel.py, ops/cp_kernel.py) are
 built from these. The sampler's semantics:
@@ -61,6 +63,9 @@ uniforms the way the TPU kernels do: 24 bits, plus half an ulp (2^-25).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from ._cuda import LIMITS, TALKER_FRAME_LIMITS
@@ -337,6 +342,14 @@ def top_k_filter(z: torch.Tensor, top_k: int) -> torch.Tensor:
     return torch.where(z >= kth, z, torch.full_like(z, NEG_BIG))
 
 
+def inv_temperature(temperature: float) -> float:
+    """f32(1 / temperature), the factor the kernels scale z by, or 0.0 at
+    temperature <= 0 (greedy, where it is not read)."""
+    if temperature <= 0:
+        return 0.0
+    return torch.tensor(1.0 / temperature, dtype=torch.float32).item()
+
+
 def top_p_threshold(top_p: float) -> float:
     """The cumulative mass a token must exceed to stay, f32(1 - top_p) as
     the XLA sampler compares it (a Python float against an f32 array), or
@@ -403,6 +416,48 @@ def sample_row(
         if eos_id >= 0:
             z = z.clone()
             z[eos_id] = eos_logit
-        inv_t = torch.tensor(1.0 / temperature, dtype=torch.float32).item()
-        z = z * inv_t + gumbel_noise(seed[0], seed[1], stream, V, z.device)
+        z = z * inv_temperature(temperature) + gumbel_noise(seed[0], seed[1], stream, V, z.device)
     return torch.argmax(z).to(torch.int32).reshape(1)
+
+
+class SampRows(NamedTuple):
+    """Per-row sampling values of one batched K1 or K2 call (serving's
+    per-request sampling). ``vec``: the host's table, f32 [B, 4] of
+    (temperature, top_k, top_p, repetition_penalty); ``table``: the
+    kernels' rows on the device, f32 [B, 5] of (rep, greedy, inv_t, top_k,
+    top_p threshold), derived from ``vec`` by the functions the scalar
+    path uses (``row_sampling``), so a row samples as a scalar call with
+    its values would. K2 reads no penalty (the code predictor applies
+    none)."""
+
+    vec: np.ndarray
+    table: torch.Tensor
+
+
+def row_sampling(row) -> dict:
+    """``sample_row``'s keywords for one row (temperature, top_k, top_p,
+    repetition_penalty) of a [B, 4] table: top_k truncated to an int."""
+    t, k, p, r = (float(v) for v in row)
+    return dict(temperature=t, top_k=int(k), top_p=p, rep_penalty=r)
+
+
+def samp_rows(samp_vec, device) -> SampRows:
+    """``SampRows`` of a [B, 4] table (numpy or a tensor), its kernel rows
+    uploaded to ``device`` once."""
+    vec = np.asarray(torch.as_tensor(samp_vec, dtype=torch.float32).cpu(), np.float32)
+    vec = vec.reshape(-1, 4)
+    rows = []
+    for row in vec:
+        kw = row_sampling(row)
+        t = kw["temperature"]
+        rows.append((kw["rep_penalty"], float(t <= 0), inv_temperature(t), float(kw["top_k"]),
+                     top_p_threshold(kw["top_p"])))
+    table = torch.tensor(rows, dtype=torch.float32).to(device)
+    return SampRows(vec, table)
+
+
+def top_p_any(rows: SampRows) -> float:
+    """The largest top-p threshold of the rows: the kernels' scalar
+    ``top_p_thr`` beside a table, which picks the sampler's top-p instance
+    when any row has the stage on."""
+    return float(max(top_p_threshold(float(p)) for p in rows.vec[:, 2]))

@@ -11,7 +11,9 @@ The plain sampler of the unfused path, in the reference order:
   8. categorical draw of logits * (1/temperature) by the Gumbel-max trick,
      with noise from an explicit ``torch.Generator``.
 
-The samplers inside the kernels (ops/decode_blocks.py) draw from a
+``sample_token_vec`` is the same sampler with per-row parameters
+(serving's per-request sampling). The samplers inside the kernels
+(ops/decode_blocks.py) draw from a
 counter-based generator instead, so that a kernel and its plain version
 draw the same noise.
 """
@@ -97,6 +99,74 @@ def sample_token_inner(
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     gumbel = -torch.log(-torch.log(u))
     return torch.argmax(logits * (1.0 / temperature) + gumbel, dim=-1).to(torch.int32)
+
+
+def sample_token_vec(
+    generator: torch.Generator | None,
+    logits: torch.Tensor,  # [B, V]
+    *,
+    temperature,  # [B] float32
+    top_k,  # [B], truncated to ints
+    top_p=None,  # [B] float32 (None: the filter is off)
+    repetition_penalty=None,  # [B] float32
+    seen: torch.Tensor | None = None,  # [B, V] bool
+    suppress_mask: torch.Tensor | None = None,  # [V] bool
+    eos_token_id: int | None = None,
+    ref_exact_top_p: bool = False,
+) -> torch.Tensor:
+    """The sampler with per-row parameters (serving's per-request
+    sampling): row b follows ``sample_token_inner`` with that row's
+    scalars, in the same filter order and with the same disable rules
+    (temperature <= 0 greedy, top_k outside (0, V) off, top_p outside
+    (0, 1) off), and the same float32 values: 1 / temperature and 1 - top_p
+    are taken in double and rounded to float32, as the scalar path's Python
+    floats are. The k-th largest of each row comes from one ascending sort;
+    the noise is one draw of [B, V] uniforms, as the scalar path's, made
+    when any row samples. Returns int32 [B]."""
+    logits = logits.float()
+    B, V = logits.shape
+    dev = logits.device
+
+    def col(v):
+        return torch.as_tensor(v, dtype=torch.float32).reshape(B).to(dev)
+
+    t = col(temperature)
+    if suppress_mask is not None:
+        logits = torch.where(suppress_mask, torch.full_like(logits, NEG_INF), logits)
+    if repetition_penalty is not None and seen is not None:
+        pen = col(repetition_penalty)[:, None]
+        penalized = torch.where(logits < 0, logits * pen, logits / pen)
+        logits = torch.where(seen, penalized, logits)
+    greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    if not bool((t > 0).any()):
+        return greedy_tok
+    if eos_token_id is not None:
+        eos_logit = logits[:, eos_token_id].clone()
+
+    k = col(top_k).to(torch.int64)
+    kth = torch.sort(logits, dim=-1).values.gather(-1, (V - k.clamp(1, V))[:, None])
+    keep = ((k <= 0) | (k >= V))[:, None] | (logits >= kth)
+    logits = torch.where(keep, logits, torch.full_like(logits, NEG_INF))
+
+    if top_p is not None:
+        p = col(top_p)
+        probs = torch.exp(logits) if ref_exact_top_p else torch.softmax(logits, dim=-1)
+        order = torch.argsort(logits, dim=-1, stable=True)
+        cum = torch.cumsum(torch.gather(probs, -1, order), dim=-1)
+        cum_orig = torch.empty_like(cum).scatter_(-1, order, cum)
+        thr = (1.0 - p.double()).float()
+        keep = ((p <= 0.0) | (p >= 1.0))[:, None] | (cum_orig > thr[:, None])
+        logits = torch.where(keep, logits, torch.full_like(logits, NEG_INF))
+
+    if eos_token_id is not None:
+        logits = logits.clone()
+        logits[:, eos_token_id] = eos_logit
+    inv_t = torch.where(t > 0, 1.0 / t.double(), 1.0).float()
+    u = torch.rand(logits.shape, generator=generator, device=dev, dtype=torch.float32)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    gumbel = -torch.log(-torch.log(u))
+    sampled = torch.argmax(logits * inv_t[:, None] + gumbel, dim=-1).to(torch.int32)
+    return torch.where(t > 0, sampled, greedy_tok)
 
 
 def build_suppress_mask(

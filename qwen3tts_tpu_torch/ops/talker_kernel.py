@@ -38,7 +38,11 @@ unquantized k/v, as the TPU kernel does) -> o_proj + residual -> RMSNorm ->
 gate_up, SwiGLU -> down + residual. Then the final RMSNorm and, in sample
 mode, the codec head and the sampler (ops/decode_blocks.py ``sample_row``,
 top-k and top-p included; row b draws from stream 16 b of the counter
-generator, so row 0 draws what a single-sequence call draws).
+generator, so row 0 draws what a single-sequence call draws). ``rows``
+(``decode_blocks.SampRows``, serving's per-request sampling) gives each row
+its own temperature, top-k, top-p and penalty in place of the scalars: at
+B > 1 the kernel reads them from a device table, at B = 1 the persistent
+step takes row 0's as its scalars; no launch is added.
 
 Two call forms: ``offset`` an int (one sequence, x [1, 1, H], cos/sin one
 [D] row; returns h [H], code0 [1], logits [V]) or an int tensor [B] on the
@@ -56,7 +60,8 @@ import torch
 from . import _cuda
 from ._cuda import BarrierTimeout, CoResidencyError
 from .decode_blocks import (
-    STREAMS_PER_ROW, layer_step, mv_f32, out_dim, rms, sample_row, top_p_threshold,
+    STREAMS_PER_ROW, inv_temperature, layer_step, mv_f32, out_dim, rms, row_sampling, sample_row,
+    top_p_any, top_p_threshold,
 )
 from .quant import Int8Linear
 
@@ -144,9 +149,10 @@ def talker_decode_step_ref(
     temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0, ref_exact_top_p: bool = False,
     rep_penalty: float = 1.0, eos_id: int = -1, seed: tuple[int, int] = (0, 0),
     suppress_add=None, seen=None, return_logits: bool = False, mode: str = "wo_bf16",
-    split_blocks: int | None = None,
+    split_blocks: int | None = None, rows=None,
 ):
     """Plain PyTorch version of K1 (same rounding points as the kernel).
+    ``rows``: row b samples with ``row_sampling(rows.vec[b])``.
     ``split_blocks``: the attention cut into the persistent B = 1 step's
     chunks for a grid of that many blocks and merged as it merges them
     (``decode_blocks.split_attend``); None, one softmax over the rows,
@@ -159,7 +165,7 @@ def talker_decode_step_ref(
             top_k=top_k, top_p=top_p, ref_exact_top_p=ref_exact_top_p,
             rep_penalty=rep_penalty, eos_id=eos_id, seed=seed,
             suppress_add=suppress_add, seen=seen, return_logits=return_logits, mode=mode,
-            split_blocks=split_blocks))
+            split_blocks=split_blocks, rows=rows))
     B, D = x.shape[0], cfg.head_dim
     pos = offset.to(torch.int64)
     cos, sin = (t.to(torch.bfloat16).reshape(-1, D).expand(B, D) for t in (cos, sin))
@@ -172,12 +178,12 @@ def talker_decode_step_ref(
         return hn
     logits = mv_f32(hn, params["codec_head"], mode)
     seen = seen.reshape(-1, logits.shape[-1]).expand(B, -1)
+    scalars = dict(temperature=temperature, top_k=top_k, top_p=top_p, rep_penalty=rep_penalty)
     code = torch.cat([
         sample_row(
-            logits[b], temperature=temperature, top_k=top_k, top_p=top_p,
-            ref_exact_top_p=ref_exact_top_p, rep_penalty=rep_penalty,
-            seen=seen[b], suppress_add=suppress_add, eos_id=eos_id, seed=seed,
-            stream=STREAMS_PER_ROW * b,
+            logits[b], **(scalars if rows is None else row_sampling(rows.vec[b])),
+            ref_exact_top_p=ref_exact_top_p, seen=seen[b], suppress_add=suppress_add,
+            eos_id=eos_id, seed=seed, stream=STREAMS_PER_ROW * b,
         )
         for b in range(B)
     ])
@@ -189,6 +195,7 @@ def talker_decode_step(
     temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0, ref_exact_top_p: bool = False,
     rep_penalty: float = 1.0, eos_id: int = -1, seed: tuple[int, int] = (0, 0),
     suppress_add=None, seen=None, return_logits: bool = False, mode: str = "wo_bf16",
+    rows=None,
 ):
     """One decode step for B rows.
 
@@ -197,8 +204,10 @@ def talker_decode_step(
     rows of each sequence (its new row goes there), an int (B=1) or an int
     tensor [B]; cos/sin [B, D] rope rows at the offsets. Sample mode:
     suppress_add f32 [V] (shared), seen bool [B, V]; seed: two 32-bit words;
-    top_p / ref_exact_top_p: the sampler's top-p stage (off at top_p >= 1).
-    ``mode``: see ``run_mode``. Returns (h bf16 after the final norm, code0
+    top_p / ref_exact_top_p: the sampler's top-p stage (off at top_p >= 1);
+    rows: per-row sampling values (``decode_blocks.SampRows`` of B rows) in
+    place of temperature, top_k, top_p and rep_penalty. ``mode``: see
+    ``run_mode``. Returns (h bf16 after the final norm, code0
     int32 [, logits f32 before mask and penalty]) in sample mode, else h;
     shapes in the module doc.
     """
@@ -206,7 +215,7 @@ def talker_decode_step(
         sample=sample, temperature=temperature, top_k=top_k, top_p=top_p,
         ref_exact_top_p=ref_exact_top_p, rep_penalty=rep_penalty,
         eos_id=eos_id, seed=seed, suppress_add=suppress_add, seen=seen,
-        return_logits=return_logits,
+        return_logits=return_logits, rows=rows,
     )
     if x.device.type == "cpu":
         return talker_decode_step_ref(params, cfg, x, cache, offset, cos, sin, mode=mode, **kw)
@@ -223,8 +232,8 @@ def talker_decode_step(
 def launch(
     params, cfg, x, cache, offset, cos, sin, *, sample, temperature, top_k, top_p,
     ref_exact_top_p, rep_penalty, eos_id, seed, suppress_add, seen, return_logits, dyn,
-    blocks: int = 0, budget_ns: int = BARRIER_BUDGET_NS, cut: int = 0, part: str = "full",
-    h_out=None,
+    rows=None, blocks: int = 0, budget_ns: int = BARRIER_BUDGET_NS, cut: int = 0,
+    part: str = "full", h_out=None,
 ):
     """One call of the kernel on CUDA tensors (``talker_decode_step`` counts
     it). At B = 1 (the persistent step): ``blocks`` the grid (0: one block
@@ -289,10 +298,17 @@ def launch(
     xn = torch.empty(B, H, dtype=torch.bfloat16, device=dev)
     code = torch.empty(B, dtype=torch.int32, device=dev) if sample else None
     logits = torch.empty(B, V, dtype=torch.float32, device=dev) if sample and return_logits else None
-    inv_t = _f32(1.0 / temperature) if temperature > 0 else 0.0
-    sampling = (float(rep_penalty), int(temperature <= 0), inv_t, int(top_k),
-                top_p_threshold(top_p), int(ref_exact_top_p), int(eos_id),
-                seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF)
+    table, top_p_thr = None, top_p_threshold(top_p)
+    if rows is not None and sample:
+        if rows.vec.shape[0] != B:
+            raise ValueError(f"talker_decode_step: {rows.vec.shape[0]} sampling rows for {B} rows")
+        # at B = 1 the persistent step takes row 0's values as its scalars
+        row0 = row_sampling(rows.vec[0])
+        temperature, top_k, rep_penalty = row0["temperature"], row0["top_k"], row0["rep_penalty"]
+        table, top_p_thr = (rows.table if B > 1 else None), top_p_any(rows)
+    sampling = (float(rep_penalty), int(temperature <= 0), inv_temperature(temperature),
+                int(top_k), top_p_thr,
+                int(ref_exact_top_p), int(eos_id), seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF)
     lib = _cuda.library()
     if B == 1:
         check_barrier()
@@ -325,7 +341,7 @@ def launch(
             int(w_bf16), int(head_bf16), int(dyn), cfg.rms_norm_eps, D**-0.5,
             *(_cuda.ptr(t) for t in ins),
             *(_cuda.ptr(t) for t in rope), 0 if single else D,
-            *(_cuda.ptr(t) for t in tail), *sampling,
+            *(_cuda.ptr(t) for t in tail), *sampling, _cuda.ptr(table),
             *(_cuda.ptr(t) for t in (hres, xn, attn, gated, ws, amax, code, logits)),
             _cuda.stream_ptr(),
         )
@@ -418,11 +434,6 @@ def workspace_floats(B: int, oqkv: int, I: int, H: int, V: int) -> int:
     output (qkv, gate_up, the residual stream or the codec head). A smaller
     buffer would be written past its end without an error."""
     return _cuda.workspace_rows(B) * max(oqkv, 2 * I, H, V)
-
-
-def _f32(v: float) -> float:
-    """``v`` rounded to float32 (the value the kernel receives)."""
-    return torch.tensor(v, dtype=torch.float32).item()
 
 
 talker_decode_step.launches = 0  # kernel launches (CUDA calls), not plain runs

@@ -19,7 +19,13 @@ audio to codes (models/encoder.py) and a speaker embedding
 runs B utterances in lockstep decodes of at most 64 each
 (models/batch_generate.py), with one batched vocoder call per group.
 ``kv_cache_dtype="int8"`` keeps the talker's KV cache in int8 with per-row
-scales. Continuous batching and serving are not ported yet.
+scales. ``generate_batch_continuous`` runs N texts over a fixed number of
+cache slots, refilling a slot as soon as its utterance ends (serving.py),
+and ``serve`` returns a ``TTSService``: a long-lived worker behind a
+thread-safe ``submit`` (a Future of the waveform) and ``submit_stream``
+(``generate_stream``'s events, through the shared slots), with
+per-request sampling that K1 and K2 carry row by row. ``serving_http.py``
+puts it behind HTTP.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ import queue
 import threading
 import time
 import warnings
+import weakref
+from concurrent.futures import Future
 from dataclasses import dataclass
 from typing import Callable, Iterator
 
@@ -138,6 +146,13 @@ def _generate_and_decode(
     b = next(b for b in buckets if res.n_frames <= b)
     wav, lengths = vc_mod.decode(voc_params, dec_cfg, res.codes[None, :b], res.n_frames)
     return res.codes, res.n_frames, wav, lengths
+
+
+def _device_peak_memory_gb(device) -> float:
+    """The peak memory allocated on a CUDA device, GB (0 off CUDA)."""
+    if device.type != "cuda":
+        return 0.0
+    return torch.cuda.max_memory_allocated(device) / 1e9
 
 
 def _kernel_device(device: torch.device) -> bool:
@@ -515,16 +530,13 @@ class Qwen3TTSModel:
         )
 
     def _set_info(self, n_tokens: int, prompt_tokens: int, prefill_t: float, gen_t: float):
-        peak = 0.0
-        if self.device.type == "cuda":
-            peak = torch.cuda.max_memory_allocated(self.device) / 1e9
         info = GenerationInfo(
             prompt_token_count=prompt_tokens,
             generation_token_count=n_tokens,
             prefill_time=prefill_t,
             generate_time=gen_t,
             tokens_per_second=n_tokens / max(gen_t, 1e-9),
-            peak_memory_usage=peak,
+            peak_memory_usage=_device_peak_memory_gb(self.device),
         )
         self.last_info = info
         return info
@@ -579,10 +591,7 @@ class Qwen3TTSModel:
 
     def _run_generation_audio(self, input_embeds, trailing, tts_pad, *, sampling, max_steps, seed):
         """Generate and vocode one utterance; returns the waveform (numpy f32)."""
-        if self.cp_params is None or self.cp_cfg is None:
-            raise Qwen3TTSError("Code predictor not available")
-        if self.vocoder_params is None or self.tokenizer_config is None:
-            raise Qwen3TTSError("Speech tokenizer not loaded")
+        self._require_audio_models()
         prep = self._prep_run(input_embeds, trailing, tts_pad, max_steps)
         dec_cfg = self.tokenizer_config.decoder_config
         t0 = time.time()
@@ -1049,10 +1058,7 @@ class Qwen3TTSModel:
                 f"generate_batch: texts ({B}), speakers ({len(speakers)}) and "
                 f"instructs ({len(instructs)}) must have equal lengths"
             )
-        if self.cp_params is None or self.cp_cfg is None:
-            raise Qwen3TTSError("Code predictor not available")
-        if self.vocoder_params is None or self.tokenizer_config is None:
-            raise Qwen3TTSError("Speech tokenizer not loaded")
+        self._require_audio_models()
         if self.device.type == "cuda" and not bg.kernels_take(
             self.talker_params, self.cp_params, self.talker_cfg, self.cp_cfg,
             min(B, MAX_BATCH), self.kv_quant,
@@ -1113,6 +1119,136 @@ class Qwen3TTSModel:
             max_steps=caps, max_frames=max_frames, seed=seed,
         )
         return res.codes, res.n_frames.cpu().numpy(), p_bucket
+
+    def generate_batch_continuous(
+        self,
+        texts: list[str],
+        speakers: list[str] | None = None,
+        instructs: list[str] | None = None,
+        language: str = "auto",
+        temperature: float = 0.9,
+        top_k: int = 50,
+        top_p: float = 1.0,
+        repetition_penalty: float = 1.05,
+        max_tokens: int = 2048,
+        seed: int = 0,
+        slots: int = 4,
+        chunk_frames: int | None = None,
+        dp_mesh=None,
+    ) -> list[np.ndarray]:
+        """Continuous batching: N texts over ``slots`` cache slots, a freed
+        slot refilled from the queue between decode chunks (serving.py).
+        Unlike ``generate_batch`` (lockstep until the last sequence ends),
+        the slots stay busy with ragged lengths and N may exceed them. Text
+        i's first frame draws from ``seed + i``, its later frames from its
+        slot's streams of the lockstep generator (as in ``serve``). Returns
+        one waveform per text, in order (an
+        empty one for a text that sampled EOS on its first frame). On CUDA
+        the decode runs through K1 and K2 (slots <= 64, a fused layout).
+        ``dp_mesh`` is not ported yet and raises."""
+        from .serving import BatchItem, ContinuousBatcher
+
+        if dp_mesh is not None:
+            raise Qwen3TTSError("dp_mesh (data-parallel serving) is not ported yet")
+        N = len(texts)
+        if N == 0:
+            return []
+        speakers = speakers if speakers is not None else [None] * N
+        instructs = instructs if instructs is not None else [None] * N
+        if len(speakers) != N or len(instructs) != N:
+            raise Qwen3TTSError(
+                f"generate_batch_continuous: texts ({N}), speakers ({len(speakers)}) and "
+                f"instructs ({len(instructs)}) must have equal lengths"
+            )
+        self._require_audio_models()
+        built = self._build_batch_inputs(texts, speakers, instructs, language)
+        caps = [self._effective_max_tokens(t, max_tokens) for t in texts]
+        items = [BatchItem(prefill_embeds=e, trailing=t, max_steps=cap, seed=seed + i)
+                 for i, ((e, t, _), cap) in enumerate(zip(built, caps))]
+        batcher = ContinuousBatcher(
+            self.talker_params, self.cp_params, talker_cfg=self.talker_cfg, cp_cfg=self.cp_cfg,
+            sampling=self._sampling(temperature, top_k, top_p, repetition_penalty),
+            tts_pad_embed=built[0][2], slots=slots,
+            chunk_frames=chunk_frames or self.stream_chunk_frames,
+            max_frames=pad_to_bucket(max(caps), GEN_BUCKETS), dtype=self.dtype,
+            kv_quant=self.kv_quant,
+        )
+        outs = batcher.run(items)
+        if all(o.n_frames == 0 for o in outs):
+            raise Qwen3TTSError("No tokens generated")
+        audio = self._decode_codes_list([o.codes for o in outs])
+        return [a if o.n_frames else a[:0] for a, o in zip(audio, outs)]
+
+    def serve(
+        self,
+        slots: int = 4,
+        chunk_frames: int | None = None,
+        max_frames: int = 256,
+        prompt_bucket: int = 256,
+        trailing_bucket: int = 64,
+        temperature: float = 0.9,
+        top_k: int = 50,
+        top_p: float = 1.0,
+        repetition_penalty: float = 1.05,
+        dp_mesh=None,
+        max_queue: int | None = None,
+        per_request_sampling: bool = False,
+    ) -> "TTSService":
+        """A long-lived synthesis service over this model: a
+        :class:`TTSService` whose thread-safe ``submit(text, ...)`` returns
+        a Future of the waveform. Requests are batched continuously over
+        ``slots`` KV-cache slots (serving.Qwen3TTSServer), admitted between
+        decode chunks.
+
+        ``max_frames`` caps every request's codec frames for the life of the
+        service; a request whose own cap exceeds it is cut there, and
+        ``submit`` warns. ``max_queue`` bounds the waiting requests (the
+        admitted ones do not count): a submit beyond it raises
+        ``serving.ServiceOverloaded``, which the HTTP front end maps to 429.
+
+        ``per_request_sampling``: ``submit`` takes temperature, top_k,
+        top_p and repetition_penalty per request (the scalars here are the
+        defaults); without it the service freezes them and refuses
+        overrides, a policy of the operator's. Both modes decode alike: the
+        service keeps a per-slot table and K1 and K2 read each row's values,
+        where the TPU turned both kernels off for per-request sampling.
+        Values that are not finite, or a repetition_penalty <= 0, raise.
+        ``dp_mesh`` is not ported yet and raises; on CUDA ``slots`` must be
+        1..64 (K1 and K2's batch)."""
+        from .models import batch_generate as bg
+        from .serving import check_samp_row
+
+        if dp_mesh is not None:
+            raise Qwen3TTSError("dp_mesh (data-parallel serving) is not ported yet")
+        try:
+            check_samp_row((temperature, top_k, top_p, repetition_penalty))
+        except ValueError as e:
+            raise Qwen3TTSError(str(e)) from None
+        self._require_audio_models()
+        bg._require_kernels(self.talker_params, self.cp_params, self.talker_cfg, self.cp_cfg,
+                            self.device, slots, self.kv_quant)
+        sampling = self._sampling(temperature, top_k, top_p, repetition_penalty)
+        return TTSService(
+            self, slots=slots, chunk_frames=chunk_frames or self.stream_chunk_frames,
+            max_frames=max_frames, prompt_bucket=prompt_bucket, trailing_bucket=trailing_bucket,
+            sampling=sampling._replace(per_request=per_request_sampling), max_queue=max_queue,
+        )
+
+    def _require_audio_models(self):
+        """Raise unless the code predictor and the vocoder are loaded."""
+        if self.cp_params is None or self.cp_cfg is None:
+            raise Qwen3TTSError("Code predictor not available")
+        if self.vocoder_params is None or self.tokenizer_config is None:
+            raise Qwen3TTSError("Speech tokenizer not loaded")
+
+    def _decode_codes_list(self, codes: list[np.ndarray]) -> list[np.ndarray]:
+        """``_decode_audio_list`` of host codes [n_i, 16] (an empty one
+        decodes one zero frame)."""
+        n = np.asarray([max(c.shape[0], 1) for c in codes])
+        buf = np.zeros((len(codes), int(n.max()), 16), np.int32)
+        for i, c in enumerate(codes):
+            buf[i, : c.shape[0]] = c
+        return self._decode_audio_list(torch.from_numpy(buf).to(self.device), n)
 
     def _build_batch_inputs(self, texts, speakers, instructs, language):
         """Per-request validation and prompt construction for batched paths
@@ -1245,6 +1381,213 @@ class AsyncEventStream:
     def close(self):
         """Abandon the stream: wake a blocked producer and stop generation."""
         self._stop.set()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class TTSService:
+    """Long-lived synthesis service: text in, Future[waveform] out.
+
+    A thin layer over :class:`serving.Qwen3TTSServer`: builds each
+    request's prompt (the mode rules of ``generate``), queues it for
+    continuous batching, and vocodes the harvested codes in the completion
+    callback (on the server's worker), as the JAX service does: a vocoder
+    thread of its own, on the worker's CUDA stream or on one of its own,
+    made a served burst no faster on the H100 (``PERF.md``, serving). Made
+    by ``Qwen3TTSModel.serve()``; use it as a context manager or call
+    ``close()``."""
+
+    def __init__(self, model: Qwen3TTSModel, *, slots, chunk_frames, max_frames, prompt_bucket,
+                 trailing_bucket, sampling, max_queue=None):
+        self._model = model
+        self._kw = dict(slots=slots, chunk_frames=chunk_frames, max_frames=max_frames,
+                        prompt_bucket=prompt_bucket, trailing_bucket=trailing_bucket,
+                        max_queue=max_queue)
+        self._sampling = sampling
+        self._server = None  # made at the first submit (it needs a pad embedding)
+        self._server_lock = threading.Lock()
+
+    @property
+    def model(self) -> Qwen3TTSModel:
+        return self._model
+
+    def _ensure_server(self, pad):
+        # submits come from HTTP threads: two first submits at once must not
+        # make two servers (each owns a cache and a worker thread)
+        from .serving import Qwen3TTSServer
+
+        m = self._model
+        with self._server_lock:
+            if self._server is None:
+                self._server = Qwen3TTSServer(
+                    m.talker_params, m.cp_params, talker_cfg=m.talker_cfg, cp_cfg=m.cp_cfg,
+                    sampling=self._sampling, tts_pad_embed=pad, dtype=m.dtype,
+                    kv_quant=m.kv_quant, **self._kw,
+                )
+
+    def _item(self, text, speaker, instruct, language, seed, max_tokens, temperature, top_k,
+              top_p, repetition_penalty):
+        """Validate, build the prompt and the server's item; warns when the
+        request's cap exceeds the service's ``max_frames``."""
+        from .serving import BatchItem
+
+        m = self._model
+        (embeds, trailing, pad), = m._build_batch_inputs([text], [speaker], [instruct], language)
+        self._ensure_server(pad)
+        cap = m._effective_max_tokens(text, max_tokens)
+        if cap > self._kw["max_frames"]:
+            warnings.warn(
+                f"request would allow {cap} frames but the service was created with "
+                f"max_frames={self._kw['max_frames']}; long texts will be truncated to that many "
+                "codec frames. Create the service with a larger max_frames to avoid this.",
+                stacklevel=3,
+            )
+        return BatchItem(prefill_embeds=embeds, trailing=trailing, max_steps=cap, seed=seed,
+                         temperature=temperature, top_k=top_k, top_p=top_p,
+                         repetition_penalty=repetition_penalty)
+
+    def submit(
+        self,
+        text: str,
+        speaker: str | None = None,
+        instruct: str | None = None,
+        language: str = "auto",
+        seed: int = 0,
+        max_tokens: int = 2048,
+        temperature: float | None = None,
+        top_k: int | None = None,
+        top_p: float | None = None,
+        repetition_penalty: float | None = None,
+    ) -> Future:
+        """Queue one request; returns Future[np.ndarray] (an empty waveform
+        if the request sampled EOS first). The four sampling overrides apply
+        to this request only and need ``serve(per_request_sampling=True)``;
+        otherwise they raise ``Qwen3TTSError``, as does a value that is not
+        finite, a repetition_penalty <= 0 or a seed outside [0, 2**63).
+        ``cancel()`` reaches the queued request, so a request cancelled
+        before admission costs no device work."""
+        m = self._model
+        item = self._item(text, speaker, instruct, language, seed, max_tokens, temperature,
+                          top_k, top_p, repetition_penalty)
+        try:
+            inner = self._server.submit(item)
+        except ValueError as e:  # refused overrides or values: a typed error
+            raise Qwen3TTSError(str(e)) from None
+
+        class _ServiceFuture(Future):
+            def cancel(self):
+                inner.cancel()
+                return super().cancel()
+
+        outer = _ServiceFuture()
+
+        def vocode(f):
+            if f.cancelled():
+                outer.cancel()
+                return
+            if not outer.set_running_or_notify_cancel():
+                return
+            try:
+                out = f.result()
+                if out.n_frames == 0:
+                    outer.set_result(np.zeros((0,), np.float32))
+                else:
+                    outer.set_result(m._decode_codes_list([out.codes])[0])
+            except BaseException as ex:  # noqa: BLE001  (handed to the caller)
+                outer.set_exception(ex)
+
+        inner.add_done_callback(vocode)
+        return outer
+
+    def submit_stream(
+        self,
+        text: str,
+        speaker: str | None = None,
+        instruct: str | None = None,
+        language: str = "auto",
+        seed: int = 0,
+        max_tokens: int = 2048,
+        audio_chunk_frames: int = 8,
+        temperature: float | None = None,
+        top_k: int | None = None,
+        top_p: float | None = None,
+        repetition_penalty: float | None = None,
+        final_audio: bool = False,
+    ) -> Iterator[TokenEvent | AudioChunkEvent | InfoEvent | AudioEvent]:
+        """Streamed synthesis through the server's slots: the request
+        decodes in lockstep with every other request in flight while this
+        generator yields a ``TokenEvent`` per code-0 token and
+        ``AudioChunkEvent``s about every ``audio_chunk_frames`` frames
+        (windowed vocoding; the chunks tile the utterance), then one
+        ``InfoEvent``; the whole utterance's ``AudioEvent`` only with
+        ``final_audio``. The worker publishes coalesced snapshots between
+        chunks, so a slow consumer never blocks it. Closing the generator,
+        or dropping it unstarted, cancels the request: the slot is freed
+        within one chunk (the JAX service's unstarted generator decoded to
+        its cap). Validation and the prompt run at the call: a bad speaker
+        raises here, before any event."""
+        m = self._model
+        if m.vocoder_params is None or m.tokenizer_config is None:
+            raise Qwen3TTSError("Speech tokenizer not loaded")
+        item = self._item(text, speaker, instruct, language, seed, max_tokens, temperature,
+                          top_k, top_p, repetition_penalty)
+        try:
+            _, prog = self._server.submit_stream(item)
+        except ValueError as e:
+            raise Qwen3TTSError(str(e)) from None
+        prompt_tokens = len(m.tokenizer.encode(text)) if m.tokenizer else 0
+        gen = self._stream_slot_events(prog, prompt_tokens, audio_chunk_frames, final_audio)
+        weakref.finalize(gen, prog.cancel)
+        return gen
+
+    def _stream_slot_events(self, prog, prompt_tokens, audio_chunk_frames, final_audio):
+        m = self._model
+        start = time.time()
+        seen = 0  # frames whose TokenEvents have been yielded
+        audio_emitted = 0  # frames whose PCM has been yielded
+        codes, n = None, 0
+        try:
+            while True:
+                codes, n, done = prog.wait_beyond(seen, timeout=600.0)
+                for t in codes[seen:n, 0]:
+                    yield TokenEvent(int(t))
+                seen = n
+                if audio_chunk_frames and n > 0:
+                    upto = n if done else max(n - m.STREAM_LOOKAHEAD_FRAMES, 0)
+                    if done:
+                        need = 1
+                    elif audio_emitted == 0:
+                        need = min(audio_chunk_frames, m.STREAM_FIRST_AUDIO_FRAMES)
+                    else:
+                        need = audio_chunk_frames
+                    if upto - audio_emitted >= need:
+                        yield AudioChunkEvent(m._decode_audio_window(codes, audio_emitted, upto, n),
+                                              audio_emitted)
+                        audio_emitted = upto
+                if done:
+                    break
+            if n == 0:
+                raise Qwen3TTSError("No tokens generated")
+            total = max(time.time() - start, 1e-9)
+            yield InfoEvent(GenerationInfo(
+                prompt_token_count=prompt_tokens, generation_token_count=n,
+                prefill_time=0.0,  # folded into the shared admission
+                generate_time=total, tokens_per_second=n / total,
+                peak_memory_usage=_device_peak_memory_gb(m.device),
+            ))
+            if final_audio:
+                yield AudioEvent(m._decode_codes_list([codes[:n]])[0])
+        finally:
+            # finished or abandoned: the slot must not decode on for nobody
+            prog.cancel()
+
+    def close(self, wait: bool = True):
+        if self._server is not None:
+            self._server.close(wait=wait)
 
     def __enter__(self):
         return self

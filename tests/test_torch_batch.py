@@ -260,12 +260,6 @@ def test_admit_slot_matches_jax(params, kv_quant):
         assert scaled(a.float().numpy(), np.asarray(b, np.float32)) <= 1e-5
 
 
-def test_samp_vec_is_not_ported(params):
-    with pytest.raises(NotImplementedError, match="samp_vec"):
-        tbg._sample_batch(None, torch.zeros(1, 8), GREEDY_T, None, None, 0,
-                          samp_vec=torch.zeros(1, 4))
-
-
 def test_generate_int8_kv_codes_match_jax(params):
     """``generate_codes`` on an int8 cache (what ``generate()`` runs under
     ``kv_cache_dtype="int8"``), greedy: codes equal JAX's on KVCacheQ."""

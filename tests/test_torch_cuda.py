@@ -485,7 +485,8 @@ def test_k2_batched_matches_plain(dev, weights, B):
 def test_generate_codes_batch_runs_on_the_kernels(dev, weights, kv_quant):
     """B=6 lockstep decode: K1 once per lockstep frame after the first, K2
     once per frame, and one host sync per lockstep frame (plus the suppress
-    mask's copy per chunk)."""
+    mask's copy per chunk and the stream synchronisation that ends the
+    chunk's turn, ``generate.device_turn``)."""
     tp, cp = weights
     B = 6
     g = torch.Generator(device=dev).manual_seed(7)
@@ -506,7 +507,7 @@ def test_generate_codes_batch_runs_on_the_kernels(dev, weights, kv_quant):
     assert carry.step == 10
     assert tkk.talker_decode_step.launches - n1 == 9
     assert cpk.predict_codes_fused.launches - n2 == 10
-    assert syncs == 9 + 1, syncs
+    assert syncs == 9 + 2, syncs
     assert carry.frames.tolist() == [9, 10, 10, 5, 10, 10]
     codes = carry.codes.cpu()
     assert (codes[:, :, 0] < 2048).all() and (codes[:, :, 1:] < CPC.vocab_size).all()
@@ -1529,3 +1530,247 @@ def test_a_fault_raises_at_the_end_of_its_turn(dev, weights):
             tkk.launch(tp, CFG, x, _clone(cache), 70, cos, sin, budget_ns=1, **kw)
     with gen.device_turn(dev):
         tkk.launch(tp, CFG, x, _clone(cache), 70, cos, sin, **kw)
+
+
+# ---- per-row sampling (serving's per-request mode) in K1 and K2 ----
+
+# (temperature, top_k, top_p, repetition_penalty) rows, cycled over the batch
+PER_ROW = np.asarray([
+    [0.0, 0, 1.0, 1.0], [0.9, 50, 1.0, 1.05], [0.7, 1, 1.0, 1.2], [1.1, 0, 0.8, 1.0],
+    [0.9, 20, 0.9, 1.3], [0.0, 20, 0.8, 1.2], [1.3, 7.9, 0.5, 1.05], [0.8, 100, 0.95, 1.0],
+], np.float32)
+
+
+def _row_pen(logits, seen, rep):
+    return torch.where(seen, torch.where(logits < 0, logits * rep, logits / rep), logits)
+
+
+@pytest.mark.parametrize("B", [8, 64])
+def test_k1_per_row_sampling_matches_sample_row(dev, weights, B):
+    """K1 with a per-row table (``decode_blocks.samp_rows``): each row's
+    code0 equals ``sample_row`` with that row's values on the kernel's own
+    logits, but for a top-p cut within rounding (counted); a uniform table
+    equals the scalar call; one launch and the scalar call's operations."""
+    from qwen3tts_tpu_torch.ops import _cuda
+    from qwen3tts_tpu_torch.ops.decode_blocks import row_sampling, samp_rows
+
+    tp, _ = weights
+    x, cache, offs, cos, sin, supp, seen = _batched_case(dev, B, 128, False, seed=60 + B)
+    vec = np.resize(PER_ROW, (B, 4))
+    rows = samp_rows(vec, dev)
+    kw = dict(eos_id=-1, suppress_add=supp, seen=seen, return_logits=True)
+    scalar = dict(temperature=0.9, top_k=50, top_p=0.9, rep_penalty=1.05)
+
+    def call(seed, **k):
+        return tkk.talker_decode_step(tp, CFG, x, _clone(cache), offs, cos, sin, seed=seed,
+                                      **kw, **k)
+
+    _, c_scalar, _ = call((4, 4), **scalar)
+    uniform = samp_rows(np.tile([[0.9, 50, 0.9, 1.05]], (B, 1)), dev)
+    assert torch.equal(call((4, 4), **scalar, rows=uniform)[1], c_scalar)
+    torch.cuda.synchronize()
+    n0, before = _cuda.launches(), tkk.talker_decode_step.launches
+    call((4, 4), **scalar)
+    torch.cuda.synchronize()
+    n_scalar = _cuda.launches() - n0
+    call((4, 4), **scalar, rows=rows)
+    torch.cuda.synchronize()
+    assert _cuda.launches() - n0 == 2 * n_scalar and tkk.talker_decode_step.launches == before + 2
+    flips = 0
+    for s in range(4):
+        _, code, logits = call((s, 21), **scalar, rows=rows)
+        for b in range(B):
+            r = row_sampling(vec[b])
+            want = int(sample_row(logits[b], **r, seen=seen[b], suppress_add=supp,
+                                  seed=(s, 21), stream=16 * b))
+            if int(code[b]) != want:
+                flips += 1
+                assert r["temperature"] > 0 and 0 < r["top_p"] < 1, (s, b)
+                z = top_k_filter(_row_pen(logits[b], seen[b], r["rep_penalty"]) + supp, r["top_k"])
+                assert _top_p_flip_ok(z, r["top_p"], False, int(code[b]), want), (s, b)
+    assert flips <= B // 8
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_a_row_with_no_winner_takes_id_0(dev, weights, kernel):
+    """A row whose scores are all NaN (a NaN temperature; the service
+    refuses one at submit) gets id 0 from K1's and K2's sampler, as argmax
+    does, not an id past the table: no fault, and the other rows' codes
+    are those of the call where that row is greedy."""
+    from qwen3tts_tpu_torch.ops.decode_blocks import samp_rows
+
+    tp, cp = weights
+    B = 8
+    vec = np.resize(PER_ROW, (B, 4))
+    greedy = vec.copy()
+    greedy[1] = [0.0, 0, 1.0, 1.0]
+    nan = greedy.copy()
+    nan[1, 0] = np.nan
+    if kernel == "K1":
+        x, cache, offs, cos, sin, supp, seen = _batched_case(dev, B, 128, False, seed=90)
+
+        def call(v):
+            return tkk.talker_decode_step(tp, CFG, x, _clone(cache), offs, cos, sin, seed=(4, 4),
+                                          temperature=0.9, top_k=50, top_p=0.9, rep_penalty=1.05,
+                                          eos_id=-1, suppress_add=supp, seen=seen,
+                                          rows=samp_rows(v, dev))[1]
+    else:
+        g = torch.Generator(device=dev).manual_seed(91)
+        h = torch.randn(B, CFG.hidden_size, generator=g, device=dev).mul(0.3).bfloat16()
+        code0 = torch.randint(0, 2048, (B,), generator=g, device=dev, dtype=torch.int32)
+
+        def call(v):
+            return cpk.predict_codes_fused(cp, CPC, tp, h, code0, (7, 8), temperature=0.9,
+                                           top_k=50, top_p=0.9, rows=samp_rows(v, dev))[0]
+
+    out, ref = call(nan), call(greedy)
+    torch.cuda.synchronize()
+    assert (out[1] == 0).all()
+    keep = torch.arange(B, device=dev) != 1
+    assert torch.equal(out[keep], ref[keep])
+
+
+@pytest.mark.parametrize("B", [8, 64])
+def test_k2_per_row_sampling_matches_sample_row(dev, weights, B):
+    """K2 with a per-row table: each row's 15 codes equal ``sample_row``
+    with its temperature, top-k and top-p (no penalty) on the kernel's own
+    logits, but for counted top-p cuts; a uniform table equals the scalar
+    call; the same operations as the scalar call."""
+    from qwen3tts_tpu_torch.ops import _cuda
+    from qwen3tts_tpu_torch.ops.decode_blocks import row_sampling, samp_rows
+
+    tp, cp = weights
+    g = torch.Generator(device=dev).manual_seed(B + 1)
+    h = torch.randn(B, CFG.hidden_size, generator=g, device=dev).mul(0.3).bfloat16()
+    code0 = torch.randint(0, 2048, (B,), generator=g, device=dev, dtype=torch.int32)
+    vec = np.resize(PER_ROW, (B, 4))
+    rows = samp_rows(vec, dev)
+
+    def call(seed, **k):
+        return cpk.predict_codes_fused(cp, CPC, tp, h, code0, seed, return_logits=True, **k)
+
+    scalar = dict(temperature=0.9, top_k=50, top_p=0.9)
+    uniform = samp_rows(np.tile([[0.9, 50, 0.9, 1.0]], (B, 1)), dev)
+    assert torch.equal(call((7, 8), **scalar)[0], call((7, 8), **scalar, rows=uniform)[0])
+    torch.cuda.synchronize()
+    n0 = _cuda.launches()
+    call((7, 8), **scalar)
+    torch.cuda.synchronize()
+    n_scalar = _cuda.launches() - n0
+    codes, _, logits = call((7, 8), **scalar, rows=rows)
+    torch.cuda.synchronize()
+    assert _cuda.launches() - n0 == 2 * n_scalar
+    logits = logits.reshape(15, B, -1)
+    flips = 0
+    for b in range(B):
+        r = row_sampling(vec[b])
+        r.pop("rep_penalty")
+        for j in range(15):
+            want = int(sample_row(logits[j, b], **r, seed=(7, 8), stream=j + 1 + 16 * b))
+            a = int(codes[b, j])
+            if a != want:
+                flips += 1
+                assert r["temperature"] > 0 and 0 < r["top_p"] < 1, (b, j)
+                assert _top_p_flip_ok(top_k_filter(logits[j, b], r["top_k"]), r["top_p"], False,
+                                      a, want), (b, j)
+    assert flips <= max(1, B // 8)
+
+
+def _lockstep_codes(dev, tp, cp, seed):
+    """The codes of a one-row lockstep decode (``bg.generate_codes_batch``,
+    what ``generate_batch`` of one text runs: K1's and K2's persistent B = 1
+    forms) on per-request rows."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    res = bg.generate_codes_batch(
+        tp, cp, talker_cfg=CFG, cp_cfg=CPC,
+        sampling=gen.SamplingConfig(0.9, 50, 1.0, 1.05, forbid_eos=True, per_request=True),
+        prefill_embeds=torch.randn(1, 64, 256, generator=g, device=dev).mul(0.1).bfloat16(),
+        prefill_lens=[24], trailing_embeds=torch.zeros(1, 16, 256, dtype=torch.bfloat16, device=dev),
+        trailing_lens=[4], tts_pad_embed=torch.zeros(256, dtype=torch.bfloat16, device=dev),
+        cache=tk.make_cache(CFG, 1, 128, torch.bfloat16, dev), max_steps=[24], max_frames=32,
+        seed=seed, samp_vec=np.asarray([[0.8, 40, 0.9, 1.1]], np.float32),
+    )
+    return res.codes[0, : int(res.n_frames[0])].cpu()
+
+
+@pytest.mark.parametrize("fault", [False, True])
+def test_lockstep_beside_a_b1_decode_takes_turns(dev, weights, monkeypatch, fault):
+    """A one-row lockstep decode on one thread beside a B = 1
+    ``generate_codes`` on another, each under its own CUDA stream: each
+    equals its run alone (the lockstep functions hold the device's turn).
+    With every K2 frame of the lockstep thread given a 1 ns barrier budget,
+    its fault raises on that thread and the other decode is untouched."""
+    import functools
+    import threading
+
+    tp, cp = weights
+    alone = (_lockstep_codes(dev, tp, cp, 3), _stream_codes(dev, tp, cp, 4))
+    out, errors = {}, {}
+    start = threading.Barrier(2)
+    lockstep_thread = []
+    real = cpk.launch
+
+    def launch(*a, **k):
+        if threading.current_thread() in lockstep_thread:
+            k = dict(k, budget_ns=1)
+        return real(*a, **k)
+
+    if fault:
+        monkeypatch.setattr(cpk, "launch", launch)
+
+    def run(name, fn, seed):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                start.wait()
+                out[name] = fn(dev, tp, cp, seed)
+        except BaseException as ex:  # noqa: BLE001  (checked on the test's thread)
+            errors[name] = ex
+
+    threads = [threading.Thread(target=run, args=("lockstep", _lockstep_codes, 3)),
+               threading.Thread(target=run, args=("b1", _stream_codes, 4))]
+    lockstep_thread.append(threads[0])
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert torch.equal(out["b1"], alone[1])
+    if fault:
+        assert set(errors) == {"lockstep"}
+        assert isinstance(errors["lockstep"], cpk.BarrierTimeout)
+    else:
+        assert not errors, errors
+        assert torch.equal(out["lockstep"], alone[0])
+    cpk.check_barrier(dev)
+    tkk.check_barrier(dev)
+
+
+def test_a_served_greedy_request_is_slot_independent(dev, weights):
+    """At a fixed ``slots`` a served greedy request gives the same codes
+    whichever slot and neighbours it gets: alone, then last after three
+    sampled neighbours (a per-request server: the neighbours sample at
+    their own values)."""
+    from qwen3tts_tpu_torch.serving import BatchItem, Qwen3TTSServer
+
+    tp, cp = weights
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def item(plen, cap, **over):
+        return BatchItem(prefill_embeds=torch.randn(1, plen, 256, generator=g, device=dev)
+                         .mul(0.1).bfloat16(),
+                         trailing=torch.randn(5, 256, generator=g, device=dev).mul(0.1).bfloat16(),
+                         max_steps=cap, **over)
+
+    greedy = item(30, 20, temperature=0.0, top_k=0, top_p=1.0, repetition_penalty=1.0)
+    others = [item(20 + 7 * i, 12 + 5 * i, seed=i, temperature=0.9, top_k=30, top_p=0.9,
+                   repetition_penalty=1.1 + 0.1 * i) for i in range(3)]
+    srv = Qwen3TTSServer(tp, cp, talker_cfg=CFG, cp_cfg=CPC,
+                         sampling=gen.SamplingConfig(0.9, 50, 1.0, 1.05, per_request=True),
+                         tts_pad_embed=torch.zeros(256, dtype=torch.bfloat16, device=dev),
+                         slots=4, chunk_frames=4, max_frames=32, prompt_bucket=64,
+                         trailing_bucket=8)
+    alone = srv.submit(greedy).result(timeout=300)
+    futs = [srv.submit(it) for it in others] + [srv.submit(greedy)]
+    outs = [f.result(timeout=300) for f in futs]
+    srv.close()
+    assert alone.n_frames > 0 and all(o.n_frames > 0 for o in outs)
+    assert outs[-1].n_frames == alone.n_frames and (outs[-1].codes == alone.codes).all()
