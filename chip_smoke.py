@@ -181,7 +181,21 @@ kernels from csrc/, and runs, in order:
      synchronised); a served run on an int8 KV cache; one greedy request's
      codes alone and behind sampled neighbours equal; the HTTP front end on
      127.0.0.1 (a NaN sampling value refused with 400, a WAV, a chunked
-     WAV, a 429).
+     WAV, a 429);
+  v. multi-GPU, on every card when there are 2, 4 or 8, else on cuda:0
+     named twice (the positions take turns on it): ``generate_codes_batch_dp``
+     of 8 sampled rows, each shard's codes equal to its rows run alone with
+     its shard seed; ``generate_batch(8 texts, dp_mesh=)`` at 0.6B int8 with
+     every lockstep frame of every shard on K1 and K2 (counted per shard);
+     ``serve(slots=16, dp_mesh=)`` with 16 ragged greedy requests sent at
+     once: placed evenly over the shards, codes equal to the run without dp
+     at a shard's slots, codec tokens/s and p50/p95 latency; at 0.6B bf16
+     unfused with tp = 2, the tensor-parallel step against the unsharded
+     plain step and K1's step on the fused copy (phase 3's bf16 bound,
+     0.05 scaled) and in f32 against the unsharded step (1e-4), and 8
+     greedy frames of ``generate()`` whose
+     code 0 is the unsharded plain talker's teacher-forced choice but for
+     near-ties, ms a frame.
 
 The K1 comparisons in dyn_int8 (phase k) hold kernel and plain version
 against a float64 step of the model's maths (the kernel within 1.5x of the
@@ -275,6 +289,376 @@ def write_checkpoint(path: str, arrays, packed_group: int | None = None) -> None
     write_safetensors(os.path.join(path, "speech_tokenizer", "model.safetensors"), st)
 
 
+SERVE_TEXTS = [f"Request {i} asks the served model for a sentence of its own." for i in range(32)]
+
+
+def scaled(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+
+
+def fused_trees(c, dev, seed=0):
+    """host_init talker and CP trees at ``c``'s widths on ``dev``, fused
+    dense bf16, and int8 copies of both (the dense trees stay: phases f-j,
+    v)."""
+    import torch
+
+    from qwen3tts_tpu_torch.models import talker as tk
+    from qwen3tts_tpu_torch.ops.quant import quantize_decode_params_int8
+    from qwen3tts_tpu_torch.utils import host_init as hi
+
+    tb = hi.to_device(hi.host_init_talker_params(seed, c), torch.bfloat16, dev)
+    tb["layers"] = tk.fuse_layer_projections(tb["layers"])
+    cb = hi.to_device(hi.host_init_cp_params(seed + 1, c.code_predictor_config, c.hidden_size),
+                      torch.bfloat16, dev)
+    cb["layers"] = tk.fuse_layer_projections(cb["layers"])
+    return (tb, cb, quantize_decode_params_int8(tb, "codec_head"),
+            quantize_decode_params_int8(cb, "lm_head"))
+
+
+def weights_06b(dev):
+    """(cfg, dec_cfg, talker bf16, CP bf16, talker int8, CP int8, vocoder):
+    the 0.6B CustomVoice widths, host_init trees fused (``fused_trees``),
+    and a random f32 vocoder at the speech tokenizer's decoder widths."""
+    import torch
+
+    from qwen3tts_tpu_torch import config as C
+    from qwen3tts_tpu_torch.utils import host_init as hi
+
+    cpc = C.CodePredictorConfig(
+        vocab_size=2048, hidden_size=1024, intermediate_size=3072, num_hidden_layers=5,
+        num_attention_heads=16, num_key_value_heads=8, head_dim=128,
+    )
+    cfg = C.TalkerConfig(
+        vocab_size=3072, text_vocab_size=151936, hidden_size=1024, text_hidden_size=1024,
+        intermediate_size=3072, num_hidden_layers=28, num_attention_heads=16,
+        num_key_value_heads=8, head_dim=128, spk_id=(("aiden", 2861), ("vivian", 2862)),
+        code_predictor_config=cpc,
+    )
+    dec_cfg = C.TokenizerDecoderConfig()
+    voc_p = hi.init_vocoder_params(torch.Generator(device=dev).manual_seed(2), dec_cfg,
+                                   torch.float32, dev)
+    return (cfg, dec_cfg) + fused_trees(cfg, dev) + (voc_p,)
+
+
+def custom_voice_model(cfg, dec_cfg, talker_p, cp_p, voc_p, dev):
+    """The main path's ``Qwen3TTSModel``: the 0.6B CustomVoice model on
+    ``dev`` with the stub tokenizer (tests/synthetic_ckpt.py)."""
+    import torch
+    from synthetic_ckpt import StubTokenizer
+
+    from qwen3tts_tpu_torch import config as C
+    from qwen3tts_tpu_torch.tts import Qwen3TTSModel
+
+    return Qwen3TTSModel(
+        C.ModelConfig(talker_config=cfg, tts_model_type="custom_voice", tts_model_size="0b6"),
+        talker_p, cp_p, voc_p, tokenizer_config=C.TokenizerConfig(decoder_config=dec_cfg),
+        tokenizer=StubTokenizer(cfg.text_vocab_size), dtype=torch.bfloat16, device=dev,
+    )
+
+
+def phase_v(dev, smi, cfg, model, talker_b, cp_b, voc_p) -> None:
+    """Phase v: dp replicas (``dp_mesh``) and the tensor-parallel mesh at
+    0.6B, over every card when there are 2, 4 or 8, else ``dev`` named
+    twice. ``model`` is the int8 fused 0.6B model, ``talker_b`` / ``cp_b``
+    its fused bf16 trees. Raises at the first failed check."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from qwen3tts_tpu_torch.models import batch_generate as bg_v
+    from qwen3tts_tpu_torch.models import generate as gen
+    from qwen3tts_tpu_torch.models import talker as tk
+    from qwen3tts_tpu_torch.ops import cp_kernel as cpk
+    from qwen3tts_tpu_torch.ops import talker_kernel as tkk
+    from qwen3tts_tpu_torch.tts import Qwen3TTSModel
+    from qwen3tts_tpu_torch.parallel import dp as pdp
+    from qwen3tts_tpu_torch.parallel import mesh as pm
+
+    t_v = time.time()
+    n_cards = torch.cuda.device_count()
+    devs_v = ([torch.device("cuda", i) for i in range(n_cards)] if n_cards in (2, 4, 8)
+              else [dev, dev])
+    dp_mesh = pm.make_mesh(devs_v, tp=1)
+    n_dp = len(devs_v)
+    log(f"[v] meshes over {[str(d) for d in devs_v]}: "
+        + ("every card" if n_cards in (2, 4, 8) else
+           f"{n_cards} card named twice (the positions take turns on it; no run across distinct "
+           "cards)"))
+
+    # per-shard launch counts: the lockstep calls name their shard (by the
+    # cache they decode into) on their host thread; K1 and K2 count under it
+    shard_of, shard_now, shard_lock = {}, threading.local(), threading.Lock()
+    v_counts = {}  # shard -> {"K1": {mode: n}, "K2": {mode: n}, "frames": lockstep frames}
+    real_v = (tkk.talker_decode_step, cpk.predict_codes_fused, bg_v.prefill_start_batch,
+              bg_v.generate_chunk_batch)
+
+    def v_shard(cache):
+        with shard_lock:  # the shards of distinct cards decode on threads of their own
+            s_ = shard_of.setdefault(cache.k.data_ptr(), len(shard_of))
+            return v_counts.setdefault(s_, {"K1": {}, "K2": {}, "frames": 0})
+
+    def v_kernel(name, fn):
+        def run(*a, **k):
+            c_ = getattr(shard_now, "c", None)
+            if c_ is not None:  # each shard's dict is written by its own thread only
+                c_[name][k.get("mode")] = c_[name].get(k.get("mode"), 0) + 1
+            return fn(*a, **k)
+        run.__dict__.update(fn.__dict__)
+        return run
+
+    def v_prefill(*a, **k):
+        shard_now.c = v_shard(k["cache"])
+        try:
+            return real_v[2](*a, **k)
+        finally:
+            shard_now.c = None
+
+    def v_chunk(tp_, cp_, carry_, **k):
+        shard_now.c = v_shard(carry_.cache)
+        try:
+            out_ = real_v[3](tp_, cp_, carry_, **k)
+            shard_now.c["frames"] += out_.step - carry_.step
+            return out_
+        finally:
+            shard_now.c = None
+
+    real_admit, real_chunks = pdp.admit_slot_dp, pdp.generate_chunk_batch_dp
+    tkk.talker_decode_step = v_kernel("K1", real_v[0])
+    cpk.predict_codes_fused = v_kernel("K2", real_v[1])
+    bg_v.prefill_start_batch, bg_v.generate_chunk_batch = v_prefill, v_chunk
+    try:
+        # v.1: generate_codes_batch_dp against each shard alone, then the
+        # public generate_batch(dp_mesh=) with every shard's frames counted
+        v_texts = [f"Replica request {i} reads a short sentence." for i in range(8)]
+        built_v = model._build_batch_inputs(v_texts, ["aiden"] * 8, [None] * 8, "english")
+        pb_v = max(e.shape[1] for e, _, _ in built_v)
+        pad_v = torch.nn.functional.pad
+        inp_v = dict(
+            prefill_embeds=torch.stack([pad_v(e[0], (0, 0, 0, pb_v - e.shape[1]))
+                                        for e, _, _ in built_v]),
+            prefill_lens=[e.shape[1] for e, _, _ in built_v],
+            trailing_embeds=torch.stack([pad_v(t, (0, 0, 0, 32 - t.shape[0]))
+                                         for _, t, _ in built_v]),
+            trailing_lens=[t.shape[0] for _, t, _ in built_v], tts_pad_embed=built_v[0][2])
+        samp_v = gen.SamplingConfig(0.9, 50, 1.0, 1.05)
+        caps_v = [16 + 2 * i for i in range(8)]
+        kw_v = dict(talker_cfg=cfg, cp_cfg=cfg.code_predictor_config, sampling=samp_v,
+                    max_frames=32)
+        got_v = pdp.generate_codes_batch_dp(
+            model.talker_params, model.cp_params, mesh=dp_mesh, **kw_v, **inp_v,
+            cache=[tk.make_cache(cfg, 8 // n_dp, 256, torch.bfloat16, d)
+                   for d in pdp.shard_devices(dp_mesh)], max_steps=caps_v, seed=41)
+        lb_v = 8 // n_dp
+        for s_ in range(n_dp):
+            rows = slice(s_ * lb_v, (s_ + 1) * lb_v)
+            d_ = pdp.shard_devices(dp_mesh)[s_]
+            tp_s, cp_s = (pdp.replicas(model.talker_params, dp_mesh)[s_],
+                          pdp.replicas(model.cp_params, dp_mesh)[s_])
+            with torch.cuda.device(d_):
+                alone_v = bg_v.generate_codes_batch(
+                    tp_s, cp_s, **kw_v,
+                    **{k: (v[rows].to(d_) if k != "tts_pad_embed" else v.to(d_))
+                       if torch.is_tensor(v) else v[rows] for k, v in inp_v.items()},
+                    cache=tk.make_cache(cfg, lb_v, 256, torch.bfloat16, d_),
+                    max_steps=caps_v[rows], seed=pdp.shard_seed(41, s_))
+            check(torch.equal(got_v.codes[rows].cpu(), alone_v.codes.cpu())
+                  and torch.equal(got_v.n_frames[rows].cpu(), alone_v.n_frames.cpu()),
+                  f"dp shard {s_}: codes differ from the shard run alone with its shard seed")
+        log(f"    generate_codes_batch_dp, 8 rows over dp={n_dp}, sampled: each shard's codes "
+            f"equal its rows run alone with shard_seed(41, s)")
+        shard_of.clear()
+        v_counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        wavs_v = model.generate_batch(v_texts, speakers=["aiden"] * 8, language="english",
+                                      max_tokens=24, seed=5, dp_mesh=dp_mesh)
+        wall_v = time.time() - t0
+        check(len(wavs_v) == 8 and all(np.isfinite(w).all() and len(w) % 1920 == 0
+                                       for w in wavs_v), "generate_batch(dp_mesh=) waveforms")
+        check(len(v_counts) == n_dp, f"{len(v_counts)} shards decoded, not {n_dp}")
+        for s_, c_ in sorted(v_counts.items()):
+            check(c_["frames"] > 0 and c_["K1"] == {"wo_bf16": c_["frames"]}
+                  and c_["K2"] == {"wo_bf16": c_["frames"] + 1},
+                  f"shard {s_}: K1 {c_['K1']}, K2 {c_['K2']} for {c_['frames']} lockstep frames")
+        log(f"    generate_batch(8 texts, dp_mesh dp={n_dp}): {wall_v:.2f} s; per shard "
+            + "; ".join(f"{c_['frames']} lockstep frames, K1 {c_['K1']}, K2 {c_['K2']}"
+                        for _, c_ in sorted(v_counts.items())) + f"  [{smi}]")
+
+        # v.2: serve(slots=16, dp_mesh=): 16 ragged greedy requests at once
+        # the worker's split: its admissions (one at a time, each on its
+        # owner shard) and its chunks (every shard with work at once)
+        placed, split = [], {}
+
+        def timed_part(name, fn):
+            def run(*a, **k):
+                if name == "admit":
+                    placed.append(k["slot"])
+                t0_ = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    n_, t_ = split.get(name, (0, 0.0))
+                    split[name] = (n_ + 1, t_ + time.perf_counter() - t0_)
+            return run
+
+        pdp.admit_slot_dp = timed_part("admit", real_admit)
+        pdp.generate_chunk_batch_dp = timed_part("chunk", real_chunks)
+        greedy_v = dict(temperature=0.0, top_k=0, top_p=1.0, repetition_penalty=1.0)
+        caps_s = [20 + (20 * i) // 15 for i in range(16)]  # 20..40 frames
+
+        def serve_v(mesh_, slots_):
+            done_at = [0.0] * 16
+            with model.serve(slots=slots_, chunk_frames=8, max_frames=48, dp_mesh=mesh_,
+                             **greedy_v) as svc:
+                first = svc._item(SERVE_TEXTS[0], "aiden", None, "english", 0, caps_s[0],
+                                  None, None, None, None)
+                t0_ = time.time()
+                with svc._server._lock:  # the worker takes all 16 at once
+                    futs = [svc._server.submit(first)] + [
+                        svc._server.submit(svc._item(SERVE_TEXTS[i], "aiden", None, "english",
+                                                     i, caps_s[i], None, None, None, None))
+                        for i in range(1, 16)]
+                    for i, f in enumerate(futs):
+                        f.add_done_callback(lambda _, i=i: done_at.__setitem__(i, time.time()))
+                outs = [f.result(timeout=300) for f in futs]
+                wall_ = time.time() - t0_
+            return outs, wall_, [d - t0_ for d in done_at]
+
+        def split_text():
+            (na, ta), (nc, tc_) = split.pop("admit"), split.pop("chunk")
+            return f"{ta:.3f} s in {na} admissions, {tc_:.3f} s in {nc} chunks"
+
+        shard_of.clear()
+        v_counts.clear()
+        outs_dp, wall_dp, lat_dp = serve_v(dp_mesh, 16)
+        split_dp = split_text()
+        per_shard_first = [sum(1 for s in placed[:16] if s // (16 // n_dp) == k)
+                           for k in range(n_dp)]
+        check(len(placed) == 16 and per_shard_first == [16 // n_dp] * n_dp,
+              f"dp serve placement {placed}: {per_shard_first} a shard")
+        check(all(o.n_frames > 0 for o in outs_dp), "a served dp request gave no frames")
+        for s_, c_ in sorted(v_counts.items()):
+            check(c_["K1"].get(None, 0) == 0 and sum(c_["K1"].values()) == c_["frames"],
+                  f"served shard {s_}: K1 {c_['K1']} for {c_['frames']} lockstep frames")
+        # the same requests without dp on one card at a shard's 16/dp slots
+        # (K1's and K2's splits are fixed by the rows of a call)
+        outs_one, wall_one, lat_one = serve_v(None, 16 // n_dp)
+        split_one = split_text()
+        same = [i for i in range(16) if outs_dp[i].n_frames == outs_one[i].n_frames
+                and (outs_dp[i].codes == outs_one[i].codes).all()]
+        check(len(same) == 16, f"served greedy codes differ from the run without dp for "
+              f"requests {sorted(set(range(16)) - set(same))}")
+        frames_dp = sum(o.n_frames for o in outs_dp)
+        p_dp, p_one = np.percentile(lat_dp, [50, 95]), np.percentile(lat_one, [50, 95])
+        log(f"    serve(slots=16, dp_mesh dp={n_dp}), 16 greedy requests (caps 20-40): placed "
+            f"{per_shard_first} a shard at the first wave, {frames_dp} frames in {wall_dp:.3f} s "
+            f"({split_dp}), codec tokens/s {16 * frames_dp / wall_dp:.0f}, latency p50 "
+            f"{p_dp[0]:.3f} s, p95 {p_dp[1]:.3f} s; without dp at {16 // n_dp} slots: "
+            f"{wall_one:.3f} s ({split_one}), codec tokens/s {16 * frames_dp / wall_one:.0f}, "
+            f"p50 {p_one[0]:.3f} s, p95 {p_one[1]:.3f} s;"
+            f" greedy codes equal  [{smi}]")
+    finally:
+        (tkk.talker_decode_step, cpk.predict_codes_fused, bg_v.prefill_start_batch,
+         bg_v.generate_chunk_batch) = real_v
+        pdp.admit_slot_dp, pdp.generate_chunk_batch_dp = real_admit, real_chunks
+
+    # v.3: tp = 2 at 0.6B, bf16 unfused (the plain per-position step)
+    tp_mesh = pm.make_mesh(devs_v[:2], tp=2)
+
+    def unfused(t, c):
+        """A fused tree's layers split back into q/k/v and gate/up (views)."""
+        lay = dict(t["layers"])
+        nq_d, kv_d = c.num_attention_heads * c.head_dim, c.num_key_value_heads * c.head_dim
+        qkv, gu = lay.pop("qkv_proj"), lay.pop("gate_up_proj")
+        lay.update(q_proj=qkv[..., :nq_d], k_proj=qkv[..., nq_d:nq_d + kv_d],
+                   v_proj=qkv[..., nq_d + kv_d:], gate_proj=gu[..., :c.intermediate_size],
+                   up_proj=gu[..., c.intermediate_size:])
+        return dict(t, layers=lay)
+
+    def to_f32(t):
+        return {k: to_f32(v) for k, v in t.items()} if isinstance(t, dict) else t.float()
+
+    tbu, cbu = unfused(talker_b, cfg), unfused(cp_b, cfg.code_predictor_config)
+    tbs = pm.shard_talker(tbu, tp_mesh)
+    g_v = torch.Generator(device=dev).manual_seed(71)
+    pos_v = 40
+    pre_v = torch.randn(1, pos_v, cfg.hidden_size, generator=g_v, device=dev).mul(0.2).bfloat16()
+    x_v = torch.randn(1, 1, cfg.hidden_size, generator=g_v, device=dev).mul(0.2).bfloat16()
+    cache_k = tk.make_cache(cfg, 1, 128, torch.bfloat16, dev)
+    tk.forward(talker_b, cfg, pre_v, cache_k, 0)
+    cache_p = tk.make_cache(cfg, 1, 128, torch.bfloat16, dev)
+    tk.forward(tbu, cfg, pre_v, cache_p, 0)
+    cache_t = tk.make_cache(cfg, 1, 128, torch.bfloat16, dev, mesh=tp_mesh)
+    tk.forward(tbs, cfg, pre_v, cache_t, 0)
+    n1_v = tkk.talker_decode_step.launches
+    h_k, _ = tk.forward(talker_b, cfg, x_v, cache_k, pos_v)  # K1
+    h_p, _ = tk.forward(tbu, cfg, x_v, cache_p, pos_v)  # the unsharded plain step
+    h_t, _ = tk.forward(tbs, cfg, x_v, cache_t, pos_v)
+    torch.cuda.synchronize()
+    err_v, err_p, err_kp = scaled(h_t, h_k), scaled(h_t, h_p), scaled(h_p, h_k)
+    # the TP step is the plain step with its o and down sums split in two,
+    # as K1 is the plain step with its sums in another order: both within
+    # phase 3's bf16 bound (0.05) of the plain step and of each other
+    check(tkk.talker_decode_step.launches == n1_v + 1 and err_p < 0.05 and err_v < 0.05,
+          f"tp=2 step: {err_p:.4f} scaled against the unsharded plain step, {err_v:.4f} "
+          f"against K1's on the fused copy (K1 against the plain step {err_kp:.4f})")
+    # in f32 the split sums are the only difference: 1e-4 scaled, the JAX
+    # package's own TP bound (tests/test_parallel.py) at its scale
+    tf32, cf32 = to_f32(tbu), to_f32(cbu)
+    f32_out = []
+    for p_ in (tf32, pm.shard_talker(tf32, tp_mesh)):
+        c_ = tk.make_cache(cfg, 1, 128, torch.float32, dev, mesh=pm.tree_mesh(p_))
+        tk.forward(p_, cfg, pre_v.float(), c_, 0)
+        f32_out.append(tk.forward(p_, cfg, x_v.float(), c_, pos_v)[0])
+    err_f32 = scaled(f32_out[1], f32_out[0])
+    check(err_f32 < 1e-4, f"tp=2 step in f32 against the unsharded one: {err_f32:.2e} scaled")
+    del f32_out
+
+    def v_model(t_, c_, dtype, **where):
+        return Qwen3TTSModel(model.config, t_, c_, voc_p, tokenizer_config=model.tokenizer_config,
+                             tokenizer=model.tokenizer, dtype=dtype, **where)
+
+    real_gc, got_gc = gen.generate_codes, []
+    gen.generate_codes = lambda *a, **k: got_gc.append(real_gc(*a, **k)) or got_gc[-1]
+    try:
+        text_v = "A tensor parallel sentence."
+        greedy_g = dict(speaker="aiden", language="english", temperature=0.0, top_k=0,
+                        repetition_penalty=1.0, max_tokens=8, seed=0)
+        model_tp = v_model(tbu, cbu, torch.bfloat16, mesh=tp_mesh)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        wav_tp = model_tp.generate(text_v, **greedy_g)
+        tp_s = time.time() - t0
+        del model_tp
+        # the whole greedy decode, talker and code predictor, in f32: the TP
+        # run's codes and frame count equal the unsharded plain path's
+        for where in (dict(mesh=tp_mesh), dict(device=dev)):
+            m_ = v_model(tf32, cf32, torch.float32, **where)
+            m_.generate(text_v, **greedy_g)
+            del m_
+    finally:
+        gen.generate_codes = real_gc
+    n_tp = got_gc[0].n_frames
+    check(np.isfinite(wav_tp).all() and n_tp == 8, f"tp generate(): {n_tp} frames")
+    res_tp32, res_one32 = got_gc[1:]
+    n32 = res_one32.n_frames
+    diff32 = [t_ for t_ in range(n32)
+              if not torch.equal(res_tp32.codes[t_].cpu(), res_one32.codes[t_].cpu())]
+    check(res_tp32.n_frames == n32 == 8 and not diff32,
+          f"tp generate() in f32: {res_tp32.n_frames} frames against {n32} unsharded, codes "
+          f"differ at frames {diff32}")
+    log(f"    tp=2 at 0.6B (unfused, plain per-position step): bf16 step against the unsharded "
+        f"plain step {err_p:.4f} scaled, against K1's on the fused copy {err_v:.4f} (K1 against "
+        f"the plain step {err_kp:.4f}); in f32 against the unsharded step {err_f32:.2e}; bf16 "
+        f"generate() 8 greedy frames {1e3 * tp_s / n_tp:.1f} ms a frame (vocoder included); f32 "
+        f"generate() {n32} greedy frames, all 16 codes of each equal to the unsharded plain "
+        f"path's  [{smi}]")
+    del tbs, tbu, cbu, tf32, cf32
+    log(f"    phase v took {time.time() - t_v:.1f} s")
+
+
 def main() -> None:
     import torch
 
@@ -324,33 +708,9 @@ def main() -> None:
         f"(nvcc {_cuda.build_seconds if _cuda.build_seconds is not None else 'cached'} s)")
 
     # ---- weights: 0.6B CustomVoice widths, host_init, fused, int8 ----
-    cpc = C.CodePredictorConfig(
-        vocab_size=2048, hidden_size=1024, intermediate_size=3072, num_hidden_layers=5,
-        num_attention_heads=16, num_key_value_heads=8, head_dim=128,
-    )
-    cfg = C.TalkerConfig(
-        vocab_size=3072, text_vocab_size=151936, hidden_size=1024, text_hidden_size=1024,
-        intermediate_size=3072, num_hidden_layers=28, num_attention_heads=16,
-        num_key_value_heads=8, head_dim=128, spk_id=(("aiden", 2861), ("vivian", 2862)),
-        code_predictor_config=cpc,
-    )
-    def fused_trees(c, seed=0):
-        """host_init talker and CP trees at ``c``'s widths, fused dense bf16,
-        and int8 copies of both (the dense trees stay: phases f-j)."""
-        tb = hi.to_device(hi.host_init_talker_params(seed, c), torch.bfloat16, dev)
-        tb["layers"] = tk.fuse_layer_projections(tb["layers"])
-        cb = hi.to_device(hi.host_init_cp_params(seed + 1, c.code_predictor_config, c.hidden_size),
-                          torch.bfloat16, dev)
-        cb["layers"] = tk.fuse_layer_projections(cb["layers"])
-        return (tb, cb, quantize_decode_params_int8(tb, "codec_head"),
-                quantize_decode_params_int8(cb, "lm_head"))
-
     t0 = time.time()
-    talker_b, cp_b, talker_p, cp_p = fused_trees(cfg)
-    dec_cfg = C.TokenizerDecoderConfig()
-    voc_p = hi.init_vocoder_params(
-        torch.Generator(device=dev).manual_seed(2), dec_cfg, torch.float32, dev
-    )
+    cfg, dec_cfg, talker_b, cp_b, talker_p, cp_p, voc_p = weights_06b(dev)
+    cpc = cfg.code_predictor_config
     torch.cuda.synchronize()
     log(f"    weights: talker + CP (host_init, fused, bf16 and int8) + f32 vocoder in "
         f"{time.time() - t0:.1f} s")
@@ -371,10 +731,6 @@ def main() -> None:
         held only the wrappers' operand copies), so ``device_ms`` cannot
         read one."""
         return queued_ms(fn, iters)
-
-    def scaled(a, b):
-        a, b = a.float(), b.float()
-        return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
 
     # the least time the card could take: bytes over the HBM rate, operations
     # over the dense tensor rate of their type, bf16 or (dyn_int8) int8
@@ -564,11 +920,7 @@ def main() -> None:
     log(f"    K2 {k2_ms:.3f} ms/frame, plain {k2_plain_ms:.3f} ms/frame  [{smi}]")
 
     # ---- 5. the main path: Qwen3TTSModel.generate at 0.6B widths ----
-    model = Qwen3TTSModel(
-        C.ModelConfig(talker_config=cfg, tts_model_type="custom_voice", tts_model_size="0b6"),
-        talker_p, cp_p, voc_p, tokenizer_config=C.TokenizerConfig(decoder_config=dec_cfg),
-        tokenizer=StubTokenizer(cfg.text_vocab_size), dtype=torch.bfloat16, device=dev,
-    )
+    model = custom_voice_model(cfg, dec_cfg, talker_p, cp_p, voc_p, dev)
     tkk.talker_decode_step.launches = 0
     tkk.talker_decode_step.persistent_launches = 0
     cpk.predict_codes_fused.launches = 0
@@ -1773,7 +2125,7 @@ def main() -> None:
         code_predictor_config=cpc17,
     )
     t0 = time.time()
-    trees17 = fused_trees(cfg17, seed=10)  # bf16 talker, bf16 CP, int8 talker, int8 CP
+    trees17 = fused_trees(cfg17, dev, seed=10)  # bf16 talker, bf16 CP, int8 talker, int8 CP
     torch.cuda.synchronize()
     check("small_to_mtp_projection" in trees17[1] and "small_to_mtp_projection" in trees17[3],
           "the 1.7B CP has no small-to-MTP projection")
@@ -2968,8 +3320,7 @@ def main() -> None:
         return real_attend(q, *a, **k)
 
     cpm_mod.predict_codes, tk._attend = plain_ran, no_plain_step
-    serve_texts = [f"Request {i} asks the served model for a sentence of its own." for i in
-                   range(32)]
+    serve_texts = SERVE_TEXTS
     serve_caps = [20 + (46 * i) // 31 for i in range(32)]  # 20..66 frames
     frames_seen = []
 
@@ -3136,6 +3487,9 @@ def main() -> None:
         f"{len(wav_h)}-byte WAV, /synthesize_stream a chunked {len(stream_h)}-byte WAV, a flood of 6 on one slot with one waiting place: "
         f"{sorted(codes_h)}")
     log(f"    phase u took {time.time() - t_u:.1f} s")
+
+    # ---- v. multi-GPU: dp replicas (dp_mesh) and the tensor-parallel mesh ----
+    phase_v(dev, smi, cfg, model, talker_b, cp_b, voc_p)
 
     print(smi, flush=True)
     k1_64, k2_64 = k1b[(64, True)], k2b[64]

@@ -67,8 +67,10 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
+#include "device_state.cuh"
 #include "mma.cuh"
 #include "reduce.cuh"
 
@@ -78,20 +80,21 @@ typedef __nv_bfloat16 bf16;
 // since the library was loaded, counted on the host (qt_launches in
 // talker_step.cu). Every operation of K1 (qt_talker_step) and K2
 // (qt_cp_loop) is followed by exactly one QT_CHECK_LAUNCH, so the count's
-// growth over a call is that call's launches, exactly.
+// growth over a call is that call's launches, exactly. Host threads of a
+// data-parallel mesh launch at once, so the count is atomic.
 namespace qt {
-inline unsigned long long& launch_count() {
-  static unsigned long long n = 0;  // one instance across the library (inline, external linkage)
+inline std::atomic<unsigned long long>& launch_count() {
+  static std::atomic<unsigned long long> n{0};  // one instance across the library (inline, external linkage)
   return n;
 }
 }  // namespace qt
 
 // After each enqueued operation: count it and return its launch error.
-#define QT_CHECK_LAUNCH()                          \
-  do {                                             \
-    ++::qt::launch_count();                        \
-    cudaError_t e_ = cudaGetLastError();           \
-    if (e_ != cudaSuccess) return (int)e_;         \
+#define QT_CHECK_LAUNCH()                                                 \
+  do {                                                                    \
+    ::qt::launch_count().fetch_add(1, std::memory_order_relaxed);         \
+    cudaError_t e_ = cudaGetLastError();                                  \
+    if (e_ != cudaSuccess) return (int)e_;                                \
   } while (0)
 
 // Everything sits in an unnamed namespace: both .cu files include this
@@ -822,16 +825,8 @@ gemv_batched_dq_mma(const Mat m, const bf16* __restrict__ x, int B,
   }
 }
 
-inline int num_sms() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
-  }
-  return n;
-}
+// The current device's SM count (device_state.cuh: one entry a device).
+inline int num_sms() { return device_attr<cudaDevAttrMultiProcessorCount>(132); }
 
 // The split of the reduction dimension: ``cols`` columns per block, a
 // multiple of ``align`` rows per split, at most ``max_parts`` / B splits at
@@ -847,9 +842,11 @@ inline int gemv_splits(int B, int I, int O, int cols, int align, int& rows,
   return (I + rows - 1) / rows;
 }
 
+// The batched GEMVs' BG_SMEM of dynamic shared memory, allowed once a
+// device (``allowed``: the kernel's table, device_state.cuh).
 template <typename K>
-inline void big_smem(K kernel) {
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BG_SMEM);
+inline void big_smem(K kernel, std::atomic<size_t> (&allowed)[QT_MAX_DEVICES]) {
+  allow_smem(kernel, BG_SMEM, allowed);
 }
 
 // The split of a batched GEMV (B > 1): ``rows`` per split. The tensor-core
@@ -878,11 +875,8 @@ inline int gemv_t(const Mat& m, const bf16* x, int B, float* part, int I, int O,
                                                                                  O, rows);
     return splits;
   }
-  static bool smem_set = false;  // one per weight type
-  if (!smem_set) {
-    big_smem(gemv_batched_mma<W>);
-    smem_set = true;
-  }
+  static std::atomic<size_t> smem_set[QT_MAX_DEVICES];  // one per weight type
+  big_smem(gemv_batched_mma<W>, smem_set);
   const int splits = batched_splits(B, I, O, rows);
   const dim3 grid((O + BG_COLS - 1) / BG_COLS, splits);
   gemv_batched_mma<W><<<grid, GEMV_THREADS, BG_SMEM, st>>>(m, x, B, part, I, O, rows);
@@ -898,11 +892,8 @@ inline int gemv_dq(const Mat& m, const bf16* x, int B, const float* amax, int* p
                                                                                 I, O, rows);
     return splits;
   }
-  static bool smem_set = false;
-  if (!smem_set) {
-    big_smem(gemv_batched_dq_mma);
-    smem_set = true;
-  }
+  static std::atomic<size_t> smem_set[QT_MAX_DEVICES];
+  big_smem(gemv_batched_dq_mma, smem_set);
   const int splits = batched_splits(B, I, O, rows);
   const dim3 grid((O + BG_COLS - 1) / BG_COLS, splits);
   gemv_batched_dq_mma<<<grid, GEMV_THREADS, BG_SMEM, st>>>(m, x, B, amax, part, I, O, rows);

@@ -557,13 +557,9 @@ __global__ void __launch_bounds__(PF_THREADS, 1) cp_frame(const FrameArgs a) {
 int cp_frame_launch(FrameArgs& fa, int blocks, cudaStream_t st) {
   const int nb = blocks > 0 ? blocks : num_sms();
   const FrameSmem f = frame_smem(fa.L, fa.H, fa.TH, fa.NQ, fa.NKV, fa.I, fa.V, fa.NCB + 1, nb);
-  static size_t smem_set = 0;
-  if (f.bytes > smem_set) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(cp_frame, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)f.bytes);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = f.bytes;
-  }
+  static std::atomic<size_t> smem_set[QT_MAX_DEVICES];  // one entry a device (device_state.cuh)
+  const cudaError_t se = allow_smem(cp_frame, f.bytes, smem_set);
+  if (se != cudaSuccess) return (int)se;
   int occ = 0;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, cp_frame, PF_THREADS,
                                                                       f.bytes);
@@ -785,7 +781,8 @@ extern "C" int qt_cp_gemv(int tc, int w_bf16, int dyn, int B, int I, int O, cons
   const float* ax = (const float*)amax;
 #define QT_GEMV(kernel, ...)                                            \
   do {                                                                  \
-    big_smem(kernel);                                                   \
+    static std::atomic<size_t> allowed_[QT_MAX_DEVICES];                \
+    big_smem(kernel, allowed_);                                         \
     kernel<<<grid, GEMV_THREADS, BG_SMEM, st>>>(m, xb, B, __VA_ARGS__); \
   } while (0)
   if (dyn && tc) QT_GEMV(gemv_batched_dq_mma, ax, (int*)part, I, O, rows);

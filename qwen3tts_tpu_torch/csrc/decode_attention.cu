@@ -48,6 +48,7 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "device_state.cuh"
 #include "mma.cuh"
 #include "reduce.cuh"
 
@@ -375,13 +376,9 @@ attn_chunk(const bf16* __restrict__ q, const bf16* __restrict__ kc, const bf16* 
 template <int G, int CUT = CUT_NONE>
 int launch(const void* q, const void* k, const void* v, int NKV, int T, int pos, float scale,
            int NC, void* part_ml, void* part_acc, void* counters, void* out, cudaStream_t st) {
-  static bool attr_set = false;  // one per instance
-  if (!attr_set) {
-    cudaFuncSetAttribute(attn_chunk<G, CUT>, cudaFuncAttributeMaxDynamicSharedMemorySize, DA_SMEM);
-    cudaFuncSetAttribute(attn_chunk<G, CUT>, cudaFuncAttributePreferredSharedMemoryCarveout,
-                         cudaSharedmemCarveoutMaxShared);
-    attr_set = true;
-  }
+  static std::atomic<size_t> allowed[qt::QT_MAX_DEVICES];  // one per instance and device
+  const cudaError_t e = qt::allow_smem(attn_chunk<G, CUT>, DA_SMEM, allowed, /*max_carveout=*/true);
+  if (e != cudaSuccess) return (int)e;
   attn_chunk<G, CUT><<<dim3(NC, NKV), DA_THREADS, DA_SMEM, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, T, pos, scale, (float*)part_ml,
       (float*)part_acc, (int*)counters, (bf16*)out);

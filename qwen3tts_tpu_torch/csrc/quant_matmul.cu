@@ -37,6 +37,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_state.cuh"
 #include "reduce.cuh"
 
 namespace {
@@ -150,16 +151,8 @@ quant_gemv_kernel(const XT* __restrict__ x, const uint4* __restrict__ wq,
   }
 }
 
-int num_sms() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
-  }
-  return n;
-}
+// The current device's SM count (device_state.cuh: one entry a device).
+int num_sms() { return qt::device_attr<cudaDevAttrMultiProcessorCount>(132); }
 
 // Rows a warp: the fewest whose row groups fit one block of warps a SM (on
 // an H100, 1 at O = 1024, 2 at 2048, 4 at 3072: the fastest of 1, 2, 4 and 8

@@ -708,27 +708,24 @@ bool tf_smem(const TalkerFrameArgs& a, int blocks, size_t limit, TfSmem& f) {
 // nothing enqueued.
 int talker_frame_launch(TalkerFrameArgs& fa, int blocks, cudaStream_t st) {
   const int nb = blocks > 0 ? blocks : num_sms();
-  static size_t static_smem = 0, optin = 0, smem_set = 0;
-  if (optin == 0) {
+  // the kernel's static shared memory and the device's opt-in limit, and
+  // the dynamic limit set so far: one entry a device (device_state.cuh)
+  static std::atomic<size_t> static_smem[QT_MAX_DEVICES], smem_set[QT_MAX_DEVICES];
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (static_smem[dev].load() == 0) {
     cudaFuncAttributes attr;
-    cudaError_t e = cudaFuncGetAttributes(&attr, talker_frame);
+    const cudaError_t e = cudaFuncGetAttributes(&attr, talker_frame);
     if (e != cudaSuccess) return (int)e;
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
-    e = cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e != cudaSuccess) return (int)e;
-    static_smem = attr.sharedSizeBytes;
-    optin = (size_t)v;
+    static_smem[dev].store(attr.sharedSizeBytes + 1);  // + 1: read, even where it is 0
   }
+  const size_t optin = (size_t)device_attr<cudaDevAttrMaxSharedMemoryPerBlockOptin>(0);
+  if (optin == 0) return (int)cudaErrorInvalidValue;
   if (fa.cmax < max(1, nb / fa.NKV)) return (int)cudaErrorInvalidValue;
-  if (!tf_smem(fa, nb, optin - static_smem, fa.sm))
+  if (!tf_smem(fa, nb, optin - (static_smem[dev].load() - 1), fa.sm))
     return (int)cudaErrorInvalidValue;
-  if (fa.sm.bytes > smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        talker_frame, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fa.sm.bytes);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = fa.sm.bytes;
-  }
+  const cudaError_t se = allow_smem(talker_frame, fa.sm.bytes, smem_set);
+  if (se != cudaSuccess) return (int)se;
   int occ = 0;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, talker_frame,
                                                                       PF_THREADS, fa.sm.bytes);

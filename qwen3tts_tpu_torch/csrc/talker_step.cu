@@ -49,7 +49,7 @@
 using namespace qt;
 
 // The operations enqueued through QT_CHECK_LAUNCH so far (common.cuh).
-extern "C" unsigned long long qt_launches(void) { return qt::launch_count(); }
+extern "C" unsigned long long qt_launches(void) { return qt::launch_count().load(); }
 
 // Row positions: ``offs`` (device int32 [B]) when given, else ``pos`` for
 // every row. Layer weights int8 with f32 scales, or bf16 (``w_bf16``; the

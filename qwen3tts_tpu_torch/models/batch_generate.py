@@ -60,9 +60,10 @@ from ..ops.rope import mrope_cos_sin
 from ..ops.sampling import sample_token_inner, sample_token_vec
 from . import code_predictor as cp
 from . import talker as tk
+from ..parallel.mesh import tree_mesh
 from .generate import (
     _code0_mask, _cpk_mode, _frame_seeds, _use_cp_kernel, _use_talker_sample_kernel,
-    check_cp_frames, device_turn,
+    check_cp_frames, device_turn, turn_devices,
 )
 
 
@@ -102,10 +103,12 @@ def kernels_take(talker_params, cp_params, talker_cfg, cp_cfg, batch: int, kv_qu
 
 def _require_kernels(talker_params, cp_params, talker_cfg, cp_cfg, device, batch, kv_quant):
     """On CUDA, raise unless K1 and K2 take the batch: the lockstep decode
-    never runs the plain loop on the card."""
+    never runs the plain loop on the card. A tensor-parallel tree (a
+    ``mesh=`` model) runs the plain per-position step, as the JAX mesh runs
+    XLA: that is its path, not a fallback."""
     from ..ops.talker_kernel import MAX_BATCH
 
-    if device.type == "cuda" and not kernels_take(
+    if device.type == "cuda" and tree_mesh(talker_params) is None and not kernels_take(
         talker_params, cp_params, talker_cfg, cp_cfg, batch, kv_quant
     ):
         raise ValueError(
@@ -250,7 +253,7 @@ def prefill_start_batch(
     B = prefill_embeds.shape[0]
     dev = prefill_embeds.device
     _require_kernels(talker_params, cp_params, talker_cfg, cp_cfg, dev, B, cache.quantized)
-    with device_turn(dev):
+    with device_turn(turn_devices(talker_params, dev)):
         rows = _rows(sampling, samp_vec, B, dev)
         generator, seed_words = _seed_words(seed, dev)
         prefill_lens = prefill_lens.to(device=dev, dtype=torch.int32)
@@ -306,7 +309,7 @@ def generate_chunk_batch(
     dev = carry.cur_input.device
     B = trailing_embeds.shape[0]
     _require_kernels(talker_params, cp_params, talker_cfg, cp_cfg, dev, B, carry.cache.quantized)
-    with device_turn(dev):
+    with device_turn(turn_devices(talker_params, dev)):
         return _chunk(talker_params, cp_params, carry, talker_cfg, cp_cfg, sampling,
                       trailing_embeds, trailing_lens, tts_pad_embed, max_steps, until_step,
                       _rows(sampling, samp_vec, B, dev))
@@ -422,17 +425,13 @@ def admit_slot(
     dev = prefill_embeds.device
     _require_kernels(talker_params, cp_params, talker_cfg, cp_cfg, dev, carry.codes.shape[0],
                      carry.cache.quantized)
-    with device_turn(dev):
+    with device_turn(turn_devices(talker_params, dev)):
         rows = _rows(sampling, samp_row, 1, dev)
         vocab = talker_cfg.vocab_size
         suppress_mask = _code0_mask(talker_cfg, sampling, dev)
-        scratch = type(carry.cache)(
-            *(torch.zeros((a.shape[0], 1) + a.shape[2:], dtype=a.dtype, device=a.device)
-              for a in carry.cache)
-        )
+        scratch = tk.cache_scratch(carry.cache)
         hidden, scratch = tk.forward(talker_params, talker_cfg, prefill_embeds, scratch, 0)
-        for full, part in zip(carry.cache, scratch):
-            full[:, slot] = part[:, 0]
+        tk.put_cache_slot(carry.cache, slot, scratch)
         last = hidden[:, prefill_len - 1]
         logits = tk.codec_logits(talker_params, last[:, None])[:, 0]
         generator, seed_words = _seed_words(seed, dev)

@@ -20,7 +20,8 @@ from ..ops.norms import rms_norm
 from ..ops.quant import PackedLinear, embed_lookup
 from ..ops.rope import apply_rotary, rope_cos_sin
 from ..ops.sampling import sample_token_inner, sample_token_vec
-from .talker import _attend, _dense, _embed, _layer, _project_qkv, _swiglu_mlp
+from ..parallel.mesh import shard_cache, tree_mesh
+from .talker import _attend, _dense, _embed, _layer, _project_qkv, _swiglu_mlp, _tp_stack
 
 Params = dict[str, Any]
 
@@ -35,12 +36,15 @@ class CPCache(NamedTuple):
     v: torch.Tensor
 
 
-def make_cp_cache(cfg: CodePredictorConfig, batch: int, dtype=torch.bfloat16, device=None) -> CPCache:
+def make_cp_cache(cfg: CodePredictorConfig, batch: int, dtype=torch.bfloat16, device=None,
+                  mesh=None) -> CPCache:
+    """A zeroed cache; with ``mesh`` split over it (``parallel.mesh.shard_cache``)."""
     shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, cache_len(cfg), cfg.head_dim)
-    return CPCache(
+    cache = CPCache(
         torch.zeros(shape, dtype=dtype, device=device),
         torch.zeros(shape, dtype=dtype, device=device),
     )
+    return cache if mesh is None else shard_cache(cache, mesh)
 
 
 def _project(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -62,6 +66,26 @@ def forward(
     cache); the caller picks the LM head."""
     h = _project(params, inputs_embeds)
     B, S, _ = h.shape
+    scale = cfg.head_dim**-0.5
+    nq, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    eps = cfg.rms_norm_eps
+    if tree_mesh(params) is not None:  # the plain per-position step (talker._tp_stack)
+        T_max = cache.max_len
+
+        def local(i, t, dev, rows):
+            pos = (offset + torch.arange(S, device=dev))[None].expand(B, S)[rows]
+            cos, sin = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta, h.dtype)
+            mask = torch.arange(T_max, device=dev)[None, None, :] <= pos[:, :, None]
+            return dict(cos=cos, sin=sin, mask=mask)
+
+        def step(ctx, part, idx, q, k, v):
+            part.k[idx, :, :, offset : offset + S] = k.to(part.k.dtype)
+            part.v[idx, :, :, offset : offset + S] = v.to(part.v.dtype)
+            return _attend(q, part.k[idx], part.v[idx], ctx["mask"], scale)
+
+        h = _tp_stack(params["layers"], cfg.num_hidden_layers, (nq, nkv, hd, eps), h, cache,
+                      local, step)
+        return rms_norm(h, params["norm"], eps), cache
     dev = h.device
     T_max = cache.k.shape[3]
     positions = (offset + torch.arange(S, device=dev))[None].expand(B, S)
@@ -70,9 +94,6 @@ def forward(
     q_pos = offset + torch.arange(S, device=dev)
     mask = (t_idx[None, :] <= q_pos[:, None])[None].expand(B, S, T_max)
 
-    scale = cfg.head_dim**-0.5
-    nq, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    eps = cfg.rms_norm_eps
     for idx in range(cfg.num_hidden_layers):
         p = _layer(params["layers"], idx)
         x = rms_norm(h, p["input_layernorm"], eps)
@@ -113,7 +134,7 @@ def predict_codes(
     temperature, top_k and top_p (columns 0-2; column 3, the penalty, is
     not used: the reference's CP loop applies none)."""
     B = code0.shape[0]
-    cache = make_cp_cache(cfg, B, last_hidden.dtype, last_hidden.device)
+    cache = make_cp_cache(cfg, B, last_hidden.dtype, last_hidden.device, mesh=tree_mesh(params))
 
     def sample(logits):
         if samp_vec is not None:

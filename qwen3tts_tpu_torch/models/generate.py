@@ -44,6 +44,8 @@ from typing import NamedTuple
 import torch
 
 from ..config import CodePredictorConfig, TalkerConfig
+from ..ops._cuda import device_key
+from ..parallel.mesh import tree_mesh
 from ..ops.rope import mrope_cos_sin
 from ..ops.sampling import build_suppress_mask, sample_token_inner
 from . import code_predictor as cp
@@ -123,46 +125,68 @@ def _cpk_mode(cp_params) -> str:
 
 
 def check_cp_frames(device, sync: bool = False) -> None:
-    """Raise ``BarrierTimeout`` if a persistent B = 1 launch that ran before
-    the last host synchronisation (with ``sync``: before now) had a grid
-    barrier time out: a frame of K2 (its codes are -1) or a step of K1 (its
-    code0 -1, its hidden NaN). Nothing to do off CUDA."""
+    """Raise ``BarrierTimeout`` if a persistent B = 1 launch on ``device``
+    that ran before the last host synchronisation (with ``sync``: before
+    now) had a grid barrier time out: a frame of K2 (its codes are -1) or a
+    step of K1 (its code0 -1, its hidden NaN). Each device has its own
+    flags, so a fault on one card is raised at that card's turn. Nothing to
+    do off CUDA."""
     if device.type == "cuda":
         from ..ops import cp_kernel, talker_kernel
 
         if sync:
             torch.cuda.synchronize(device)
-        cp_kernel.check_barrier()
-        talker_kernel.check_barrier()
+        cp_kernel.check_barrier(device)
+        talker_kernel.check_barrier(device)
 
 
 _TURNS: dict = {}  # one lock for each CUDA device's index
+_TURNS_LOCK = threading.Lock()
+
+
+def _turn_lock(index: int) -> threading.Lock:
+    with _TURNS_LOCK:
+        return _TURNS.setdefault(index, threading.Lock())
 
 
 @contextlib.contextmanager
-def device_turn(device: torch.device):
-    """Hold ``device``'s turn: one B = 1 prefill or chunk at a time on a
+def device_turn(device):
+    """Hold ``device``'s turn (a ``torch.device``, or a list of them: a
+    tensor-parallel group's): one B = 1 prefill or chunk at a time on a
     card, across host threads.
 
     The persistent B = 1 launches keep one workspace, one set of barrier
     words and one fault flag for each device (ops/talker_kernel.py,
     ops/cp_kernel.py), and K3 one set of merge counters, so two decodes must
     not have that work in flight on one device at once, whichever CUDA
-    streams they run on. A turn ends once the caller's current stream has
-    finished its work and the fault flags have been read
-    (``check_cp_frames``): another thread's decode then finds the device
-    idle, and a fault raises on the thread whose launch had it. Off CUDA
-    nothing is held."""
-    if device.type != "cuda":
+    streams they run on. A turn ends once the caller's current stream on
+    each of its devices has finished its work and their fault flags have
+    been read (``check_cp_frames``): another thread's decode then finds the
+    device idle, and a fault raises on the thread whose launch had it.
+    Several devices are taken in index order, so two callers cannot
+    deadlock. Off CUDA nothing is held."""
+    devices = [device] if isinstance(device, torch.device) else list(device)
+    cuda = sorted({device_key(d).index: d for d in devices if d.type == "cuda"}.items())
+    if not cuda:
         yield
         return
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    with _TURNS.setdefault(index, threading.Lock()):
+    with contextlib.ExitStack() as held:
+        for index, _ in cuda:
+            held.enter_context(_turn_lock(index))
         try:
             yield
         finally:
-            torch.cuda.current_stream(device).synchronize()
-        check_cp_frames(device)
+            for _, d in cuda:
+                torch.cuda.current_stream(d).synchronize()
+        for _, d in cuda:
+            check_cp_frames(d)
+
+
+def turn_devices(talker_params, device: torch.device):
+    """The devices a decode of ``talker_params`` takes its turns on: every
+    device of its mesh under tensor parallelism, else ``device``."""
+    mesh = tree_mesh(talker_params)
+    return device if mesh is None else mesh.distinct_devices()
 
 
 def _use_talker_sample_kernel(
@@ -299,7 +323,7 @@ def prefill_start(
     the plain sampler its noise and, first, the two seed words of the
     kernels' counter generator."""
     dev = prefill_embeds.device
-    with device_turn(dev):
+    with device_turn(turn_devices(talker_params, dev)):
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
         words = torch.randint(0, 2**32, (2,), generator=generator, device=dev, dtype=torch.int64)
@@ -351,7 +375,7 @@ def generate_chunk(
 ) -> GenCarry:
     """Advance the generation by up to (until_step - carry.step) frames."""
     dev = carry.cur_input.device
-    with device_turn(dev):
+    with device_turn(turn_devices(talker_params, dev)):
         suppress_mask = _code0_mask(talker_cfg, sampling, dev)
         limit = min(until_step, carry.codes.shape[0])
         eos_id = talker_cfg.codec_eos_token_id
@@ -432,11 +456,12 @@ def generate_codes(
 ) -> GenResult:
     """The full AR synthesis loop for one utterance; returns codec codes.
     With ``cache=None`` a cache of ``cache_len`` rows is allocated: bf16, or
-    int8 with row scales when ``kv_quant``."""
+    int8 with row scales when ``kv_quant``; split over the params' mesh
+    under tensor parallelism."""
     if cache is None:
         cache = tk.make_cache(
             talker_cfg, 1, cache_len, prefill_embeds.dtype, prefill_embeds.device,
-            quantized=kv_quant,
+            quantized=kv_quant, mesh=tree_mesh(talker_params),
         )
     common = dict(talker_cfg=talker_cfg, cp_cfg=cp_cfg, sampling=sampling)
     stream = dict(

@@ -37,6 +37,7 @@ from ..ops.decode_blocks import quantize_rows as quantize_kv_rows  # the int8 ca
 from ..ops.norms import rms_norm, silu
 from ..ops.quant import Int8Linear, PackedLinear, embed_lookup, int8_matmul, quant_gemv, quant_matmul
 from ..ops.rope import apply_rotary, mrope_cos_sin
+from ..parallel.mesh import ShardedCache, shard_cache, tree_mesh
 
 Params = dict[str, Any]
 
@@ -84,20 +85,51 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16) ->
 
 def make_cache(
     cfg: TalkerConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None, *,
-    quantized: bool = False,
-) -> KVCache | KVCacheQ:
+    quantized: bool = False, mesh=None,
+) -> KVCache | KVCacheQ | ShardedCache:
+    """A zeroed cache; with ``mesh`` split over it (``parallel.mesh.shard_cache``)."""
     shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, cfg.head_dim)
     if quantized:
-        return KVCacheQ(
+        cache = KVCacheQ(
             torch.zeros(shape, dtype=torch.int8, device=device),
             torch.zeros(shape, dtype=torch.int8, device=device),
             torch.zeros(shape[:-1], dtype=torch.float32, device=device),
             torch.zeros(shape[:-1], dtype=torch.float32, device=device),
         )
-    return KVCache(
-        torch.zeros(shape, dtype=dtype, device=device),
-        torch.zeros(shape, dtype=dtype, device=device),
+    else:
+        cache = KVCache(
+            torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device),
+        )
+    return cache if mesh is None else shard_cache(cache, mesh)
+
+
+def cache_scratch(cache):
+    """A zeroed one-sequence cache like ``cache`` (an admission prefills
+    into it; ``put_cache_slot`` copies it in)."""
+    if isinstance(cache, ShardedCache):
+        part, n_heads = cache.parts[0][0], len(cache.parts[0])
+        whole = type(part)(*(torch.zeros((a.shape[0], 1, a.shape[2] * n_heads) + a.shape[3:],
+                                         dtype=a.dtype) for a in part))
+        return shard_cache(whole, cache.mesh)
+    return type(cache)(
+        *(torch.zeros((a.shape[0], 1) + a.shape[2:], dtype=a.dtype, device=a.device)
+          for a in cache)
     )
+
+
+def put_cache_slot(cache, slot: int, scratch) -> None:
+    """Copy a one-sequence cache (``cache_scratch``) into batch row
+    ``slot`` of ``cache``, in place."""
+    if isinstance(cache, ShardedCache):
+        (i, rows), = [(i, r) for i, r in cache.rows() if r.start is None or r.start <= slot < r.stop]
+        local = slot - (rows.start or 0)
+        for full, part in zip(cache.parts[i], scratch.parts[0]):
+            for a, b in zip(full, part):
+                a[:, local] = b[:, 0].to(a.device)
+        return
+    for full, part in zip(cache, scratch):
+        full[:, slot] = part[:, 0]
 
 
 def _put_rows(cache, index: tuple, k, v) -> None:
@@ -285,6 +317,136 @@ def attention_kernel_gate(S: int, B: int, T_max: int, cache_dtype, device) -> bo
     )
 
 
+def _partial(x: torch.Tensor, w) -> torch.Tensor:
+    """A position's share of a row-parallel product (o_proj, down_proj) in
+    f32, unrounded: the sum of the shares is rounded once, as the whole
+    product is in ``_dense``."""
+    if isinstance(w, Int8Linear):
+        return torch.matmul(x.float(), w.q.float()) * w.scale
+    return torch.matmul(x.float(), w.float())
+
+
+def _reduce(parts: list[torch.Tensor], device, dtype) -> torch.Tensor:
+    """The sum of the positions' shares, on ``device`` (the group's first):
+    the partials are copied there and added in position order."""
+    total = parts[0].to(device)
+    for p in parts[1:]:
+        total = total + p.to(device)
+    return total.to(dtype)
+
+
+def _tp_attention(ps, group, ctxs, parts, idx, x, heads, step):
+    """One layer's attention on a tensor-parallel tree: each position's
+    o_proj share [B, S, H] (f32). Where tp divides the kv heads each
+    position attends over its own heads and its own part of the cache;
+    otherwise (the cache's heads are not split) the positions' q/k/v
+    columns are gathered on the group's first device, which attends over
+    every head, and each position takes its columns of the output."""
+    nq, nkv, hd, eps = heads
+    tp = len(group)
+    B, S = x.shape[:2]
+    if len(parts) == tp:  # heads split with the cache
+        o = []
+        for t, dev in enumerate(group):
+            xt = rms_norm(x.to(dev), ps[t]["input_layernorm"], eps)
+            q, k, v = _project_qkv(ps[t], xt, B, S, nq // tp, nkv // tp, hd, eps)
+            q, k = apply_rotary(q, k, ctxs[t]["cos"], ctxs[t]["sin"])
+            attn = step(ctxs[t], parts[t], idx, q, k, v)
+            o.append(_partial(attn.transpose(1, 2).reshape(B, S, -1), ps[t]["o_proj"]))
+        return o
+    cols = {name: [] for name in ("q_proj", "k_proj", "v_proj")}
+    for t, dev in enumerate(group):
+        xt = rms_norm(x.to(dev), ps[t]["input_layernorm"], eps)
+        for name in cols:
+            cols[name].append(_dense(xt, ps[t][name]).to(group[0]))
+    whole = {name: torch.cat(c, dim=-1) for name, c in cols.items()}
+    whole.update(q_norm=ps[0]["q_norm"], k_norm=ps[0]["k_norm"])
+    q = rms_norm(whole["q_proj"].reshape(B, S, nq, hd), whole["q_norm"], eps).transpose(1, 2)
+    k = rms_norm(whole["k_proj"].reshape(B, S, nkv, hd), whole["k_norm"], eps).transpose(1, 2)
+    v = whole["v_proj"].reshape(B, S, nkv, hd).transpose(1, 2)
+    q, k = apply_rotary(q, k, ctxs[0]["cos"], ctxs[0]["sin"])
+    attn = step(ctxs[0], parts[0], idx, q, k, v).transpose(1, 2).reshape(B, S, nq * hd)
+    return [_partial(a.to(dev), ps[t]["o_proj"])
+            for t, (a, dev) in enumerate(zip(torch.chunk(attn, tp, dim=-1), group))]
+
+
+def _tp_stack(layers: Params, n_layers: int, heads: tuple, h: torch.Tensor, cache, local, step):
+    """The layer stack on a tensor-parallel tree (``parallel.mesh``): for
+    each dp row of ``cache`` (a ``ShardedCache``) and each layer, every tp
+    position computes its heads (``_tp_attention``) and its slice of the
+    MLP, each on its device's current stream and all issued from this host
+    thread; the partial sums after o_proj and after down_proj are added on
+    the group's first device, and the sum goes back to each position with
+    its next input. ``heads`` = (nq, nkv, head_dim, eps); ``local(i, t,
+    device, rows)`` gives a position's per-call context (its rope rows and
+    mask), ``step(ctx, cache_part, idx, q, k, v)`` writes new k/v rows
+    into a part of the cache and attends. Returns h [B, S, H] before the
+    final norm, on h's device."""
+    eps = heads[3]
+    mesh = cache.mesh
+    tp = mesh.shape["tp"]
+    outs = []
+    for i, rows in cache.rows():
+        group = mesh.devices[i]
+        ctxs = [local(i, t, dev, rows) for t, dev in enumerate(group[:len(cache.parts[i])])]
+        x = h[rows].to(group[0])
+        for idx in range(n_layers):
+            ps = [{k: w.parts[i][t][idx] for k, w in layers.items()} for t in range(tp)]
+            o = _tp_attention(ps, group, ctxs, cache.parts[i], idx, x, heads, step)
+            x = x + _reduce(o, group[0], x.dtype)
+            m = []
+            for t, dev in enumerate(group):
+                xt = rms_norm(x.to(dev), ps[t]["post_attention_layernorm"], eps)
+                m.append(_partial(_swiglu_mlp(ps[t], xt), ps[t]["down_proj"]))
+            x = x + _reduce(m, group[0], x.dtype)
+        outs.append(x.to(h.device))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def _forward_tp(params, cfg, inputs_embeds, cache, offset: int, offsets=None):
+    """``forward`` (``offsets`` None) or ``forward_batched_step`` (per-row
+    ``offsets`` [B]) on a tensor-parallel tree: the plain per-position
+    layer step, the counterpart of the JAX package's XLA path under a mesh.
+    At B = 1 on a bf16 cache of >= 4096 rows each position attends over
+    its own kv heads through K3 (``attention_kernel_gate``), as the JAX
+    XLA path calls ``decode_attention_inner`` under a mesh."""
+    if not isinstance(cache, ShardedCache):
+        raise ValueError("a tensor-parallel model decodes into a sharded cache "
+                         "(make_cache(..., mesh=) or parallel.mesh.shard_cache)")
+    B, S, _ = inputs_embeds.shape
+    T_max = cache.max_len
+    scale = cfg.head_dim**-0.5
+    heads = (cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim, cfg.rms_norm_eps)
+
+    def local(i, t, dev, rows):
+        t_idx = torch.arange(T_max, device=dev)
+        if offsets is None:
+            pos = (offset + torch.arange(S, device=dev))[None].expand(B, S)[rows]
+            mask = t_idx[None, None, :] <= pos[:, :, None]
+            offs = None
+        else:
+            offs = offsets[rows].to(dev)
+            pos = offs[:, None].long()
+            mask = t_idx[None, None, :] <= pos[:, :, None]
+        cos, sin = mrope_cos_sin(pos, cfg.head_dim, cfg.rope_theta, cfg.mrope_section,
+                                 inputs_embeds.dtype)
+        part = cache.parts[i][t]
+        k3 = offsets is None and attention_kernel_gate(S, pos.shape[0], T_max, part.k.dtype, dev)
+        return dict(cos=cos, sin=sin, mask=mask, offs=offs, k3=k3)
+
+    def step(ctx, part, idx, q, k, v):
+        if ctx["offs"] is None:
+            _put_rows(part, (idx, slice(None), slice(None), slice(offset, offset + S)), k, v)
+        else:
+            _scatter_append_batched(part, idx, k[:, :, 0], v[:, :, 0], ctx["offs"])
+        if ctx["k3"]:
+            return decode_attention_inner(q, part.k, part.v, offset, scale, layer=idx)
+        return _attend(q, *_layer_kv(part, idx), ctx["mask"], scale)
+
+    h = _tp_stack(params["layers"], cfg.num_hidden_layers, heads, inputs_embeds, cache, local, step)
+    return rms_norm(h, params["norm"], cfg.rms_norm_eps), cache
+
+
 def forward(
     params: Params,
     cfg: TalkerConfig,
@@ -301,8 +463,11 @@ def forward(
     decode steps attend through K3 over rows [0, offset] where
     :func:`attention_kernel_gate` holds. An int8 cache takes the new rows
     quantized and is attended dequantized to bf16. Returns (hidden [B, S, h]
-    after the final norm, cache).
+    after the final norm, cache). On a tensor-parallel tree (``mesh=``)
+    every step is the plain per-position step (``_forward_tp``).
     """
+    if tree_mesh(params) is not None:
+        return _forward_tp(params, cfg, inputs_embeds, cache, offset)
     B, S, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     T_max = cache.max_len
@@ -445,6 +610,8 @@ def forward_batched_step(
     B, S, _ = inputs_embeds.shape
     if S != 1:
         raise ValueError("forward_batched_step is single-token decode only")
+    if tree_mesh(params) is not None:
+        return _forward_tp(params, cfg, inputs_embeds, cache, 0, offsets=offsets)
     dev = inputs_embeds.device
     cos, sin = mrope_cos_sin(
         offsets[:, None].long(), cfg.head_dim, cfg.rope_theta, cfg.mrope_section,

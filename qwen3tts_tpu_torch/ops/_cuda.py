@@ -19,6 +19,7 @@ the kernels.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -248,5 +249,22 @@ def ptr(t: torch.Tensor | None):
     return t.data_ptr()
 
 
-def stream_ptr() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def device_key(device) -> torch.device:
+    """A CUDA device with its index: ``cuda`` (the current device; device 0
+    where no card is present, as nothing launches then) and ``cuda:0`` name
+    one device where it is current, so the per-device caches and flags of
+    ops/ key by this. Other devices are returned as they are."""
+    device = torch.device(device)
+    if device.type != "cuda" or device.index is not None:
+        return device
+    return torch.device("cuda", torch.cuda.current_device() if torch.cuda.is_available() else 0)
+
+
+@contextlib.contextmanager
+def on_device(device):
+    """Enqueue on ``device``: make it the thread's current device (the C
+    entries launch on the runtime's current device) and yield the handle of
+    its current stream. A launch whose operands lie on ``cuda:1`` while the
+    thread's current device is 0 would go to the wrong device."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream

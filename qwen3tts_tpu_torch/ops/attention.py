@@ -47,12 +47,14 @@ _counters: dict[torch.device, torch.Tensor] = {}
 
 
 def head_counters(device, nkv: int) -> torch.Tensor:
-    """The per-kv-head merge counters of ``device``: zeroed once, reused by
-    every call (the kernel leaves them zero)."""
-    c = _counters.get(device)
+    """The per-kv-head merge counters of ``device`` (keyed by its index:
+    ``cuda`` and ``cuda:0`` share one set): zeroed once, reused by every
+    call (the kernel leaves them zero)."""
+    key = _cuda.device_key(device)
+    c = _counters.get(key)
     if c is None or c.numel() < nkv:
-        c = torch.zeros(max(nkv, 64), dtype=torch.int32, device=device)
-        _counters[device] = c
+        c = torch.zeros(max(nkv, 64), dtype=torch.int32, device=key)
+        _counters[key] = c
     return c
 
 
@@ -128,11 +130,14 @@ def decode_attention_inner(q, k_cache, v_cache, pos: int, scale: float, layer=No
     part_ml = torch.empty(n_ml, dtype=torch.float32, device=q.device)
     part_acc = torch.empty(n_acc, dtype=torch.float32, device=q.device)
     out = torch.empty(1, Hq, 1, D, dtype=torch.bfloat16, device=q.device)
-    rc = _cuda.library().qt_decode_attention(
-        Hq, Hkv, D, T, int(pos), float(scale), chunks(pos),
-        *(_cuda.ptr(t) for t in (q, k, v, part_ml, part_acc, head_counters(q.device, Hkv), out)),
-        _cuda.stream_ptr(),
-    )
+    lib = _cuda.library()
+    with _cuda.on_device(q.device) as stream:
+        rc = lib.qt_decode_attention(
+            Hq, Hkv, D, T, int(pos), float(scale), chunks(pos),
+            *(_cuda.ptr(t) for t in (q, k, v, part_ml, part_acc, head_counters(q.device, Hkv),
+                                     out)),
+            stream,
+        )
     _cuda.check(rc, "decode_attention_inner")
     decode_attention_inner.launches += 1
     return out

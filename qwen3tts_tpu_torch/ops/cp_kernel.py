@@ -240,31 +240,34 @@ def predict_codes_fused(
     return out
 
 
-_err_flag: torch.Tensor | None = None  # pinned int32 [1], written by the card on a timeout
+# pinned int32 [1] flags, one for each device index, written by that card
+# on a timeout: a fault on card 1 is raised at card 1's turn, not card 0's
+_err_flags: dict[torch.device, torch.Tensor] = {}
 
 
-def _barrier_flag() -> torch.Tensor:
-    global _err_flag
-    if _err_flag is None:
-        _err_flag = torch.zeros(1, dtype=torch.int32, pin_memory=True)
-    return _err_flag
+def _barrier_flag(device) -> torch.Tensor:
+    key = _cuda.device_key(device)
+    flag = _err_flags.get(key)
+    if flag is None:
+        flag = _err_flags[key] = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+    return flag
 
 
-def check_barrier(sync_device=None) -> None:
-    """Raise ``BarrierTimeout`` if a B = 1 frame that has finished had a
-    barrier run past its budget (its codes are then -1); the flag is
-    cleared. The frames enqueued before the caller's last synchronisation
-    have finished; with ``sync_device`` (a CUDA device) the host first waits
-    for all of that device's work. No B = 1 frame launched yet: nothing to
-    check."""
-    flag = _err_flag
+def check_barrier(device, sync: bool = False) -> None:
+    """Raise ``BarrierTimeout`` if a B = 1 frame on ``device`` that has
+    finished had a barrier run past its budget (its codes are then -1); the
+    device's flag is cleared. The frames enqueued before the caller's last
+    synchronisation have finished; with ``sync`` the host first waits for
+    all of the device's work. No B = 1 frame launched on the device yet:
+    nothing to check."""
+    flag = _err_flags.get(_cuda.device_key(device))
     if flag is None:
         return
-    if sync_device is not None:
-        torch.cuda.synchronize(sync_device)
+    if sync:
+        torch.cuda.synchronize(device)
     if int(flag[0]) != 0:
         flag.zero_()
-        raise BarrierTimeout("K2 persistent barrier timed out")
+        raise BarrierTimeout(f"K2 persistent barrier timed out on {device}")
 
 
 def _cp_sampling(rows, b: int) -> dict:
@@ -336,9 +339,9 @@ def launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, temper
         _cuda.amax_slots(B, dev) if dyn and not single else None,
     ]
     if single:
-        check_barrier()
+        check_barrier(dev)
         ctl = torch.empty(2, dtype=torch.int32, device=dev)  # the barrier's words
-        flag = _barrier_flag()
+        flag = _barrier_flag(dev)
     else:
         ctl = flag = None
     codes = torch.empty(B, NCB, dtype=torch.int32, device=dev)
@@ -352,19 +355,21 @@ def launch(cp_params, cp_cfg, talker_params, last_hidden, code0, seed, *, temper
         row0 = _cp_sampling(rows, 0)
         temperature, top_k = row0["temperature"], row0["top_k"]
         table, top_p_thr = (rows.table if B > 1 else None), top_p_any(rows)
-    rc = _cuda.library().qt_cp_loop(
-        L, H, NQ, NKV, D, I, V, NCB, B, TH, int(w_bf16), int(head_bf16), int(dyn),
-        cp_cfg.rms_norm_eps, D**-0.5,
-        *(_cuda.ptr(t) for t in ins),
-        int(temperature <= 0), inv_temperature(temperature), int(top_k), top_p_thr,
-        int(ref_exact_top_p),
-        seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF, _cuda.ptr(table),
-        _cuda.ptr(force),
-        *(_cuda.ptr(t) for t in bufs),
-        _cuda.ptr(codes), _cuda.ptr(esum), _cuda.ptr(logits), _cuda.ptr(ctl),
-        None if flag is None else flag.data_ptr(), int(blocks), int(budget_ns), int(cut),
-        _cuda.stream_ptr(),
-    )
+    lib = _cuda.library()
+    with _cuda.on_device(dev) as stream:
+        rc = lib.qt_cp_loop(
+            L, H, NQ, NKV, D, I, V, NCB, B, TH, int(w_bf16), int(head_bf16), int(dyn),
+            cp_cfg.rms_norm_eps, D**-0.5,
+            *(_cuda.ptr(t) for t in ins),
+            int(temperature <= 0), inv_temperature(temperature), int(top_k), top_p_thr,
+            int(ref_exact_top_p),
+            seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF, _cuda.ptr(table),
+            _cuda.ptr(force),
+            *(_cuda.ptr(t) for t in bufs),
+            _cuda.ptr(codes), _cuda.ptr(esum), _cuda.ptr(logits), _cuda.ptr(ctl),
+            None if flag is None else flag.data_ptr(), int(blocks), int(budget_ns), int(cut),
+            stream,
+        )
     if single and rc == _COOP_TOO_LARGE:
         grid = f"{blocks} blocks" if blocks else "one block per SM"
         raise CoResidencyError(f"predict_codes_fused: the B = 1 frame's grid ({grid}) cannot be "
@@ -415,8 +420,10 @@ def batched_gemv(x, w, amax=None, *, tensor_cores: bool = True) -> torch.Tensor:
     # operands stay referenced until the launch is enqueued
     w, x = w.contiguous(), x.contiguous()
     amax = None if amax is None else amax.float().contiguous()
-    rc = lib.qt_cp_gemv(int(tensor_cores), int(w.dtype == torch.bfloat16), int(amax is not None),
-                        B, I, O, *(_cuda.ptr(t) for t in (w, x, amax, part)), _cuda.stream_ptr())
+    with _cuda.on_device(x.device) as stream:
+        rc = lib.qt_cp_gemv(int(tensor_cores), int(w.dtype == torch.bfloat16),
+                            int(amax is not None), B, I, O,
+                            *(_cuda.ptr(t) for t in (w, x, amax, part)), stream)
     _cuda.check(rc, "batched_gemv")
     batched_gemv.launches += 1
     return part

@@ -174,11 +174,12 @@ def quant_gemv(x: torch.Tensor, packed, scales, biases, bits: int = 4, group: in
     if x.data_ptr() % 16:  # the kernel reads x 16 bytes a load
         x = x.clone()
     y = torch.empty(1, O, dtype=torch.float32, device=x.device)
-    rc = _cuda.library().qt_quant_gemv(
-        O, I, bits, group, int(x.dtype == torch.bfloat16),
-        *(_cuda.ptr(t) for t in (x, packed, scales, biases, y)), int(rows_per_warp),
-        _cuda.stream_ptr(),
-    )
+    lib = _cuda.library()
+    with _cuda.on_device(x.device) as stream:
+        rc = lib.qt_quant_gemv(
+            O, I, bits, group, int(x.dtype == torch.bfloat16),
+            *(_cuda.ptr(t) for t in (x, packed, scales, biases, y)), int(rows_per_warp), stream,
+        )
     _cuda.check(rc, "quant_gemv")
     quant_gemv.launches += 1
     return y

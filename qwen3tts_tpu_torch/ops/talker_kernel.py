@@ -311,21 +311,21 @@ def launch(
                 int(ref_exact_top_p), int(eos_id), seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF)
     lib = _cuda.library()
     if B == 1:
-        check_barrier()
-        grid = blocks or _num_sms(dev)
+        check_barrier(dev)
+        grid = blocks or _num_sms(_cuda.device_key(dev))
         cmax = max(1, grid // NKV)
         ws, att, ctl = _frame_workspace(dev, workspace_floats(1, oqkv, I, H, V),
                                         NKV * cmax * (NQ // NKV) * (D + 4))
-        rc = lib.qt_talker_frame(
-            L, H, NQ, NKV, D, I, V, T, offset if single else 0, _cuda.ptr(offs), int(quant),
-            int(w_bf16), int(head_bf16), int(dyn), cfg.rms_norm_eps, D**-0.5,
-            *(_cuda.ptr(t) for t in ins), *(_cuda.ptr(t) for t in rope),
-            *(_cuda.ptr(t) for t in tail), *sampling,
-            _cuda.ptr(ws), _cuda.ptr(att), cmax, _cuda.ptr(xn), _cuda.ptr(code),
-            _cuda.ptr(logits), _cuda.ptr(ctl), _barrier_flag().data_ptr(), int(blocks),
-            int(budget_ns), int(cut), STEP_PARTS.index(part), _cuda.ptr(h_out),
-            _cuda.stream_ptr(),
-        )
+        with _cuda.on_device(dev) as stream:
+            rc = lib.qt_talker_frame(
+                L, H, NQ, NKV, D, I, V, T, offset if single else 0, _cuda.ptr(offs), int(quant),
+                int(w_bf16), int(head_bf16), int(dyn), cfg.rms_norm_eps, D**-0.5,
+                *(_cuda.ptr(t) for t in ins), *(_cuda.ptr(t) for t in rope),
+                *(_cuda.ptr(t) for t in tail), *sampling,
+                _cuda.ptr(ws), _cuda.ptr(att), cmax, _cuda.ptr(xn), _cuda.ptr(code),
+                _cuda.ptr(logits), _cuda.ptr(ctl), _barrier_flag(dev).data_ptr(), int(blocks),
+                int(budget_ns), int(cut), STEP_PARTS.index(part), _cuda.ptr(h_out), stream,
+            )
         if rc == _COOP_TOO_LARGE:
             what = f"{blocks} blocks" if blocks else "one block per SM"
             raise CoResidencyError(f"talker_decode_step: the B = 1 step's grid ({what}) cannot "
@@ -336,15 +336,16 @@ def launch(
         gated = torch.empty(B, I, dtype=torch.bfloat16, device=dev)
         ws = torch.empty(workspace_floats(B, oqkv, I, H, V), dtype=torch.float32, device=dev)
         amax = _cuda.amax_slots(B, dev) if dyn else None
-        rc = lib.qt_talker_step(
-            L, H, NQ, NKV, D, I, V, T, B, offset if single else 0, _cuda.ptr(offs), int(quant),
-            int(w_bf16), int(head_bf16), int(dyn), cfg.rms_norm_eps, D**-0.5,
-            *(_cuda.ptr(t) for t in ins),
-            *(_cuda.ptr(t) for t in rope), 0 if single else D,
-            *(_cuda.ptr(t) for t in tail), *sampling, _cuda.ptr(table),
-            *(_cuda.ptr(t) for t in (hres, xn, attn, gated, ws, amax, code, logits)),
-            _cuda.stream_ptr(),
-        )
+        with _cuda.on_device(dev) as stream:
+            rc = lib.qt_talker_step(
+                L, H, NQ, NKV, D, I, V, T, B, offset if single else 0, _cuda.ptr(offs),
+                int(quant), int(w_bf16), int(head_bf16), int(dyn), cfg.rms_norm_eps, D**-0.5,
+                *(_cuda.ptr(t) for t in ins),
+                *(_cuda.ptr(t) for t in rope), 0 if single else D,
+                *(_cuda.ptr(t) for t in tail), *sampling, _cuda.ptr(table),
+                *(_cuda.ptr(t) for t in (hres, xn, attn, gated, ws, amax, code, logits)),
+                stream,
+            )
     _cuda.check(rc, "talker_decode_step")
     out = xn if not sample else (xn, code, logits) if return_logits else (xn, code)
     return _one_row(out) if single else out
@@ -375,49 +376,53 @@ def _f32_once(t: torch.Tensor) -> torch.Tensor:
 
 
 @functools.cache
-def _num_sms(dev) -> int:
+def _num_sms(dev: torch.device) -> int:  # keyed by _cuda.device_key
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-# The persistent step's buffers, allocated once for each device and size:
-# the two GEMV partial buffers, the attention items' partials, the barrier
-# words (zeroed by the step itself). Steps on one stream reuse them in turn.
+# The persistent step's buffers, allocated once for each device (by index:
+# ``cuda`` and ``cuda:0`` share them) and size: the two GEMV partial buffers,
+# the attention items' partials, the barrier words (zeroed by the step
+# itself). Steps on one stream reuse them in turn.
 _WORKSPACES: dict = {}
 
 
 def _frame_workspace(dev, n_ws: int, n_att: int):
-    key = (dev, n_ws, n_att)
+    key = (_cuda.device_key(dev), n_ws, n_att)
     if key not in _WORKSPACES:
-        _WORKSPACES[key] = (torch.empty(n_ws, dtype=torch.float32, device=dev),
-                            torch.empty(n_att, dtype=torch.float32, device=dev),
-                            torch.empty(2, dtype=torch.int32, device=dev))
+        _WORKSPACES[key] = (torch.empty(n_ws, dtype=torch.float32, device=key[0]),
+                            torch.empty(n_att, dtype=torch.float32, device=key[0]),
+                            torch.empty(2, dtype=torch.int32, device=key[0]))
     return _WORKSPACES[key]
 
 
-_err_flag: torch.Tensor | None = None  # pinned int32 [1], written by the card on a timeout
+# pinned int32 [1] flags, one for each device index, written by that card
+# on a timeout: a fault on card 1 is raised at card 1's turn, not card 0's
+_err_flags: dict[torch.device, torch.Tensor] = {}
 
 
-def _barrier_flag() -> torch.Tensor:
-    global _err_flag
-    if _err_flag is None:
-        _err_flag = torch.zeros(1, dtype=torch.int32, pin_memory=True)
-    return _err_flag
+def _barrier_flag(device) -> torch.Tensor:
+    key = _cuda.device_key(device)
+    flag = _err_flags.get(key)
+    if flag is None:
+        flag = _err_flags[key] = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+    return flag
 
 
-def check_barrier(sync_device=None) -> None:
-    """Raise ``BarrierTimeout`` if a B = 1 step that has finished had a
-    barrier (or its weight copies) wait past its budget (its code0 is then
-    -1, its hidden NaN); the flag is cleared. With ``sync_device`` the host
-    first waits for that device's work. No B = 1 step launched yet: nothing
-    to check."""
-    flag = _err_flag
+def check_barrier(device, sync: bool = False) -> None:
+    """Raise ``BarrierTimeout`` if a B = 1 step on ``device`` that has
+    finished had a barrier (or its weight copies) wait past its budget (its
+    code0 is then -1, its hidden NaN); the device's flag is cleared. With
+    ``sync`` the host first waits for that device's work. No B = 1 step
+    launched on the device yet: nothing to check."""
+    flag = _err_flags.get(_cuda.device_key(device))
     if flag is None:
         return
-    if sync_device is not None:
-        torch.cuda.synchronize(sync_device)
+    if sync:
+        torch.cuda.synchronize(device)
     if int(flag[0]) != 0:
         flag.zero_()
-        raise BarrierTimeout("K1 persistent barrier timed out")
+        raise BarrierTimeout(f"K1 persistent barrier timed out on {device}")
 
 
 def step_barriers(L: int, sample: bool) -> int:

@@ -1,5 +1,5 @@
 """Continuous batching: a slot-based serving loop over the lockstep decoder
-(port of qwen3tts_tpu/serving.py, its single-device flavour).
+(port of qwen3tts_tpu/serving.py).
 
 The static batch (``Qwen3TTSModel.generate_batch``) runs every sequence
 until the last one finishes, so with ragged lengths the freed rows idle.
@@ -21,8 +21,17 @@ per-row sampler once a call, in both sampling modes: ``sampling.per_request``
 only decides whether a request may override the service's values. Values
 are checked at submit (``_check_item``), never in the worker. Each admission and each chunk is one turn of
 the device (``generate.device_turn``), so a server's worker and a
-``generate()`` on another thread take turns on the card. Multi-device
-serving (the JAX package's ``dp_mesh``) is not ported yet.
+``generate()`` on another thread take turns on the card.
+
+The loop always runs the per-shard functions of parallel/dp.py over a
+list of per-shard carries. A ``dp_mesh`` (tp=1) splits the slots over
+replicas: slot s lives on shard s // (B/dp), each admission runs on its
+owner shard, each chunk on every shard that has work (shards on distinct
+cards at once), with its own lockstep bound, and the next request goes to
+the least-loaded shard. Without one the server is the one-shard case on
+the model's device; a model sharded over a tensor-parallel ``mesh`` decodes
+that one shard on its sharded caches. ``_route_device_fns`` picks the shard
+mesh.
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ import torch
 from .models import batch_generate as bg
 from .models import talker as tk
 from .models.generate import SamplingConfig, pad_to_bucket
+from .parallel import dp as pdp
+from .parallel.mesh import Mesh
 
 # A streamed slot short of this many frames makes the worker run chunks of
 # at most 8 frames, so its first audio window is not gated on a whole
@@ -185,24 +196,63 @@ def check_samp_row(row) -> None:
         raise ValueError(f"repetition_penalty must be > 0, got {r}")
 
 
-def _pick_free_slot(occupied: list) -> int | None:
-    """The first free slot (the single-device rule)."""
-    return next((i for i, busy in enumerate(occupied) if not busy), None)
+def _route_device_fns(dp_mesh, mesh, slots, device):
+    """(dp, the shard mesh of the serving calls): ``dp_mesh`` itself (a
+    tp=1 mesh that divides ``slots``: weights replicated, slot s on shard
+    s // (slots/dp)), or without one a one-shard mesh on ``device``."""
+    if dp_mesh is None:
+        return 1, Mesh([[device]])
+    if mesh is not None:
+        raise ValueError(
+            "dp_mesh replicates the single-chip configuration; it "
+            "does not compose with a TP mesh (pass one or the other)"
+        )
+    dp = pdp.dp_size(dp_mesh)
+    if slots % dp != 0:
+        raise ValueError(
+            f"slots={slots} must be divisible by the dp size {dp} "
+            "(each shard owns slots/dp cache slots)"
+        )
+    return dp, dp_mesh
 
 
-def _empty_carry(talker_cfg, slots, max_frames, cache_len, dtype, kv_quant, device):
-    """A carry with every slot idle (done), which admissions fill; its
-    lockstep generator draws from seed 0."""
-    B, h = slots, talker_cfg.hidden_size
+def _pick_free_slot(occupied: list, dp: int = 1) -> int | None:
+    """The next slot to admit into: the first free slot of the LEAST-LOADED
+    shard (slot s lives on shard s // (slots/dp); one shard: the first free
+    slot). A shard's step time grows with its active rows, so packing the
+    low slots would run every chunk at the busiest shard's speed while the
+    others idle."""
+    lb = len(occupied) // dp
+    best, best_load = None, None
+    for sh in range(dp):
+        rows = range(sh * lb, (sh + 1) * lb)
+        free = next((i for i in rows if not occupied[i]), None)
+        if free is None:
+            continue
+        load = sum(bool(occupied[i]) for i in rows)
+        if best_load is None or load < best_load:
+            best, best_load = free, load
+    return best
+
+
+def _until_step(carry: list, chunk: int) -> list[int]:
+    """The chunk's lockstep bound, one a shard (its own counter + chunk), so
+    a shard that idled keeps chunk-granular harvest and admission instead
+    of catching up to the busiest shard's counter in one long chunk."""
+    return [c.step + chunk for c in carry]
+
+
+def _one_carry(talker_cfg, B, max_frames, cache_len, dtype, kv_quant, device, seed, mesh=None):
     zeros = torch.zeros(B, dtype=torch.int32, device=device)
-    generator, seed_words = bg._seed_words(0, device)
+    generator, seed_words = bg._seed_words(seed, device)
     return bg.BatchCarry(
         step=0,
         steps=zeros.clone(),
         frames=zeros.clone(),
         done=torch.ones(B, dtype=torch.bool, device=device),
-        cur_input=torch.zeros(B, 1, h, dtype=dtype, device=device),
-        cache=tk.make_cache(talker_cfg, B, cache_len, dtype, device, quantized=kv_quant),
+        cur_input=torch.zeros(B, 1, talker_cfg.hidden_size, dtype=dtype, device=device),
+        cache=tk.make_cache(talker_cfg, B, cache_len, dtype, device, quantized=kv_quant,
+                            mesh=mesh),
         offsets=zeros.clone(),
         seen=torch.zeros(B, talker_cfg.vocab_size, dtype=torch.bool, device=device),
         codes=torch.zeros(B, max_frames, talker_cfg.num_code_groups, dtype=torch.int32,
@@ -213,10 +263,44 @@ def _empty_carry(talker_cfg, slots, max_frames, cache_len, dtype, kv_quant, devi
     )
 
 
+def _empty_carry(talker_cfg, slots, max_frames, cache_len, dtype, kv_quant, shard_mesh,
+                 mesh=None) -> list:
+    """The distributed carry with every slot idle (done), which admissions
+    fill: one carry of slots/dp rows on each shard's device, shard s drawing
+    from ``shard_seed(0, s)`` so shard streams never correlate; a one-shard
+    carry's cache split over ``mesh`` under tensor parallelism."""
+    devices = pdp.shard_devices(shard_mesh)
+    return [_one_carry(talker_cfg, slots // len(devices), max_frames, cache_len, dtype,
+                       kv_quant, d, pdp.shard_seed(0, s), mesh)
+            for s, d in enumerate(devices)]
+
+
+def _carry_rows(carry: list, name: str) -> np.ndarray:
+    """A per-slot field of the distributed carry, on the host, in global
+    slot order."""
+    return np.concatenate([getattr(c, name).cpu().numpy() for c in carry])
+
+
+def _slot_carry(carry: list, s: int):
+    """(the shard carry that holds slot s, its row there)."""
+    lb = carry[0].codes.shape[0]
+    return carry[s // lb], s % lb
+
+
 def _pad(x: torch.Tensor, rows: int, dtype, device) -> torch.Tensor:
     """x [..., n, h] right-padded with zero rows to ``rows``."""
     x = x.to(device=device, dtype=dtype)
     return torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[-2]))
+
+
+def _require_shard_kernels(talker_params, cp_params, talker_cfg, cp_cfg, slots, kv_quant,
+                           shard_mesh):
+    """``batch_generate._require_kernels`` for the server's decode: slots/dp
+    rows on each shard's device."""
+    devices = pdp.shard_devices(shard_mesh)
+    for dev in devices:
+        bg._require_kernels(talker_params, cp_params, talker_cfg, cp_cfg, dev,
+                            slots // len(devices), kv_quant)
 
 
 class ContinuousBatcher:
@@ -244,16 +328,19 @@ class ContinuousBatcher:
         cache_len: int | None = None,
         dtype=torch.bfloat16,
         kv_quant: bool = False,
+        mesh=None,
+        dp_mesh=None,
     ):
-        bg._require_kernels(talker_params, cp_params, talker_cfg, cp_cfg, tts_pad_embed.device,
-                            slots, kv_quant)
+        shard_mesh = _route_device_fns(dp_mesh, mesh, slots, tts_pad_embed.device)[1]
+        _require_shard_kernels(talker_params, cp_params, talker_cfg, cp_cfg, slots, kv_quant,
+                               shard_mesh)
         self.sampling = sampling
         self.slots = slots
         self.max_frames = max_frames
         self._kw = dict(talker_cfg=talker_cfg, cp_cfg=cp_cfg, sampling=sampling,
                         tts_pad_embed=tts_pad_embed, chunk_frames=chunk_frames,
                         max_frames=max_frames, cache_len=cache_len, dtype=dtype,
-                        kv_quant=kv_quant)
+                        kv_quant=kv_quant, mesh=mesh, dp_mesh=dp_mesh)
         self._params = (talker_params, cp_params)
         self.total_iterations = 0  # lockstep decode iterations of the last run
 
@@ -265,8 +352,10 @@ class ContinuousBatcher:
             return []
         for it in items:
             _check_item(it, self.sampling)
+        # dp keeps every slot: the shards' split is fixed by ``slots``
         server = Qwen3TTSServer(
-            *self._params, **self._kw, slots=min(self.slots, len(items)),
+            *self._params, **self._kw,
+            slots=self.slots if self._kw["dp_mesh"] is not None else min(self.slots, len(items)),
             prompt_bucket=pad_to_bucket(max(it.prefill_embeds.shape[1] for it in items)),
             trailing_bucket=pad_to_bucket(max(max(it.trailing.shape[0] for it in items), 1)),
         )
@@ -309,10 +398,14 @@ class Qwen3TTSServer:
         dtype=torch.bfloat16,
         kv_quant: bool = False,
         max_queue: int | None = None,
+        mesh=None,
+        dp_mesh=None,
     ):
         self.device = tts_pad_embed.device
-        bg._require_kernels(talker_params, cp_params, talker_cfg, cp_cfg, self.device, slots,
-                            kv_quant)
+        self.mesh, self.dp_mesh = mesh, dp_mesh
+        self._dp, self._shard_mesh = _route_device_fns(dp_mesh, mesh, slots, self.device)
+        _require_shard_kernels(talker_params, cp_params, talker_cfg, cp_cfg, slots, kv_quant,
+                               self._shard_mesh)
         self.max_queue = max_queue
         self.talker_params = talker_params
         self.cp_params = cp_params
@@ -429,10 +522,12 @@ class Qwen3TTSServer:
         # override them (_check_item)
         common = dict(talker_cfg=self.talker_cfg, cp_cfg=self.cp_cfg,
                       sampling=self.sampling._replace(per_request=True))
+        dp, shards = self._dp, self._shard_mesh
         carry = _empty_carry(self.talker_cfg, B, self.max_frames, self.cache_len, dt,
-                             self.kv_quant, dev)
-        trailing_all = torch.zeros(B, self.trailing_bucket, self.talker_cfg.hidden_size,
-                                   dtype=dt, device=dev)
+                             self.kv_quant, shards, self.mesh)
+        # one trailing buffer a shard, on its device
+        trailing_all = [torch.zeros(B // dp, self.trailing_bucket, self.talker_cfg.hidden_size,
+                                    dtype=dt, device=c.codes.device) for c in carry]
         trail_lens = np.zeros((B,), np.int32)
         # slot -> its Future / SlotProgress (None: idle, or a plain request's feed);
         # also read by _worker's failure path
@@ -446,13 +541,14 @@ class Qwen3TTSServer:
         def harvest(s):
             fut, prog = slot_fut[s], slot_prog[s]
             slot_fut[s] = slot_prog[s] = None
-            fr = int(carry.frames[s])
-            codes = carry.codes[s, :fr].cpu().numpy().copy()
+            c, r = _slot_carry(carry, s)
+            fr = int(c.frames[r])
+            codes = c.codes[r, :fr].cpu().numpy().copy()
             if prog is not None:
                 prog.publish(codes, fr, True)
             if not fut.done():  # RUNNING since admission
                 fut.set_result(BatchOutput(codes=codes, n_frames=fr,
-                                           lockstep_iterations=carry.step - int(start_step[s])))
+                                           lockstep_iterations=c.step - int(start_step[s])))
 
         while True:
             with self._lock:
@@ -462,12 +558,15 @@ class Qwen3TTSServer:
                     return
                 pending, self._queue = self._queue, []
 
-            # admit into free slots; requests not admitted yet stay in
-            # self._draining, so a fault inside an admission still reaches
-            # their futures (the rest go back to the queue's head)
+            # admit into free slots, one request at a time on its owner
+            # shard; requests not admitted yet stay in self._draining, so a
+            # fault inside an admission still reaches their futures (the
+            # rest go back to the queue's head). One at a time: on four
+            # H100s, four cards' admissions on four host threads at once
+            # took 3-5x longer than one after another (PERF.md, Findings)
             self._draining = pending
             while self._draining:
-                s = _pick_free_slot([f is not None for f in slot_fut])
+                s = _pick_free_slot([f is not None for f in slot_fut], dp)
                 if s is None:
                     break
                 item, fut, prog = self._draining.pop(0)
@@ -478,19 +577,21 @@ class Qwen3TTSServer:
                     continue  # cancelled while queued: no device work at all
                 slot_fut[s], slot_prog[s] = fut, prog  # before the device call
                 samp[s] = _samp_row(item, self.sampling)
-                carry, trailing_all = bg.admit_slot(
-                    self.talker_params, self.cp_params, carry, trailing_all, **common, slot=s,
+                carry, trailing_all = pdp.admit_slot_dp(
+                    self.talker_params, self.cp_params, carry, trailing_all, mesh=shards,
+                    **common, slot=s,
                     prefill_embeds=_pad(item.prefill_embeds, self.prompt_bucket, dt, dev),
                     prefill_len=item.prefill_embeds.shape[1],
                     trailing_row=_pad(item.trailing, self.trailing_bucket, dt, dev),
                     trailing_len=item.trailing.shape[0], tts_pad_embed=self.tts_pad,
                     seed=item.seed, samp_row=samp[s:s + 1],
                 )
-                start_step[s] = carry.step
+                c, r = _slot_carry(carry, s)
+                start_step[s] = c.step
                 slot_caps[s] = min(item.max_steps, self.max_frames)
                 trail_lens[s] = item.trailing.shape[0]
                 known_frames[s] = 1
-                if bool(carry.done[s]):  # EOS on the first frame
+                if bool(c.done[r]):  # EOS on the first frame
                     harvest(s)
             if self._draining:
                 with self._lock:
@@ -513,19 +614,19 @@ class Qwen3TTSServer:
             chunk_now = min(self.chunk_frames, WARMUP_CHUNK) if warming else self.chunk_frames
             active = np.asarray([f is not None for f in slot_fut])
             max_steps = np.where(active, slot_caps, 0).astype(np.int32)
-            carry = bg.generate_chunk_batch(
-                self.talker_params, self.cp_params, carry, **common,
+            carry = pdp.generate_chunk_batch_dp(
+                self.talker_params, self.cp_params, carry, mesh=shards, **common,
                 trailing_embeds=trailing_all, trailing_lens=torch.from_numpy(trail_lens.copy()),
                 tts_pad_embed=self.tts_pad, max_steps=torch.from_numpy(max_steps),
-                until_step=carry.step + chunk_now, samp_vec=samp,
+                until_step=_until_step(carry, chunk_now), samp_vec=samp,
             )
-            self.total_iterations = carry.step
+            self.total_iterations = pdp.global_step(carry)
 
-            done, frames = carry.done.cpu().numpy(), carry.frames.cpu().numpy()
+            done, frames = _carry_rows(carry, "done"), _carry_rows(carry, "frames")
             streaming = [s for s in range(B) if slot_fut[s] is not None and slot_prog[s] is not None]
             if streaming:
                 known_frames[:] = frames
-                codes = carry.codes.cpu().numpy()
+                codes = _carry_rows(carry, "codes")
                 for s in streaming:
                     if not done[s]:  # a finished slot's harvest publishes its last state
                         slot_prog[s].publish(codes[s, : frames[s]].copy(), int(frames[s]), False)

@@ -78,7 +78,7 @@ def main() -> None:
         cpk.predict_codes_fused(cp, cpc, talker, hid, c0, (3, 4), temperature=0.9, top_k=50,
                                 top_p=top_p, mode=mode)
         torch.cuda.synchronize()
-        cpk.check_barrier()
+        cpk.check_barrier(dev)
         print(f"K2 B=1 {name} {mode}", flush=True)
     V = cfg.vocab_size
     supp, seen = torch.zeros(V, device=dev), torch.zeros(V, dtype=torch.bool, device=dev)
@@ -106,7 +106,7 @@ def main() -> None:
                                temperature=0.9, top_k=50, top_p=top_p, rep_penalty=1.05,
                                eos_id=-1, seed=(1, 2), suppress_add=supp, seen=seen, mode=mode)
         torch.cuda.synchronize()
-        tkk.check_barrier()
+        tkk.check_barrier(dev)
         print(f"K1 B=1 {name} {mode} {'int8' if quant else 'bf16'} cache pos {pos} "
               f"{'sample' if sample else 'hidden'} top_p {top_p}", flush=True)
     print("ok", flush=True)

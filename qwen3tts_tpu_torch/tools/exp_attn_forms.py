@@ -119,10 +119,12 @@ def attn_form(form: str, q, k, v, n: int) -> torch.Tensor:
         raise ValueError(f"attn_form: n {n} < 0")
     part = torch.empty(bt * (w // CHUNK), D, dtype=torch.float32, device=q.device)
     out = torch.empty(1, D, dtype=torch.float32, device=q.device)
-    rc = _cuda.library().qt_attn_form(
-        int(K_TRANSPOSED[form]), bt, m, w, n, *(_cuda.ptr(t) for t in (q, k, v, part, out)),
-        _cuda.stream_ptr(),
-    )
+    lib = _cuda.library()
+    with _cuda.on_device(q.device) as stream:
+        rc = lib.qt_attn_form(
+            int(K_TRANSPOSED[form]), bt, m, w, n, *(_cuda.ptr(t) for t in (q, k, v, part, out)),
+            stream,
+        )
     _cuda.check(rc, "attn_form")
     attn_form.launches[form] += 1
     return out

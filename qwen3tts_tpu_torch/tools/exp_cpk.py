@@ -189,7 +189,12 @@ def _check(name, *args):
 
 
 def _launch_cuda(name, *args):
-    lib, st = _cuda.library(), _cuda.stream_ptr()
+    lib = _cuda.library()
+    with _cuda.on_device(_device(name, args)) as st:
+        return _launch_on(lib, st, name, *args)
+
+
+def _launch_on(lib, st, name, *args):
     ptr = _cuda.ptr
     if name == "p1":
         (x,) = args

@@ -72,10 +72,12 @@ def colsum(x: torch.Tensor, row0: int, rows: int, blk_rows: int) -> torch.Tensor
     _check(x, row0, rows, blk_rows)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     out = torch.empty(COLS, dtype=torch.int32, device=x.device)
-    rc = _cuda.library().qt_hbm_colsum(
-        _cuda.ptr(x), x.shape[0], row0, rows, blk_rows,
-        group_for(rows // blk_rows, blk_rows, sms), _cuda.ptr(out), _cuda.stream_ptr(),
-    )
+    lib = _cuda.library()
+    with _cuda.on_device(x.device) as stream:
+        rc = lib.qt_hbm_colsum(
+            _cuda.ptr(x), x.shape[0], row0, rows, blk_rows,
+            group_for(rows // blk_rows, blk_rows, sms), _cuda.ptr(out), stream,
+        )
     _cuda.check(rc, "colsum")
     colsum.launches += 1
     return out

@@ -123,8 +123,10 @@ def mxu_variant(x, packed, scales, biases) -> torch.Tensor:
         raise ValueError(f"mxu_variant: unsupported device {x.device}")
     O, I, ng = _check_mxu(x, packed, scales, biases)
     y = torch.empty(1, O, dtype=torch.float32, device=x.device)
-    rc = _cuda.library().qt_int4_mxu(
-        O, I, ng, *(_cuda.ptr(t) for t in (x, packed, scales, biases, y)), _cuda.stream_ptr())
+    lib = _cuda.library()
+    with _cuda.on_device(x.device) as stream:
+        rc = lib.qt_int4_mxu(
+            O, I, ng, *(_cuda.ptr(t) for t in (x, packed, scales, biases, y)), stream)
     _cuda.check(rc, "mxu_variant")
     mxu_variant.launches += 1
     return y
@@ -162,8 +164,10 @@ def plane_variant(x, lo, hi, scales) -> torch.Tensor:
         raise ValueError(f"plane_variant: unsupported device {x.device}")
     O, I, ng = _check_plane(x, lo, hi, scales)
     y = torch.empty(1, O, dtype=torch.float32, device=x.device)
-    rc = _cuda.library().qt_int4_plane(
-        O, I, ng, *(_cuda.ptr(t) for t in (x, lo, hi, scales, y)), _cuda.stream_ptr())
+    lib = _cuda.library()
+    with _cuda.on_device(x.device) as stream:
+        rc = lib.qt_int4_plane(
+            O, I, ng, *(_cuda.ptr(t) for t in (x, lo, hi, scales, y)), stream)
     _cuda.check(rc, "plane_variant")
     plane_variant.launches += 1
     return y

@@ -91,10 +91,12 @@ def kv_append(k_cache, v_cache, k_new, v_new, offsets):
         raise ValueError(f"kv_append: unsupported device {k_cache.device}")
     _check(k_cache, v_cache, k_new, v_new, offsets)
     l, b, h, t_max, d = k_cache.shape
-    rc = _cuda.library().qt_kv_append(
-        l, b, h, t_max, d, *(_cuda.ptr(t) for t in (k_cache, v_cache, k_new, v_new, offsets)),
-        _cuda.stream_ptr(),
-    )
+    lib = _cuda.library()
+    with _cuda.on_device(k_cache.device) as stream:
+        rc = lib.qt_kv_append(
+            l, b, h, t_max, d, *(_cuda.ptr(t) for t in (k_cache, v_cache, k_new, v_new, offsets)),
+            stream,
+        )
     _cuda.check(rc, "kv_append")
     kv_append.launches += 1
     return k_cache, v_cache

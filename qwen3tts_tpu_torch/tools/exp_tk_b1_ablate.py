@@ -127,11 +127,13 @@ def _launch(params, cfg, x, cache, pos, cos, sin, part):
     sums = torch.empty(4 * L + 1, dtype=torch.int64, device=dev)  # T7's checksums
     tiles = torch.empty(4 * L, dtype=torch.float32, device=dev)  # T7's tile sums
     x = x.contiguous()  # operands stay referenced until the launches are enqueued
-    rc = _cuda.library().qt_talker_ablate_dma(
-        L, H, NQ, NKV, D, I, T, B, pos, _cuda.ptr(x),
-        *(_cuda.ptr(layers[k].q) for k in _MATS), _cuda.ptr(cache.k), _cuda.ptr(cache.v),
-        _cuda.ptr(h), _cuda.ptr(sums), _cuda.ptr(tiles), _cuda.stream_ptr(),
-    )
+    lib = _cuda.library()
+    with _cuda.on_device(x.device) as stream:
+        rc = lib.qt_talker_ablate_dma(
+            L, H, NQ, NKV, D, I, T, B, pos, _cuda.ptr(x),
+            *(_cuda.ptr(layers[k].q) for k in _MATS), _cuda.ptr(cache.k), _cuda.ptr(cache.v),
+            _cuda.ptr(h), _cuda.ptr(sums), _cuda.ptr(tiles), stream,
+        )
     _cuda.check(rc, "variant_step")
     return (h, *_new_rows(cache, pos))
 

@@ -108,11 +108,13 @@ def launch(ops, x, form):
     nbytes = (ctypes.c_longlong * n)(*(o.numel() // L * o.element_size() for o in ops))
     esz = (ctypes.c_int * n)(*(o.element_size() for o in ops))
     tile = (ctypes.c_int * n)(*(_tile(o, form) for o in ops))
-    rc = _cuda.library().qt_weight_stream(
-        n, ctypes.addressof(w), ctypes.addressof(nbytes), ctypes.addressof(esz),
-        ctypes.addressof(tile), L, form, B, H, _cuda.ptr(x), _cuda.ptr(h), _cuda.ptr(sums),
-        _cuda.ptr(tiles), _cuda.stream_ptr(),
-    )
+    lib = _cuda.library()
+    with _cuda.on_device(x.device) as stream:
+        rc = lib.qt_weight_stream(
+            n, ctypes.addressof(w), ctypes.addressof(nbytes), ctypes.addressof(esz),
+            ctypes.addressof(tile), L, form, B, H, _cuda.ptr(x), _cuda.ptr(h), _cuda.ptr(sums),
+            _cuda.ptr(tiles), stream,
+        )
     _cuda.check(rc, "weight_stream")
     # views of the slots: int64 rows as they are, the f32 operands' float64
     # rows rounded to f32 in one conversion for all of them (no launch per row)

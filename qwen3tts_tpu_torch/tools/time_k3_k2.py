@@ -145,11 +145,12 @@ def k3_cut(q, kv, pos, cut, L):
 
     def run():
         l = next(turn) % L
-        rc = lib.qt_decode_attention_cut(
-            cut, NQ, NKV, D, T, pos, D**-0.5, attn.chunks(pos),
-            *(_cuda.ptr(t) for t in (q, kv[0, l, 0], kv[1, l, 0], ml, acc,
-                                     attn.head_counters(q.device, NKV), out)),
-            _cuda.stream_ptr())
+        with _cuda.on_device(q.device) as stream:
+            rc = lib.qt_decode_attention_cut(
+                cut, NQ, NKV, D, T, pos, D**-0.5, attn.chunks(pos),
+                *(_cuda.ptr(t) for t in (q, kv[0, l, 0], kv[1, l, 0], ml, acc,
+                                         attn.head_counters(q.device, NKV), out)),
+                stream)
         _cuda.check(rc, "qt_decode_attention_cut")
 
     return run

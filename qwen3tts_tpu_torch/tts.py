@@ -19,7 +19,12 @@ audio to codes (models/encoder.py) and a speaker embedding
 runs B utterances in lockstep decodes of at most 64 each
 (models/batch_generate.py), with one batched vocoder call per group.
 ``kv_cache_dtype="int8"`` keeps the talker's KV cache in int8 with per-row
-scales. ``generate_batch_continuous`` runs N texts over a fixed number of
+scales. ``mesh=`` (a ``parallel.mesh.make_mesh`` grid) splits the talker
+and the code predictor over tensor-parallel positions, whose decode runs
+the plain per-position layer step; ``generate_batch``,
+``generate_batch_continuous`` and ``serve`` take ``dp_mesh=`` (a tp=1
+mesh) to run the single-device path on K1 and K2 on each of several
+replicas (parallel/dp.py). ``generate_batch_continuous`` runs N texts over a fixed number of
 cache slots, refilling a slot as soon as its utterance ends (serving.py),
 and ``serve`` returns a ``TTSService``: a long-lived worker behind a
 thread-safe ``submit`` (a Future of the waveform) and ``submit_stream``
@@ -162,6 +167,25 @@ def _kernel_device(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
+def _check_mesh(mesh, what: str = "mesh") -> None:
+    from .parallel.mesh import Mesh
+
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise Qwen3TTSError(f"{what} must be a qwen3tts_tpu_torch.parallel.mesh.Mesh "
+                            f"(make_mesh), got {type(mesh).__name__}")
+
+
+def _mesh_device(mesh, device):
+    """The model's device under ``mesh``: the mesh's first device, which
+    ``device`` may only name again."""
+    _check_mesh(mesh)
+    if mesh is None:
+        return device
+    if device is not None and torch.device(device) != mesh.home:
+        raise Qwen3TTSError(f"device {device} is not the mesh's first device {mesh.home}")
+    return mesh.home
+
+
 def _device(device) -> torch.device:
     """The model's device: CUDA unless another is asked for; CUDA with no
     card present raises."""
@@ -189,7 +213,14 @@ class Qwen3TTSModel:
         dtype=torch.bfloat16,
         device=None,
         kv_cache_dtype: str = "bf16",
+        mesh=None,
     ):
+        """``mesh``: a ("dp", "tp") ``parallel.mesh.Mesh``: the talker and
+        code predictor trees are sharded over it (unfused layers only, as in
+        the JAX package) and every generate* entry point runs under it
+        unchanged, with sharded KV caches; the model's device is the mesh's
+        first (``Mesh.home``), where the host-side code, the vocoder and the
+        encoders run."""
         if config.talker_config is None:
             raise Qwen3TTSError("Talker config is required")
         if kv_cache_dtype not in ("bf16", "int8"):
@@ -205,6 +236,19 @@ class Qwen3TTSModel:
         self.speaker_encoder_params = speaker_encoder_params
         self.tokenizer = tokenizer
         self.dtype = dtype
+        device = _mesh_device(mesh, device)
+        self.mesh = mesh
+        if mesh is not None:
+            from .parallel import mesh as pm
+
+            self.talker_params = pm.shard_talker(talker_params, mesh)
+            if cp_params is not None:
+                self.cp_params = pm.shard_cp(cp_params, mesh)
+            # the JAX package replicates these over the mesh; here they run
+            # on the host-side device only, so they are put there whole
+            for attr in ("vocoder_params", "encoder_params", "speaker_encoder_params"):
+                if getattr(self, attr) is not None:
+                    setattr(self, attr, pm.tree_to(getattr(self, attr), mesh.home))
         self.device = _device(device)
         # int8 KV cache with per-row scales: half the bytes the decode
         # attention reads; opt-in, as int8 rounding perturbs attention
@@ -247,17 +291,22 @@ class Qwen3TTSModel:
         their dense-bf16 mode. ``fuse`` fuses the projections without
         quantizing.
         ``kv_cache_dtype='int8'`` stores decode KV caches as int8 with
-        per-row scales. ``mesh`` is not ported yet and raises."""
+        per-row scales.
+
+        ``mesh``: a ("dp", "tp") ``parallel.mesh.Mesh``: the weights load
+        onto its first device and nothing is fused (TP needs unfused head
+        groups, as in the JAX package); ``quantize='int8'`` gives unfused
+        ``Int8Linear`` leaves; packed weights raise at sharding. Then the
+        talker and code predictor are sharded over the mesh
+        (``Qwen3TTSModel(..., mesh=)``)."""
         from .ops.quant import quantize_decode_params_int8
         from .utils.loader import Checkpoint
 
         if quantize not in (None, "int8"):
             raise Qwen3TTSError(f"Unsupported quantize mode: {quantize!r}")
-        if mesh is not None:
-            raise Qwen3TTSError("mesh (multi-device) loading is not ported yet")
         if kv_cache_dtype not in ("bf16", "int8"):
             raise Qwen3TTSError(f"Unsupported kv_cache_dtype: {kv_cache_dtype!r}")
-        device = _device(device)
+        device = _device(_mesh_device(mesh, device))
         kernels = _kernel_device(device)
         if quantize is None and keep_packed is None and kernels:
             # CUDA takes the JAX package's TPU default: a quantized (MLX
@@ -276,13 +325,14 @@ class Qwen3TTSModel:
         # ``bf16_kernel_ready``), which K1 and K2 serve in their bf16 mode.
         # The JAX package fuses only the talker there, as its bf16 CP ran on
         # XLA; the port's K2 takes the fused bf16 layout, so the CP is fused
-        # too. Other dtypes, packed weights and the CPU stay unfused.
+        # too. Other dtypes, packed weights and the CPU stay unfused, and so
+        # does everything under a mesh (TP splits unfused head groups).
         q0 = ckpt.talker_params["layers"]["q_proj"]
         bf16_kernel_ready = (
             kernels and quantize is None and isinstance(q0, torch.Tensor)
             and q0.dtype == torch.bfloat16
         )
-        if fuse or quantize == "int8" or bf16_kernel_ready:
+        if fuse or (mesh is None and (quantize == "int8" or bf16_kernel_ready)):
             ckpt.talker_params["layers"] = tk_mod.fuse_layer_projections(
                 ckpt.talker_params["layers"]
             )
@@ -317,6 +367,7 @@ class Qwen3TTSModel:
             dtype=dtype,
             device=device,
             kv_cache_dtype=kv_cache_dtype,
+            mesh=mesh,
         )
 
     @property
@@ -648,7 +699,7 @@ class Qwen3TTSModel:
         prep = dict(prep)
         cache = tk_mod.make_cache(
             self.talker_cfg, 1, prep.pop("cache_len"), prep["prefill_embeds"].dtype,
-            prep["prefill_embeds"].device, quantized=prep.pop("kv_quant"),
+            prep["prefill_embeds"].device, quantized=prep.pop("kv_quant"), mesh=self.mesh,
         )
         t0 = time.time()
         carry = gen_mod.prefill_start(
@@ -1040,17 +1091,23 @@ class Qwen3TTSModel:
         unfused talker, float32) raise ``Qwen3TTSError``; an unfused int8
         code predictor runs through K2.
 
+        ``dp_mesh``: a tp=1 ("dp", "tp") mesh (``parallel.mesh.make_mesh(devices,
+        tp=1)``): the weights are replicated on each of its devices and each
+        group's texts are split into dp shards of B/dp (at most 64 a shard,
+        so a group is 64 dp texts), each decoding through K1 and K2 on its
+        device with the shard's seed (``parallel.dp.shard_seed``); the
+        codes are vocoded on the model's device. The model must be loaded
+        without ``mesh=`` and dp must divide B.
+
         Unlike ``generate()``, a sequence that samples EOS on its very first
         frame yields an empty waveform instead of raising (the batch's other
-        results stand); check ``len(audio)``. ``dp_mesh`` (data-parallel
-        replicas) is not ported yet and raises."""
+        results stand); check ``len(audio)``."""
         from .models import batch_generate as bg
 
-        if dp_mesh is not None:
-            raise Qwen3TTSError("dp_mesh (data-parallel decode) is not ported yet")
         B = len(texts)
         if B == 0:
             return []
+        dp = 1 if dp_mesh is None else self._validate_dp(dp_mesh, B, "generate_batch", "batch")
         speakers = speakers if speakers is not None else [None] * B
         instructs = instructs if instructs is not None else [None] * B
         if len(speakers) != B or len(instructs) != B:
@@ -1059,9 +1116,10 @@ class Qwen3TTSModel:
                 f"instructs ({len(instructs)}) must have equal lengths"
             )
         self._require_audio_models()
-        if self.device.type == "cuda" and not bg.kernels_take(
+        group = MAX_BATCH * dp
+        if self.device.type == "cuda" and self.mesh is None and not bg.kernels_take(
             self.talker_params, self.cp_params, self.talker_cfg, self.cp_cfg,
-            min(B, MAX_BATCH), self.kv_quant,
+            min(B, group) // dp, self.kv_quant,
         ):
             raise Qwen3TTSError(
                 "generate_batch on CUDA runs through K1 and K2, which take a fused layout: "
@@ -1072,10 +1130,10 @@ class Qwen3TTSModel:
         sampling = self._sampling(temperature, top_k, top_p, repetition_penalty)
         t0 = time.time()
         groups = [
-            self._codes_batch(texts[i:i + MAX_BATCH], speakers[i:i + MAX_BATCH],
-                              instructs[i:i + MAX_BATCH], language, sampling, max_tokens,
-                              seed + i // MAX_BATCH)
-            for i in range(0, B, MAX_BATCH)
+            self._codes_batch(texts[i:i + group], speakers[i:i + group],
+                              instructs[i:i + group], language, sampling, max_tokens,
+                              seed + i // group, dp_mesh)
+            for i in range(0, B, group)
         ]
         n_frames = np.concatenate([n for _, n, _ in groups])
         if (n_frames == 0).all():
@@ -1086,11 +1144,13 @@ class Qwen3TTSModel:
         self._set_info(int(n_frames.sum()), prompt, 0.0, time.time() - t0)
         return [a if n_frames[b] else a[:0] for b, a in enumerate(audio)]
 
-    def _codes_batch(self, texts, speakers, instructs, language, sampling, max_tokens, seed):
-        """One lockstep decode of at most MAX_BATCH texts; returns (codes
-        [B, max_frames, 16] on the device, n_frames numpy [B], the prompt
-        bucket)."""
+    def _codes_batch(self, texts, speakers, instructs, language, sampling, max_tokens, seed,
+                     dp_mesh=None):
+        """One lockstep decode of at most MAX_BATCH texts (a shard, under
+        ``dp_mesh``); returns (codes [B, max_frames, 16] on the model's
+        device, n_frames numpy [B], the prompt bucket)."""
         from .models import batch_generate as bg
+        from .parallel import dp as pdp
 
         B = len(texts)
         built = self._build_batch_inputs(texts, speakers, instructs, language)
@@ -1106,19 +1166,55 @@ class Qwen3TTSModel:
         caps = [self._effective_max_tokens(t, max_tokens) for t in texts]
         max_frames = pad_to_bucket(max(caps), GEN_BUCKETS)
         cache_len = -(-(p_bucket + max_frames) // 128) * 128
-        res = bg.generate_codes_batch(
-            self.talker_params, self.cp_params,
+        kw = dict(
             talker_cfg=self.talker_cfg, cp_cfg=self.cp_cfg, sampling=sampling,
             prefill_embeds=prefill,
             prefill_lens=[e.shape[1] for e, _, _ in built],
             trailing_embeds=trailing,
             trailing_lens=[t.shape[0] for _, t, _ in built],
             tts_pad_embed=built[0][2].to(self.dtype),
-            cache=tk_mod.make_cache(self.talker_cfg, B, cache_len, self.dtype, self.device,
-                                    quantized=self.kv_quant),
             max_steps=caps, max_frames=max_frames, seed=seed,
         )
-        return res.codes, res.n_frames.cpu().numpy(), p_bucket
+        if dp_mesh is None:
+            res = bg.generate_codes_batch(
+                self.talker_params, self.cp_params, **kw,
+                cache=tk_mod.make_cache(self.talker_cfg, B, cache_len, self.dtype, self.device,
+                                        quantized=self.kv_quant, mesh=self.mesh),
+            )
+        else:  # each shard's cache made on its own device, never whole on one
+            shards = pdp.shard_devices(dp_mesh)
+            res = pdp.generate_codes_batch_dp(
+                self.talker_params, self.cp_params, mesh=dp_mesh, **kw,
+                cache=[tk_mod.make_cache(self.talker_cfg, B // len(shards), cache_len, self.dtype,
+                                         d, quantized=self.kv_quant) for d in shards],
+            )
+        return res.codes.to(self.device), res.n_frames.cpu().numpy(), p_bucket
+
+    def _validate_dp(self, dp_mesh, divisible: int, api: str, what: str = "slots") -> int:
+        """Check every ``dp_mesh`` surface at the call, before any device
+        work (the server is built lazily; without this a misconfiguration
+        would surface inside its worker at the first request): a model
+        loaded with ``mesh=``, a mesh with tp != 1 and a batch or slot count
+        that dp does not divide raise ``Qwen3TTSError``. Returns dp."""
+        from .parallel.dp import dp_size
+
+        _check_mesh(dp_mesh, "dp_mesh")
+        if self.mesh is not None:
+            raise Qwen3TTSError(
+                f"{api}(dp_mesh=) needs a model loaded without mesh= "
+                "(dp replicates the single-chip configuration; it does not "
+                "compose with a TP-sharded model)"
+            )
+        try:
+            dp = dp_size(dp_mesh)
+        except ValueError as ex:
+            raise Qwen3TTSError(str(ex)) from None
+        if divisible % dp != 0:
+            raise Qwen3TTSError(
+                f"{api}: {what} {divisible} not divisible by the dp mesh "
+                f"size {dp} (pad the request list or resize)"
+            )
+        return dp
 
     def generate_batch_continuous(
         self,
@@ -1145,11 +1241,14 @@ class Qwen3TTSModel:
         one waveform per text, in order (an
         empty one for a text that sampled EOS on its first frame). On CUDA
         the decode runs through K1 and K2 (slots <= 64, a fused layout).
-        ``dp_mesh`` is not ported yet and raises."""
+        ``dp_mesh`` (a tp=1 mesh): the slots are split over its replicas,
+        slot s on shard s // (slots/dp), each shard's admissions and chunks
+        on its own device (at most 64 slots a shard); the model must be
+        loaded without ``mesh=`` and dp must divide ``slots``."""
         from .serving import BatchItem, ContinuousBatcher
 
         if dp_mesh is not None:
-            raise Qwen3TTSError("dp_mesh (data-parallel serving) is not ported yet")
+            self._validate_dp(dp_mesh, slots, "generate_batch_continuous")
         N = len(texts)
         if N == 0:
             return []
@@ -1171,7 +1270,7 @@ class Qwen3TTSModel:
             tts_pad_embed=built[0][2], slots=slots,
             chunk_frames=chunk_frames or self.stream_chunk_frames,
             max_frames=pad_to_bucket(max(caps), GEN_BUCKETS), dtype=self.dtype,
-            kv_quant=self.kv_quant,
+            kv_quant=self.kv_quant, mesh=self.mesh, dp_mesh=dp_mesh,
         )
         outs = batcher.run(items)
         if all(o.n_frames == 0 for o in outs):
@@ -1213,25 +1312,30 @@ class Qwen3TTSModel:
         service keeps a per-slot table and K1 and K2 read each row's values,
         where the TPU turned both kernels off for per-request sampling.
         Values that are not finite, or a repetition_penalty <= 0, raise.
-        ``dp_mesh`` is not ported yet and raises; on CUDA ``slots`` must be
-        1..64 (K1 and K2's batch)."""
+        On CUDA ``slots`` must be 1..64 (K1 and K2's batch), or 1..64 a
+        shard under ``dp_mesh``: a tp=1 mesh whose replicas each own
+        slots/dp slots (the least-loaded shard takes the next request) and
+        decode them on their own device; the model must be loaded without
+        ``mesh=`` and dp must divide ``slots``."""
         from .models import batch_generate as bg
+        from .parallel import dp as pdp
         from .serving import check_samp_row
 
-        if dp_mesh is not None:
-            raise Qwen3TTSError("dp_mesh (data-parallel serving) is not ported yet")
+        dp = 1 if dp_mesh is None else self._validate_dp(dp_mesh, slots, "serve")
         try:
             check_samp_row((temperature, top_k, top_p, repetition_penalty))
         except ValueError as e:
             raise Qwen3TTSError(str(e)) from None
         self._require_audio_models()
-        bg._require_kernels(self.talker_params, self.cp_params, self.talker_cfg, self.cp_cfg,
-                            self.device, slots, self.kv_quant)
+        for dev in [self.device] if dp_mesh is None else pdp.shard_devices(dp_mesh):
+            bg._require_kernels(self.talker_params, self.cp_params, self.talker_cfg, self.cp_cfg,
+                                dev, slots // dp, self.kv_quant)
         sampling = self._sampling(temperature, top_k, top_p, repetition_penalty)
         return TTSService(
             self, slots=slots, chunk_frames=chunk_frames or self.stream_chunk_frames,
             max_frames=max_frames, prompt_bucket=prompt_bucket, trailing_bucket=trailing_bucket,
             sampling=sampling._replace(per_request=per_request_sampling), max_queue=max_queue,
+            dp_mesh=dp_mesh,
         )
 
     def _require_audio_models(self):
@@ -1402,11 +1506,11 @@ class TTSService:
     ``close()``."""
 
     def __init__(self, model: Qwen3TTSModel, *, slots, chunk_frames, max_frames, prompt_bucket,
-                 trailing_bucket, sampling, max_queue=None):
+                 trailing_bucket, sampling, max_queue=None, dp_mesh=None):
         self._model = model
         self._kw = dict(slots=slots, chunk_frames=chunk_frames, max_frames=max_frames,
                         prompt_bucket=prompt_bucket, trailing_bucket=trailing_bucket,
-                        max_queue=max_queue)
+                        max_queue=max_queue, mesh=model.mesh, dp_mesh=dp_mesh)
         self._sampling = sampling
         self._server = None  # made at the first submit (it needs a pad embedding)
         self._server_lock = threading.Lock()

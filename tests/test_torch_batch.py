@@ -316,7 +316,7 @@ def test_generate_batch_matches_jax():
         assert a.shape == np.asarray(b).shape and a.dtype == np.float32 and len(a) > 0
         assert np.isfinite(a).all()
         assert np.abs(a - np.asarray(b)).max() <= 1e-5 * 40
-    with pytest.raises(ttts.Qwen3TTSError, match="not ported"):
+    with pytest.raises(ttts.Qwen3TTSError, match="dp_mesh must be"):
         tm.generate_batch(texts, dp_mesh=object())
     with pytest.raises(ttts.Qwen3TTSError, match="equal lengths"):
         tm.generate_batch(texts, speakers=["aiden"])

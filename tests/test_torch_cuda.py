@@ -896,7 +896,7 @@ def test_k2_b1_back_to_back_calls_are_bit_equal(dev, weights):
     outs = [cpk.predict_codes_fused(cp, CPC, tp, h, code0, (5, 6), temperature=0.0, top_k=50,
                                     return_logits=True) for _ in range(200)]
     torch.cuda.synchronize()
-    cpk.check_barrier()
+    cpk.check_barrier(dev)
     for c, e, lg in outs[1:]:
         assert torch.equal(c, outs[0][0]) and torch.equal(e, outs[0][1])
         assert torch.equal(lg, outs[0][2])
@@ -921,7 +921,7 @@ def test_k2_b1_grid_and_barrier_faults_raise(dev, weights):
     torch.cuda.synchronize()
     assert torch.equal(faulted, torch.full_like(faulted, -1))
     with pytest.raises(cpk.BarrierTimeout, match="K2 persistent barrier timed out"):
-        cpk.check_barrier()
+        cpk.check_barrier(dev)
     cpk.launch(cp, CPC, tp, h, code0, (5, 6), budget_ns=1, **kw)
     with pytest.raises(cpk.BarrierTimeout):
         gen.check_cp_frames(dev, sync=True)
@@ -935,7 +935,7 @@ def test_k2_b1_grid_and_barrier_faults_raise(dev, weights):
     ck, ek, lk = cpk.predict_codes_fused(cp, CPC, tp, h, code0, (5, 6), temperature=0.0,
                                          top_k=50, force_codes=cr, return_logits=True)
     torch.cuda.synchronize()
-    cpk.check_barrier()
+    cpk.check_barrier(dev)
     assert scaled(lk, lr) < 0.05 and torch.equal(ek, er)
 
 
@@ -1412,7 +1412,7 @@ def test_k1_b1_persistent_step_matches_plain(dev, weights, bf16_weights, name):
     for a, b in zip(out_k if sample else (out_k,), again if sample else (again,)):
         assert torch.equal(a, b)
     torch.cuda.synchronize()
-    tkk.check_barrier()
+    tkk.check_barrier(dev)
 
 
 def test_k1_b1_cut_profile_runs(dev, weights):
@@ -1430,7 +1430,7 @@ def test_k1_b1_cut_profile_runs(dev, weights):
         torch.cuda.synchronize()
         if cut == len(tkk.STEP_CUTS):
             assert all(torch.equal(a, b) for a, b in zip(out, whole))
-    tkk.check_barrier()
+    tkk.check_barrier(dev)
 
 
 def test_k1_b1_grid_and_barrier_faults_raise(dev, weights):
@@ -1453,7 +1453,7 @@ def test_k1_b1_grid_and_barrier_faults_raise(dev, weights):
     torch.cuda.synchronize()
     assert int(code) == -1 and bool(torch.isnan(h.float()).all())
     with pytest.raises(tkk.BarrierTimeout, match="K1 persistent barrier timed out"):
-        tkk.check_barrier()
+        tkk.check_barrier(dev)
     tkk.launch(tp, CFG, x, _clone(cache), 70, cos, sin, budget_ns=1, **kw)
     with pytest.raises(tkk.BarrierTimeout):
         gen.check_cp_frames(dev, sync=True)
@@ -1465,7 +1465,7 @@ def test_k1_b1_grid_and_barrier_faults_raise(dev, weights):
     hk, ck, lk, _ = _k1(tkk.talker_decode_step, tp, case, 70, temperature=0.0)
     hr, cr, lr, _ = _k1(tkk.talker_decode_step_ref, tp, case, 70, temperature=0.0)
     torch.cuda.synchronize()
-    tkk.check_barrier()
+    tkk.check_barrier(dev)
     assert scaled(hk, hr) < 0.05 and scaled(lk, lr) < 0.05
 
 
@@ -1774,3 +1774,165 @@ def test_a_served_greedy_request_is_slot_independent(dev, weights):
     srv.close()
     assert alone.n_frames > 0 and all(o.n_frames > 0 for o in outs)
     assert outs[-1].n_frames == alone.n_frames and (outs[-1].codes == alone.codes).all()
+
+
+# ---------------------------------------------------------------------------
+# Multi-device: the dp replicas and the TP mesh on one card named twice, the
+# atomic launch counter, and the kernels on a second card
+# ---------------------------------------------------------------------------
+
+
+def _dp_inputs(dev, B):
+    g = torch.Generator(device=dev).manual_seed(12)
+    return dict(
+        prefill_embeds=torch.randn(B, 64, 256, generator=g, device=dev).mul(0.1).bfloat16(),
+        prefill_lens=[20 + 3 * b for b in range(B)],
+        trailing_embeds=torch.randn(B, 16, 256, generator=g, device=dev).mul(0.1).bfloat16(),
+        trailing_lens=[4 + b for b in range(B)],
+        tts_pad_embed=torch.zeros(256, dtype=torch.bfloat16, device=dev),
+    )
+
+
+def test_dp_over_one_card_twice_equals_each_shard_alone(dev, weights):
+    """``generate_codes_batch_dp`` over ``[cuda:0, cuda:0]`` (the shards take
+    turns on the card) at B = 4, sampled: each shard's codes equal its rows
+    run alone with ``shard_seed(seed, s)``, and K1 and K2 launched as many
+    times as the two shards alone did, each shard at least once a frame."""
+    from qwen3tts_tpu_torch.parallel import dp as pdp
+    from qwen3tts_tpu_torch.parallel import mesh as pm
+
+    tp, cp = weights
+    B, caps = 4, [12, 16, 9, 16]
+    inp = _dp_inputs(dev, B)
+    sampling = gen.SamplingConfig(0.9, 50, 1.0, 1.05, forbid_eos=True)
+    common = dict(talker_cfg=CFG, cp_cfg=CPC, sampling=sampling, max_frames=16)
+    counts = lambda: (tkk.talker_decode_step.launches, cpk.predict_codes_fused.launches)  # noqa: E731
+    alone, per_shard = [], []
+    for s in range(2):
+        rows = slice(2 * s, 2 * s + 2)
+        n0 = counts()
+        res = bg.generate_codes_batch(
+            tp, cp, **common, **{k: v[rows] if k != "tts_pad_embed" else v for k, v in inp.items()},
+            cache=tk.make_cache(CFG, 2, 128, torch.bfloat16, dev), max_steps=caps[rows],
+            seed=pdp.shard_seed(31, s))
+        torch.cuda.synchronize()
+        per_shard.append([b - a for a, b in zip(n0, counts())])
+        alone.append(res)
+    assert all(k1 > 0 and k2 > k1 for k1, k2 in per_shard)  # K2 also serves each first frame
+    n0 = counts()
+    got = pdp.generate_codes_batch_dp(
+        tp, cp, mesh=pm.make_mesh([dev, dev], tp=1), **common, **inp,
+        cache=tk.make_cache(CFG, B, 128, torch.bfloat16, dev), max_steps=caps, seed=31)
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(n0, counts())] == [sum(c) for c in zip(*per_shard)]
+    for s, res in enumerate(alone):
+        rows = slice(2 * s, 2 * s + 2)
+        assert torch.equal(got.codes[rows], res.codes)
+        assert torch.equal(got.n_frames[rows], res.n_frames)
+
+
+def test_tp_step_on_one_card_equals_the_k1_step(dev):
+    """The TP step at tp = 2 on ``[cuda:0, cuda:0]``, bf16 unfused weights
+    (the plain per-position step), equals K1's step on the fused copy of
+    the same weights within 0.02 scaled: the counterpart of
+    TestMeshKernelEquality.test_tp_xla_step_equals_kernel_step."""
+    from qwen3tts_tpu_torch.parallel import mesh as pm
+
+    tp = hi.to_device(hi.host_init_talker_params(0, CFG), torch.bfloat16, dev)
+    fused = dict(tp, layers=tk.fuse_layer_projections(tp["layers"]))
+    mesh = pm.make_mesh([dev, dev], tp=2)
+    ts = pm.shard_talker(tp, mesh)
+    g = torch.Generator(device=dev).manual_seed(21)
+    pos = 21
+    prefill = torch.randn(1, pos, 256, generator=g, device=dev).mul(0.2).bfloat16()
+    x = torch.randn(1, 1, 256, generator=g, device=dev).mul(0.2).bfloat16()
+    cache = tk.make_cache(CFG, 1, 128, torch.bfloat16, dev)
+    tk.forward(fused, CFG, prefill, cache, 0)
+    cache_s = tk.make_cache(CFG, 1, 128, torch.bfloat16, dev, mesh=mesh)
+    tk.forward(ts, CFG, prefill, cache_s, 0)
+    n = tkk.talker_decode_step.launches
+    h_k, _ = tk.forward(fused, CFG, x, cache, pos)
+    assert tkk.talker_decode_step.launches == n + 1
+    h_tp, _ = tk.forward(ts, CFG, x, cache_s, pos)
+    assert tkk.talker_decode_step.launches == n + 1  # the TP step is the plain one
+    assert scaled(h_tp, h_k) < 0.02
+
+
+def test_the_launch_counter_counts_two_threads_exactly(dev, weights):
+    """Two host threads launching K2 at B = 8 (several operations a call) at
+    once, each on its own stream: the library's count grows by exactly the
+    two threads' operations (the counter is atomic)."""
+    import threading
+
+    from qwen3tts_tpu_torch.ops import _cuda
+
+    tp, cp = weights
+    g = torch.Generator(device=dev).manual_seed(8)
+    h = torch.randn(8, 256, generator=g, device=dev).mul(0.3).bfloat16()
+    code0 = torch.arange(8, dtype=torch.int32, device=dev)
+    run = lambda: cpk.predict_codes_fused(cp, CPC, tp, h, code0, (1, 2), temperature=0.0,  # noqa: E731
+                                          top_k=50)
+    n0 = _cuda.launches()
+    run()
+    torch.cuda.synchronize()
+    per_call, calls = _cuda.launches() - n0, 200
+    assert per_call > 1
+    start = threading.Barrier(2)
+
+    def worker():
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            start.wait()
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+
+    n0 = _cuda.launches()
+    threads = [threading.Thread(target=worker) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert _cuda.launches() - n0 == 2 * calls * per_call
+
+
+@pytest.mark.skipif(not torch.cuda.is_available() or torch.cuda.device_count() < 2,
+                    reason="needs two CUDA devices: the per-device shared-memory limits and "
+                           "SM counts show only on a second card")
+def test_kernels_on_a_second_card_after_the_first(weights):
+    """K1 (the persistent B = 1 step and the B = 8 step), K2 (B = 1 and 8)
+    and K3 on cuda:0, then on cuda:1 with copies of the same operands: each
+    equals its plain version on both cards (a shared-memory limit set only
+    on the first card would fail the second's launches)."""
+    from qwen3tts_tpu_torch.parallel.mesh import tree_to
+
+    tp0, cp0 = weights
+    for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        tp, cp = tree_to(tp0, dev), tree_to(cp0, dev)
+        for B in (1, 8):
+            g = torch.Generator(device=dev).manual_seed(B)
+            h = torch.randn(B, 256, generator=g, device=dev).mul(0.3).bfloat16()
+            code0 = torch.arange(B, dtype=torch.int32, device=dev) + 5
+            ck, ek = cpk.predict_codes_fused(cp, CPC, tp, h, code0, (1, 2), temperature=0.0,
+                                             top_k=50)
+            cr, er = cpk.predict_codes_fused_ref(cp, CPC, tp, h, code0, (1, 2), temperature=0.0,
+                                                 top_k=50, force_codes=ck)
+            assert scaled(ek, er) < 0.05
+            cache = tk.make_cache(CFG, B, 128, torch.bfloat16, dev)
+            cache.k.copy_(torch.randn(cache.k.shape, generator=g, device=dev))
+            cache.v.copy_(torch.randn(cache.v.shape, generator=g, device=dev).mul(0.5))
+            x = torch.randn(B, 1, 256, generator=g, device=dev).mul(0.2).bfloat16()
+            offs = torch.full((B,), 70, dtype=torch.int32, device=dev)
+            cos, sin = mrope_cos_sin(offs[:, None].long(), 128, CFG.rope_theta, CFG.mrope_section,
+                                     torch.bfloat16)
+            off = 70 if B == 1 else offs
+            k_out = tkk.talker_decode_step(tp, CFG, x, _clone(cache), off, cos[:, 0], sin[:, 0],
+                                           sample=False)
+            r_out = tkk.talker_decode_step_ref(tp, CFG, x, _clone(cache), off, cos[:, 0],
+                                               sin[:, 0], sample=False)
+            assert scaled(k_out, r_out) < 0.05
+        qv, k, v, layer = _k3_case(dev, 4096, 4000, True)
+        out = decode_attention_inner(qv, k, v, 4000, 128**-0.5, layer=layer)
+        assert scaled(out, decode_attention_ref(qv, k, v, 4000, 128**-0.5, layer=layer)) <= 1e-2
+        torch.cuda.synchronize(dev)
+        cpk.check_barrier(dev)
+        tkk.check_barrier(dev)

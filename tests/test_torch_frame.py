@@ -49,37 +49,38 @@ def test_b1_gate_takes_the_frames_vocabulary(vocab, batch, ok):
 
 def test_barrier_check_raises_once_and_clears(monkeypatch):
     """``check_barrier`` raises ``BarrierTimeout`` when the card set the
-    pinned flag, and clears it; a clear flag passes."""
+    device's pinned flag, and clears it; a clear flag passes."""
     flag = torch.zeros(1, dtype=torch.int32)  # the pinned flag's stand-in
-    monkeypatch.setattr(cpk, "_err_flag", flag)
-    cpk.check_barrier()
+    dev = torch.device("cuda", 0)
+    monkeypatch.setattr(cpk, "_err_flags", {dev: flag})
+    cpk.check_barrier(dev)
     flag.fill_(1)
     with pytest.raises(cpk.BarrierTimeout, match="K2 persistent barrier timed out"):
-        cpk.check_barrier()
+        cpk.check_barrier(dev)
     assert int(flag[0]) == 0
-    cpk.check_barrier()
+    cpk.check_barrier(dev)
 
 
 def test_barrier_check_without_a_frame_does_nothing(monkeypatch):
     """Before any B = 1 frame there is no flag: ``check_barrier`` returns
     without allocating one (pinned memory needs a CUDA build) and without
     synchronising."""
-    monkeypatch.setattr(cpk, "_err_flag", None)
+    monkeypatch.setattr(cpk, "_err_flags", {})
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: pytest.fail("synchronised"))
-    cpk.check_barrier(torch.device("cuda"))
-    assert cpk._err_flag is None
+    cpk.check_barrier(torch.device("cuda"), sync=True)
+    assert cpk._err_flags == {}
 
 
 def test_barrier_check_synchronises_first_when_asked(monkeypatch):
-    """With ``sync_device`` the host waits for the device before it reads the
+    """With ``sync`` the host waits for the device before it reads the
     flag, so a frame still running is not missed."""
     flag = torch.zeros(1, dtype=torch.int32)
-    monkeypatch.setattr(cpk, "_err_flag", flag)
+    monkeypatch.setattr(cpk, "_err_flags", {torch.device("cuda", 0): flag})
     synced = []
     monkeypatch.setattr(torch.cuda, "synchronize", lambda d=None: (synced.append(d),
                                                                    flag.fill_(1)))
     with pytest.raises(cpk.BarrierTimeout):
-        cpk.check_barrier(torch.device("cuda", 0))
+        cpk.check_barrier(torch.device("cuda", 0), sync=True)
     assert synced == [torch.device("cuda", 0)]
 
 
@@ -91,7 +92,7 @@ def test_decode_loops_check_the_frames_on_cuda_only(monkeypatch, sync):
     from qwen3tts_tpu_torch.models import generate as gen
 
     flag = torch.ones(1, dtype=torch.int32)
-    monkeypatch.setattr(cpk, "_err_flag", flag)
+    monkeypatch.setattr(cpk, "_err_flags", {torch.device("cuda", 0): flag})
     synced = []
     monkeypatch.setattr(torch.cuda, "synchronize", lambda d=None: synced.append(d))
     gen.check_cp_frames(torch.device("cpu"), sync=sync)

@@ -658,7 +658,7 @@ def test_generate_batch_continuous(model):
     assert len(out) == 3 and all(a.shape[0] % 1920 == 0 and np.isfinite(a).all() for a in out)
     alone = model.generate_batch_continuous(texts[:1], **dict(kw, speakers=["aiden"]))
     assert out[0].shape == alone[0].shape and np.abs(out[0] - alone[0]).max() <= 1e-5 * 40
-    with pytest.raises(ttts.Qwen3TTSError, match="not ported"):
+    with pytest.raises(ttts.Qwen3TTSError, match="dp_mesh must be"):
         model.generate_batch_continuous(texts, dp_mesh=object())
-    with pytest.raises(ttts.Qwen3TTSError, match="not ported"):
+    with pytest.raises(ttts.Qwen3TTSError, match="dp_mesh must be"):
         model.serve(dp_mesh=object())

@@ -351,8 +351,8 @@ def test_a_fault_raises_at_the_end_of_its_turn(monkeypatch):
     log = []
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream(log))
     flag = torch.zeros(1, dtype=torch.int32)  # the pinned flag's stand-in
-    monkeypatch.setattr(tkk, "_err_flag", flag)
     dev = torch.device("cuda", 0)
+    monkeypatch.setattr(tkk, "_err_flags", {dev: flag})
     with pytest.raises(_cuda.BarrierTimeout, match="K1 persistent barrier timed out"):
         with tgen.device_turn(dev):
             flag.fill_(1)  # as the card writes it when a step's barrier waits too long

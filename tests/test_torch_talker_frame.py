@@ -199,11 +199,12 @@ def test_barrier_check_raises_once_and_clears(monkeypatch):
     from qwen3tts_tpu_torch.models import generate as gen
 
     flag = torch.zeros(1, dtype=torch.int32)
-    monkeypatch.setattr(tkk, "_err_flag", flag)
-    tkk.check_barrier()
+    dev = torch.device("cuda", 0)
+    monkeypatch.setattr(tkk, "_err_flags", {dev: flag})
+    tkk.check_barrier(dev)
     flag.fill_(1)
     with pytest.raises(tkk.BarrierTimeout, match="K1 persistent barrier timed out"):
-        tkk.check_barrier()
+        tkk.check_barrier(dev)
     assert int(flag[0]) == 0
     flag.fill_(1)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda d=None: None)
