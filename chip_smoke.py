@@ -195,7 +195,18 @@ kernels from csrc/, and runs, in order:
      0.05 scaled) and in f32 against the unsharded step (1e-4), and 8
      greedy frames of ``generate()`` whose
      code 0 is the unsharded plain talker's teacher-forced choice but for
-     near-ties, ms a frame.
+     near-ties, ms a frame;
+  w. the CLI and the activation profiler: ``cli.main`` on phase 9's int4
+     checkpoint (the default load: int8, fused) at 0.6B, greedy at 24
+     frames (the WAV read back at 24 kHz with n x 1920 samples, the RTF,
+     tokens/s and peak-memory lines, every frame on K1's persistent B = 1
+     step and K2 by their counters and the library's own), the same with
+     ``--stream`` (a token line a frame, the same WAV) and again without
+     (warm: the same WAV, its RTF), ``--profile
+     --max-tokens 16`` over the 20 texts (20 runs, 28 x 3072 maxima, every
+     frame on K1 and K2), and the card's ``activation_stats`` of one
+     profiled sequence against the same call in f32 on the CPU (0.05
+     scaled).
 
 The K1 comparisons in dyn_int8 (phase k) hold kernel and plain version
 against a float64 step of the model's maths (the kernel within 1.5x of the
@@ -256,15 +267,36 @@ def checkpoint_arrays(talker: dict):
     return cfg, weights, st_cfg, st
 
 
+def talker_json(cfg) -> dict:
+    """``cfg`` (a TalkerConfig with the 0.6B speakers) as config.json's
+    talker_config."""
+    cpc = cfg.code_predictor_config
+    return dict(
+        vocab_size=cfg.vocab_size, text_vocab_size=cfg.text_vocab_size,
+        hidden_size=cfg.hidden_size, text_hidden_size=cfg.text_hidden_size,
+        intermediate_size=cfg.intermediate_size, num_hidden_layers=cfg.num_hidden_layers,
+        num_attention_heads=cfg.num_attention_heads, num_key_value_heads=cfg.num_key_value_heads,
+        head_dim=cfg.head_dim, spk_id={"aiden": 2861, "vivian": 2862},
+        code_predictor_config=dict(
+            vocab_size=cpc.vocab_size, hidden_size=cpc.hidden_size,
+            intermediate_size=cpc.intermediate_size, num_hidden_layers=cpc.num_hidden_layers,
+            num_attention_heads=cpc.num_attention_heads,
+            num_key_value_heads=cpc.num_key_value_heads, head_dim=cpc.head_dim,
+            num_code_groups=cpc.num_code_groups,
+        ),
+    )
+
+
 def write_checkpoint(path: str, arrays, packed_group: int | None = None) -> None:
     """Write ``checkpoint_arrays`` to a directory: its linear weights as MLX
-    int4 (``packed_group``; synthetic_ckpt.quantize_weights_mlx's selection
-    rule with the port's pack_quantized, as that function imports JAX), or
+    int4 (``packed_group``; the MLX selection rule of tools/ckpt_layout.py
+    with the port's pack_quantized, as synthetic_ckpt's imports JAX), or
     every float tensor of the main checkpoint as BF16, the dtype Qwen
     publishes (through torch: numpy has no bf16)."""
     import torch
 
     from qwen3tts_tpu_torch.ops.quant import pack_quantized
+    from qwen3tts_tpu_torch.tools.ckpt_layout import is_quantized_linear
     from qwen3tts_tpu_torch.utils.loader import write_safetensors
 
     cfg, weights, st_cfg, st = arrays
@@ -273,9 +305,7 @@ def write_checkpoint(path: str, arrays, packed_group: int | None = None) -> None
     if packed_group:
         cfg = dict(cfg, quantization={"group_size": packed_group, "bits": 4, "mode": "affine"})
         for k, v in weights.items():
-            if (k.endswith(".weight") and v.ndim == 2 and "embedding" not in k
-                    and ("proj" in k or "lm_head" in k or "codec_head" in k or "linear_fc" in k)
-                    and v.shape[1] % packed_group == 0):
+            if is_quantized_linear(k, v.shape, packed_group):
                 out[k], out[k + ".scales"], out[k + ".biases"] = pack_quantized(v, 4, packed_group)
             else:
                 out[k] = v
@@ -316,14 +346,9 @@ def fused_trees(c, dev, seed=0):
             quantize_decode_params_int8(cb, "lm_head"))
 
 
-def weights_06b(dev):
-    """(cfg, dec_cfg, talker bf16, CP bf16, talker int8, CP int8, vocoder):
-    the 0.6B CustomVoice widths, host_init trees fused (``fused_trees``),
-    and a random f32 vocoder at the speech tokenizer's decoder widths."""
-    import torch
-
+def config_06b():
+    """The 0.6B CustomVoice talker config (its CP's inside)."""
     from qwen3tts_tpu_torch import config as C
-    from qwen3tts_tpu_torch.utils import host_init as hi
 
     cpc = C.CodePredictorConfig(
         vocab_size=2048, hidden_size=1024, intermediate_size=3072, num_hidden_layers=5,
@@ -335,6 +360,19 @@ def weights_06b(dev):
         num_key_value_heads=8, head_dim=128, spk_id=(("aiden", 2861), ("vivian", 2862)),
         code_predictor_config=cpc,
     )
+    return cfg
+
+
+def weights_06b(dev):
+    """(cfg, dec_cfg, talker bf16, CP bf16, talker int8, CP int8, vocoder):
+    the 0.6B CustomVoice widths, host_init trees fused (``fused_trees``),
+    and a random f32 vocoder at the speech tokenizer's decoder widths."""
+    import torch
+
+    from qwen3tts_tpu_torch import config as C
+    from qwen3tts_tpu_torch.utils import host_init as hi
+
+    cfg = config_06b()
     dec_cfg = C.TokenizerDecoderConfig()
     voc_p = hi.init_vocoder_params(torch.Generator(device=dev).manual_seed(2), dec_cfg,
                                    torch.float32, dev)
@@ -657,6 +695,173 @@ def phase_v(dev, smi, cfg, model, talker_b, cp_b, voc_p) -> None:
         f"path's  [{smi}]")
     del tbs, tbu, cbu, tf32, cf32
     log(f"    phase v took {time.time() - t_v:.1f} s")
+
+
+def phase_w(dev, smi, cfg, ckpt) -> None:
+    """Phase w: the CLI and the activation profiler. ``cli.main`` at the
+    0.6B CustomVoice widths on phase 9's int4 checkpoint ``ckpt``, whose
+    default load is int8 with fused projections (K1 and K2); the stub
+    tokenizer is attached by wrapping ``from_pretrained``, which loads once
+    and hands the later runs the same model. A greedy run, the same run
+    with ``--stream`` and once more (warm), then ``--profile`` over the 20
+    texts; the card's
+    ``activation_stats`` of one profiled sequence against the same call in
+    f32 on the CPU on the same weights (within phase 3's bf16 bound, 0.05
+    scaled). Raises at the first failed check."""
+    import contextlib
+    import io
+    import re
+
+    import numpy as np
+    import torch
+    from synthetic_ckpt import StubTokenizer
+
+    from qwen3tts_tpu_torch import cli
+    from qwen3tts_tpu_torch.models import talker as tk
+    from qwen3tts_tpu_torch.ops import _cuda
+    from qwen3tts_tpu_torch.ops import cp_kernel as cpk
+    from qwen3tts_tpu_torch.ops import quant as tq
+    from qwen3tts_tpu_torch.ops import talker_kernel as tkk
+    from qwen3tts_tpu_torch.tts import Qwen3TTSModel
+    from qwen3tts_tpu_torch.utils.audio import load_wav
+
+    t_w = time.time()
+    load, stats = Qwen3TTSModel.from_pretrained, tk.activation_stats
+    models, replays = [], []
+
+    def loaded(cls, path, device=None):
+        if not models:
+            m = load(path, device=device)
+            m.tokenizer = StubTokenizer(cfg.text_vocab_size)
+            models.append(m)
+        return models[0]
+
+    def recorded(params, cfg_, seq):
+        """``activation_stats`` as the replay calls it, after ``_set_info``:
+        the sequence, the maxima and the run's frames."""
+        out = stats(params, cfg_, seq)
+        replays.append((seq, out, models[0].last_info.generation_token_count))
+        return out
+
+    def run(argv):
+        """(stdout, K1 launches, K2 launches) of one ``cli.main`` run with
+        rc 0; the counts go to 0 just before it. Every K1 launch must be
+        the persistent B = 1 step and every K1 and K2 call two library
+        operations (``_cuda.launches``, counted by the library itself)."""
+        tkk.talker_decode_step.launches = tkk.talker_decode_step.persistent_launches = 0
+        cpk.predict_codes_fused.launches = 0
+        ops0 = _cuda.launches()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        k1, k2 = tkk.talker_decode_step.launches, cpk.predict_codes_fused.launches
+        check(rc == 0, f"cli.main({argv}) returned {rc}:\n{out.getvalue()}")
+        check(tkk.talker_decode_step.persistent_launches == k1,
+              f"{k1 - tkk.talker_decode_step.persistent_launches} K1 steps not the persistent one")
+        check(_cuda.launches() - ops0 == 2 * (k1 + k2),
+              f"{_cuda.launches() - ops0} library operations for {k1} K1 and {k2} K2 calls")
+        return out.getvalue(), k1, k2
+
+    tmp = tempfile.TemporaryDirectory(prefix="qt_cli_")
+    Qwen3TTSModel.from_pretrained = classmethod(loaded)
+    tk.activation_stats = recorded
+    try:
+        text = "Hello from the command line of the H100 port."
+        base = ["-m", ckpt, "-t", text, "-s", "aiden", "--max-tokens", "24", "--temperature", "0"]
+        wav_g, wav_s = os.path.join(tmp.name, "greedy.wav"), os.path.join(tmp.name, "stream.wav")
+        t0 = time.time()
+        out_g, k1_g, k2_g = run(base + ["-o", wav_g])
+        wall_g = time.time() - t0
+        (m,) = models
+        check(m.device.type == "cuda"
+              and isinstance(m.talker_params["layers"]["qkv_proj"], tq.Int8Linear)
+              and isinstance(m.cp_params["layers"]["qkv_proj"], tq.Int8Linear),
+              "the CLI's load is not int8 fused on the card")
+        info_g = m.last_info
+        n_g = info_g.generation_token_count
+        sr, audio_g = load_wav(wav_g)
+        check(sr == 24000 and audio_g.shape[0] == n_g * 1920 and bool(np.isfinite(audio_g).all()),
+              f"greedy WAV: {sr} Hz, {audio_g.shape[0]} samples for {n_g} frames")
+        check(k2_g == n_g and k1_g == n_g - 1 + int(n_g < 24),
+              f"greedy run: K1 {k1_g}, K2 {k2_g} for {n_g} frames")
+        for line in ("RTF (gen_time/audio_duration", "Generation tokens/s:", "Peak memory:"):
+            check(line in out_g, f"the CLI printed no {line!r}")
+        rtf_g = float(re.search(r"RTF \(gen_time/audio_duration, lower is better\): ([0-9.]+)",
+                                out_g).group(1))
+
+        out_s, k1_s, k2_s = run(base + ["-o", wav_s, "--stream"])
+        info_s = m.last_info
+        n_s = info_s.generation_token_count
+        tokens = [ln for ln in out_s.splitlines() if ln.startswith("token ")]
+        _, audio_s = load_wav(wav_s)
+        check(n_s == n_g and len(tokens) == n_s and k2_s == n_s and k1_s == k1_g,
+              f"--stream: {len(tokens)} token lines, K1 {k1_s}, K2 {k2_s} for {n_s} frames")
+        check(audio_s.shape == audio_g.shape
+              and float(np.abs(audio_s - audio_g).max()) <= 2 / 32768,
+              "the streamed greedy WAV is not the one-call greedy WAV")
+        # the same greedy run again, warm: the model's first call pays for
+        # first uses (allocations, library plans) that a served model does not
+        out_w, k1_w, k2_w = run(base + ["-o", wav_g])
+        info_w = m.last_info
+        _, audio_w = load_wav(wav_g)
+        check(info_w.generation_token_count == n_g and k1_w == k1_g and k2_w == k2_g
+              and np.array_equal(audio_w, audio_g), "the second greedy run differs from the first")
+        rtf_w = float(re.search(r"RTF \(gen_time/audio_duration, lower is better\): ([0-9.]+)",
+                                out_w).group(1))
+        log(f"[w] cli.main greedy (-t ... -s aiden --max-tokens 24 --temperature 0): {n_g} frames, "
+            f"{audio_g.shape[0]} samples, {wall_g:.2f} s of main() (the load included); the CLI's RTF "
+            f"{rtf_g:.4f}, tokens/s {info_g.tokens_per_second:.2f}, peak memory "
+            f"{info_g.peak_memory_usage:.2f} GB; {1000 * info_g.generate_time / n_g:.2f} ms a frame "
+            f"of the whole call (prefill, decode, vocoder); warm (the same run again): RTF "
+            f"{rtf_w:.4f}, {1000 * info_w.generate_time / n_g:.2f} ms a frame; K1 {k1_g} "
+            f"(persistent B=1), K2 {k2_g} a run  [{smi}]")
+        log(f"    --stream: {len(tokens)} token lines, the same WAV; decode "
+            f"{1000 * info_s.generate_time / n_s:.2f} ms a frame after the prefill "
+            f"({1000 * info_s.prefill_time:.1f} ms), host reads at the chunks' ends included; "
+            f"K1 {k1_s}, K2 {k2_s}  [{smi}]")
+
+        prof_json = os.path.join(tmp.name, "profile.json")
+        replays.clear()
+        t0 = time.time()
+        out_p, k1_p, k2_p = run(["-m", ckpt, "--profile", "-s", "aiden", "--max-tokens", "16",
+                                 "--profile-output", prof_json])
+        prof_s = time.time() - t0
+        with open(prof_json) as f:
+            prof = json.load(f)
+        L, inter = cfg.num_hidden_layers, cfg.intermediate_size
+        check(prof["run_count"] == 20 and len(replays) == 20 and "skipped" not in out_p,
+              f"--profile: run_count {prof['run_count']}, {len(replays)} replays")
+        check(prof["num_layers"] == L and prof["intermediate_size"] == inter
+              and len(prof["layers"]) == L
+              and all(len(ly["max_activations"]) == inter for ly in prof["layers"]),
+              "--profile JSON is not 28 layers x 3072 neurons")
+        maxes = np.asarray([ly["max_activations"] for ly in prof["layers"]], np.float32)
+        check(bool(np.isfinite(maxes).all()) and float(maxes.max()) > 0, "profile maxima")
+        n_p = [n for _, _, n in replays]
+        check(k2_p == sum(n_p) and k1_p == sum(n - 1 + int(n < 16) for n in n_p),
+              f"--profile: K1 {k1_p}, K2 {k2_p} for frames {n_p}")
+
+        seq, card, _ = replays[0]
+        t0 = time.time()
+        cpu_layers = {k: (tq.Int8Linear(v.q.cpu(), v.scale.cpu().float())
+                          if isinstance(v, tq.Int8Linear) else v.cpu().float())
+                      for k, v in m.talker_params["layers"].items()}
+        ref = stats({"layers": cpu_layers}, cfg, seq.cpu().float())
+        cpu_s = time.time() - t0
+        err = scaled(card.cpu(), ref)
+        check(tuple(card.shape) == (L, inter) and card.dtype == torch.float32
+              and card.device.type == "cuda", "activation_stats on the card: shape, dtype, device")
+        check(err < 0.05, f"activation_stats on the card vs f32 on the CPU: {err:.4f} scaled")
+        log(f"    --profile --max-tokens 16 over the 20 texts: run_count {prof['run_count']}, "
+            f"{L} x {inter} maxima, {prof_s:.2f} s, {sum(n_p)} frames, K1 {k1_p}, K2 {k2_p}; "
+            f"activation_stats of the first replay ({seq.shape[1]} rows) on the card vs f32 on "
+            f"the CPU: max_abs {float((card.cpu() - ref).abs().max()):.5f}, {err:.5f} scaled "
+            f"(bound 0.05; the CPU call {cpu_s:.1f} s)  [{smi}]")
+    finally:
+        Qwen3TTSModel.from_pretrained = load
+        tk.activation_stats = stats
+        tmp.cleanup()
+    log(f"    phase w took {time.time() - t_w:.1f} s")
 
 
 def main() -> None:
@@ -1165,23 +1370,10 @@ def main() -> None:
         f"{name} {t:.4f}" for name, t in k3_cuts.items()) + f", merged {k3_ms:.4f}")
 
     # ---- 9. the packed main path: from_pretrained(keep_packed=True) ----
-    talker_json = dict(
-        vocab_size=cfg.vocab_size, text_vocab_size=cfg.text_vocab_size, hidden_size=H,
-        text_hidden_size=cfg.text_hidden_size, intermediate_size=cfg.intermediate_size,
-        num_hidden_layers=L, num_attention_heads=cfg.num_attention_heads,
-        num_key_value_heads=NKV, head_dim=D, spk_id={"aiden": 2861, "vivian": 2862},
-        code_predictor_config=dict(
-            vocab_size=cpc.vocab_size, hidden_size=cpc.hidden_size,
-            intermediate_size=cpc.intermediate_size, num_hidden_layers=cpc.num_hidden_layers,
-            num_attention_heads=cpc.num_attention_heads,
-            num_key_value_heads=cpc.num_key_value_heads, head_dim=cpc.head_dim,
-            num_code_groups=cpc.num_code_groups,
-        ),
-    )
     ckpt_tmp = tempfile.TemporaryDirectory(prefix="qt_ckpt_")
     ckpt = ckpt_tmp.name
     t0 = time.time()
-    arrays06 = checkpoint_arrays(talker_json)
+    arrays06 = checkpoint_arrays(talker_json(cfg))
     write_checkpoint(ckpt, arrays06, packed_group=64)
     ckpt_s = time.time() - t0
     t0 = time.time()
@@ -1240,8 +1432,7 @@ def main() -> None:
     check(cpk.predict_codes_fused.launches == n9d and tkk.talker_decode_step.launches
           == n9d - 1 + int(n9d < 24), "K1/K2 did not carry the default load's frames")
     check(tq.quant_gemv.launches == 0 and bool(np.isfinite(wav9d).all()), "default load output")
-    del dflt
-    ckpt_tmp.cleanup()
+    del dflt  # phase w loads the same directory through the CLI
 
     # ---- 10. packed teacher-forced greedy codes: K4 against plain ----
     from qwen3tts_tpu_torch.models import code_predictor as cpm
@@ -3490,6 +3681,10 @@ def main() -> None:
 
     # ---- v. multi-GPU: dp replicas (dp_mesh) and the tensor-parallel mesh ----
     phase_v(dev, smi, cfg, model, talker_b, cp_b, voc_p)
+
+    # ---- w. the CLI and the activation profiler ----
+    phase_w(dev, smi, cfg, ckpt)
+    ckpt_tmp.cleanup()
 
     print(smi, flush=True)
     k1_64, k2_64 = k1b[(64, True)], k2b[64]

@@ -370,7 +370,13 @@ def _tp_attention(ps, group, ctxs, parts, idx, x, heads, step):
             for t, (a, dev) in enumerate(zip(torch.chunk(attn, tp, dim=-1), group))]
 
 
-def _tp_stack(layers: Params, n_layers: int, heads: tuple, h: torch.Tensor, cache, local, step):
+def _act_max(gated: torch.Tensor) -> torch.Tensor:
+    """max |silu(gate) * up| over batch and time, per neuron, in f32."""
+    return gated.float().abs().amax(dim=(0, 1))
+
+
+def _tp_stack(layers: Params, n_layers: int, heads: tuple, h: torch.Tensor, cache, local, step,
+              acts=None):
     """The layer stack on a tensor-parallel tree (``parallel.mesh``): for
     each dp row of ``cache`` (a ``ShardedCache``) and each layer, every tp
     position computes its heads (``_tp_attention``) and its slice of the
@@ -380,8 +386,11 @@ def _tp_stack(layers: Params, n_layers: int, heads: tuple, h: torch.Tensor, cach
     its next input. ``heads`` = (nq, nkv, head_dim, eps); ``local(i, t,
     device, rows)`` gives a position's per-call context (its rope rows and
     mask), ``step(ctx, cache_part, idx, q, k, v)`` writes new k/v rows
-    into a part of the cache and attends. Returns h [B, S, H] before the
-    final norm, on h's device."""
+    into a part of the cache and attends. ``acts`` (a list of one list a
+    layer) collects each position's per-neuron FFN maxima (``_act_max``)
+    on the mesh's first device, dp row by dp row and tp position by
+    position (``activation_stats``). Returns h [B, S, H] before the final
+    norm, on h's device."""
     eps = heads[3]
     mesh = cache.mesh
     tp = mesh.shape["tp"]
@@ -397,19 +406,23 @@ def _tp_stack(layers: Params, n_layers: int, heads: tuple, h: torch.Tensor, cach
             m = []
             for t, dev in enumerate(group):
                 xt = rms_norm(x.to(dev), ps[t]["post_attention_layernorm"], eps)
-                m.append(_partial(_swiglu_mlp(ps[t], xt), ps[t]["down_proj"]))
+                gated = _swiglu_mlp(ps[t], xt)
+                if acts is not None:
+                    acts[idx].append(_act_max(gated).to(mesh.home))
+                m.append(_partial(gated, ps[t]["down_proj"]))
             x = x + _reduce(m, group[0], x.dtype)
         outs.append(x.to(h.device))
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
-def _forward_tp(params, cfg, inputs_embeds, cache, offset: int, offsets=None):
+def _forward_tp(params, cfg, inputs_embeds, cache, offset: int, offsets=None, acts=None):
     """``forward`` (``offsets`` None) or ``forward_batched_step`` (per-row
     ``offsets`` [B]) on a tensor-parallel tree: the plain per-position
     layer step, the counterpart of the JAX package's XLA path under a mesh.
     At B = 1 on a bf16 cache of >= 4096 rows each position attends over
     its own kv heads through K3 (``attention_kernel_gate``), as the JAX
-    XLA path calls ``decode_attention_inner`` under a mesh."""
+    XLA path calls ``decode_attention_inner`` under a mesh. ``acts``: as
+    in ``_tp_stack``."""
     if not isinstance(cache, ShardedCache):
         raise ValueError("a tensor-parallel model decodes into a sharded cache "
                          "(make_cache(..., mesh=) or parallel.mesh.shard_cache)")
@@ -443,7 +456,8 @@ def _forward_tp(params, cfg, inputs_embeds, cache, offset: int, offsets=None):
             return decode_attention_inner(q, part.k, part.v, offset, scale, layer=idx)
         return _attend(q, *_layer_kv(part, idx), ctx["mask"], scale)
 
-    h = _tp_stack(params["layers"], cfg.num_hidden_layers, heads, inputs_embeds, cache, local, step)
+    h = _tp_stack(params["layers"], cfg.num_hidden_layers, heads, inputs_embeds, cache, local, step,
+                  acts)
     return rms_norm(h, params["norm"], cfg.rms_norm_eps), cache
 
 
@@ -641,6 +655,59 @@ def forward_batched_step(
         x = rms_norm(h, p["post_attention_layernorm"], eps)
         h = h + _dense(_swiglu_mlp(p, x), p["down_proj"])
     return rms_norm(h, params["norm"], eps), cache
+
+
+def activation_stats(params: Params, cfg: TalkerConfig, inputs_embeds: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced causal forward over a whole sequence, returning the
+    per-neuron FFN maxima: max |silu(gate(x)) * up(x)| over batch and time,
+    [L, intermediate] f32 (the JAX package's talker.py:762-794).
+
+    It replays a generated sequence (the prompt and the rebuilt decode
+    inputs) for the activation profiler (utils/profiler.py); its
+    activations are the decode's, as its inputs and causal masking are. It
+    is plain PyTorch on every device (the JAX version is XLA, no Pallas),
+    on any layout of the talker tree: fused or separate projections,
+    ``Int8Linear``, dense bf16 or f32, and packed MLX weights, which rows
+    of more than one token dequantize (``_dense``). On a tensor-parallel
+    tree (``mesh=``) it is the per-position step of ``_tp_stack`` over a
+    scratch sharded cache of the sequence's length; each position's
+    neurons are its slice of the intermediate axis, concatenated in order
+    on the mesh's first device."""
+    B, S, _ = inputs_embeds.shape
+    dev = inputs_embeds.device
+    L = cfg.num_hidden_layers
+    mesh = tree_mesh(params)
+    if mesh is not None:
+        acts = [[] for _ in range(L)]
+        cache = make_cache(cfg, B, S, inputs_embeds.dtype, dev, mesh=mesh)
+        _forward_tp(params, cfg, inputs_embeds, cache, 0, acts=acts)
+        tp = mesh.shape["tp"]
+        return torch.stack([
+            torch.stack([torch.cat(a[r : r + tp]) for r in range(0, len(a), tp)]).amax(dim=0)
+            for a in acts
+        ])
+    positions = torch.arange(S, device=dev)[None].expand(B, S)
+    cos, sin = mrope_cos_sin(
+        positions, cfg.head_dim, cfg.rope_theta, cfg.mrope_section, inputs_embeds.dtype
+    )
+    mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()[None].expand(B, S, S)
+    scale = cfg.head_dim**-0.5
+    nq, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    eps = cfg.rms_norm_eps
+    h = inputs_embeds
+    acts = []
+    for idx in range(L):
+        p = _layer(params["layers"], idx)
+        x = rms_norm(h, p["input_layernorm"], eps)
+        q, k, v = _project_qkv(p, x, B, S, nq, nkv, hd, eps)
+        q, k = apply_rotary(q, k, cos, sin)
+        attn = _attend(q, k, v, mask, scale).transpose(1, 2).reshape(B, S, nq * hd)
+        h = h + _dense(attn, p["o_proj"])
+        x = rms_norm(h, p["post_attention_layernorm"], eps)
+        gated = _swiglu_mlp(p, x)
+        acts.append(_act_max(gated))
+        h = h + _dense(gated, p["down_proj"])
+    return torch.stack(acts)
 
 
 def codec_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:

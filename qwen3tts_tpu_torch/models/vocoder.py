@@ -138,6 +138,24 @@ def decode_latents(
     return torch.clamp(wav[..., 0], -1.0, 1.0)
 
 
+def decode_stages(params: Params, cfg: TokenizerDecoderConfig, codes: torch.Tensor) -> dict:
+    """Each stage's output of ``decode_latents`` on codes [B, T, 16]
+    (quantizer, pre_conv, pre_transformer, each upsample stage, the main
+    decoder, the clipped audio), for golden-value diffs
+    (tools/parity_harness.py); not a serving path."""
+    out = {}
+    with exact_f32():
+        h = out["quantizer"] = rvq_decode(params, cfg, codes)
+        h = out["pre_conv"] = causal_conv1d(h, params["pre_conv"]["w"], params["pre_conv"]["b"])
+        h = out["pre_transformer"] = pre_transformer(params["pre_transformer"], cfg, h)
+        for i, (stage, ratio) in enumerate(zip(params["upsample"], cfg.upsampling_ratios)):
+            h = causal_conv1d_transpose(h, stage["conv"]["w"], stage["conv"]["b"], stride=ratio)
+            h = out[f"upsample{i}"] = convnext_block(stage["convnext"], h)
+        wav = out["decoder"] = main_decoder(params["decoder"], cfg, h)
+    out["audio"] = torch.clamp(wav[..., 0], -1.0, 1.0)
+    return out
+
+
 def decode(params: Params, cfg: TokenizerDecoderConfig, codes: torch.Tensor, frames=None):
     """codes [B, T, 16] -> (audio [B, T*1920], lengths [B]).
 

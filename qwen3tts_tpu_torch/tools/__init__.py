@@ -15,4 +15,12 @@ with a hand-written CUDA kernel and its plain PyTorch version:
   building blocks.
 
 Run one on the card with ``python -m qwen3tts_tpu_torch.tools.<name>``.
+
+Beside them, the counterparts of the JAX package's checkpoint tools:
+
+* ``parity_harness``: the greedy-parity dump (vocoder stage statistics on
+  the golden codes, the greedy tokens, the waveform) and ``--compare``;
+* ``inspect_ckpt``: a checkpoint's key listing against the loader's;
+* ``ckpt_layout``: the raw checkpoint layout both build on, and the
+  synthetic checkpoint both packages load.
 """

@@ -30,7 +30,10 @@ and ``serve`` returns a ``TTSService``: a long-lived worker behind a
 thread-safe ``submit`` (a Future of the waveform) and ``submit_stream``
 (``generate_stream``'s events, through the shared slots), with
 per-request sampling that K1 and K2 carry row by row. ``serving_http.py``
-puts it behind HTTP.
+puts it behind HTTP. With ``activation_profiler`` set (utils/profiler.py,
+the CLI's ``--profile``) each utterance of ``generate`` and
+``generate_voice_clone`` is replayed after its timing through
+``talker.activation_stats``.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ import numpy as np
 import torch
 
 from .config import ModelConfig, TalkerConfig
+from .models import code_predictor as cp_mod
 from .models import encoder as enc_mod
 from .models import generate as gen_mod
 from .models import speaker_encoder as spk_mod
@@ -256,6 +260,8 @@ class Qwen3TTSModel:
         # streaming chunk size (frames between host reads); 25 = 2 s of audio
         self.stream_chunk_frames = 25
         self.ref_exact_top_p = False
+        # optional ActivationProfiler (utils/profiler.py); set by the CLI
+        self.activation_profiler = None
         # the most recent utterance's info, whichever thread ran it (a
         # stream's InfoEvent carries its own)
         self.last_info: GenerationInfo | None = None
@@ -624,6 +630,7 @@ class Qwen3TTSModel:
             # prefill runs inside the same call; reported as 0 rather than
             # guessed (the chunked path measures it)
             self._set_info(res.n_frames, input_embeds.shape[1], 0.0, gen_t)
+            self._profile_replay(input_embeds, trailing, tts_pad, codes, res.n_frames)
             return codes, res.n_frames
 
         t0 = time.time()
@@ -638,6 +645,7 @@ class Qwen3TTSModel:
         if n == 0:
             raise Qwen3TTSError("No tokens generated")
         self._set_info(n, input_embeds.shape[1], prefill_t, time.time() - t0 - prefill_t)
+        self._profile_replay(input_embeds, trailing, tts_pad, codes, n)
         return codes, n
 
     def _run_generation_audio(self, input_embeds, trailing, tts_pad, *, sampling, max_steps, seed):
@@ -646,7 +654,7 @@ class Qwen3TTSModel:
         prep = self._prep_run(input_embeds, trailing, tts_pad, max_steps)
         dec_cfg = self.tokenizer_config.decoder_config
         t0 = time.time()
-        _codes, n, wav, lengths = _generate_and_decode(
+        codes, n, wav, lengths = _generate_and_decode(
             self.talker_params, self.cp_params, self.vocoder_params,
             talker_cfg=self.talker_cfg, cp_cfg=self.cp_cfg, sampling=sampling,
             dec_cfg=dec_cfg, **prep, max_steps=max_steps, seed=seed,
@@ -656,6 +664,7 @@ class Qwen3TTSModel:
         if n == 0:
             raise Qwen3TTSError("No tokens generated")
         self._set_info(n, input_embeds.shape[1], 0.0, gen_t)
+        self._profile_replay(input_embeds, trailing, tts_pad, codes, n)
         valid = int(lengths[0])
         if 0 < valid < out.shape[0]:
             out = out[:valid]
@@ -726,6 +735,28 @@ class Qwen3TTSModel:
                 self.talker_params, self.cp_params, carry, **chunk_args, **common,
                 until_step=min(step + cur, max_steps),
             )
+
+    def _profile_replay(self, input_embeds, trailing, tts_pad, codes, n: int) -> None:
+        """With ``activation_profiler`` enabled, replay the generated sequence
+        (teacher forcing) through ``talker.activation_stats`` and record its
+        per-neuron FFN maxima (the JAX package's tts.py:1026-1047). The n - 1
+        decode inputs are rebuilt from ``codes`` ([>= n, 16], numpy or a
+        tensor): the trailing text row (``tts_pad`` past its end) plus the
+        summed embeddings of the frame's 16 codes. It runs after the
+        utterance's timing, outside ``last_info``; off, nothing runs."""
+        prof = self.activation_profiler
+        if prof is None or not prof.is_enabled:
+            return
+        seq = input_embeds.to(self.dtype)
+        if n > 1:
+            c = torch.as_tensor(codes[: n - 1], device=self.device).long()
+            codec = cp_mod.sum_codec_embeddings(self.cp_params, self.talker_params, c[:, 0], c[:, 1:])
+            steps = torch.arange(n - 1, device=self.device)
+            t_len = trailing.shape[0]
+            text = torch.where((steps < t_len)[:, None], trailing[steps.clamp(max=t_len - 1)],
+                               tts_pad[None])
+            seq = torch.cat([seq, (text + codec)[None].to(self.dtype)], dim=1)
+        prof.record(tk_mod.activation_stats(self.talker_params, self.talker_cfg, seq))
 
     def _decode_audio(self, codes: np.ndarray, n_frames: int) -> np.ndarray:
         """The vocoder on the smallest GEN_BUCKETS bucket that covers

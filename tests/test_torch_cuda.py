@@ -1936,3 +1936,86 @@ def test_kernels_on_a_second_card_after_the_first(weights):
         torch.cuda.synchronize(dev)
         cpk.check_barrier(dev)
         tkk.check_barrier(dev)
+
+
+# ---- the CLI and the activation profiler on the card ----
+
+# a checkpoint the kernels take: head_dim 128, the CP narrower than the
+# talker (K2 with the small-to-MTP projection); ids as tools/ckpt_layout.py's
+CLI_TALKER = dict(
+    vocab_size=3072, text_vocab_size=512, hidden_size=256, text_hidden_size=256,
+    intermediate_size=512, num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2,
+    head_dim=128, rope_scaling={"interleaved": True, "mrope_section": [24, 20, 20]},
+    spk_id={"aiden": 2001, "vivian": 2002}, codec_language_id={"english": 2050},
+    code_predictor_config=dict(vocab_size=2048, hidden_size=128, intermediate_size=256,
+                               num_hidden_layers=2, num_attention_heads=16,
+                               num_key_value_heads=8, head_dim=128, num_code_groups=16),
+)
+
+
+def test_cli_on_the_card_decodes_on_k1_and_k2(dev, tmp_path, monkeypatch):
+    """``cli.main`` on the card (the default device) loads an int4
+    checkpoint as int8 fused and writes the greedy WAV; every frame ran on
+    K1's persistent B = 1 step and K2, two library operations each."""
+    from qwen3tts_tpu_torch import cli
+    from qwen3tts_tpu_torch.ops import _cuda
+    from qwen3tts_tpu_torch.tools import ckpt_layout
+    from qwen3tts_tpu_torch.tts import Qwen3TTSModel
+    from qwen3tts_tpu_torch.utils.audio import load_wav
+
+    d = ckpt_layout.write_checkpoint(
+        str(tmp_path / "ckpt"), quantize=True,
+        config=dict(ckpt_layout.SYNTHETIC_CONFIG, talker_config=CLI_TALKER))
+    load, models = Qwen3TTSModel.from_pretrained, []
+
+    def with_stub(cls, path, device=None):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            m = load(path, device=device)
+        m.tokenizer = ckpt_layout.StubTokenizer()
+        models.append(m)
+        return m
+
+    monkeypatch.setattr(Qwen3TTSModel, "from_pretrained", classmethod(with_stub))
+    tkk.talker_decode_step.launches = tkk.talker_decode_step.persistent_launches = 0
+    cpk.predict_codes_fused.launches = 0
+    n0 = _cuda.launches()
+    out = str(tmp_path / "o.wav")
+    rc = cli.main(["-m", d, "-t", "Hello from the card", "-s", "aiden", "-o", out,
+                   "--max-tokens", "8", "--temperature", "0"])
+    assert rc == 0
+    (m,) = models
+    assert m.device.type == "cuda" and isinstance(m.talker_params["layers"]["qkv_proj"],
+                                                  q.Int8Linear)
+    n = m.last_info.generation_token_count
+    k1, k2 = tkk.talker_decode_step.launches, cpk.predict_codes_fused.launches
+    assert k2 == n and k1 == n - 1 + int(n < 8) and tkk.talker_decode_step.persistent_launches == k1
+    assert _cuda.launches() - n0 == 2 * (k1 + k2)
+    sr, audio = load_wav(out)
+    assert sr == 24000 and audio.shape[0] == n * 1920 and np.isfinite(audio).all()
+
+
+def _cpu_f32(tree):
+    """A parameter tree on the CPU with its floating leaves in f32 (int8
+    weights stay int8)."""
+    if isinstance(tree, dict):
+        return {k: _cpu_f32(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu_f32(v) for v in tree)
+    if isinstance(tree, q.Int8Linear):
+        return q.Int8Linear(tree.q.cpu(), tree.scale.cpu().float())
+    return tree.cpu().float() if tree.is_floating_point() else tree.cpu()
+
+
+def test_activation_stats_on_the_card_matches_cpu(dev, weights):
+    """``talker.activation_stats`` on the card (int8 fused, bf16
+    activations) against the same call in f32 on the CPU on the same
+    weights: within phase 3's bf16 bound (0.05 scaled)."""
+    tp, _ = weights
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(1, 40, 256, generator=g, device=dev).mul(0.3).bfloat16()
+    card = tk.activation_stats(tp, CFG, x)
+    cpu = tk.activation_stats(_cpu_f32(tp), CFG, x.cpu().float())
+    assert card.device.type == "cuda" and card.dtype == torch.float32
+    assert tuple(card.shape) == (CFG.num_hidden_layers, CFG.intermediate_size)
+    assert scaled(card.cpu(), cpu) < 0.05

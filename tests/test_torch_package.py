@@ -39,6 +39,9 @@ SUBMODULES = (
     "tools", "tools._card", "tools.exp_weight_stream", "tools.exp_tk_b1_ablate",
     "tools.exp_hbm_peak", "tools.exp_attn_forms", "tools.exp_int4_repack",
     "tools.exp_kv_append", "tools.exp_cpk", "tools.check_b1_frames", "tools.time_k3_k2",
+    "cli", "serving", "serving_http", "parallel.mesh", "parallel.dp", "utils.audio",
+    "utils.profiler", "tools.ckpt_layout", "tools.inspect_ckpt", "tools.parity_harness",
+    "tools.dryrun_multichip",
 )
 
 
