@@ -133,9 +133,11 @@ kernels from csrc/, and runs, in order:
      offsets at both ends, at 8k + 7 and outside the cache (bit-equal) and
      T2's twelve probes on random inputs (exact; p6 within 1e-5 scaled);
      then each script's ``main`` at a reduced count (T1 at n = 100 and 200
-     iterations with the bmm yardstick, T4's device times with K4 beside
-     them, T5's four appends in the script's order with ``index_put_``, T2's
-     probes on the script's inputs), every launch counter from 0, each
+     iterations with the bmm yardstick, T4's device times with K4 and
+     ``torch._weight_int4pack_mm`` beside them, T5's four appends in the
+     script's order with ``index_put_``, T2's probes on the script's inputs
+     with an empty kernel's floor, ``torch._int_mm`` beside p2 and
+     ``x @ w.to(bf16)`` beside p6), every launch counter from 0, each
      kernel launched in that run. Its kernels' times are queued on the card
      behind a spin kernel (no host, no profiler in the way); phases 7 and 8
      read only profiler windows that recorded every kernel of their calls;
@@ -3021,16 +3023,18 @@ def main() -> None:
     t4 = {}
     for I4, O4 in tir.SHAPES:
         w4 = tir.weights(I4, O4, 1, dev)
-        for name, fn, ref_fn, args in (
+        plane_args = (w4["x"], w4["lo"], w4["hi"], w4["scales"])
+        # mxu's kernel takes the fragment order, its plain version the MLX words
+        for name, fn, ref_fn, args, ref_args in (
                 ("mxu", tir.mxu_variant, tir.mxu_variant_ref,
+                 (w4["x"], w4["frag"], w4["scales"], w4["biases"]),
                  (w4["x"], w4["packed"], w4["scales"], w4["biases"])),
-                ("plane", tir.plane_variant, tir.plane_variant_ref,
-                 (w4["x"], w4["lo"], w4["hi"], w4["scales"]))):
-            got, ref = fn(*args), ref_fn(*args)
+                ("plane", tir.plane_variant, tir.plane_variant_ref, plane_args, plane_args)):
+            got, ref = fn(*args), ref_fn(*ref_args)
             err = scaled(got, ref)
             check(err <= 1e-4, f"T4 {name} at ({I4}, {O4}): scaled error {err:.3g} > 1e-4")
             t4[(name, I4, O4)] = dict(abs=float((got - ref).abs().max()), err=err,
-                                      plain_ms=timed(lambda: ref_fn(*args), 10))
+                                      plain_ms=timed(lambda: ref_fn(*ref_args), 10))
     g5 = torch.Generator(device=dev).manual_seed(5)
     rand5 = lambda *s_: torch.randn(*s_, generator=g5, device=dev).to(torch.bfloat16)
     kn5, vn5 = rand5(tka.L, tka.B, tka.HKV, tka.D), rand5(tka.L, tka.B, tka.HKV, tka.D)
@@ -3065,30 +3069,48 @@ def main() -> None:
     r4 = tir.main(["50"])
     r5 = tka.main(["1"])
     r2 = tcp.main([])
+    others = [n_ for n_ in tcp.PROBES if n_ not in ("p2", "p6")]  # bound by their launch
     p_launches = dict(taf.attn_form.launches, mxu=tir.mxu_variant.launches,
                       plane=tir.plane_variant.launches, kv_append=tka.kv_append.launches,
-                      probes=sum(tcp.probe.launches.values()))
+                      p2=tcp.probe.launches["p2"], p6=tcp.probe.launches["p6"],
+                      probes=sum(tcp.probe.launches[n_] for n_ in others))
     check(all(v > 0 for v in p_launches.values()) and all(tcp.probe.launches.values()),
           f"phase p: a kernel of the scripts' runs was never launched: {p_launches}, "
           f"{tcp.probe.launches}")
     for form in taf.FORMS:
         t1[form].update(ms=r1[form]["t1_ms"])
     h4 = (1024, 3072)  # the headline shape of the T4 entries
+    check("library" in r4[h4]["queued_us"],
+          f"T4: torch._weight_int4pack_mm did not run: {r4[h4]['library_dist']}")
+    t4_lib_ms = r4[h4]["queued_us"]["library"] / 1e3
     for name in ("mxu", "plane"):
         t4[(name,) + h4].update(ms=r4[h4]["queued_us"][name] / 1e3,
                                 bound=bound(r4[h4]["bytes"][name], 0))
     t5 = dict(abs=0.0, ms=r5["kernel"]["queued_ms"], plain_ms=r5["plain append (after)"]["ms"],
               bound=bound(r5["bytes"], 0))
     t5_lib_ms = r5["index_put_ (library)"]["queued_ms"]
-    t2_all = dict(abs=max(v["abs"] for v in t2.values()),
-                  ms=sum(v["queued_us"] for v in r2.values()) / 1e3,
-                  plain_ms=sum(v["plain_ms"] for v in t2.values()),
-                  bound=bound(sum(v["bytes"] for v in r2.values()), 0))
+    t2_floor_ms = r2["empty"]["queued_us"] / 1e3
+    t2_gemv = {}
+    for name, peak in (("p2", PEAK_INT8_OP_S), ("p6", PEAK_FLOP_S)):
+        kk, nn = tcp.probe_inputs(name, "meta")[1].shape  # w [K, N]
+        t2_gemv[name] = dict(abs=t2[name]["abs"], ms=r2[name]["queued_us"] / 1e3,
+                             plain_ms=t2[name]["plain_ms"],
+                             bound=bound(r2[name]["bytes"], 2 * kk * nn, peak))
+    t2_all = dict(abs=max(t2[n_]["abs"] for n_ in others),
+                  ms=sum(r2[n_]["queued_us"] for n_ in others) / 1e3,
+                  plain_ms=sum(t2[n_]["plain_ms"] for n_ in others),
+                  bound=bound(sum(r2[n_]["bytes"] for n_ in others), 0))
     log(f"    launches in the scripts' runs: {p_launches}; T1 us/iter "
         + ", ".join(f"{f_} {r1[f_]['per_us']:.3f}" for f_ in taf.FORMS)
         + f"; T5 ms/append: kernel {t5['ms']:.4f} and index_put_ {t5_lib_ms:.4f} queued, plain "
-        f"{t5['plain_ms']:.4f}; T2 {t2_all['ms'] * 1e3:.2f} us for the 12 probes; "
-        f"phase p took {time.time() - t_p:.1f} s  [{smi}]")
+        f"{t5['plain_ms']:.4f}; T4 at {h4} queued us: mxu {t4[('mxu',) + h4]['ms'] * 1e3:.3f}, "
+        f"plane {t4[('plane',) + h4]['ms'] * 1e3:.3f}, K4 {r4[h4]['queued_us']['packed']:.3f}, "
+        f"torch._weight_int4pack_mm {t4_lib_ms * 1e3:.3f}; T2 queued us: p2 "
+        f"{t2_gemv['p2']['ms'] * 1e3:.3f} (torch._int_mm {r2['p2']['library_us']:.3f}), p6 "
+        f"{t2_gemv['p6']['ms'] * 1e3:.3f} ({r2['p6']['library']} {r2['p6']['library_us']:.3f}), "
+        f"the other ten {t2_all['ms'] * 1e3:.2f} in all, the most "
+        f"{max(r2[n_]['queued_us'] for n_ in others):.3f} against an empty kernel's "
+        f"{t2_floor_ms * 1e3:.3f}; phase p took {time.time() - t_p:.1f} s  [{smi}]")
 
     # ---- q. K1 at B = 1: the persistent step in every mode ----
     t_q = time.time()
@@ -3804,13 +3826,22 @@ def main() -> None:
                 for mb in thp.BLOCK_MIB]
     kernels += [tool(f"attn_form (form {form}, n={n_t1})", "attn_forms.cu", "exp_attn_forms.py:86",
                      t1[form], p_launches[form]) for form in taf.FORMS]
-    kernels += [tool(f"{name}_variant (I={h4[0]}, O={h4[1]})", "int4_repack.cu",
+    kernels += [tool(f"{name}_variant (I={h4[0]}, O={h4[1]}; library: "
+                     "torch._weight_int4pack_mm, K4's grouped function on the same words)",
+                     "int4_repack.cu",
                      "exp_int4_repack.py:72" if name == "mxu" else "exp_int4_repack.py:113",
-                     t4[(name,) + h4], p_launches[name]) for name in ("mxu", "plane")]
+                     t4[(name,) + h4], p_launches[name], t4_lib_ms) for name in ("mxu", "plane")]
     kernels += [tool("kv_append (L 28, B 32, T 256)", "kv_append.cu", "exp_kv_append.py:90", t5,
                      p_launches["kv_append"], t5_lib_ms),
-                tool("cpk probes (p1-p6, p3a-c, p4a-c; one launch each)", "cpk_probes.cu",
-                     "exp_cpk.py:39", t2_all, p_launches["probes"])]
+                tool(f"cpk probe p2 (s8 x s8 -> s32 dot, 1024 x 2048; library: "
+                     f"{r2['p2']['library']})", "cpk_probes.cu", "exp_cpk.py:51", t2_gemv["p2"],
+                     p_launches["p2"], r2["p2"]["library_us"] / 1e3),
+                tool(f"cpk probe p6 (int8 -> bf16 convert and dot, 1024 x 3072; library: "
+                     f"{r2['p6']['library']})", "cpk_probes.cu", "exp_cpk.py:139", t2_gemv["p6"],
+                     p_launches["p6"], r2["p6"]["library_us"] / 1e3),
+                tool(f"cpk probes (p1, p3-p5, p3a-c, p4a-c; one launch each; ms: the ten "
+                     f"together; floor: an empty kernel queued, {t2_floor_ms:.6f} ms)",
+                     "cpk_probes.cu", "exp_cpk.py:39", t2_all, p_launches["probes"])]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -128,7 +128,7 @@ _ARGTYPES = {
     ],
     "qt_hbm_colsum": [P, LL, LL, I, I, I, P, P],  # x total_rows row0 rows blk_rows group out stream
     "qt_attn_form": [I, I, I, I, I, P, P, P, P, P, P],  # k_transposed Bt M W n q k v part out stream
-    "qt_int4_mxu": [I, I, I, P, P, P, P, P, P],  # O I NG x packed scales biases y stream
+    "qt_int4_mxu": [I, I, I, P, P, P, P, P, P],  # O I NG x frag (mxu_repack order) scales biases y stream
     "qt_int4_plane": [I, I, I, P, P, P, P, P, P],  # O I NG x lo hi scales y stream
     "qt_kv_append": [I, I, I, I, I, P, P, P, P, P, P],  # L B H T D k_cache v_cache k_new v_new offsets stream
     "qt_cpk_p1_reshape": [I, I, P, P, P],  # rows cols x out stream

@@ -87,10 +87,12 @@ def device_ms(fn, iters: int, per_call: int | None = None) -> float:
     1 window in ~200 recorded a part of its kernels, and three in a row
     recorded 0, 0 and 49 of 50). With ``per_call``, the kernels one call
     launches, a window is read only if it recorded exactly
-    ``iters * per_call`` kernels; without it, only if it recorded as many
-    kernels as the most any of the first three windows recorded (a window
-    can drop records, never add them). Ten windows at most, then it
-    raises."""
+    ``iters * per_call`` kernels; without it, from the third window on,
+    only if another window recorded as many kernels, the most that two
+    windows recorded (a count above 0). One window alone never sets the
+    count: on an H100 ten windows of one run recorded 0, 0, 0, 20, 0, 20,
+    20, 15, 20 and 20 kernels, and of another's ten, nine recorded 2246 and
+    one 2270. Ten windows at most, then it raises."""
     return sum(device_ms_by_kernel(fn, iters, per_call).values())
 
 
@@ -119,11 +121,11 @@ def device_ms_by_kernel(fn, iters: int, per_call: int | None = None) -> dict[str
             if kernels == iters * per_call:
                 return by_name
         elif i >= 2:
-            want = max(seen[:3])
+            twice = [k for k in set(seen) if k > 0 and seen.count(k) >= 2]
             for k, b in windows:
-                if k == want and want > 0 and sum(b.values()) > 0:
+                if twice and k == max(twice) and sum(b.values()) > 0:
                     return b
-    want = f"{iters * per_call}" if per_call is not None else f"the {max(seen[:3])} of the first three"
+    want = f"{iters * per_call}" if per_call is not None else "a count above 0 in two windows"
     raise RuntimeError(f"ten profiler windows recorded {seen} kernels, not {want}")
 
 

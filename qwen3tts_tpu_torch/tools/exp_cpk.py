@@ -35,13 +35,18 @@ launches, queued on the card (the launches wait behind a spin kernel, then
 run back to back: no host in the way) and back to back (CUDA events, which
 the host's launch path bounds), as the JAX
 script's ``probe`` (:28-36) prints PASS/FAIL, with the card's name and power
-limit.
+limit. Beside them, in the same run: an empty kernel queued (``empty``,
+csrc/cpk_probes.cu's ``qt_cpk_empty``), the floor of any launch, and each
+probe's time over it; for p2 ``torch._int_mm`` on x padded with zero rows
+to the fewest it takes (``int_mm_operands``), for p6 ``x @ w.to(bf16)``
+(two calls: the convert, then the product), queued.
 
 Usage: python -m qwen3tts_tpu_torch.tools.exp_cpk [p1 p2 ...]
 """
 
 from __future__ import annotations
 
+import ctypes
 import sys
 
 import torch
@@ -53,6 +58,7 @@ PROBES = ("p1", "p2", "p3", "p4", "p5", "p6", "p3a", "p3b", "p3c", "p4a", "p4b",
 ROWS = 16  # p1's output rows; p3's scratch rows; p4's codes
 P_ROW, ARGMAX_AT, SEED = 5, 77, 123  # the script's row, argmax position and PRNG seed
 FLOAT_PROBES = ("p6",)  # f32 sums in another order; the rest are exact
+GV_COLS = _cuda.header_ints(_cuda.CSRC / "cpk_probes.cu")["GV_COLS"]  # columns of a p2 / p6 block
 
 
 def probe_inputs(name: str, device) -> tuple:
@@ -254,6 +260,13 @@ def probe(name: str, *args):
     if dev.type != "cuda":
         raise ValueError(f"probe {name}: unsupported device {dev}")
     _check(name, *args)
+    if name in ("p2", "p6"):  # the kernels' 16-column blocks and p2's 4-row dp4a groups
+        k, n = args[1].shape
+        if n % GV_COLS or (name == "p2" and k % 4):
+            raise ValueError(f"probe {name}: the kernel takes N % {GV_COLS} == 0"
+                             + (" and K % 4 == 0" if name == "p2" else "") + f", got [{k}, {n}]")
+    if name.startswith("p3") and args[1].shape[1] % 8:  # the scratch's 16-byte stores
+        raise ValueError(f"probe {name}: the kernel takes C % 8 == 0, got {args[1].shape[1]}")
     out = _launch_cuda(name, *args)
     probe.launches[name] += 1
     return out
@@ -290,15 +303,56 @@ def probe_bytes(name: str, args, out) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def empty(device) -> None:
+    """One launch of an empty kernel (one warp) on ``device``'s current
+    stream: the floor of a probe's launch."""
+    fn = _cuda.library().qt_cpk_empty
+    fn.argtypes = [ctypes.c_void_p]
+    with _cuda.on_device(torch.device(device)) as st:
+        _cuda.check(fn(st), "empty kernel")
+
+
+def int_mm_operands(x: torch.Tensor, w: torch.Tensor) -> tuple:
+    """p2's library yardstick ``torch._int_mm(xp, w)``: x [1, K] int8 padded
+    with zero rows to the fewest ``_int_mm`` takes (it refuses 16 rows or
+    fewer on the card; tried 1, 17, 24, 32); row 0 of its int32 product is
+    p2's."""
+    err = None
+    for rows in (1, 17, 24, 32):
+        xp = torch.zeros(rows, x.shape[1], dtype=torch.int8, device=x.device)
+        xp[0] = x[0]
+        try:
+            torch._int_mm(xp, w)
+            return xp, w
+        except RuntimeError as e:
+            err = e
+    raise RuntimeError(f"torch._int_mm takes none of 1, 17, 24, 32 rows: {err}")
+
+
+def library_call(name: str, args):
+    """The PyTorch yardstick of p2 or p6 on the probe's inputs: (fn, what)."""
+    if name == "p2":
+        xp, w = int_mm_operands(*args)
+        return (lambda: torch._int_mm(xp, w)), f"torch._int_mm on x padded to {xp.shape[0]} rows"
+    x, w = args
+    return (lambda: x @ w.to(torch.bfloat16)), "x @ w.to(torch.bfloat16), two calls"
+
+
 def main(argv: list[str]) -> dict:
     """Run the probes; returns, by probe, its queued and back-to-back us per
-    launch, the bytes it moves and its largest scaled error."""
+    launch, the bytes it moves and its largest scaled error (p2 and p6 also
+    their library call's queued us), and under ``empty`` the empty kernel's
+    queued and back-to-back us."""
     from ._card import bound_ms, card, event_ms, queued_ms, require_cuda
 
     names = argv or list(PROBES)
     dev = require_cuda("exp_cpk")
     smi = card()
-    failed, res = 0, {}
+    floor = queued_ms(lambda: empty(dev), 200) * 1e3
+    res = {"empty": dict(queued_us=floor, us=event_ms(lambda: empty(dev), 200) * 1e3)}
+    print(f"empty kernel: queued {floor:.3f} us/launch, back to back {res['empty']['us']:.2f}  "
+          f"[{smi}]", flush=True)
+    failed = 0
     for name in names:
         args = probe_inputs(name, dev)
         got = probe(name, *args)
@@ -316,8 +370,14 @@ def main(argv: list[str]) -> dict:
                                                               for o in outputs(got)])
         n_bytes = probe_bytes(name, args, got)
         res[name] = dict(queued_us=dev_us, us=us, bytes=n_bytes, err=err)
-        print(f"PASS {name}: {shown.tolist()}; queued {dev_us:.3f} us/launch, back to back "
-              f"{us:.2f} (bound {bound_ms(n_bytes) * 1e3:.3f} us, bytes)  [{smi}]", flush=True)
+        lib = ""
+        if name in ("p2", "p6"):
+            fn, what = library_call(name, args)
+            res[name].update(library_us=queued_ms(fn, 200) * 1e3, library=what)
+            lib = f"; {what}: queued {res[name]['library_us']:.3f} us"
+        print(f"PASS {name}: {shown.tolist()}; queued {dev_us:.3f} us/launch "
+              f"({dev_us / floor:.2f}x the empty kernel), back to back {us:.2f} (bound {bound_ms(n_bytes) * 1e3:.3f} us, "
+              f"bytes){lib}  [{smi}]", flush=True)
     if failed:
         raise SystemExit(f"exp_cpk: {failed} probe(s) failed")
     return res

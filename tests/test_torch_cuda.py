@@ -1239,21 +1239,40 @@ def test_attn_form_matches_plain(dev, form, m):
 
 
 @pytest.mark.parametrize("variant", ["mxu", "plane"])
-@pytest.mark.parametrize("I,O", [(1024, 3072), (3072, 1024), (256, 40)])
+@pytest.mark.parametrize("I,O", [(1024, 3072), (3072, 1024), (1024, 6144), (1024, 2048), (256, 40),
+                                 (256, 17608)])
 def test_int4_variants_match_plain(dev, variant, I, O):
     """T4: within 1e-4 scaled of the plain version (exact products, f32
-    sums in another order), one launch per call."""
+    sums in another order), one launch per call; the mxu kernel on the
+    fragment order, its plain version on the MLX words. At the script's four
+    shapes (the plane's 768-1024 row groups dealt over one block a SM, 132
+    on an H100, unevenly), at a last 16-row tile half full (O = 40) and at
+    O = 17608, whose 1101 mxu tiles and 2201 plane row groups of 8 do not
+    divide evenly over the grids (4 and 2 blocks an SM: 528 and 264)."""
     from qwen3tts_tpu_torch.tools import exp_int4_repack as tir
 
     w = tir.weights(I, O, 9, dev)
-    fn, ref, args = {
-        "mxu": (tir.mxu_variant, tir.mxu_variant_ref, (w["x"], w["packed"], w["scales"], w["biases"])),
-        "plane": (tir.plane_variant, tir.plane_variant_ref, (w["x"], w["lo"], w["hi"], w["scales"])),
+    fn, ref, args, ref_args = {
+        "mxu": (tir.mxu_variant, tir.mxu_variant_ref, (w["x"], w["frag"], w["scales"], w["biases"]),
+                (w["x"], w["packed"], w["scales"], w["biases"])),
+        "plane": (tir.plane_variant, tir.plane_variant_ref, (w["x"], w["lo"], w["hi"], w["scales"]),
+                  (w["x"], w["lo"], w["hi"], w["scales"])),
     }[variant]
     before = fn.launches
     got = fn(*args)
     assert fn.launches == before + 1
-    assert scaled(got, ref(*args)) <= 1e-4
+    assert scaled(got, ref(*ref_args)) <= 1e-4
+
+
+def test_int4_mxu_takes_only_the_fragment_order_on_the_card(dev):
+    from qwen3tts_tpu_torch.tools import exp_int4_repack as tir
+
+    w = tir.weights(256, 32, 9, dev)
+    with pytest.raises(ValueError, match="fragment order"):
+        tir.mxu_variant(w["x"], w["packed"], w["scales"], w["biases"])
+    with pytest.raises(ValueError):  # a fragment order for 32 rows, scales for 48
+        tir.mxu_variant(w["x"], w["frag"], torch.cat([w["scales"]] * 2)[:48],
+                        torch.cat([w["biases"]] * 2)[:48])
 
 
 def test_kv_append_matches_plain(dev):
@@ -1290,6 +1309,28 @@ def test_cpk_probe_matches_plain(dev, name):
         got = tcp.probe(name, *args)
         assert tcp.probe.launches[name] == before + 1
         assert tcp.agree(name, got, tcp.probe_ref(name, *args)) <= 1e-5
+
+
+@pytest.mark.parametrize("name,K,N", [("p2", 1028, 48), ("p6", 1000, 16), ("p6", 4096, 2064)])
+def test_cpk_gemv_probes_at_uneven_shapes(dev, name, K, N):
+    """T2's p2 (exact) and p6 (<= 1e-5 scaled) where K does not divide
+    evenly over a block's 256 threads (p2's 257 four-row groups; p6's rows
+    past 768 + t only for t < 232) and at 129 column blocks; a shape the
+    kernels do not take raises."""
+    from qwen3tts_tpu_torch.tools import exp_cpk as tcp
+
+    g = torch.Generator(device=dev).manual_seed(K + N)
+    w = torch.randint(-128, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+    x = (torch.randint(-128, 128, (1, K), generator=g, device=dev, dtype=torch.int8) if name == "p2"
+         else torch.randn(1, K, generator=g, device=dev).bfloat16())
+    got, want = tcp.probe(name, x, w), tcp.probe_ref(name, x, w)
+    if name == "p2":
+        assert torch.equal(got, want)
+    else:
+        assert scaled(got, want) <= 1e-5
+        assert torch.equal(got, tcp.probe(name, x, w))  # a fixed order: the same bits each run
+    with pytest.raises(ValueError, match="the kernel takes"):
+        tcp.probe(name, x, w[:, :N - 8].contiguous())
 
 
 def test_queued_ms_times_the_card_not_the_host(dev):

@@ -13,7 +13,13 @@ functions on the CPU, the Pallas kernels in interpret mode.
   of the script's shapes, 1e-5 scaled (exact products, f32 sums in another
   order); the port's ``pack_quantized`` and ``plane_repack`` equal, byte for
   byte, the JAX package's ``pack_quantized`` and the script's inline repack
-  (:176-192, copied below as ``_script_repack``).
+  (:176-192, copied below as ``_script_repack``). The mxu kernel's
+  fragment order (``mxu_repack``) puts every nibble where its docstring
+  says, once, and ``mxu_unrepack`` gives the MLX words back; the plain
+  function on it equals ``mxu_variant_ref`` on the MLX words, exactly.
+* T2's yardsticks (``library_call``): ``torch._int_mm`` on padded x gives
+  p2 exactly, ``x @ w.to(bf16)`` gives p6 within its bf16 output's
+  rounding.
 * T5 (tools/exp_kv_append.py): ``_append_call(interpret=True)`` and
   qwen3tts_tpu/models/talker.py::_scatter_append_batched, exactly, with
   offsets 0, 7, 8, T-1 and 8k+7 (window edges of the TPU's 8-row window).
@@ -25,6 +31,10 @@ functions on the CPU, the Pallas kernels in interpret mode.
   standard errors of 0.5).
 * Every wrapper raises on a device other than CPU and CUDA and on a shape
   its kernel does not take.
+* ``tools/_card.device_ms_by_kernel`` on stubbed profiler windows: a
+  window is read only from the third on, with the most kernels that two
+  windows recorded; a partial window after empty ones, or one window with
+  extra records, is never read.
 
 The scripts are imported with a patched argv; none is edited.
 """
@@ -151,6 +161,45 @@ def test_t4_plain_matches_pallas_interpret(variant, I, O):
     assert tir.mxu_variant.launches == 0 and tir.plane_variant.launches == 0
 
 
+@pytest.mark.parametrize("I,O", [(128, 24), (256, 32)])
+def test_t4_mxu_repack_is_a_permutation_with_an_inverse(I, O):
+    """Each (row, value) of the MLX words labelled k + 1 (k = row * I +
+    value) in base 16, one digit a run: every nibble of the fragment order
+    decodes to the label of the (row, value) its layout names (rows 16t + g
+    + 8 (n & 1), values 64 ch + 16 c + 4 p + r(n)), so each label lands
+    exactly once, and the rows past O (a tile of 16 not full at O = 24) to
+    0; the inverse gives random words back."""
+    tiles = -(-O // 16)
+    label = np.arange(1, O * I + 1, dtype=np.int64).reshape(O, I)
+    got = np.zeros((tiles, I // 64, 32, 4, 8), np.int64)
+    for d in range(4):  # O * I < 16 ** 4
+        digit = ((label >> (4 * d)) & 15).astype(np.uint32)
+        words = np.zeros((O, I // 8), np.uint32)
+        for j in range(8):
+            words |= digit[:, j::8] << (4 * j)
+        frag = tir.mxu_repack(words)
+        assert frag.shape == (tiles, I // 64, 32, 4) and frag.dtype == np.uint32
+        nibs = (frag[..., None] >> (4 * np.arange(8, dtype=np.uint32))) & 15
+        got |= nibs.astype(np.int64) << (4 * d)
+    t, ch, lane, p, n = np.meshgrid(*(np.arange(k) for k in got.shape), indexing="ij")
+    row = 16 * t + lane // 4 + 8 * (n & 1)
+    value = 64 * ch + 16 * (lane % 4) + 4 * p + ((n >> 2) & 1) + 2 * ((n >> 1) & 1)
+    want = np.where(row < O, np.minimum(row, O - 1) * I + value + 1, 0)
+    assert np.array_equal(got, want)
+    assert np.array_equal(np.sort(got[got > 0]), label.ravel())
+    words = np.random.default_rng(I + O).integers(0, 1 << 32, (O, I // 8), dtype=np.uint64)
+    words = words.astype(np.uint32)
+    assert np.array_equal(tir.mxu_unrepack(tir.mxu_repack(words), O), words)
+
+
+@pytest.mark.parametrize("I,O", [(256, 40), (1024, 48)])
+def test_t4_plain_mxu_on_the_fragment_order_equals_the_plain_version(I, O):
+    w = tir.weights(I, O, 13, "cpu")
+    got = tir.mxu_variant(w["x"], w["frag"], w["scales"], w["biases"])
+    assert torch.equal(got, tir.mxu_variant_ref(w["x"], w["packed"], w["scales"], w["biases"]))
+    assert tir.mxu_variant.launches == 0
+
+
 # ---- T5 ----
 
 @pytest.mark.parametrize("offsets", [(0, 7, 8, 63, 23), (15, 63, 0, 8, 39)])
@@ -249,6 +298,17 @@ def test_t2_p5_random_inputs_draw_other_bits():
     assert b.shape == (1, 4096) and not torch.equal(a, b[:, : a.shape[1]])
 
 
+def test_t2_library_yardsticks_compute_p2_and_p6():
+    x, w = tcp.probe_random_inputs("p2", "cpu")
+    fn, what = tcp.library_call("p2", (x, w))
+    assert "torch._int_mm" in what and torch.equal(fn()[:1], tcp.probe_ref("p2", x, w))
+    x, w = tcp.probe_random_inputs("p6", "cpu")
+    fn, what = tcp.library_call("p6", (x, w))
+    got, want = fn(), tcp.probe_ref("p6", x, w)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert float((got.float() - want).abs().max()) <= 2.0 ** -8 * float(want.abs().max())
+
+
 def test_t2_probe_bytes_count_only_the_gathered_row():
     z, emb = tcp.probe_inputs("p4", "cpu")
     codes, row = tcp.probe("p4", z, emb)
@@ -290,9 +350,12 @@ def test_wrappers_raise_on_a_shape_the_kernel_does_not_take():
     with pytest.raises(ValueError):  # k not pre-transposed for form b
         taf.attn_form("b", torch.zeros(2, 16, 128, dtype=bf), torch.zeros(2, 128, 128, dtype=bf),
                       torch.zeros(2, 256, 128, dtype=bf), 1)
-    with pytest.raises(ValueError):  # I not a multiple of 128
-        tir.mxu_variant(torch.zeros(1, 64, dtype=f32), torch.zeros(8, 8, dtype=torch.int32),
+    with pytest.raises(ValueError):  # I not a multiple of 64
+        tir.mxu_variant(torch.zeros(1, 32, dtype=f32), torch.zeros(8, 4, dtype=torch.int32),
                         torch.zeros(8, 1, dtype=f32), torch.zeros(8, 1, dtype=f32))
+    with pytest.raises(ValueError):  # fragment order for 32 rows, scales for 40
+        tir.mxu_variant(torch.zeros(1, 128, dtype=f32), torch.zeros(2, 2, 32, 4, dtype=torch.int32),
+                        torch.zeros(40, 2, dtype=f32), torch.zeros(40, 2, dtype=f32))
     with pytest.raises(ValueError):  # offsets of the wrong length
         tka.kv_append(torch.zeros(1, 2, 1, 4, 8, dtype=bf), torch.zeros(1, 2, 1, 4, 8, dtype=bf),
                       torch.zeros(1, 2, 1, 8, dtype=bf), torch.zeros(1, 2, 1, 8, dtype=bf),
@@ -312,3 +375,61 @@ def test_t5_offsets_outside_the_cache_land_where_the_dus_chain_puts_them():
     kc, vc = tka.kv_append(k_cache, v_cache, k_new, v_new, torch.tensor(offsets, dtype=torch.int32))
     assert np.array_equal(kc.float().numpy(), np.asarray(chain.k, np.float32))
     assert np.array_equal(vc.float().numpy(), np.asarray(chain.v, np.float32))
+
+
+class _Windows:
+    """torch.profiler.profile stubbed: window i records counts[i] kernels
+    named ``k{i}``, 1 us each."""
+
+    def __init__(self, counts):
+        self.counts, self.opened = list(counts), 0
+
+    def __call__(self, activities=None):
+        from types import SimpleNamespace as NS
+
+        from torch.autograd import DeviceType
+
+        i, outer = self.opened, self
+        self.opened += 1
+
+        class Prof:
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *exc):
+                return False
+
+            def events(self):
+                span = NS(start=0, end=1)  # us
+                return [NS(device_type=DeviceType.CUDA, name=f"k{i}", time_range=span)
+                        for _ in range(outer.counts[i])]
+
+        return Prof()
+
+
+@pytest.mark.parametrize("counts,read", [
+    ([20, 20, 20], 0),  # a run with no dropped record: the third window decides
+    ([0, 0, 0, 20, 0, 20, 20, 15, 20, 20], 3),  # the H100 run the rule was made for
+    ([0, 0, 0, 15, 20, 20], 4),  # a partial window right after three empty ones
+    ([2246, 2270] + [2246] * 8, 0),  # one window with extra records (an H100 run)
+    ([15, 0, 20, 0, 20], 2),  # a partial window first, then the full count twice
+    ([0, 0, 0, 15, 0, 0, 0, 0, 0, 0], None),  # one window alone never sets the count
+    ([0] * 10, None),
+])
+def test_device_ms_reads_only_a_window_two_windows_confirm(monkeypatch, counts, read):
+    import torch.profiler
+
+    from qwen3tts_tpu_torch.tools import _card
+
+    windows = _Windows(counts)
+    monkeypatch.setattr(torch.profiler, "profile", windows)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    if read is None:
+        with pytest.raises(RuntimeError, match="ten profiler windows"):
+            _card.device_ms_by_kernel(lambda: None, 10)
+        assert windows.opened == 10
+        return
+    got = _card.device_ms_by_kernel(lambda: None, 10)
+    assert got == {f"k{read}": pytest.approx(counts[read] * 1e-3 / 10)}
+    seen = counts[: windows.opened]
+    assert seen.count(counts[read]) >= 2 and windows.opened >= 3
