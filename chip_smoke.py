@@ -3102,7 +3102,8 @@ def main() -> None:
                   bound=bound(sum(r2[n_]["bytes"] for n_ in others), 0))
     log(f"    launches in the scripts' runs: {p_launches}; T1 us/iter "
         + ", ".join(f"{f_} {r1[f_]['per_us']:.3f}" for f_ in taf.FORMS)
-        + f"; T5 ms/append: kernel {t5['ms']:.4f} and index_put_ {t5_lib_ms:.4f} queued, plain "
+        + f"; T5 ms/append: kernel {t5['ms']:.4f} and index_put_ {t5_lib_ms:.4f} queued beside an "
+        f"empty kernel's {r5['empty kernel']['queued_ms']:.4f} (bound {t5['bound'][0]:.4f}), plain "
         f"{t5['plain_ms']:.4f}; T4 at {h4} queued us: mxu {t4[('mxu',) + h4]['ms'] * 1e3:.3f}, "
         f"plane {t4[('plane',) + h4]['ms'] * 1e3:.3f}, K4 {r4[h4]['queued_us']['packed']:.3f}, "
         f"torch._weight_int4pack_mm {t4_lib_ms * 1e3:.3f}; T2 queued us: p2 "

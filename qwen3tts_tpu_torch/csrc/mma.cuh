@@ -1,7 +1,7 @@
 // Warp-level tensor-core building blocks (mma.sync m16n8k16, bf16 in, f32
 // accumulate; mma.sync m16n8k32, s8 in, s32 accumulate; ldmatrix from shared
-// memory), shared by attn_forms.cu (T1), int4_repack.cu (T4) and the batched
-// GEMV of common.cuh (K2 at B > 1).
+// memory; movmatrix; a packed bf16 add), shared by attn_forms.cu (T1),
+// int4_repack.cu (T4) and the batched GEMV of common.cuh (K2 at B > 1).
 //
 // Fragment layout of mma.m16n8k16.row.col (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), for lane t with g = t / 4 and c = t % 4:
@@ -77,6 +77,25 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The 8x8 b16 matrix held as mma fragments (lane t: row t/4, cols 2(t%4),
+// 2(t%4)+1), transposed across the warp. Not volatile: a pure function of
+// the warp's registers, which the compiler may schedule freely (as mma_bf16).
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// bf16x2(a + c), each half rounded once to nearest even (a . 1 + c). For
+// bf16 a and c this equals bf16(f32(a) + f32(c)): the f32 sum is exact
+// unless the exponents differ by more than 16, and then the smaller term is
+// far below half a bf16 step of the larger.
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t c) {
+  uint32_t y;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(y) : "r"(a), "r"(0x3f803f80u), "r"(c));
+  return y;
 }
 
 }  // namespace

@@ -14,9 +14,11 @@ over D with f32 sums, and out [1, D] f32 = the sum over i and over every
 
 V is [*, W, D] in every form. The wide forms' cross-sequence products are
 part of the function. On a CUDA tensor it launches the hand-written kernel
-in csrc/attn_forms.cu (tensor cores, each CTA holding a 128-key chunk of K
-and V in shared memory across all n iterations); on a CPU tensor it runs
-``attn_form_ref``, the plain version; any other device raises.
+in csrc/attn_forms.cu (tensor cores, each CTA keeping a 128-key chunk of K
+and V on its SM across all n iterations: for M <= 16 as mma.sync operands
+in registers, the keys in the operand's rows; for M > 16 in shared memory,
+under wgmma); on a CPU tensor it runs ``attn_form_ref``, the plain version;
+any other device raises.
 
 The script runs each form at n and 2n iterations (CUDA events, the best of 5
 calls) and prints us per iteration, (t(2n) - t(n)) / n, the scale ratio

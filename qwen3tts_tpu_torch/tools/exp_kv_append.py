@@ -9,7 +9,8 @@ one counts from the end, then it is clamped into [0, T - 1]):
 the function of qwen3tts_tpu/models/talker.py::_scatter_append_batched on a
 bf16 cache, which the JAX script asserts (:151-154). On a CUDA tensor it
 launches the hand-written kernel in csrc/kv_append.cu (one launch, the rows
-themselves in 16-byte stores: the TPU's 8-row read-modify-write window
+themselves in 16-byte stores, a warp a (layer, sequence) with all its loads
+in flight before its stores: the TPU's 8-row read-modify-write window
 existed only for Mosaic's (8, 128) tiling); on a CPU tensor it runs
 ``kv_append_ref``, the plain version, one slice copy per sequence and cache
 (the counterpart of the DUS chain); any other device raises. The port's
@@ -28,10 +29,11 @@ launch path bounds) and, for the kernel and the library call, ms per
 append with the loop queued on the card behind a spin kernel (no host in
 the way; the plain append reads its offsets to the host, so it cannot
 queue), beside the bound (7.34 MB moved, the new rows
-read once and written once, 2.19 us at 3.35 TB/s), with the card's name and
-power limit. The JAX script found the DUS chain free when benched first and
-~0.5 ms after other loops on the TPU; the fresh and after lines show
-whether the card has such an order effect.
+read once and written once, 2.19 us at 3.35 TB/s) and an empty kernel's
+launches queued the same way (``exp_cpk.empty``, the floor of any launch),
+with the card's name and power limit. The JAX script found the DUS chain
+free when benched first and ~0.5 ms after other loops on the TPU; the
+fresh and after lines show whether the card has such an order effect.
 
 Usage: python -m qwen3tts_tpu_torch.tools.exp_kv_append [N_LOOPS]   (5)
 """
@@ -120,10 +122,12 @@ def moved_bytes(k_new, v_new) -> int:
 
 
 def main(argv: list[str]) -> dict:
-    """Check the kernel, then time the four appends in order; returns, by
-    case, ms per append back to back and (kernel, library) queued, and the
-    bytes an append must move."""
+    """Check the kernel, then time the four appends in order and an empty
+    kernel queued; returns, by case, ms per append back to back and
+    (kernel, library, empty kernel) queued, and the bytes an append must
+    move."""
     from ._card import bound_ms, card, queued_ms, require_cuda
+    from .exp_cpk import empty
 
     n_loops = int(argv[0]) if argv else 5
     dev = require_cuda("exp_kv_append")
@@ -166,6 +170,10 @@ def main(argv: list[str]) -> dict:
             res[name]["queued_ms"] = q_ms = queued_ms(lambda: loop(append), 1) / STEPS
             queued = f", queued {q_ms:.4f} ms/append (bound / time {bound / q_ms:.3f})"
         print(f"{name}: {ms:.4f} ms/append{queued}; bound {bound:.4f} ms  [{smi}]", flush=True)
+    res["empty kernel"] = dict(
+        queued_ms=queued_ms(lambda: [empty(dev) for _ in range(STEPS)], 1) / STEPS)
+    print(f"empty kernel: queued {res['empty kernel']['queued_ms']:.4f} ms/launch  [{smi}]",
+          flush=True)
     return res
 
 

@@ -1214,14 +1214,22 @@ def test_colsum_matches_plain(dev, off, blk_rows):
 
 # ---- the experiment kernels: T1, T4, T5, T2 (qwen3tts_tpu_torch/tools) ----
 
-@pytest.mark.parametrize("form,m", [("a", None), ("b", None), ("c", None), ("c2", None),
-                                    ("b", 40), ("c2", 128)])
-def test_attn_form_matches_plain(dev, form, m):
+T1_EDGES = [(form, m, w) for m in (1, 2, 8, 9, 16, 17, 64, 65, 128) for form in ("b", "c2")
+            for w in (128, 384)]  # both K layouts (b: pre-transposed, c2: natural)
+
+
+@pytest.mark.parametrize("form,m,w", [("a", None, None), ("b", None, None), ("c", None, None),
+                                      ("c2", None, None), ("b", 40, 384)]
+                         + T1_EDGES)
+def test_attn_form_matches_plain(dev, form, m, w):
     """T1: out within 1e-3 scaled of the plain version (the same f32
     products summed in another order; a score that rounds the other way
-    to bf16 moves its product by one bf16 step), one launch per call. At
-    the script's shapes, or (m) m rows against 384 keys in 3 chunks (40
-    rows pad to 64: 4 row groups of 2 warps)."""
+    to bf16 moves its product by one bf16 step), one launch per call, and a
+    second call on the same inputs bit-equal (the partials are summed in a
+    fixed order). At the script's shapes, or (m, w) m rows against w keys
+    of 2 batches, at the edges of the kernel's paths: 1-8 rows are one
+    8-column mma.sync tile, 9-16 two, 17-128 wgmma's two warpgroups of 64
+    rows (17-64 and 40 rows check its zero rows past M)."""
     from qwen3tts_tpu_torch.tools import exp_attn_forms as taf
 
     if m is None:
@@ -1229,12 +1237,13 @@ def test_attn_form_matches_plain(dev, form, m):
     else:
         g = torch.Generator(device=dev).manual_seed(m)
         rnd = lambda *s: torch.randn(*s, generator=g, device=dev).mul(0.1).bfloat16()
-        q, v = rnd(2, m, 128), rnd(2, 384, 128)
-        k = rnd(2, 128, 384) if taf.K_TRANSPOSED[form] else rnd(2, 384, 128)
+        q, v = rnd(2, m, 128), rnd(2, w, 128)
+        k = rnd(2, 128, w) if taf.K_TRANSPOSED[form] else rnd(2, w, 128)
     before = taf.attn_form.launches[form]
     got = taf.attn_form(form, q, k, v, 3)
     assert taf.attn_form.launches[form] == before + 1
     assert scaled(got, taf.attn_form_ref(form, q, k, v, 3)) <= 1e-3
+    assert torch.equal(taf.attn_form(form, q, k, v, 3), got)
     assert torch.equal(taf.attn_form(form, q, k, v, 0), torch.zeros(1, 128, device=dev))
 
 
@@ -1275,16 +1284,22 @@ def test_int4_mxu_takes_only_the_fragment_order_on_the_card(dev):
                         torch.cat([w["biases"]] * 2)[:48])
 
 
-def test_kv_append_matches_plain(dev):
+@pytest.mark.parametrize("L,B,H,T,D", [(3, 7, 8, 64, 128), (28, 33, 8, 32, 128), (3, 7, 1, 64, 128),
+                                         (3, 7, 8, 64, 64), (3, 7, 8, 64, 256), (1, 5, 3, 24, 8)])
+def test_kv_append_matches_plain(dev, L, B, H, T, D):
     """T5: the caches bit-equal to the plain version's, in place, offsets
-    on both edges of the TPU's 8-row window and outside [0, T)."""
+    on both edges of the TPU's 8-row window and outside [0, T). Units (a
+    layer and a sequence each) that fill the grid's warps unevenly (28 x 33),
+    one kv head, rows of 64, 256 and 8 values (a lane then has no piece, or
+    two rounds of them)."""
     from qwen3tts_tpu_torch.tools import exp_kv_append as tka
 
     g = torch.Generator(device=dev).manual_seed(5)
     rand = lambda *s: torch.randn(*s, generator=g, device=dev).bfloat16()
-    L, B, H, T, D = 3, 7, 8, 64, 128
     k_new, v_new, kc, vc = rand(L, B, H, D), rand(L, B, H, D), rand(L, B, H, T, D), rand(L, B, H, T, D)
-    offs = torch.tensor([0, 7, 8, T - 1, 23, -2, T + 9], dtype=torch.int32, device=dev)
+    edges = [0, 7, 8, T - 1, 23, -2, T + 9]
+    offs = torch.tensor([edges[b % 7] + 8 * (b // 7) for b in range(B)], dtype=torch.int32,
+                        device=dev)
     ref = tka.kv_append_ref(kc.clone(), vc.clone(), k_new, v_new, offs)
     in_range = offs.clamp(0, T - 1)
     lib = tka.kv_append_index_put(kc.clone(), vc.clone(), k_new, v_new, in_range)
