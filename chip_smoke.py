@@ -51,7 +51,8 @@ kernels from csrc/, and runs, in order:
      directory (int8, fused) runs K1 and K2;
  10. packed teacher-forced greedy codes over 8 frames: K4 against the plain
      ``quant_matmul`` at every sampled position (equal but for near-ties);
- 11. the packed headline (66 frames, K4 beside plain quant_matmul) and the
+ 11. the packed headline (66 frames, one timed run after a warm-up; decode
+     ms over 24 frames with K4 beside 20 on plain quant_matmul) and the
      long cache: 32 frames on a 4096-row cache, K3 launched 28 times per
      decode step, ms per talker step with K3 beside the plain masked
      attention over all 4096 rows; then one torch.profiler window over 5
@@ -71,8 +72,10 @@ kernels from csrc/, and runs, in order:
      one K2 per lockstep frame;
   d. the batched grid: ``generate_codes_batch``, 66 frames, B in {8, 16,
      32, 48, 64} x {128-row bf16, 512-row int8}: ms per lockstep frame,
-     codec tokens/s, per-sequence RTF; K1/K2 device time per frame beside
-     the bounds; the plain path at B=8; a profiled window at B=64;
+     codec tokens/s, per-sequence RTF; then B = 128 and 256 on both caches
+     at 12 frames (one K1 and one K2 launch a lockstep frame); K1/K2
+     device time per frame beside the bounds; the plain path at B=8; a
+     profiled window at B=64;
   e. ``generate()`` on an int8 cache: launches, the 66-frame RTF beside
      phase 6's, and K1's device time and the decode loop on each cache;
   f. K1 in bf16 mode (dense bf16 weights, no scales) against its plain
@@ -105,6 +108,19 @@ kernels from csrc/, and runs, in order:
      ``wo_bf16`` times and the bound (operations over the int8 rate); the
      library's operations per call (K1, K2 and K5 at B=1: 2, the persistent
      step's or frame's memset and launch);
+  x. (run after k) K1 and K2 past 64 rows, where each batched GEMV takes
+     the batch in groups of 64: at B = 65, 128 and 256 against the plain
+     versions within the bounds of phases a, b and k, K1 on 0.6B int8
+     (``wo_bf16`` on a 128-row bf16 cache, ``dyn_int8`` on a 512-row int8
+     cache) and dense bf16 weights, K2 on 0.6B int8 in both modes, unfused
+     int8 and dense bf16; at B = 256 also K1 at 1.7B (int8, bf16,
+     dyn_int8), on the int8 cache and in dyn_int8 on the bf16 cache, K2 at
+     1.7B with the projection (int8, bf16, dyn_int8), unfused in dyn_int8
+     and K5's port; ms by events and device, plain ms and the bound at 0.6B
+     int8 (B = 128 and 256) and dyn_int8 (256); then ``generate_batch`` of
+     256 texts at 24 frames (EOS forbidden): one lockstep of 256 rows at
+     the seed, K1 23 and K2 24 launches, no plain version, plain per-layer
+     step or plain CP loop;
   l. the main path in dyn_int8 (QWEN3TTS_TK_MODE and QWEN3TTS_CPK_MODE set
      in-process, then restored): ``generate()`` at 0.6B and 1.7B int8 with
      every K1 and K2 launch counted under dyn_int8 and no plain path; the
@@ -180,7 +196,10 @@ kernels from csrc/, and runs, in order:
      CP loop and the plain per-layer step raising, codec tokens/s and
      per-request latency p50 / p95, and the run's split into admissions,
      lockstep chunks and vocoder calls (host seconds of calls that end
-     synchronised); a served run on an int8 KV cache; one greedy request's
+     synchronised); a served run on an int8 KV cache; ``model.serve(
+     slots=128)`` with 128 requests of 20-40 frames sent at once (K1 and K2
+     at B = 128 on every lockstep frame; codec tokens/s, p50 / p95 and the
+     same split); one greedy request's
      codes alone and behind sampled neighbours equal; the HTTP front end on
      127.0.0.1 (a NaN sampling value refused with 400, a WAV, a chunked
      WAV, a 429);
@@ -1502,8 +1521,10 @@ def main() -> None:
         check(nf == steps and bool(torch.isfinite(w).all()), "packed run malformed")
         return time.time() - t
 
+    # one timed run after a warm-up: the packed path is host-bound (~140-350
+    # ms a frame across cards), and its runs are the script's longest
     packed_e2e(0)  # warm-up
-    walls11 = [packed_e2e(s) for s in (1, 2, 3)]
+    walls11 = [packed_e2e(1)]
     wall11 = statistics.median(walls11)
 
     def packed_decode_ms(steps: int) -> float:
@@ -1518,7 +1539,7 @@ def main() -> None:
         torch.cuda.synchronize()
         return (time.time() - t) * 1000 / steps
 
-    ms11 = packed_decode_ms(frames - 1)
+    ms11 = packed_decode_ms(24)
     tk.quant_gemv = tq.quant_matmul
     try:
         ms11_plain = packed_decode_ms(20)
@@ -2015,6 +2036,26 @@ def main() -> None:
                 f"{ms_d:.2f} ms/lockstep frame, {B * 16 * frames / wall_d:.0f} codec tokens/s, "
                 f"per-sequence RTF {wall_d / (frames / 12.5):.4f} (wall {wall_d:.3f} s, median of 3; "
                 f"runs {', '.join(f'{r[0]:.3f}' for r in runs)})  [{smi}]")
+        # past 64 rows (the batched GEMVs in groups of 64 rows): few frames,
+        # K1 and K2 once a lockstep frame
+        for B in (128, 256):
+            wide_frames = 12
+            batch_run(B, kv_quant, T, 0, steps=wide_frames)  # warm-up
+            tkk.talker_decode_step.launches = cpk.predict_codes_fused.launches = 0
+            runs = [batch_run(B, kv_quant, T, s, steps=wide_frames) for s in (1, 2)]
+            wide_launches = (tkk.talker_decode_step.launches // 2,
+                             cpk.predict_codes_fused.launches // 2)
+            check(wide_launches == (wide_frames - 1, wide_frames),
+                  f"B={B} launches {wide_launches} for {wide_frames} frames")
+            wall_d = statistics.median(r[0] for r in runs)
+            ms_d = statistics.median(r[1] for r in runs)
+            grid[(B, kv_quant)] = (ms_d, B * 16 * wide_frames / wall_d,
+                                   wall_d / (wide_frames / 12.5), wall_d)
+            log(f"[d] B={B} {'512-slot int8' if kv_quant else '128-slot bf16'}, {wide_frames} "
+                f"frames: {ms_d:.2f} ms/lockstep frame (decode loop), "
+                f"{B * 16 * wide_frames / wall_d:.0f} codec tokens/s (wall with the prefill, "
+                f"{wall_d:.3f} s, median of 2; runs {', '.join(f'{r[0]:.3f}' for r in runs)}); "
+                f"launches a run K1 {wide_launches[0]}, K2 {wide_launches[1]}  [{smi}]")
     # K1 and K2 device time per frame at the main path's shapes (offsets 57,
     # mid-run) beside their bounds, and the plain path at B=8
     for B in (8, 64):
@@ -2126,7 +2167,7 @@ def main() -> None:
 
     # ==== dense-bf16 weights and the 1.7B model (phases f-j) ====
     def k1_compare(label, p, c, B, T, kv_quant, lo, hi_, seed, sampled=2, iters=20,
-                   mode="wo_bf16"):
+                   mode="wo_bf16", timing=True):
         """K1 on weights ``p`` at ``c``'s widths against its plain version, in
         matmul ``mode``, B rows at offsets in [lo, hi_) of a T-row cache that
         p's own prefill wrote (B=1 takes the int-offset form): greedy hidden,
@@ -2134,7 +2175,7 @@ def main() -> None:
         and a), code0 equal but for near-ties, the non-sample hidden equal to
         the sample mode's, then ``sampled`` seeds of sampled code0. Returns
         the error, the times (in dyn_int8 beside the same inputs' wo_bf16
-        times) and the bound."""
+        times; without ``timing``, none) and the bound."""
         cache, offs, xb, cos_b, sin_b, seen_b = batch_case(B, T, kv_quant, lo, hi_, seed,
                                                            prefill=True, p=p, c=c)
         one = B == 1
@@ -2213,85 +2254,110 @@ def main() -> None:
             return t_k, t_d
 
         dyn = mode == "dyn_int8"
-        (t_k, t_d), (t_kw, t_dw) = times(mode), times("wo_bf16") if dyn else (None, None)
-        t_p = timed(lambda: call(tkk.talker_decode_step_ref, cr, 0.9, (3, 4), logits=False), 2)
         bnd = bound(*k1_io(B, int(offs.sum()), kv_quant, True, p=p, c=c),
                     PEAK_INT8_OP_S if dyn else PEAK_FLOP_S)
+        t_k = t_d = t_kw = t_dw = t_p = None
+        if timing:
+            (t_k, t_d), (t_kw, t_dw) = times(mode), times("wo_bf16") if dyn else (None, None)
+            t_p = timed(lambda: call(tkk.talker_decode_step_ref, cr, 0.9, (3, 4), logits=False), 2)
         log(f"    K1 {label}, {'int8' if kv_quant else 'bf16'} cache of {T} (offsets "
             f"{int(offs.min())}..{int(offs.max())}): scaled err " + ", ".join(
                 f"{k} {v:.3g}" for k, v in errs.items()) + f" (logits max abs {abs_err:.3g})"
             + ("; against the float64 step (kernel, plain): " + ", ".join(
                 f"{k} {a:.4g} / {b:.4g}" for k, (a, b) in wide.items()) if wide else "")
             + f"; greedy code0 {B - flips}/{B} equal; sampled {sampled} seeds: {sampled * B - mism}/"
-            f"{sampled * B} equal, {mism} near-ties; {t_k:.3f} ms/step back to back, device "
-            f"{t_d:.3f}" + (f" (wo_bf16 on the same inputs: {t_kw:.3f}, device {t_dw:.3f})"
-                            if dyn else "")
-            + f", bound {bnd[0]:.3f} ({bnd[1]}), plain {t_p:.3f}  [{smi}]")
+            f"{sampled * B} equal, {mism} near-ties"
+            + (f"; {t_k:.3f} ms/step back to back, device {t_d:.3f}"
+               + (f" (wo_bf16 on the same inputs: {t_kw:.3f}, device {t_dw:.3f})" if dyn else "")
+               + f", bound {bnd[0]:.3f} ({bnd[1]}), plain {t_p:.3f}" if timing else "")
+            + f"  [{smi}]")
         del cache, ck, cr
         return dict(abs=abs_err, ms=t_k, plain_ms=t_p, dev_ms=t_d, bound=bnd, wo_ms=t_kw,
                     wo_dev_ms=t_dw, errs=errs, wide=wide)
 
-    def k2_compare(label, p, c, tp_, B, seed, iters=10, mode="wo_bf16", fn=None):
+    def k2_compare(label, p, c, tp_, B, seed, iters=10, mode="wo_bf16", fn=None, timing=True,
+                   rows=None):
         """K2 (or ``fn``, the wrapper of K5's port) on CP weights ``p`` (with
         the projection where ``c`` is narrower than the talker ``tp_``)
         against its plain version at B rows, in matmul ``mode``:
         teacher-forced greedy logits within the bound of phases 4 and b
         (0.05 scaled), esum (talker width) bit-equal, codes equal but for
         near-ties; then one sampled seed. In dyn_int8 the times stand beside
-        the same inputs' wo_bf16 times."""
+        the same inputs' wo_bf16 times. ``rows`` (indices): the plain
+        version runs on those rows alone (the rows of a call are
+        independent; its cost is the per-row sampler's), the kernel on all
+        B teacher-forced on its own greedy codes but there, and no sampled
+        seed (a row draws from the streams of its index in the call)."""
         fn = fn or cpk.predict_codes_fused
         th = tp_["codec_embedding"].shape[-1]
         gb = torch.Generator(device=dev).manual_seed(seed)
         hb = torch.randn(B, th, generator=gb, device=dev).mul(0.3).to(torch.bfloat16)
         c0b = torch.randint(0, 2048, (B,), generator=gb, device=dev, dtype=torch.int32)
+        idx = None if rows is None else torch.tensor(rows, device=dev)
 
-        def call(fn_, temperature, seed_, mode_=mode, **kw):
-            out = fn_(p, c, tp_, hb, c0b, seed_, temperature=temperature, top_k=50, mode=mode_,
+        def call(fn_, temperature, seed_, mode_=mode, sub=None, **kw):
+            h_, c0_ = (hb, c0b) if sub is None else (hb[sub], c0b[sub])
+            out = fn_(p, c, tp_, h_, c0_, seed_, temperature=temperature, top_k=50, mode=mode_,
                       **kw)
-            return (out[0], out[1], out[2].reshape(15, B, -1)) if len(out) == 3 else out
+            return (out[0], out[1], out[2].reshape(15, h_.shape[0], -1)) if len(out) == 3 else out
 
-        cr_, er_, lr_ = call(cpk.predict_codes_fused_ref, 0.0, (5, 6), return_logits=True)
+        cr_, er_, lr_ = call(cpk.predict_codes_fused_ref, 0.0, (5, 6), sub=idx,
+                             return_logits=True)
+        force = cr_
+        if idx is not None:
+            force = call(fn, 0.0, (5, 6))[0].clone()
+            force[idx] = cr_
         n_fn = fn.launches
-        ck_, ek_, lk_ = call(fn, 0.0, (5, 6), force_codes=cr_, return_logits=True)
+        ck_, ek_, lk_ = call(fn, 0.0, (5, 6), force_codes=force, return_logits=True)
         check(fn.launches == n_fn + 1, f"K2 {label}: the wrapper did not launch its kernel")
+        if idx is not None:
+            ck_, ek_, lk_ = ck_[idx], ek_[idx], lk_[:, idx]
         torch.cuda.synchronize()
+        n = ck_.shape[0]
         abs_err, err_lg = float((lk_ - lr_).abs().max()), scaled(lk_, lr_)
         check(err_lg < 0.05, f"K2 {label} logits outside the bound")
-        check(ek_.shape == (B, th) and torch.equal(ek_, er_), f"K2 {label} esum differs")
+        check(ek_.shape == (n, th) and torch.equal(ek_, er_), f"K2 {label} esum differs")
         flips = 0
-        for b in range(B):
+        for b in range(n):
             for j in range(15):
                 a_, c_ = int(ck_[b, j]), int(cr_[b, j])
                 if a_ != c_:
                     flips += 1
                     check(near_tie(lr_[j, b], a_, c_, abs_err), f"K2 {label} code ({b}, {j}) beyond a near-tie")
-        seed_s = (9000 + B, 7)
-        ca, _, la = call(fn, 0.9, seed_s, return_logits=True)
-        cb_, _, lb = call(cpk.predict_codes_fused_ref, 0.9, seed_s, return_logits=True)
-        mism = 0
-        for b in range(B):
-            diff = (ca[b] != cb_[b]).nonzero()
-            if len(diff):
-                mism += 1
-                j = int(diff[0, 0])
-                noise = gumbel_noise(seed_s[0], seed_s[1], j + 1 + 16 * b, c.vocab_size, dev)
-                check(sampled_flip_explained(lb[j, b], int(ca[b, j]), int(cb_[b, j]),
-                                             float((la[j, b] - lb[j, b]).abs().max()), noise),
-                      f"K2 {label} sampled code ({b}, {j}) beyond a near-tie")
+        mism = None
+        if idx is None:
+            seed_s = (9000 + B, 7)
+            ca, _, la = call(fn, 0.9, seed_s, return_logits=True)
+            cb_, _, lb = call(cpk.predict_codes_fused_ref, 0.9, seed_s, return_logits=True)
+            mism = 0
+            for b in range(B):
+                diff = (ca[b] != cb_[b]).nonzero()
+                if len(diff):
+                    mism += 1
+                    j = int(diff[0, 0])
+                    noise = gumbel_noise(seed_s[0], seed_s[1], j + 1 + 16 * b, c.vocab_size, dev)
+                    check(sampled_flip_explained(lb[j, b], int(ca[b, j]), int(cb_[b, j]),
+                                                 float((la[j, b] - lb[j, b]).abs().max()), noise),
+                          f"K2 {label} sampled code ({b}, {j}) beyond a near-tie")
         def times(mode_):
             return (timed(lambda: call(fn, 0.9, (3, 4), mode_), iters),
                     (b1_ms if B == 1 else device_ms)(lambda: call(fn, 0.9, (3, 4), mode_), 5))
 
         dyn = mode == "dyn_int8"
-        (t_k, t_d), (t_kw, t_dw) = times(mode), times("wo_bf16") if dyn else (None, None)
-        t_p = timed(lambda: call(cpk.predict_codes_fused_ref, 0.9, (3, 4)), 1)
         bnd = bound(*k2_io(B, p, c, th), PEAK_INT8_OP_S if dyn else PEAK_FLOP_S)
+        t_k = t_d = t_kw = t_dw = t_p = None
+        if timing:
+            (t_k, t_d), (t_kw, t_dw) = times(mode), times("wo_bf16") if dyn else (None, None)
+            t_p = timed(lambda: call(cpk.predict_codes_fused_ref, 0.9, (3, 4)), 1)
         log(f"    K2 {label}: teacher-forced scaled logits err {err_lg:.3g} (max abs {abs_err:.3g}), "
-            f"esum bit-equal, codes {15 * B - flips}/{15 * B} equal; sampled: {B - mism}/{B} rows "
-            f"equal, {mism} near-ties; {t_k:.3f} ms/frame back to back, device {t_d:.3f}"
-            + (f" (wo_bf16 on the same inputs: {t_kw:.3f}, device {t_dw:.3f})" if dyn else "")
-            + f", bound {bnd[0]:.3f} ({bnd[1]}; the re-read design: "
-            f"{k2_reread(p) / HBM_BYTES_S * 1e3:.3f}), plain {t_p:.3f}  [{smi}]")
+            f"esum bit-equal, codes {15 * n - flips}/{15 * n} equal"
+            + (f" (rows {rows} of {B})" if rows is not None else
+               f"; sampled: {B - mism}/{B} rows equal, {mism} near-ties")
+            + (f"; {t_k:.3f} ms/frame back to back, device {t_d:.3f}"
+               + (f" (wo_bf16 on the same inputs: {t_kw:.3f}, device {t_dw:.3f})" if dyn else "")
+               + f", bound {bnd[0]:.3f} ({bnd[1]}; the re-read design: "
+               f"{k2_reread(p) / HBM_BYTES_S * 1e3:.3f}), plain {t_p:.3f}" if timing else "")
+            + f"  [{smi}]")
         return dict(abs=abs_err, ms=t_k, plain_ms=t_p, dev_ms=t_d, bound=bnd, wo_ms=t_kw,
                     wo_dev_ms=t_dw)
 
@@ -2566,6 +2632,117 @@ def main() -> None:
     for mode in ("wo_bf16", "dyn_int8"):
         k2k[("K5", mode)] = k2_compare(f"K5 (ops/cp_kernel_old.py), {mode}, B=1", cp_p, cpc,
                                        talker_p, 1, 990, mode=mode, fn=cpk_old.predict_codes_fused)
+
+    # ---- x. K1 and K2 past 64 rows: the batched GEMVs in groups of 64 ----
+    # At B = 65, 128 and 256 against the plain versions within the bounds of
+    # phases a, b and k (k1_compare, k2_compare): the 0.6B modes at every B,
+    # the 1.7B modes, the int8 cache in wo_bf16 and the unfused CP in
+    # dyn_int8 at the widest; times where the main path runs the batch (0.6B
+    # int8 wo_bf16: generate_batch below, phase u's 128-slot service) and in
+    # dyn_int8 at 256. K2's plain version costs ~25 ms a row (its per-row
+    # sampler), so but for 0.6B int8 at 256 it runs on rows 0, 1, 31 and 63
+    # of each group of 64 and the last (the kernel on all B). Then
+    # generate_batch of 256 texts as one lockstep.
+    t_x = time.time()
+    log("[x] K1 and K2 at B = 65, 128 and 256 (the batched GEMVs in groups of 64 rows) against "
+        "their plain versions")
+    k1x, k2x = {}, {}
+    for B in (65, 128, 256):
+        widest, timing = B == 256, B in (128, 256)
+        sub = sorted({r for g0 in range(0, B, 64) for r in (g0, g0 + 1, g0 + 31, g0 + 63)
+                      if r < B} | {B - 1})
+        k1x[("int8", B)] = k1_compare(f"int8 0.6B B={B}", talker_p, cfg, B, 128, False, 20, 120,
+                                      1000 + B, sampled=1, iters=10, timing=timing)
+        k1x[("dyn_int8 int8 cache", B)] = k1_compare(
+            f"dyn_int8 0.6B B={B}", talker_p, cfg, B, 512, True, 100, 300, 1100 + B, sampled=1,
+            mode="dyn_int8", timing=False)
+        k1x[("bf16", B)] = k1_compare(f"bf16 0.6B B={B}", talker_b, cfg, B, 128, False, 20, 120,
+                                      1200 + B, sampled=1, timing=False)
+        k2x[("int8", B)] = k2_compare(f"int8 0.6B B={B}", cp_p, cpc, talker_p, B, 1500 + B,
+                                      iters=5, timing=timing, rows=None if widest else sub)
+        k2x[("dyn_int8", B)] = k2_compare(f"dyn_int8 0.6B B={B}", cp_p, cpc, talker_p, B, 1600 + B,
+                                          iters=5, mode="dyn_int8", timing=False, rows=sub)
+        k2x[("unfused", B)] = k2_compare(f"unfused int8 layers, wo_bf16, B={B}", cp_u, cpc,
+                                         talker_p, B, 1700 + B, timing=False, rows=sub)
+        k2x[("bf16", B)] = k2_compare(f"bf16 0.6B B={B}", cp_b, cpc, talker_b, B, 1800 + B,
+                                      timing=False, rows=sub)
+        if not widest:
+            continue
+        k1x[("int8 int8 cache", B)] = k1_compare(f"int8 0.6B B={B}", talker_p, cfg, B, 512, True,
+                                                 100, 300, 1050 + B, sampled=1, timing=False)
+        k1x[("dyn_int8", B)] = k1_compare(f"dyn_int8 0.6B B={B}", talker_p, cfg, B, 128, False,
+                                          20, 120, 1150 + B, sampled=1, iters=10, mode="dyn_int8")
+        for mode, tp_ in (("int8", trees17[2]), ("bf16", trees17[0])):
+            k1x[(f"1.7B {mode}", B)] = k1_compare(f"{mode} 1.7B B={B}", tp_, cfg17, B, 128, False,
+                                                  20, 120, 1300 + B, sampled=1, iters=5,
+                                                  timing=mode == "int8")
+        k1x[("1.7B dyn_int8", B)] = k1_compare(f"dyn_int8 1.7B B={B}", trees17[2], cfg17, B, 128,
+                                               False, 20, 120, 1400 + B, sampled=1,
+                                               mode="dyn_int8", timing=False)
+        k2x[("unfused dyn_int8", B)] = k2_compare(f"unfused int8 layers, dyn_int8, B={B}", cp_u,
+                                                  cpc, talker_p, B, 1750 + B, mode="dyn_int8",
+                                                  timing=False, rows=sub)
+        for mode, cp_, tp_ in (("int8", trees17[3], trees17[2]), ("bf16", trees17[1], trees17[0])):
+            k2x[(f"1.7B {mode}", B)] = k2_compare(
+                f"{mode} 1.7B (projection 2048 -> 1024) B={B}", cp_, cpc17, tp_, B, 1900 + B,
+                timing=False, rows=sub)
+        k2x[("1.7B dyn_int8", B)] = k2_compare(
+            f"dyn_int8 1.7B (projection stays bf16) B={B}", trees17[3], cpc17, trees17[2], B,
+            1950 + B, mode="dyn_int8", timing=False, rows=sub)
+        k2x[("K5", B)] = k2_compare(f"K5 (ops/cp_kernel_old.py), wo_bf16, B={B}", cp_p, cpc,
+                                    talker_p, B, 1990 + B, fn=cpk_old.predict_codes_fused,
+                                    timing=False, rows=sub)
+    log(f"    K1 and K2 against their plain versions past 64 rows took {time.time() - t_x:.1f} s")
+
+    # generate_batch of 256 texts at 24 frames (EOS forbidden through the
+    # model's sampling settings): one generate_codes_batch call of 256 rows
+    # at the seed, K1 once a lockstep frame after the first, K2 once a
+    # frame, and the plain versions, the plain per-layer step and the plain
+    # CP loop never run (phase h's counters; the plain versions raise)
+    t_x = time.time()
+    m256 = Qwen3TTSModel(
+        C.ModelConfig(talker_config=cfg, tts_model_type="custom_voice", tts_model_size="0b6"),
+        talker_p, cp_p, voc_p, tokenizer_config=C.TokenizerConfig(decoder_config=dec_cfg),
+        tokenizer=StubTokenizer(cfg.text_vocab_size), dtype=torch.bfloat16, device=dev)
+    m256._sampling = lambda *a: gen.SamplingConfig(0.9, 50, 1.0, 1.05, forbid_eos=True)
+    texts256 = [f"Text {i} of the widest lockstep the card decodes at once." for i in range(256)]
+    lockstep_calls = []
+    real_gcb, real_refs = bg.generate_codes_batch, (tkk.talker_decode_step_ref,
+                                                   cpk.predict_codes_fused_ref)
+
+    def spy_gcb(*a, **k):
+        lockstep_calls.append((k["prefill_embeds"].shape[0], k["seed"]))
+        return real_gcb(*a, **k)
+
+    def plain_raises(*a, **k):
+        raise AssertionError("a plain version ran inside generate_batch on the card")
+
+    bg.generate_codes_batch = spy_gcb
+    tkk.talker_decode_step_ref = cpk.predict_codes_fused_ref = plain_raises
+    reset_counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        wavs256 = m256.generate_batch(texts256, speakers=["aiden", "vivian"] * 128,
+                                      language="english", max_tokens=24, seed=5)
+        wall_256 = time.time() - t0
+    finally:
+        bg.generate_codes_batch = real_gcb
+        tkk.talker_decode_step_ref, cpk.predict_codes_fused_ref = real_refs
+    gb256_launches = (tkk.talker_decode_step.launches, cpk.predict_codes_fused.launches)
+    log(f"    generate_batch(256 texts, 24 frames each, EOS forbidden): lockstep calls "
+        f"(rows, seed) {lockstep_calls}, launches K1 {gb256_launches[0]}, K2 {gb256_launches[1]}; "
+        f"plain per-layer decode steps {calls['attend S=1']}, plain CP loops {calls['plain CP']}; "
+        f"{m256.last_info.generation_token_count} frames in all, {wall_256:.2f} s with the vocoder, "
+        f"{256 * 16 * 24 / wall_256:.0f} codec tokens/s  [{smi}]")
+    check(lockstep_calls == [(256, 5)] and gb256_launches == (23, 24)
+          and calls["attend S=1"] == 0 and calls["plain CP"] == 0,
+          f"generate_batch of 256: {lockstep_calls}, launches {gb256_launches}, {calls}")
+    check(len(wavs256) == 256 and all(bool(np.isfinite(w).all()) and 0 < len(w) <= 24 * 1920
+                                      and len(w) % 1920 == 0 for w in wavs256),
+          "generate_batch(256) waveforms")
+    del m256, wavs256
+    log(f"    phase x's generate_batch took {time.time() - t_x:.1f} s")
 
     # ---- l. the main path in dyn_int8: both variables set in-process ----
     modes_k1, modes_k2 = tkk.talker_decode_step.mode_launches, cpk.predict_codes_fused.mode_launches
@@ -3538,13 +3715,15 @@ def main() -> None:
     serve_caps = [20 + (46 * i) // 31 for i in range(32)]  # 20..66 frames
     frames_seen = []
 
-    def serve_run(m, per_request, n_req=32, slots=16, **kw):
-        """Submit n_req requests at once; returns (wall s, latencies s,
+    def serve_run(m, per_request, n_req=32, slots=16, texts_=None, caps_=None, **kw):
+        """Submit n_req requests at once (``texts_`` and ``caps_``, default
+        SERVE_TEXTS and its caps); returns (wall s, latencies s,
         frames a request, lockstep frames, (K1, K2) launches, spans). The
         spans are the host seconds of each admission and each chunk (both
         end in the device turn's synchronisation) and of each vocoder call
         (it ends in its copy to the host; the worker runs it in the
         request's completion callback, between chunks)."""
+        texts_, caps_ = texts_ or serve_texts, caps_ or serve_caps
         real_decode = m._decode_codes_list
         real_admit, real_chunk = srv_mod.bg.admit_slot, srv_mod.bg.generate_chunk_batch
         spans = {"admit": [], "chunk": [], "vocode": []}
@@ -3580,8 +3759,8 @@ def main() -> None:
                     r = row_sampling(per_row[i % len(per_row)])
                     over = dict(temperature=r["temperature"], top_k=r["top_k"], top_p=r["top_p"],
                                 repetition_penalty=r["rep_penalty"])
-                f = svc.submit(serve_texts[i], speaker="aiden", language="english", seed=i,
-                               max_tokens=serve_caps[i], **over)
+                f = svc.submit(texts_[i], speaker="aiden", language="english", seed=i,
+                               max_tokens=caps_[i], **over)
                 f.add_done_callback(lambda _, i=i: done_at.__setitem__(i, time.time()))
                 futs.append(f)
             wavs = [f.result(timeout=600) for f in futs]
@@ -3592,7 +3771,7 @@ def main() -> None:
         n1_, n2_ = tkk.talker_decode_step.launches, cpk.predict_codes_fused.launches
         # whole frames (an EOS on the first frame gives none; a frame whose
         # code 0 is 0 is trimmed, as generate() trims it)
-        bad = [(i, len(w), c) for i, (w, c) in enumerate(zip(wavs, serve_caps))
+        bad = [(i, len(w), c) for i, (w, c) in enumerate(zip(wavs, caps_))
                if not (bool(np.isfinite(w).all()) and len(w) <= c * 1920 and len(w) % 1920 == 0)]
         check(not bad, f"served waveforms malformed (request, samples, cap): {bad}")
         check(len(frames_seen) == sum(len(w) > 0 for w in wavs) and n1_ == iters
@@ -3629,6 +3808,26 @@ def main() -> None:
     log(f"    serve on an int8 KV cache, 16 per-request requests: {sum(frames_q)} frames, "
         f"{iters_q} lockstep frames, {wall_q:.2f} s, launches K1 {launches_q[0]}, K2 "
         f"{launches_q[1]}")
+    # model.serve(slots=128): 128 ragged requests (caps 20-40 frames) sent at
+    # once, every lockstep frame K1 and K2 at B = 128 (warm: phase x ran
+    # both kernels at B = 128)
+    texts128 = [f"Request {i} of one hundred and twenty-eight asks for a sentence."
+                for i in range(128)]
+    caps128 = [20 + (20 * i) // 127 for i in range(128)]  # 20..40 frames
+    t128 = time.time()
+    r128 = serve_run(model, False, n_req=128, slots=128, texts_=texts128, caps_=caps128)
+    serve128_launches = r128[4]
+    lat128 = np.percentile(r128[1], [50, 95])
+    adm, chk, voc = (sum(r128[5][k]) for k in ("admit", "chunk", "vocode"))
+    log(f"    serve(slots=128), 128 requests (caps 20-40) at once: {sum(r128[2])} frames in "
+        f"{r128[3]} lockstep frames, {r128[0]:.3f} s; codec tokens/s {16 * sum(r128[2]) / r128[0]:.0f}; "
+        f"per-request latency p50 {lat128[0]:.3f} s, p95 {lat128[1]:.3f} s; launches K1 "
+        f"{serve128_launches[0]}, K2 {serve128_launches[1]}; split: {len(r128[5]['admit'])} "
+        f"admissions {adm:.3f} s ({1e3 * adm / max(len(r128[5]['admit']), 1):.2f} ms each), "
+        f"{len(r128[5]['chunk'])} chunks {chk:.3f} s ({1e3 * chk / max(r128[3], 1):.2f} ms a "
+        f"lockstep frame), the rest {r128[0] - adm - chk:.3f} s, of it "
+        f"{len(r128[5]['vocode'])} vocoder calls {voc:.3f} s  [{smi}]  (the phase's run "
+        f"{time.time() - t128:.1f} s)")
     cpm_mod.predict_codes, tk._attend = real_pc, real_attend
 
     # one greedy request alone, then behind five sampled neighbours: another
@@ -3799,6 +3998,14 @@ def main() -> None:
               "per-request run at 16 slots)", "K1", k1u[64], serve_launches[0]),
         entry("predict_codes_fused (per-row sampling values, B=64; launches: the served "
               "per-request run at 16 slots)", "K2", k2u[64], serve_launches[1]),
+        entry("talker_decode_step (B=256, GEMVs in 4 groups of 64 rows; launches: "
+              "generate_batch of 256 texts)", "K1", k1x[("int8", 256)], gb256_launches[0]),
+        entry("predict_codes_fused (B=256, GEMVs in 4 groups of 64 rows; launches: "
+              "generate_batch of 256 texts)", "K2", k2x[("int8", 256)], gb256_launches[1]),
+        entry("talker_decode_step (B=128; launches: serve(slots=128))", "K1", k1x[("int8", 128)],
+              serve128_launches[0]),
+        entry("predict_codes_fused (B=128; launches: serve(slots=128), with its B=1 "
+              "admissions)", "K2", k2x[("int8", 128)], serve128_launches[1]),
     ]
 
     q_launches = {"0.6B int8": n1_persistent, "0.6B int8, int8 cache": n1_persistent,

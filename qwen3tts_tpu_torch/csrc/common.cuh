@@ -5,6 +5,12 @@
 // Every kernel here takes a batch of B rows (1 <= B <= MAX_BATCH), head_dim
 // 128 and bf16 activations, and is launched on the caller's stream by the
 // host loops of the two .cu files. Row b's activations sit at b * width.
+// The batched GEMVs take the batch in groups of up to BG_GROUP rows, one
+// group a grid row (blockIdx.z): a block's registers and staged x are
+// sized for one group, and each group's blocks stage their own copy of the
+// weight tile (B = 256: the weights read 4 times a GEMV, the later reads
+// mostly from the L2). At B <= BG_GROUP the grid has one group and the
+// blocks run as they did when the batch stopped there.
 //
 // The weight GEMV is the bound. Its weights are int8 (weight-only int8: the
 // finishing kernels multiply the f32 sum by a per-channel f32 scale) or
@@ -103,7 +109,8 @@ namespace qt {
 namespace {
 
 constexpr int HEAD_DIM = 128;
-constexpr int MAX_BATCH = 64;
+constexpr int MAX_BATCH = 256;             // rows of one K1 / K2 call
+constexpr int BG_GROUP = 64;                // batched GEMV: batch rows of one block (grid z: the groups)
 constexpr int GEMV_THREADS = 256;           // 8 warps split the rows
 constexpr int GEMV_MAX_SPLIT = 64;          // B=1: at most 64 splits
 constexpr int GEMV_MAX_PARTS = 512;         // B>1: splits x B <= 512 (the workspace holds 512 x O floats)
@@ -125,12 +132,14 @@ constexpr int SAMPLE_ROW_VALUES = 5;        // per-row sampling: rep, greedy, in
 constexpr float NEG_BIG = -1e30f;
 
 // the staged tile of the wider weight type (bf16) and x
-static_assert(BG_ROWS * BG_COLS * 2 + MAX_BATCH * BG_XS * 2 <= BG_SMEM, "batched GEMV staging");
-static_assert(BG_ROWS * BG_COLS + MAX_BATCH * BGQ_XS * 4 <= BG_SMEM, "dyn_int8 GEMV staging");
+static_assert(BG_ROWS * BG_COLS * 2 + BG_GROUP * BG_XS * 2 <= BG_SMEM, "batched GEMV staging");
+static_assert(BG_ROWS * BG_COLS + BG_GROUP * BGQ_XS * 4 <= BG_SMEM, "dyn_int8 GEMV staging");
 static_assert(16 * 8 * BG_COLS * 4 <= BG_SMEM, "batched GEMV reduction");
-static_assert(BG_ROWS * TC_WS * 2 + MAX_BATCH * TC_XS * 2 <= BG_SMEM, "tensor-core GEMV staging");
-static_assert(BG_ROWS / 4 * TCQ_WS * 4 + MAX_BATCH * TCQ_XS * 4 <= BG_SMEM,
+static_assert(BG_ROWS * TC_WS * 2 + BG_GROUP * TC_XS * 2 <= BG_SMEM, "tensor-core GEMV staging");
+static_assert(BG_ROWS / 4 * TCQ_WS * 4 + BG_GROUP * TCQ_XS * 4 <= BG_SMEM,
               "dyn_int8 tensor-core GEMV staging");
+static_assert(BG_GROUP == 8 * 8, "a batched GEMV thread's accumulators: 8 tiles of 8 rows");
+static_assert(MAX_BATCH % BG_GROUP == 0 && TC_MAX_PARTS >= MAX_BATCH, "batched GEMV groups");
 
 __device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -351,13 +360,24 @@ __device__ __forceinline__ void load8(const bf16* p, float* w) {
 // Thread = (column group of 8, slot of 16): the slots take (row tile of 8
 // batch rows, row group) pairs, so at small B the rows of the split are
 // spread over up to 16 groups and at B=64 over 2. A thread keeps 8 x 8 f32
-// accumulators; the row groups are summed through shared memory.
+// accumulators; the row groups are summed through shared memory. Past 64
+// rows, grid z takes the batch in groups of BG_GROUP (``batch_group``).
 // ---------------------------------------------------------------------------
+// This block's group of batch rows: the first row g0 and the group's B (up
+// to BG_GROUP) of the call's Bt rows
+__device__ __forceinline__ int batch_group(int Bt, int& g0) {
+  g0 = blockIdx.z * BG_GROUP;
+  return min(BG_GROUP, Bt - g0);
+}
+
 template <typename W>
 __global__ void __launch_bounds__(GEMV_THREADS)
-gemv_batched(const Mat m, const bf16* __restrict__ x, int B,
+gemv_batched(const Mat m, const bf16* __restrict__ x, int Bt,
              float* __restrict__ part, int I, int O, int rows_per_split) {
   constexpr int EPL = 16 / sizeof(W);  // weights per 16-byte load
+  int g0;
+  const int B = batch_group(Bt, g0);
+  x += (size_t)g0 * I;
   extern __shared__ __align__(16) unsigned char bg_smem[];
   W* ws = reinterpret_cast<W*>(bg_smem);                                          // [BG_ROWS][BG_COLS]
   bf16* xs = reinterpret_cast<bf16*>(bg_smem + BG_ROWS * BG_COLS * sizeof(W));   // [B][BG_XS]
@@ -419,7 +439,7 @@ gemv_batched(const Mat m, const bf16* __restrict__ x, int B,
     if (c0 + c >= O) continue;
     float s = 0.f;
     for (int k = 0; k < KG; ++k) s += red[(k * Bp + b) * BG_COLS + c];
-    part[((size_t)blockIdx.y * B + b) * O + c0 + c] = s;
+    part[((size_t)blockIdx.y * Bt + g0 + b) * O + c0 + c] = s;
   }
 }
 
@@ -490,14 +510,18 @@ gemv_partial_dq(const Mat m, const bf16* __restrict__ x, const float* __restrict
 // of 4 weight rows, 2 x 16-byte loads of weights, 8 x words and 64 dp4a.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(GEMV_THREADS)
-gemv_batched_dq(const Mat m, const bf16* __restrict__ x, int B, const float* __restrict__ amax,
+gemv_batched_dq(const Mat m, const bf16* __restrict__ x, int Bt, const float* __restrict__ amax,
                 int* __restrict__ part, int I, int O, int rows_per_split) {
   constexpr int NCH = BG_COLS / 16;  // 16-column chunks of the tile
   extern __shared__ __align__(16) unsigned char bg_smem[];
   int* ws4 = reinterpret_cast<int*>(bg_smem);     // [BG_ROWS / 4][BG_COLS]
   int* xs4 = ws4 + (BG_ROWS / 4) * BG_COLS;       // [B][BGQ_XS]
   int* red = reinterpret_cast<int*>(bg_smem);     // [KG][Bp][BG_COLS], at the end
-  __shared__ float s_row[MAX_BATCH];
+  __shared__ float s_row[BG_GROUP];
+  int g0;
+  const int B = batch_group(Bt, g0);
+  x += (size_t)g0 * I;
+  amax += g0;
   const int tid = threadIdx.x;
   const int NBT = (B + 7) / 8, Bp = NBT * 8, KG = 16 / NBT;
   const int cg = tid & 15, slot = tid >> 4;
@@ -567,7 +591,7 @@ gemv_batched_dq(const Mat m, const bf16* __restrict__ x, int B, const float* __r
     if (c0 + c >= O) continue;
     int t = 0;
     for (int k = 0; k < KG; ++k) t += red[(k * Bp + b) * BG_COLS + c];
-    part[((size_t)blockIdx.y * B + b) * O + c0 + c] = t;
+    part[((size_t)blockIdx.y * Bt + g0 + b) * O + c0 + c] = t;
   }
 }
 
@@ -606,18 +630,23 @@ gemv_batched_dq(const Mat m, const bf16* __restrict__ x, int B, const float* __r
 //    the bit.
 // Rows of a pass past the split's end are zero in both operands. I, the
 // split rows and O are multiples of 16 (K2's wrapper checks the widths).
+// Past 64 rows, grid z takes the batch in groups of BG_GROUP
+// (``batch_group``), each block as at B <= 64 on its group's rows.
 // ---------------------------------------------------------------------------
 template <typename W>
 __global__ void __launch_bounds__(GEMV_THREADS, 2)
-gemv_batched_mma(const Mat m, const bf16* __restrict__ x, int B, float* __restrict__ part, int I,
+gemv_batched_mma(const Mat m, const bf16* __restrict__ x, int Bt, float* __restrict__ part, int I,
                  int O, int rows_per_split) {
   constexpr int EPL = 16 / sizeof(W);                          // weights per 16-byte load
   constexpr int WCH = BG_COLS / EPL;                           // 16-byte pieces of a tile row
   constexpr int WL = BG_ROWS * WCH / GEMV_THREADS;             // a thread's pieces of the tile
-  constexpr int XL = MAX_BATCH * (BG_ROWS / 8) / GEMV_THREADS;  // a thread's pieces of x
+  constexpr int XL = BG_GROUP * (BG_ROWS / 8) / GEMV_THREADS;  // a thread's pieces of x
   extern __shared__ __align__(16) unsigned char bg_smem[];
   bf16* ws = reinterpret_cast<bf16*>(bg_smem);  // [BG_ROWS][TC_WS]
-  bf16* xs = ws + BG_ROWS * TC_WS;              // [MAX_BATCH][TC_XS]
+  bf16* xs = ws + BG_ROWS * TC_WS;              // [BG_GROUP][TC_XS]
+  int g0;
+  const int B = batch_group(Bt, g0);
+  x += (size_t)g0 * I;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int NT = (B + 7) / 8;  // batch tiles of 8 rows
   const int c0 = blockIdx.x * BG_COLS;
@@ -703,7 +732,7 @@ gemv_batched_mma(const Mat m, const bf16* __restrict__ x, int B, float* __restri
   // acc[t][2..3] columns g + 8, the same rows
   const int g = lane >> 2, cq = lane & 3;
   const int col = c0 + warp * 16 + g;
-  float* dst = part + (size_t)blockIdx.y * B * O;
+  float* dst = part + ((size_t)blockIdx.y * Bt + g0) * O;
 #pragma unroll
   for (int t = 0; t < 8; ++t) {
     const int b = t * 8 + 2 * cq;
@@ -719,16 +748,20 @@ gemv_batched_mma(const Mat m, const bf16* __restrict__ x, int B, float* __restri
 }
 
 __global__ void __launch_bounds__(GEMV_THREADS, 2)
-gemv_batched_dq_mma(const Mat m, const bf16* __restrict__ x, int B,
+gemv_batched_dq_mma(const Mat m, const bf16* __restrict__ x, int Bt,
                     const float* __restrict__ amax, int* __restrict__ part, int I, int O,
                     int rows_per_split) {
   constexpr int NCH = BG_COLS / 16;  // 16-column chunks of the tile
   static_assert((BG_ROWS / 4) * NCH == GEMV_THREADS, "one 4 x 16 weight chunk a thread");
-  constexpr int XL = MAX_BATCH * (BG_ROWS / 8) / GEMV_THREADS;  // a thread's 8-value pieces of x
+  constexpr int XL = BG_GROUP * (BG_ROWS / 8) / GEMV_THREADS;  // a thread's 8-value pieces of x
   extern __shared__ __align__(16) unsigned char bg_smem[];
   int* ws4 = reinterpret_cast<int*>(bg_smem);  // [BG_ROWS / 4][TCQ_WS]
-  int* xs4 = ws4 + (BG_ROWS / 4) * TCQ_WS;     // [MAX_BATCH][TCQ_XS]
-  __shared__ float s_row[MAX_BATCH], r_row[MAX_BATCH];
+  int* xs4 = ws4 + (BG_ROWS / 4) * TCQ_WS;     // [BG_GROUP][TCQ_XS]
+  __shared__ float s_row[BG_GROUP], r_row[BG_GROUP];
+  int g0;
+  const int B = batch_group(Bt, g0);
+  x += (size_t)g0 * I;
+  amax += g0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, cq = lane & 3;
   const int NT = (B + 7) / 8;
@@ -810,7 +843,7 @@ gemv_batched_dq_mma(const Mat m, const bf16* __restrict__ x, int B,
   }
   if (!live) return;
   const int col = c0 + warp * 16 + g;
-  int* dst = part + (size_t)blockIdx.y * B * O;
+  int* dst = part + ((size_t)blockIdx.y * Bt + g0) * O;
 #pragma unroll
   for (int t = 0; t < 8; ++t) {
     const int b = t * 8 + 2 * cq;
@@ -864,6 +897,12 @@ inline int batched_splits(int B, int I, int O, int& rows) {
   return splits;
 }
 
+// The grid of a batched GEMV: 128 columns, ``splits`` of the rows, groups
+// of BG_GROUP batch rows
+inline dim3 batched_grid(int B, int O, int splits) {
+  return dim3((O + BG_COLS - 1) / BG_COLS, splits, (B + BG_GROUP - 1) / BG_GROUP);
+}
+
 // B = 1: ``gemv_partial``; B > 1: the tensor-core form
 template <typename W>
 inline int gemv_t(const Mat& m, const bf16* x, int B, float* part, int I, int O, cudaStream_t st) {
@@ -878,8 +917,8 @@ inline int gemv_t(const Mat& m, const bf16* x, int B, float* part, int I, int O,
   static std::atomic<size_t> smem_set[QT_MAX_DEVICES];  // one per weight type
   big_smem(gemv_batched_mma<W>, smem_set);
   const int splits = batched_splits(B, I, O, rows);
-  const dim3 grid((O + BG_COLS - 1) / BG_COLS, splits);
-  gemv_batched_mma<W><<<grid, GEMV_THREADS, BG_SMEM, st>>>(m, x, B, part, I, O, rows);
+  gemv_batched_mma<W><<<batched_grid(B, O, splits), GEMV_THREADS, BG_SMEM, st>>>(m, x, B, part, I,
+                                                                               O, rows);
   return splits;
 }
 
@@ -895,8 +934,8 @@ inline int gemv_dq(const Mat& m, const bf16* x, int B, const float* amax, int* p
   static std::atomic<size_t> smem_set[QT_MAX_DEVICES];
   big_smem(gemv_batched_dq_mma, smem_set);
   const int splits = batched_splits(B, I, O, rows);
-  const dim3 grid((O + BG_COLS - 1) / BG_COLS, splits);
-  gemv_batched_dq_mma<<<grid, GEMV_THREADS, BG_SMEM, st>>>(m, x, B, amax, part, I, O, rows);
+  gemv_batched_dq_mma<<<batched_grid(B, O, splits), GEMV_THREADS, BG_SMEM, st>>>(m, x, B, amax,
+                                                                               part, I, O, rows);
   return splits;
 }
 

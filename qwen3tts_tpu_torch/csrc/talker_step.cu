@@ -1,4 +1,4 @@
-// K1: one talker decode step for B rows (1 <= B <= 64), with the codec head
+// K1: one talker decode step for B rows (1 <= B <= 256), with the codec head
 // and the code0 sampler (sample mode) or without them, for Hopper (sm_90a).
 //
 // Replaces qwen3tts_tpu/ops/talker_kernel.py::talker_decode_step (body
@@ -33,7 +33,11 @@
 // ``gemv_batched_dq_mma`` (dyn_int8: m16n8k32 s8 -> exact s32, partials
 // bit-equal to the dp4a form's); the workspace holds TC_MAX_PARTS rows of
 // partials (``_cuda.workspace_rows(B)``). At B = 1 the GEMV stays
-// ``gemv_partial`` / ``gemv_partial_dq``.
+// ``gemv_partial`` / ``gemv_partial_dq``. Past 64 rows each GEMV takes the
+// batch in groups of 64 (common.cuh's BG_GROUP), every group's blocks
+// staging the weight tile for themselves; at B = 256 a 0.6B step is ~228
+// GFLOP, 0.23 ms at the bf16 rate, past the byte floor, which is why the
+// batch stops there (MAX_BATCH).
 //
 // Design: split-K GEMVs whose second pass is fused with the residual add
 // and the next RMSNorm (or SwiGLU); an attention block per (kv head, row)

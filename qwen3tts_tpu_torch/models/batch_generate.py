@@ -19,7 +19,7 @@ counters (``steps``, ``frames``, ``offsets``, ``done``) stay on the device.
 
 On CUDA the lockstep decode runs through the kernels only: it raises unless
 K1 and K2 both take the batch (a fused layout, int8 or dense bf16, or for
-the CP unfused int8, and 1..MAX_BATCH rows; ``Qwen3TTSModel.generate_batch``
+the CP unfused int8, and 1..MAX_BATCH (256) rows; ``Qwen3TTSModel.generate_batch``
 splits longer lists into such groups). Both kernels run in the matmul mode
 that QWEN3TTS_TK_MODE and QWEN3TTS_CPK_MODE select (``generate.py``).
 Every lockstep frame after the first runs K1 in sample mode

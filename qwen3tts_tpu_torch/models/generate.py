@@ -106,7 +106,8 @@ def _fused_ok(sampling: SamplingConfig, device: torch.device) -> bool:
 def _use_cp_kernel(cp_params, cp_cfg, talker_cfg, sampling, device, batch: int = 1) -> bool:
     """Gate for K2: CUDA tensors, int8 (fused or unfused) or fused bf16
     layers (with the projection where the CP is narrower than the talker),
-    1..64 rows, any ``top_p`` and ``ref_exact_top_p`` (``_fused_ok``)."""
+    1..MAX_BATCH (256) rows, any ``top_p`` and ``ref_exact_top_p``
+    (``_fused_ok``)."""
     from ..ops.cp_kernel import kernel_supported
 
     return _fused_ok(sampling, device) and kernel_supported(
@@ -193,7 +194,7 @@ def _use_talker_sample_kernel(
     talker_params, talker_cfg, sampling, device, batch: int = 1, kv_quant: bool = False
 ) -> bool:
     """Gate for K1 in sample mode: CUDA tensors, fused weights and a head of
-    int8 or dense bf16, 1..64 rows, a bf16 or an int8 cache, any ``top_p``
+    int8 or dense bf16, 1..256 rows, a bf16 or an int8 cache, any ``top_p``
     and ``ref_exact_top_p`` (``_fused_ok``)."""
     from ..ops.talker_kernel import step_supported
 

@@ -1,7 +1,7 @@
 """K2: the code predictor's whole inner loop for one frame.
 
 ``predict_codes_fused`` replaces qwen3tts_tpu/ops/cp_kernel.py::
-predict_codes_fused for 1 <= B <= 64 rows (the TPU kernel body is
+predict_codes_fused for 1 <= B <= 256 rows (the TPU kernel body is
 ``_cp_kernel``). On a CUDA tensor it launches the hand-written kernel in
 csrc/cp_loop.cu (one C call per frame; that file's header gives the bound
 and the design); on a CPU tensor it runs ``predict_codes_fused_ref``, the
@@ -398,7 +398,7 @@ def batched_gemv_ref(x, w, amax=None) -> torch.Tensor:
 
 def batched_gemv(x, w, amax=None, *, tensor_cores: bool = True) -> torch.Tensor:
     """The first pass of K2's batched GEMV alone: x bf16 [B, I] (2 <= B <=
-    64) @ w [I, O] (int8 or bf16; I, O multiples of 16), with ``amax`` the
+    MAX_BATCH) @ w [I, O] (int8 or bf16; I, O multiples of 16), with ``amax`` the
     dyn_int8 form. Returns the split partials [splits, B, O] (f32, or int32
     in dyn_int8) of the tensor-core form K2 runs (``tensor_cores``) or of
     the CUDA-core form K1 runs; on a CPU tensor the plain version's sum as

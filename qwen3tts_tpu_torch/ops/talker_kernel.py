@@ -3,7 +3,7 @@ and code0 sampler.
 
 ``talker_decode_step`` replaces qwen3tts_tpu/ops/talker_kernel.py::
 talker_decode_step (the TPU kernel body is ``_talker_step_kernel``) for
-1 <= B <= 64 rows at their own cache offsets, on a bf16 cache or an int8
+1 <= B <= 256 rows at their own cache offsets, on a bf16 cache or an int8
 cache with per-row f32 scales (``KVCacheQ``), in sample mode (the codec head
 and the code0 sampler of every row) or non-sample mode (the post-norm hidden
 only), on either fused layout (``_layout``): int8 weights with per-channel

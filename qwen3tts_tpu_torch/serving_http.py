@@ -117,9 +117,11 @@ def make_server(service, host: str = "127.0.0.1", port: int = 8080,
                     for ev in stream:
                         if isinstance(ev, AudioChunkEvent):
                             chunk(pcm16_bytes(ev.audio))
-                self.wfile.write(b"0\r\n\r\n")
+                # the stream ended whole: counted before the last chunk, so a
+                # client that has read the body sees it in /healthz
                 with lock:
                     stats["requests"] += 1
+                self.wfile.write(b"0\r\n\r\n")
             except (BrokenPipeError, ConnectionResetError):
                 pass  # the client went away; closing() freed the slot
             except Exception:  # noqa: BLE001  (a fault mid-stream: the truncated body says so)

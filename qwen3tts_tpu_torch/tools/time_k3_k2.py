@@ -9,16 +9,23 @@ yardsticks.
   tree has it, K3's profile: its kernel cut after the loads, the scores,
   the softmax, the PV sums, their sum over row groups and the partials
   written out (``qt_decode_attention_cut``).
-- K2 at B in {2, 8, 16, 17, 33, 48, 64}, 0.6B int8 CP, ``wo_bf16`` and
-  ``dyn_int8``: device ms per frame, and at B=64 that time split by kernel
-  (GEMV, attention, sampler, finishing).
-- Where the tree has it, K2's batched GEMV alone at B=64 at the CP's five
-  shapes: the tensor-core form, the CUDA-core form and one library call
-  (``torch.matmul`` on bf16 weights; ``torch._int_mm`` in dyn_int8).
+- K2 at B in {2, 8, 16, 17, 33, 48, 64, 128, 256}, 0.6B int8 CP,
+  ``wo_bf16`` and ``dyn_int8``: device ms per frame, and at B = 64 and 256
+  that time split by kernel (GEMV, attention, sampler, finishing); from
+  B = 64 up also events ms, the plain version's events ms and the bound
+  (every input read once; operations over the bf16 or int8 rate).
+- Where the tree has it, K2's batched GEMV alone at B = 64 and 256 at the
+  CP's five shapes: the tensor-core form, the CUDA-core form and one
+  library call (``torch.matmul`` on bf16 weights; ``torch._int_mm`` in
+  dyn_int8).
 - ``k1``: K1's step (sample mode, T = 0.9, top-k 50) at B in {1, 2, 8, 16,
   33, 48, 64} on the 0.6B int8 talker in ``wo_bf16`` and ``dyn_int8``, and
   the 1.7B int8 talker at B = 64, on a bf16 cache of 256 rows with the rows'
-  offsets in [64, 192): device ms (profiler) and events ms per step.
+  offsets in [64, 192): device ms (profiler) and events ms per step; then
+  the wide cells, B in {64, 128, 256} on a 128-row bf16 cache with offsets
+  in [20, 120) (chip_smoke phase a's), 0.6B int8 in both modes and 1.7B
+  int8 at B = 256: events ms, device ms, the plain version's events ms
+  and the bound.
 - ``k1b1``: K1 at B = 1 (sample mode, T = 0.9, top-k 50) on the 0.6B
   talker in int8 ``wo_bf16``, ``dyn_int8`` and dense bf16 and on the 1.7B
   int8 talker, on bf16 (and for 0.6B int8 also int8) caches of random rows,
@@ -89,7 +96,8 @@ from ._card import (
 )
 
 PEAK_BF16, PEAK_INT8 = 989e12, 1979e12  # H100 SXM dense tensor rates, 700 W
-BATCHES = (2, 8, 16, 17, 33, 48, 64)
+BATCHES = (2, 8, 16, 17, 33, 48, 64, 128, 256)
+WIDE = (64, 128, 256)  # the batches K1 and K2 are also timed beside their plain versions at
 
 
 def bound(n_bytes: float, ops: float, peak: float) -> tuple[float, str]:
@@ -179,6 +187,45 @@ def kind_of(name: str) -> str:
     return "other"
 
 
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def stack_io(layers) -> tuple[int, int]:
+    """(bytes, weight elements) of a fused or unfused layer stack's
+    projections and norms (int8 with scales, or dense bf16)."""
+    from ..ops.quant import Int8Linear
+
+    ws = [w for w in layers.values() if isinstance(w, (Int8Linear, torch.Tensor))]
+    n_bytes = sum(nbytes(w.q, w.scale) if isinstance(w, Int8Linear) else nbytes(w) for w in ws)
+    elems = sum(w.q.numel() for w in ws if isinstance(w, Int8Linear))
+    elems += sum(w.numel() for w in ws if isinstance(w, torch.Tensor) and w.dim() == 3
+                 and w.dtype == torch.bfloat16)
+    return n_bytes, elems
+
+
+def head_io(head) -> tuple[int, int]:
+    from ..ops.quant import Int8Linear
+
+    if isinstance(head, Int8Linear):
+        return nbytes(head.q, head.scale), head.q.numel()
+    return nbytes(head), head.numel()
+
+
+def k2_bound(cp, cpc, B: int, th: int, dyn: bool) -> tuple[float, str]:
+    """K2's bound at B rows: the stack, the 15 heads and the embedding rows
+    read once, x0, codes and esum; 16 positions through the stack and 15
+    heads a row (2 operations a weight), the attention over 16 slots."""
+    NCB, H = cpc.num_code_groups - 1, cpc.hidden_size
+    s_bytes, s_elems = stack_io(cp["layers"])
+    h_bytes, h_elems = head_io(cp["lm_head"])
+    n_bytes = (s_bytes + h_bytes + nbytes(cp["norm"]) + B * 2 * th * 2 + NCB * B * th * 2
+               + B * NCB * 4 + B * th * 4)
+    ops = (2 * B * (16 * s_elems + h_elems)
+           + 16 * 4 * cpc.num_hidden_layers * cpc.num_attention_heads * cpc.head_dim * 16 * B)
+    return bound(n_bytes, ops, PEAK_INT8 if dyn else PEAK_BF16)
+
+
 def k2(dev, emit):
     cpc, cp, talker = cp_weights(dev)
     for B in BATCHES:
@@ -191,7 +238,12 @@ def k2(dev, emit):
             # the windows hold the kernel library's launches and the
             # wrapper's few operand copies
             rec = dict(kernel="K2", B=B, mode=mode)
-            if B == 64:
+            if B in WIDE:
+                ref = lambda: cpk.predict_codes_fused_ref(cp, cpc, talker, h, c0, (3, 4),
+                                                          temperature=0.9, top_k=50, mode=mode)
+                rec.update(events_ms=event_ms(fn, 10), plain_ms=event_ms(ref, 2))
+                rec["bound_ms"], rec["bound_by"] = k2_bound(cp, cpc, B, 1024, mode == "dyn_int8")
+            if B in (64, 256):
                 split = device_ms_by_kernel(fn, 5)
                 rec["ms"] = sum(split.values())
                 by_kind: dict[str, float] = {}
@@ -203,8 +255,7 @@ def k2(dev, emit):
             emit(rec)
 
 
-def gemv_alone(dev, emit):
-    B = 64
+def gemv_alone(dev, emit, B=64):
     g = torch.Generator(device=dev).manual_seed(11)
     shapes = {"qkv": (1024, 4096), "o": (2048, 1024), "gate_up": (1024, 6144),
               "down": (3072, 1024), "head": (1024, 2048)}
@@ -251,13 +302,12 @@ def k1(dev, emit):
     from ..ops import talker_kernel as tkk
     from ..ops.rope import mrope_cos_sin
 
-    def run(cfg, tp, B, mode, label):
-        T = 256
+    def run(cfg, tp, B, mode, label, T=256, lo=64, hi_=192):
         g = torch.Generator(device=dev).manual_seed(B)
         cache = tk.make_cache(cfg, B, T, torch.bfloat16, dev)
         cache.k.copy_(torch.randn(cache.k.shape, generator=g, device=dev).mul(0.5))
         cache.v.copy_(torch.randn(cache.v.shape, generator=g, device=dev).mul(0.5))
-        offs = torch.randint(64, 192, (B,), generator=g, device=dev, dtype=torch.int32)
+        offs = torch.randint(lo, hi_, (B,), generator=g, device=dev, dtype=torch.int32)
         x = torch.randn(B, 1, cfg.hidden_size, generator=g, device=dev).mul(0.2).bfloat16()
         cos, sin = mrope_cos_sin(offs.long()[None], cfg.head_dim, cfg.rope_theta,
                                  cfg.mrope_section, torch.bfloat16)
@@ -271,8 +321,17 @@ def k1(dev, emit):
                                             temperature=0.9, top_k=50, rep_penalty=1.05,
                                             eos_id=-1, seed=(1, 2), suppress_add=supp,
                                             seen=args[2], mode=mode)
-        emit(dict(kernel="K1", model=label, B=B, mode=mode, ms=device_ms(fn, 10),
-                  events_ms=event_ms(fn, 10)))
+        rec = dict(kernel="K1", model=label, B=B, mode=mode, ms=device_ms(fn, 10),
+                   events_ms=event_ms(fn, 10))
+        if T != 256:  # a wide cell: the plain version and the bound beside it
+            ref = lambda: tkk.talker_decode_step_ref(tp, cfg, x, cache, off, args[0], args[1],
+                                                     temperature=0.9, top_k=50, rep_penalty=1.05,
+                                                     eos_id=-1, seed=(1, 2), suppress_add=supp,
+                                                     seen=args[2], mode=mode)
+            rec.update(T=T, offsets=[lo, hi_], plain_ms=event_ms(ref, 2))
+            rec["bound_ms"], rec["bound_by"] = k1_bound(tp, cfg, B, int(offs.sum()),
+                                                        mode == "dyn_int8")
+        emit(rec)
         del cache
 
     cfg = talker_06b()
@@ -280,11 +339,32 @@ def k1(dev, emit):
     for B in K1_BATCHES:
         for mode in ("wo_bf16", "dyn_int8"):
             run(cfg, tp, B, mode, "0.6B int8")
+    for B in WIDE:
+        for mode in ("wo_bf16", "dyn_int8"):
+            run(cfg, tp, B, mode, "0.6B int8", T=128, lo=20, hi_=120)
     del tp
     cfg17 = talker_17b()
     tp17 = int8_talker(cfg17, dev)
     run(cfg17, tp17, 64, "wo_bf16", "1.7B int8")
+    run(cfg17, tp17, 256, "wo_bf16", "1.7B int8", T=128, lo=20, hi_=120)
     del tp17
+
+
+def k1_bound(tp, cfg, B: int, prefix_rows: int, dyn: bool) -> tuple[float, str]:
+    """K1's bound in sample mode on a bf16 cache: the weights once, x and
+    the hidden, each row's prefix read and its new row written, the head,
+    seen, mask and codes; 2 operations a weight a row and the attention's
+    4 NQ D a cached row."""
+    L, NKV, NQ, D = (cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.num_attention_heads,
+                     cfg.head_dim)
+    s_bytes, s_elems = stack_io(tp["layers"])
+    h_bytes, h_elems = head_io(tp["codec_head"])
+    V, H = cfg.vocab_size, cfg.hidden_size
+    per_row = L * NKV * D * 2 * 2
+    n_bytes = (s_bytes + h_bytes + nbytes(tp["norm"]) + 2 * B * H * 2
+               + (prefix_rows + B) * per_row + B * V + V * 4 + B * 4)
+    ops = 2 * B * (s_elems + h_elems) + 4 * L * NQ * D * (prefix_rows + B)
+    return bound(n_bytes, ops, PEAK_INT8 if dyn else PEAK_BF16)
 
 
 def k1b1_cases(dev):
@@ -582,14 +662,12 @@ def int4lib(dev, emit):
                                                        rows_per_warp=r), 20)
                     for r in (1, 2, 4, 8)}
             if bits == 4:
-                try:  # MLX codes (8 nibbles a word along I) as int4pack's [O, I / 2] uint8
-                    nib = torch.stack([(w.q >> (4 * i)) & 0xF for i in range(8)], -1).reshape(O, I)
-                    packed = torch._convert_weight_to_int4pack(((nib[:, ::2] << 4) | nib[:, 1::2])
-                                                               .to(torch.uint8), 8)
-                    zero = w.biases + 8 * w.scales  # (q - 8) * scale + zero = q * scale + bias
-                    sz = torch.stack([w.scales.bfloat16(), zero.bfloat16()], -1).transpose(0, 1) \
-                        .contiguous()
-                    lib = lambda: torch._weight_int4pack_mm(x, packed, 64, sz)
+                try:  # MLX codes as int4pack's operands (exp_int4_repack builds them)
+                    from .exp_int4_repack import int4pack_operands
+
+                    ops = int4pack_operands(dict(packed=w.q, scales=w.scales, biases=w.biases,
+                                                 x=x), 64)
+                    lib = lambda: torch._weight_int4pack_mm(*ops)
                     rec["library_ms"] = device_ms(lib, 20)
                     rec["library_queued_ms"] = queued_ms(lib, 20)
                     rec["library_scaled_err"] = float((lib().float() - ref).abs().max()
@@ -628,7 +706,8 @@ def main() -> None:
         if "k2" in parts:
             k2(dev, emit)
         if "gemv" in parts and hasattr(cpk, "batched_gemv"):
-            gemv_alone(dev, emit)
+            for B in (64, 256):
+                gemv_alone(dev, emit, B)
         if "k1" in parts:
             k1(dev, emit)
         if "k1b1" in parts:

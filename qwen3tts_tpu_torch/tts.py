@@ -16,8 +16,9 @@ the final ``AudioEvent``; ``generate_stream_async`` runs it on a producer
 thread (``AsyncEventStream``). ``generate_voice_clone`` encodes reference
 audio to codes (models/encoder.py) and a speaker embedding
 (models/speaker_encoder.py) into an in-context prompt. ``generate_batch``
-runs B utterances in lockstep decodes of at most 64 each
-(models/batch_generate.py), with one batched vocoder call per group.
+runs B utterances in lockstep decodes of at most 256 each
+(models/batch_generate.py), with batched vocoder calls of at most
+``VOCODER_ROW_FRAMES`` rows x bucket frames each.
 ``kv_cache_dtype="int8"`` keeps the talker's KV cache in int8 with per-row
 scales. ``mesh=`` (a ``parallel.mesh.make_mesh`` grid) splits the talker
 and the code predictor over tensor-parallel positions, whose decode runs
@@ -69,6 +70,10 @@ CHAT_USER = "<|im_start|>user\n{}<|im_end|>\n"
 # Frame-count buckets for the max_frames cap and the vocoder's decode length
 # (the JAX package's default ladder).
 GEN_BUCKETS = (72, 96, 128, 256, 512, 1024, 2048)
+# rows x bucket frames of one batched vocoder call: 64 rows at the 72-frame
+# bucket. One call of 256 rows there allocated 12.66 GiB for a single f32
+# activation and did not fit on an 80 GB card beside the decode's weights.
+VOCODER_ROW_FRAMES = 64 * 72
 
 
 class Qwen3TTSError(Exception):
@@ -1109,11 +1114,12 @@ class Qwen3TTSModel:
         seed: int = 0,
         dp_mesh=None,
     ) -> list[np.ndarray]:
-        """Synthesize B utterances in lockstep decodes of at most
-        ``MAX_BATCH`` (64) texts each; one waveform per text. One weight
-        stream serves every sequence of a group, so a frame costs far less
-        than B single-utterance frames. Group g (texts 64 g ...) draws from
-        ``seed + g``; the first group is the whole batch up to 64 texts.
+        """Synthesize B utterances in one lockstep decode at ``seed``, as
+        the JAX package does, for up to ``MAX_BATCH`` (256) texts; one
+        waveform per text. One weight stream serves every sequence, so a
+        frame costs far less than B single-utterance frames. Past 256 texts
+        (K1's and K2's batch) the list is decoded in groups of 256, group g
+        (texts 256 g ...) drawing from ``seed + g``.
 
         On CUDA the decode runs through K1 and K2, which take either fused
         layout: int8 (``from_pretrained(..., quantize='int8')``, the default
@@ -1124,8 +1130,8 @@ class Qwen3TTSModel:
 
         ``dp_mesh``: a tp=1 ("dp", "tp") mesh (``parallel.mesh.make_mesh(devices,
         tp=1)``): the weights are replicated on each of its devices and each
-        group's texts are split into dp shards of B/dp (at most 64 a shard,
-        so a group is 64 dp texts), each decoding through K1 and K2 on its
+        group's texts are split into dp shards of B/dp (at most 256 a shard,
+        so a group is 256 dp texts), each decoding through K1 and K2 on its
         device with the shard's seed (``parallel.dp.shard_seed``); the
         codes are vocoded on the model's device. The model must be loaded
         without ``mesh=`` and dp must divide B.
@@ -1271,10 +1277,10 @@ class Qwen3TTSModel:
         slot's streams of the lockstep generator (as in ``serve``). Returns
         one waveform per text, in order (an
         empty one for a text that sampled EOS on its first frame). On CUDA
-        the decode runs through K1 and K2 (slots <= 64, a fused layout).
+        the decode runs through K1 and K2 (slots <= 256, a fused layout).
         ``dp_mesh`` (a tp=1 mesh): the slots are split over its replicas,
         slot s on shard s // (slots/dp), each shard's admissions and chunks
-        on its own device (at most 64 slots a shard); the model must be
+        on its own device (at most 256 slots a shard); the model must be
         loaded without ``mesh=`` and dp must divide ``slots``."""
         from .serving import BatchItem, ContinuousBatcher
 
@@ -1343,7 +1349,7 @@ class Qwen3TTSModel:
         service keeps a per-slot table and K1 and K2 read each row's values,
         where the TPU turned both kernels off for per-request sampling.
         Values that are not finite, or a repetition_penalty <= 0, raise.
-        On CUDA ``slots`` must be 1..64 (K1 and K2's batch), or 1..64 a
+        On CUDA ``slots`` must be 1..256 (K1 and K2's batch), or 1..256 a
         shard under ``dp_mesh``: a tp=1 mesh whose replicas each own
         slots/dp slots (the least-loaded shard takes the next request) and
         decode them on their own device; the model must be loaded without
@@ -1414,8 +1420,10 @@ class Qwen3TTSModel:
         return built
 
     def _decode_audio_list(self, codes, n_frames) -> list[np.ndarray]:
-        """One vocoder call for ragged utterances on a shared bucket.
-        codes [B, max_frames, 16] on the device; n_frames: per-row counts."""
+        """Vocoder calls for ragged utterances on a shared bucket, each of at
+        most ``VOCODER_ROW_FRAMES // bucket`` rows (the rows are decoded
+        independently, so a batch's slices give its waveforms). codes [B,
+        max_frames, 16] on the device; n_frames: per-row counts."""
         dec_cfg = self.tokenizer_config.decoder_config
         n_frames = np.asarray(n_frames, np.int64)
         bucket = pad_to_bucket(max(int(n_frames.max()), 1), GEN_BUCKETS)
@@ -1425,15 +1433,19 @@ class Qwen3TTSModel:
         in_range = torch.arange(take, device=codes.device)[None, :, None] < torch.as_tensor(
             n_frames, device=codes.device)[:, None, None]
         buf[:, :take] = torch.where(in_range, codes[:, :take], 0)
-        wav, lengths = vc_mod.decode(self.vocoder_params, dec_cfg, buf, torch.as_tensor(n_frames))
-        wav, lengths = wav.float().cpu().numpy(), lengths.cpu().numpy()
+        rows = max(1, VOCODER_ROW_FRAMES // bucket)
         out = []
-        for b in range(len(n_frames)):
-            samples = wav[b][: n_frames[b] * dec_cfg.total_upsample]
-            valid = int(lengths[b])
-            if 0 < valid < samples.shape[0]:
-                samples = samples[:valid]
-            out.append(samples)
+        for r0 in range(0, len(n_frames), rows):
+            n_s = n_frames[r0:r0 + rows]
+            wav, lengths = vc_mod.decode(self.vocoder_params, dec_cfg, buf[r0:r0 + rows],
+                                         torch.as_tensor(n_s))
+            wav, lengths = wav.float().cpu().numpy(), lengths.cpu().numpy()
+            for b in range(len(n_s)):
+                samples = wav[b][: n_s[b] * dec_cfg.total_upsample]
+                valid = int(lengths[b])
+                if 0 < valid < samples.shape[0]:
+                    samples = samples[:valid]
+                out.append(samples)
         return out
 
 

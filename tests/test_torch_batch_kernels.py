@@ -116,9 +116,9 @@ def test_k1_plain_batched_matches_pallas_interpret(k1_params, B, kv_quant, sampl
 
 def test_k1_step_supported_batch_and_cache(k1_params):
     _, tp = k1_params
-    for B in (1, 8, 48, 64):
+    for B in (1, 8, 48, 64, 65, 128, 256):
         assert tkk.step_supported(tp, KCFG, B, False) and tkk.step_supported(tp, KCFG, B, True)
-    assert not tkk.step_supported(tp, KCFG, 65)
+    assert not tkk.step_supported(tp, KCFG, 257)
 
 
 @pytest.fixture(scope="module")
@@ -157,7 +157,7 @@ def test_k2_plain_batched_matches_pallas_interpret(k2_setup, B):
     assert decisive.mean() >= 0.5
     assert (codes_t.numpy().T[decisive] == codes_j.T[decisive]).all()
     assert esum_t.numpy().tobytes() == np.asarray(esum_j, np.float32).tobytes()
-    assert tcpk.kernel_supported(tp, CPC, 256, 64) and not tcpk.kernel_supported(tp, CPC, 256, 65)
+    assert tcpk.kernel_supported(tp, CPC, 256, 256) and not tcpk.kernel_supported(tp, CPC, 256, 257)
     assert tcpk.predict_codes_fused.launches == 0
 
 
@@ -184,19 +184,20 @@ def test_kernel_limits_come_from_the_header():
     from qwen3tts_tpu_torch.ops.decode_blocks import STREAMS_PER_ROW
 
     lim = _cuda.LIMITS
-    assert tkk.MAX_BATCH == tcpk.MAX_BATCH == lim["MAX_BATCH"] == 64
+    assert tkk.MAX_BATCH == tcpk.MAX_BATCH == lim["MAX_BATCH"] == 256
     assert (_cuda.workspace_rows(1), _cuda.workspace_rows(2)) == (
         lim["GEMV_MAX_SPLIT"], lim["TC_MAX_PARTS"]) == (64, 1024)
     assert (lim["HEAD_DIM"], lim["ATTN_MAX_GROUP"], STREAMS_PER_ROW) == (128, 4, 16)
 
 
 @pytest.mark.parametrize("batch,fused,takes", [
-    (1, True, True), (64, True, True), (65, True, False), (8, False, False),
+    (1, True, True), (64, True, True), (65, True, True), (128, True, True), (256, True, True),
+    (257, True, False), (8, False, False),
 ])
 def test_lockstep_on_cuda_takes_only_the_kernels(k1_params, k2_setup, batch, fused, takes):
-    """K1 and K2 take 1..64 rows of the fused int8 layout. On a CUDA device
+    """K1 and K2 take 1..256 rows of the fused int8 layout. On a CUDA device
     the lockstep decode raises for any other batch or layout (no plain loop
-    on the card); on the CPU it takes them all."""
+    on the card), naming the bound; on the CPU it takes them all."""
     from qwen3tts_tpu_torch.models import batch_generate as tbg
 
     _, tp = k1_params
@@ -209,5 +210,5 @@ def test_lockstep_on_cuda_takes_only_the_kernels(k1_params, k2_setup, batch, fus
     if takes:
         tbg._require_kernels(*args, torch.device("cuda"), batch, False)
     else:
-        with pytest.raises(ValueError, match="K1 and K2"):
+        with pytest.raises(ValueError, match="K1 and K2, which take 1..256 rows"):
             tbg._require_kernels(*args, torch.device("cuda"), batch, False)

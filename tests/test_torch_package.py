@@ -41,7 +41,7 @@ SUBMODULES = (
     "tools.exp_kv_append", "tools.exp_cpk", "tools.check_b1_frames", "tools.time_k3_k2",
     "cli", "serving", "serving_http", "parallel.mesh", "parallel.dp", "utils.audio",
     "utils.profiler", "tools.ckpt_layout", "tools.inspect_ckpt", "tools.parity_harness",
-    "tools.dryrun_multichip",
+    "tools.dryrun_multichip", "tools.batch_bits",
 )
 
 

@@ -2,10 +2,12 @@
 127.0.0.1, over ``model.serve()`` of a synthetic checkpoint loaded with
 ``from_pretrained`` on the CPU (tests/test_torch_serving.py's
 ``service_model``): /synthesize gives a RIFF WAV, /synthesize_stream a
-chunked RIFF of whole codec frames, /healthz its JSON; a bad speaker is a
-400 on both endpoints, a full queue a 429, and per-request sampling fields
-are taken (200) by a per-request service and refused (400) by a frozen
-one, as are values the sampler cannot take (not finite, a penalty of 0).
+chunked RIFF of whole codec frames, /healthz its JSON (a stream counted
+before its terminating chunk, so a client that read it sees it at once);
+a bad speaker is a 400 on both endpoints, a full queue a 429, and
+per-request sampling fields are taken (200) by a per-request service and
+refused (400) by a frozen one, as are values the sampler cannot take (not
+finite, a penalty of 0).
 Port only: the waveforms' numbers are held in
 tests/test_torch_serving.py and tests/test_torch_batch.py."""
 
@@ -85,6 +87,31 @@ def test_synthesize_stream_and_health(model):
             assert code == 400 and "NoSuch" in json.loads(out)["error"], path
         assert post(port, "/synthesize", b"{}", timeout=60)[0] == 400  # no text
         assert post(port, "/synthesize", {"text": "x", "top_k": "many"}, timeout=60)[0] == 400
+
+
+def stream_once(port, text):
+    """One /synthesize_stream request read to its end; returns the body."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", "/synthesize_stream", headers={"Content-Type": "application/json"},
+                 body=json.dumps({"text": text, "speaker": "Aiden", "max_tokens": 4,
+                                  "chunk_frames": 2}))
+    r = conn.getresponse()
+    assert r.status == 200
+    body = r.read()  # ends with the terminating chunk
+    conn.close()
+    return body
+
+
+@pytest.mark.parametrize("streams", [1, 3])
+def test_healthz_counts_a_stream_before_its_last_chunk(model, streams):
+    """/healthz read at once after each of ``streams`` streamed requests
+    counts every one of them: the server counts a stream that ended whole
+    before it writes the terminating chunk that ends the client's read."""
+    with http_service(model) as port:
+        for i in range(streams):
+            assert stream_once(port, f"Counted stream {i}")[:4] == b"RIFF"
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as r:
+                assert json.loads(r.read())["requests"] == i + 1, i
 
 
 def test_a_full_queue_is_429(model):
