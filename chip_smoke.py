@@ -46,13 +46,15 @@ kernels from csrc/, and runs, in order:
   9. the packed main path: a 0.6B int4 (group 64) MLX checkpoint written to
      a temporary directory by tests/synthetic_ckpt.py's numpy functions, then
      ``Qwen3TTSModel.from_pretrained(dir, keep_packed=True).generate()``:
-     packed leaves, K4's launch count by formula, K1/K2 untouched, a finite
-     waveform of n x 1920 samples; then the default load of the same
-     directory (int8, fused) runs K1 and K2;
- 10. packed teacher-forced greedy codes over 8 frames: K4 against the plain
-     ``quant_matmul`` at every sampled position (equal but for near-ties);
+     packed leaves, K4's and quant_gemm's launch counts by formula, K1/K2
+     untouched, a finite waveform of n x 1920 samples; then the default
+     load of the same directory (int8, fused) runs K1 and K2;
+ 10. packed teacher-forced greedy codes over 8 frames: K4 and quant_gemm
+     against the plain ``quant_matmul`` at every sampled position (equal
+     but for near-ties);
  11. the packed headline (66 frames, one timed run after a warm-up; decode
-     ms over 24 frames with K4 beside 20 on plain quant_matmul) and the
+     ms over 24 frames with K4 and quant_gemm beside 20 on plain
+     quant_matmul) and the
      long cache: 32 frames on a 4096-row cache, K3 launched 28 times per
      decode step, ms per talker step with K3 beside the plain masked
      attention over all 4096 rows; then one torch.profiler window over 5
@@ -228,6 +230,15 @@ kernels from csrc/, and runs, in order:
      frame on K1 and K2), and the card's ``activation_stats`` of one
      profiled sequence against the same call in f32 on the CPU (0.05
      scaled).
+  y. (run after 11) the lockstep batch and the service on phase 9's
+     packed model: quant_gemm (csrc/quant_gemm.cu, K4's function at M
+     rows) against quant_matmul at the packed 0.6B shapes, M = 2, 8, 64,
+     65 and 256, bits 4 and 8, bf16 and f32 x (1e-4 scaled), each case
+     queued beside its bound, the plain version and (int4)
+     ``torch._weight_int4pack_mm``; ``generate_batch`` of 8 texts at 12
+     frames and ``serve(slots=4)`` with 4 requests, K1 and K2 never
+     launched and quant_gemm / K4 launches by formula; the B = 8 and 64
+     lockstep's ms a frame and codec tokens/s (``phase_y``).
 
 The K1 comparisons in dyn_int8 (phase k) hold kernel and plain version
 against a float64 step of the model's maths (the kernel within 1.5x of the
@@ -885,6 +896,237 @@ def phase_w(dev, smi, cfg, ckpt) -> None:
     log(f"    phase w took {time.time() - t_w:.1f} s")
 
 
+def phase_y(dev, smi, cfg, packed) -> dict:
+    """Phase y: the lockstep batch and the service on the packed model
+    (``packed``: phase 9's 0.6B int4 group-64 checkpoint through
+    ``from_pretrained(..., keep_packed=True)``), whose matmuls of more than
+    one row run ``quant_gemm`` (csrc/quant_gemm.cu) and of one row K4.
+
+    1. ``quant_gemm`` against its plain version ``quant_matmul`` at the five
+       distinct (O, I) of the seven packed 0.6B matmuls (the codec head has
+       gate/up's shape, the CP's lm_head q's), M = 2, 8, 64, 65 and 256,
+       bits 4 and 8 (group 64), bf16 and f32 x: the scaled error (bound
+       1e-4, K4's), the time queued behind a spin kernel over copies of the
+       weight that hold 64 MB (no call finds its weight in the 50 MB L2),
+       the bound (the words, scales, biases, x and y once over 3.35 TB/s, or
+       2 M O I operations, three times that for an f32 x, which the kernel
+       splits into three bf16 parts, over 989 TFLOP/s: the larger), the
+       plain version's time and at bits 4 ``torch._weight_int4pack_mm`` on
+       the same weights and M rows of bf16 x;
+    2. ``packed.generate_batch`` of 8 texts at 12 frames (EOS forbidden
+       through the model's sampling settings): K1 and K2 never launch,
+       every matmul runs quant_gemm (4 a text for the text projection,
+       then 7 L + 1 + 15 (7 Lc + 1) a lockstep frame) and K4 none, every
+       waveform finite and of 12 frames;
+    3. ``packed.serve(slots=4)`` with 4 requests of 12 frames: the same
+       checks, K4 on each admission's one-row matmuls (2 + 14 (7 Lc + 1));
+    4. the B = 8 and B = 64 lockstep (``prefill_start_batch`` and 6 frames
+       of ``generate_chunk_batch`` on random prompts, a 64-row bucket): ms
+       a lockstep frame and codec tokens/s.
+
+    Returns quant_gemm's entry of the kernels line (the time, bound, plain
+    and library time of M = 64 at 3072 x 1024, int4 bf16 x; launches: the
+    generate_batch run). Raises at the first failed check."""
+    import numpy as np
+    import torch
+
+    from qwen3tts_tpu_torch.models import batch_generate as bg
+    from qwen3tts_tpu_torch.models import generate as gen
+    from qwen3tts_tpu_torch.models import talker as tk
+    from qwen3tts_tpu_torch.ops import cp_kernel as cpk
+    from qwen3tts_tpu_torch.ops import quant as tq
+    from qwen3tts_tpu_torch.ops import talker_kernel as tkk
+    from qwen3tts_tpu_torch.tools._card import HBM_BYTES_S, event_ms, queued_ms
+    from qwen3tts_tpu_torch.tools.exp_int4_repack import int4pack_operands
+
+    t_y = time.time()
+    cpc = cfg.code_predictor_config
+    H, L, Lc = cfg.hidden_size, cfg.num_hidden_layers, cpc.num_hidden_layers
+    pt_, pc_ = packed.talker_params, packed.cp_params
+    g = torch.Generator(device=dev).manual_seed(18)
+    rs = np.random.default_rng(18)
+    counted = (tkk.talker_decode_step, cpk.predict_codes_fused, tq.quant_gemv, tq.quant_gemm)
+
+    def reset():
+        for c in counted:
+            c.launches = 0
+
+    def counts():
+        return tuple(c.launches for c in counted)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    # 1. quant_gemm against quant_matmul, with the times
+    shapes = [(2048, 1024, "q; CP lm_head"), (1024, 1024, "k, v"), (1024, 2048, "o"),
+              (3072, 1024, "gate, up; codec head"), (1024, 3072, "down")]
+    rows = (2, 8, 64, 65, 256)
+    cases, err_max, abs_max = {}, 0.0, 0.0
+    for bits in (4, 8):
+        for O, I, where in shapes:
+            w = rs.standard_normal((O, I), dtype=np.float32) / np.float32(np.sqrt(I))
+            pw = tq.packed_from_numpy(*tq.pack_quantized(w, bits, 64), bits, 64).to(dev)
+            n_cp = -(-(64 << 20) // nbytes(pw.q, pw.scales, pw.biases))
+            copies = [(pw.q.clone(), pw.scales.clone(), pw.biases.clone(), bits, 64)
+                      for _ in range(n_cp)]
+            lib = None
+            if bits == 4:
+                op = int4pack_operands(dict(packed=pw.q, scales=pw.scales, biases=pw.biases,
+                                            x=torch.zeros(1, I, device=dev)), 64)
+                lib = [(op[1].clone(), op[3].clone()) for _ in range(
+                    -(-(64 << 20) // nbytes(op[1], op[3])))]
+            for M in rows:
+                x32 = torch.randn(M, I, generator=g, device=dev)
+                lib_ms = None
+                if lib is not None:
+                    xl, turn_l = x32.bfloat16(), iter(range(1 << 30))
+
+                    def run_l():
+                        w4, sz = lib[next(turn_l) % len(lib)]
+                        return torch._weight_int4pack_mm(xl, w4, 64, sz)
+
+                    lib_ms = queued_ms(run_l, 2 * len(lib))
+                for xdt in (torch.bfloat16, torch.float32):
+                    x = x32.to(xdt)
+                    args = (pw.q, pw.scales, pw.biases, bits, 64)
+                    n0 = tq.quant_gemm.launches
+                    yk = tq.quant_gemm(x, *args)
+                    yr = tq.quant_matmul(x, *args)
+                    torch.cuda.synchronize()
+                    check(tq.quant_gemm.launches == n0 + 1, "quant_gemm: one launch a call")
+                    err = scaled(yk, yr)
+                    err_max = max(err_max, err)
+                    abs_max = max(abs_max, float((yk - yr).abs().max()))
+                    check(err <= 1e-4, f"quant_gemm outside 1e-4 at bits {bits} [{O}x{I}] M {M} "
+                          f"{xdt}: {err:.3g}")
+                    turn = iter(range(1 << 30))
+
+                    def run_k():
+                        return tq.quant_gemm(x, *copies[next(turn) % n_cp])
+
+                    def run_p():
+                        return tq.quant_matmul(x, *copies[next(turn) % n_cp])
+
+                    ms = queued_ms(run_k, 2 * n_cp)
+                    plain_ms = event_ms(run_p, 5)
+                    ops = 2 * M * O * I * (1 if xdt == torch.bfloat16 else 3)
+                    t_b = nbytes(pw.q, pw.scales, pw.biases, x, yk) / HBM_BYTES_S * 1e3
+                    t_o = ops / 989e12 * 1e3
+                    bnd = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+                    cases[(bits, O, I, M, xdt)] = dict(ms=ms, plain_ms=plain_ms, bound=bnd,
+                                                       lib_ms=lib_ms)
+                    log(f"[y] quant_gemm bits {bits} g64 [{O} x {I}] ({where}) M {M} "
+                        f"{str(xdt)[6:]} x: scaled err {err:.3g}; {1000 * ms:.2f} us queued, "
+                        f"bound {1000 * bnd[0]:.2f} us ({bnd[1]}, {bnd[0] / ms:.1%}), plain "
+                        f"{1000 * plain_ms:.1f} us, torch._weight_int4pack_mm "
+                        f"{'-' if lib_ms is None else f'{1000 * lib_ms:.2f} us'}")
+            del copies, lib
+    # the row split over blocks against one block a row tile staged once,
+    # walking all 256 rows (slices = 1)
+    w = rs.standard_normal((3072, 1024), dtype=np.float32) / np.float32(32.0)
+    pw = tq.packed_from_numpy(*tq.pack_quantized(w, 4, 64), 4, 64).to(dev)
+    x = torch.randn(256, 1024, generator=g, device=dev).bfloat16()
+    once = {}
+    for slices in (0, 1):
+        y1 = tq.quant_gemm(x, pw.q, pw.scales, pw.biases, 4, 64, row_tiles=4, slices=slices)
+        once[slices] = queued_ms(lambda: tq.quant_gemm(x, pw.q, pw.scales, pw.biases, 4, 64,
+                                                       row_tiles=4, slices=slices), 50)
+        check(scaled(y1, tq.quant_matmul(x, pw.q, pw.scales, pw.biases, 4, 64)) <= 1e-4,
+              f"quant_gemm slices={slices}")
+    log(f"    quant_gemm: {len(cases)} cases within 1e-4 scaled (max {err_max:.3g}, max abs "
+        f"{abs_max:.3g}) in {time.time() - t_y:.1f} s; at M = 256, 3072 x 1024 int4 bf16 x "
+        f"(weights in the L2), the rows split over blocks {1000 * once[0]:.2f} us, one block a "
+        f"row tile staged once {1000 * once[1]:.2f} us  [{smi}]")
+
+    # 2. generate_batch of 8 texts at 12 frames, EOS forbidden
+    texts = ["Hello from the packed lockstep.", "A second voice reads a longer sentence here.",
+             "Three.", "Row four of eight speaks.", "Every matmul is a kernel now.",
+             "The codec head takes eight rows.", "Seven texts and then", "one more to make eight."]
+    sampled = gen.SamplingConfig(0.9, 50, 1.0, 1.05, forbid_eos=True)
+    per_frame = 7 * L + 1 + 15 * (7 * Lc + 1)
+    proj = 4 * int(isinstance(pt_["text_projection"]["fc1"]["w"], tq.PackedLinear))
+    own_sampling = packed._sampling
+    packed._sampling = lambda *a: sampled
+    try:
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        wavs = packed.generate_batch(texts, speakers=["aiden", "vivian"] * 4, language="english",
+                                     max_tokens=12, seed=18)
+        gb_s = time.time() - t0
+        gb = counts()
+        want = proj * 8 + 12 * per_frame
+        log(f"[y] packed generate_batch(8 texts, 12 frames, EOS forbidden): {gb_s:.2f} s with the "
+            f"vocoder; launches K1 {gb[0]}, K2 {gb[1]}, K4 {gb[2]}, quant_gemm {gb[3]} (formula "
+            f"{proj} x 8 + 12 x {per_frame} = {want})  [{smi}]")
+        check(gb == (0, 0, 0, want), f"packed generate_batch launches {gb}, want (0, 0, 0, {want})")
+        check(len(wavs) == 8 and all(bool(np.isfinite(w).all()) and len(w) == 12 * 1920
+                                     for w in wavs), "packed generate_batch waveforms")
+
+        # 3. serve(slots=4), 4 requests of 12 frames
+        reset()
+        t0 = time.time()
+        with packed.serve(slots=4, chunk_frames=4, max_frames=16, prompt_bucket=64,
+                          trailing_bucket=32) as svc:
+            futs = [svc.submit(t, speaker=s, language="english", max_tokens=12)
+                    for t, s in zip(texts[:4], ["aiden", "vivian"] * 2)]
+            served = [f.result() for f in futs]
+        sv_s = time.time() - t0
+        sv = counts()
+        want_k4 = 4 * (2 + 14 * (7 * Lc + 1))
+        log(f"[y] packed serve(slots=4), 4 requests of 12 frames: {sv_s:.2f} s, "
+            f"{4 * 12 * 16 / sv_s:.0f} codec tokens/s with the vocoder; launches K1 {sv[0]}, "
+            f"K2 {sv[1]}, K4 {sv[2]} (admissions: 4 x (2 + 14 x {7 * Lc + 1}) = {want_k4}), "
+            f"quant_gemm {sv[3]}  [{smi}]")
+        check(sv[:3] == (0, 0, want_k4) and sv[3] > 0, f"packed serve launches {sv}")
+        check(all(bool(np.isfinite(w).all()) and len(w) == 12 * 1920 for w in served),
+              "packed serve waveforms")
+    finally:
+        packed._sampling = own_sampling
+
+    # 4. the lockstep at B = 8 and 64: ms a frame, codec tokens/s
+    lock = {}
+    for B in (8, 64):
+        frames = 6
+        pre = torch.randn(B, 64, H, generator=g, device=dev).mul(0.05).bfloat16()
+        trail = torch.randn(B, 16, H, generator=g, device=dev).mul(0.05).bfloat16()
+        lens_p = torch.tensor([24 + (7 * b) % 40 for b in range(B)], dtype=torch.int32,
+                              device=dev)
+        common = dict(talker_cfg=cfg, cp_cfg=cpc, sampling=sampled, trailing_embeds=trail,
+                      trailing_lens=torch.full((B,), 12, dtype=torch.int32, device=dev),
+                      tts_pad_embed=torch.zeros(H, dtype=torch.bfloat16, device=dev))
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        c = bg.prefill_start_batch(pt_, pc_, **common, prefill_embeds=pre, prefill_lens=lens_p,
+                                   cache=tk.make_cache(cfg, B, 128, torch.bfloat16, dev),
+                                   max_frames=frames + 1, seed=B)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        c = bg.generate_chunk_batch(pt_, pc_, c, **common, until_step=frames + 1,
+                                    max_steps=torch.full((B,), frames + 1, dtype=torch.int32,
+                                                         device=dev))
+        torch.cuda.synchronize()
+        t2 = time.time()
+        n = counts()
+        ms = (t2 - t1) * 1000 / frames
+        lock[B] = ms
+        log(f"[y] packed lockstep B={B}: prefill and first frame {1000 * (t1 - t0):.1f} ms, "
+            f"{ms:.1f} ms a lockstep frame over {frames}, {B * 16 * 1000 / ms:.0f} codec "
+            f"tokens/s; launches K1 {n[0]}, K2 {n[1]}, K4 {n[2]}, quant_gemm {n[3]} (= "
+            f"{frames + 1} x {per_frame})  [{smi}]")
+        check(n == (0, 0, 0, (frames + 1) * per_frame) and c.frames.tolist() == [frames + 1] * B,
+              f"packed lockstep B={B}: launches {n}, frames {c.frames.tolist()}")
+    log(f"    phase y took {time.time() - t_y:.1f} s")
+    e = cases[(4, 3072, 1024, 64, torch.bfloat16)]
+    return dict(name="quant_gemm (K4's function at M rows; ms: M = 64, 3072 x 1024 int4 g64, "
+                     "bf16 x; launches: the packed generate_batch of 8 texts)",
+                route="cuda", source="qwen3tts_tpu_torch/csrc/quant_gemm.cu",
+                replaces="qwen3tts_tpu/ops/quant.py:134", launches=gb[3], max_abs_err=abs_max,
+                ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound"][0],
+                bound_by=e["bound"][1], library_ms=e["lib_ms"])
+
+
 def main() -> None:
     import torch
 
@@ -1415,7 +1657,8 @@ def main() -> None:
     per_frame = 7 * L + 1 + 14 * (7 * n_cp + 1) + 1  # talker step + codec head, then the CP
     first = 1 + 14 * (7 * n_cp + 1) + 1  # prefill (plain) + codec-head row, then the CP
     text9 = "Hello from the packed int4 path of the H100 port."
-    for c in (tkk.talker_decode_step, cpk.predict_codes_fused, tq.quant_gemv, attn.decode_attention_inner):
+    for c in (tkk.talker_decode_step, cpk.predict_codes_fused, tq.quant_gemv, tq.quant_gemm,
+              attn.decode_attention_inner):
         c.launches = 0
     t0 = time.time()
     wav9, info9 = packed.generate(text9, speaker="aiden", language="english", seed=0,
@@ -1425,13 +1668,19 @@ def main() -> None:
     eos9 = n9 < 24
     k4_launches = tq.quant_gemv.launches
     want = first + per_frame * (n9 - 1) + (7 * L + 1) * int(eos9)
+    # quant_gemm: the text projection (fc1, fc2) of the text and of the tts
+    # specials, the prompt's 7 L, each frame's two-row CP first position
+    want_gemm = 4 + 7 * L + 7 * n_cp * n9
     log(f"[9] checkpoint (0.6B, int4 group 64) written in {ckpt_s:.1f} s, loaded packed in "
         f"{load_s:.1f} s; generate(): {n9} frames{' (EOS)' if eos9 else ''}, {len(wav9)} samples, "
         f"{gen9_s:.2f} s; launches K4 {k4_launches} (formula {first} + {per_frame} x (n - 1)"
         f"{' + ' + str(7 * L + 1) + ' for the EOS step' if eos9 else ''} = {want}), "
+        f"quant_gemm {tq.quant_gemm.launches} (4 + 7 L + 7 Lc n = {want_gemm}), "
         f"K3 {attn.decode_attention_inner.launches}, K1 {tkk.talker_decode_step.launches}, "
         f"K2 {cpk.predict_codes_fused.launches}")
     check(k4_launches == want, f"K4 ran {k4_launches} times, the formula says {want}")
+    check(tq.quant_gemm.launches == want_gemm,
+          f"quant_gemm ran {tq.quant_gemm.launches} times, the formula says {want_gemm}")
     check(tkk.talker_decode_step.launches == 0 and cpk.predict_codes_fused.launches == 0,
           "K1/K2 ran on packed weights")
     check(bool(np.isfinite(wav9).all()) and len(wav9) == n9 * 1920, f"waveform {len(wav9)} samples")
@@ -1492,11 +1741,11 @@ def main() -> None:
         return torch.stack([r.float() for r in out]).cpu()
 
     lk10 = replay_logits()
-    tk.quant_gemv = tq.quant_matmul  # the same loop through K4's plain version
+    tk.quant_gemv = tk.quant_gemm = tq.quant_matmul  # the same loop through the plain version
     try:
         lr10 = replay_logits()
     finally:
-        tk.quant_gemv = tq.quant_gemv
+        tk.quant_gemv, tk.quant_gemm = tq.quant_gemv, tq.quant_gemm
     fed = codes10[:8].reshape(-1)
     k4_path_abs = float((lk10 - lr10).abs().max())
     flips = 0
@@ -1540,15 +1789,16 @@ def main() -> None:
         return (time.time() - t) * 1000 / steps
 
     ms11 = packed_decode_ms(24)
-    tk.quant_gemv = tq.quant_matmul
+    tk.quant_gemv = tk.quant_gemm = tq.quant_matmul
     try:
         ms11_plain = packed_decode_ms(20)
     finally:
-        tk.quant_gemv = tq.quant_gemv
+        tk.quant_gemv, tk.quant_gemm = tq.quant_gemv, tq.quant_gemm
     rtf11 = wall11 / (frames / 12.5)
     log(f"[11] packed headline (66 frames, forbid_eos, T=0.9 top-k 50 rep 1.05): wall "
         f"{wall11:.3f} s (runs {', '.join(f'{w:.3f}' for w in walls11)}), RTF {rtf11:.4f}; "
-        f"decode {ms11:.2f} ms/frame with K4, {ms11_plain:.2f} ms/frame on plain quant_matmul  "
+        f"decode {ms11:.2f} ms/frame with K4 and quant_gemm, {ms11_plain:.2f} ms/frame on plain "
+        f"quant_matmul  "
         f"[{smi}]")
 
     for c in (tkk.talker_decode_step, cpk.predict_codes_fused, tq.quant_gemv, attn.decode_attention_inner):
@@ -1604,7 +1854,8 @@ def main() -> None:
     for _, a, b in sorted(iv, key=lambda r: r[1]):
         if b > end:
             busy, end = busy + b - max(a, end), b
-    groups = {"K4": ("quant_gemv_kernel",), "K3": ("attn_chunk",)}
+    groups = {"K4": ("quant_gemv_kernel",), "quant_gemm": ("quant_gemm_kernel",),
+              "K3": ("attn_chunk",)}
     dev_ms = {k: [0.0, 0] for k in (*groups, "other")}
     for name, a, b in iv:
         key = next((k for k, pats in groups.items() if any(p in name for p in pats)), "other")
@@ -1615,6 +1866,10 @@ def main() -> None:
         f"the wall; device ms/frame " + ", ".join(
             f"{k} {ms:.3f} ({n // 5} kernels, {1000 * ms * 5 / max(n, 1):.2f} us each)"
             for k, (ms, n) in dev_ms.items()) + f"  [{smi}]")
+
+    # ---- y. the lockstep batch and the service on the packed model ----
+    gemm_entry = phase_y(dev, smi, cfg, packed)
+    del packed
 
     # ==== the lockstep batch and the int8 KV cache (phases a-e) ====
     from qwen3tts_tpu_torch.models import batch_generate as bg
@@ -3930,6 +4185,7 @@ def main() -> None:
              replaces="qwen3tts_tpu/ops/quant.py:134", launches=k4_launches,
              max_abs_err=k4_abs, ms=k4_ms, plain_ms=k4_plain_ms, bound_ms=k4_bound[0],
              bound_by=k4_bound[1], library_ms=k4_lib_ms),
+        gemm_entry,
         dict(name="talker_decode_step (B=64, int8 KV; GEMVs on the tensor cores, 8 L + 3 operations "
                   "a call)", route="cuda",
              source="qwen3tts_tpu_torch/csrc/talker_step.cu",

@@ -20,8 +20,14 @@ counters (``steps``, ``frames``, ``offsets``, ``done``) stay on the device.
 On CUDA the lockstep decode runs through the kernels only: it raises unless
 K1 and K2 both take the batch (a fused layout, int8 or dense bf16, or for
 the CP unfused int8, and 1..MAX_BATCH (256) rows; ``Qwen3TTSModel.generate_batch``
-splits longer lists into such groups). Both kernels run in the matmul mode
-that QWEN3TTS_TK_MODE and QWEN3TTS_CPK_MODE select (``generate.py``).
+splits longer lists into such groups), or the trees are packed
+(``from_pretrained(keep_packed=True)``). Both kernels run in the matmul mode
+that QWEN3TTS_TK_MODE and QWEN3TTS_CPK_MODE select (``generate.py``). A
+packed tree decodes as the JAX package decodes one, through the plain
+lockstep (``forward_batched_step``, ``codec_logits``, ``_sample_batch``,
+``code_predictor.predict_codes``) at 1..MAX_BATCH rows, with every packed
+matmul on a kernel (``talker._dense``: K4 at one row, ``quant_gemm`` at
+more) and K1 and K2 launched never.
 Every lockstep frame after the first runs K1 in sample mode
 (``talker.forward_batched_step_sample``), and every frame K2
 (``ops/cp_kernel.py``) once for all rows, at any ``top_p`` and
@@ -89,21 +95,41 @@ class BatchResult(NamedTuple):
 
 
 def kernels_take(talker_params, cp_params, talker_cfg, cp_cfg, batch: int, kv_quant: bool) -> bool:
-    """Whether K1 and K2 take a lockstep batch of ``batch`` rows: the talker
-    in a fused layout (int8 or dense bf16), the CP fused or, in int8,
-    unfused (with its projection where it is narrower than the talker), at
-    most MAX_BATCH rows."""
+    """Whether the lockstep decode of ``batch`` rows runs only kernels on the
+    card: K1 and K2 take it (the talker in a fused layout, int8 or dense
+    bf16, the CP fused or, in int8, unfused, with its projection where it is
+    narrower than the talker), or the trees are packed
+    (``packed_take``); at most MAX_BATCH rows either way."""
     from ..ops.cp_kernel import kernel_supported
     from ..ops.talker_kernel import step_supported
 
-    return step_supported(talker_params, talker_cfg, batch, kv_quant) and kernel_supported(
+    return (step_supported(talker_params, talker_cfg, batch, kv_quant) and kernel_supported(
         cp_params, cp_cfg, talker_cfg.hidden_size, batch
-    )
+    )) or packed_take(talker_params, cp_params, batch)
+
+
+def packed_take(talker_params, cp_params, batch: int) -> bool:
+    """Whether the plain lockstep of ``batch`` (1..MAX_BATCH) rows on these
+    trees runs a kernel at every matmul: each matmul leaf of the talker and
+    the CP (the layers, ``codec_head``, ``lm_head``, the CP's projection if
+    there is one) a ``PackedLinear`` that K4 and ``quant_gemm`` take, and a
+    packed text projection taken too (a dense one serves only the prompt)."""
+    from ..ops.quant import _INT8_LAYER_KEYS, PackedLinear, packed_supported
+    from ..ops.talker_kernel import MAX_BATCH
+
+    leaves = [p["layers"][k] for p in (talker_params, cp_params) for k in _INT8_LAYER_KEYS
+              if k in p["layers"]]
+    leaves += [talker_params.get("codec_head"), cp_params.get("lm_head")]
+    if "small_to_mtp_projection" in cp_params:
+        leaves.append(cp_params["small_to_mtp_projection"]["w"])
+    text = talker_params.get("text_projection", {})
+    leaves += [fc["w"] for fc in text.values() if isinstance(fc["w"], PackedLinear)]
+    return 1 <= batch <= MAX_BATCH and all(packed_supported(w) for w in leaves)
 
 
 def _require_kernels(talker_params, cp_params, talker_cfg, cp_cfg, device, batch, kv_quant):
-    """On CUDA, raise unless K1 and K2 take the batch: the lockstep decode
-    never runs the plain loop on the card. A tensor-parallel tree (a
+    """On CUDA, raise unless ``kernels_take`` the batch: the lockstep decode
+    never runs a plain matmul on the card. A tensor-parallel tree (a
     ``mesh=`` model) runs the plain per-position step, as the JAX mesh runs
     XLA: that is its path, not a fallback."""
     from ..ops.talker_kernel import MAX_BATCH
@@ -114,7 +140,9 @@ def _require_kernels(talker_params, cp_params, talker_cfg, cp_cfg, device, batch
         raise ValueError(
             f"lockstep decode of {batch} rows: on CUDA it runs through K1 and K2, which take "
             f"1..{MAX_BATCH} rows of a fused layout: int8 (from_pretrained(quantize='int8')) "
-            f"or dense bf16 (an unquantized checkpoint loaded as bf16); K2 also unfused int8"
+            f"or dense bf16 (an unquantized checkpoint loaded as bf16); K2 also unfused int8; "
+            f"or, on packed MLX weights (from_pretrained(keep_packed=True), every matmul "
+            f"packed), through K4 and quant_gemm at 1..{MAX_BATCH} rows"
         )
 
 

@@ -4,9 +4,10 @@
 Per talker frame: a 2-token prefill of [talker hidden, codec_embed(code0)],
 then 14 single-token steps, each with its own embedding table and LM head
 (stacked on a leading axis), over a 16-slot cache reset every frame. This is
-the plain path, which also serves packed weights (their single-row matmuls
-go through K4, models/talker.py ``_dense``); fused int8 or dense bf16
-weights take K2 on the card (ops/cp_kernel.py).
+the plain path, which also serves packed weights (their matmuls go through
+models/talker.py ``_dense``: K4 at one row, ``quant_gemm`` at more, such as
+the two-token first position); fused int8 or dense bf16 weights take K2 on
+the card (ops/cp_kernel.py).
 """
 
 from __future__ import annotations

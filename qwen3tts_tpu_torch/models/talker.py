@@ -35,7 +35,7 @@ from ..config import TalkerConfig
 from ..ops.attention import MIN_CACHE, decode_attention_inner
 from ..ops.decode_blocks import quantize_rows as quantize_kv_rows  # the int8 cache's rows
 from ..ops.norms import rms_norm, silu
-from ..ops.quant import Int8Linear, PackedLinear, embed_lookup, int8_matmul, quant_gemv, quant_matmul
+from ..ops.quant import Int8Linear, PackedLinear, embed_lookup, int8_matmul, quant_gemm, quant_gemv
 from ..ops.rope import apply_rotary, mrope_cos_sin
 from ..parallel.mesh import ShardedCache, shard_cache, tree_mesh
 
@@ -198,14 +198,16 @@ def _dense(x: torch.Tensor, w) -> torch.Tensor:
     """y = x @ w for a dense [in, out] weight, an :class:`Int8Linear` or a
     :class:`PackedLinear`, accumulated in f32 and rounded once to x's dtype.
 
-    A packed weight takes K4 (``quant_gemv``) for one row, which is the
-    kernel on a CUDA tensor and the plain ``quant_matmul`` on the CPU; more
-    rows (prompt and prefill) dequantize and multiply (``quant_matmul``)."""
+    A packed weight takes K4 (``quant_gemv``) for one row and its M-row
+    form (``quant_gemm``) for more: the lockstep step, the code predictor's
+    two-token first position, prompt and prefill. On a CUDA tensor each
+    launches its kernel or raises on a shape it does not take; on the CPU
+    both run the plain ``quant_matmul``."""
     if isinstance(w, Int8Linear):
         return int8_matmul(x, w)
     if isinstance(w, PackedLinear):
         flat = x.reshape(-1, x.shape[-1])
-        fn = quant_gemv if flat.shape[0] == 1 else quant_matmul
+        fn = quant_gemv if flat.shape[0] == 1 else quant_gemm
         y = fn(flat, w.q, w.scales, w.biases, w.bits, w.group)
         return y.reshape(*x.shape[:-1], y.shape[-1]).to(x.dtype)
     return torch.matmul(x.float(), w.float()).to(x.dtype)
@@ -667,8 +669,8 @@ def activation_stats(params: Params, cfg: TalkerConfig, inputs_embeds: torch.Ten
     activations are the decode's, as its inputs and causal masking are. It
     is plain PyTorch on every device (the JAX version is XLA, no Pallas),
     on any layout of the talker tree: fused or separate projections,
-    ``Int8Linear``, dense bf16 or f32, and packed MLX weights, which rows
-    of more than one token dequantize (``_dense``). On a tensor-parallel
+    ``Int8Linear``, dense bf16 or f32, and packed MLX weights, whose rows
+    of more than one token take ``quant_gemm`` (``_dense``). On a tensor-parallel
     tree (``mesh=``) it is the per-position step of ``_tp_stack`` over a
     scratch sharded cache of the sequence's length; each position's
     neurons are its slice of the intermediate axis, concatenated in order

@@ -56,10 +56,15 @@ U = ctypes.c_uint32
 LL = ctypes.c_longlong
 
 # argument types of the C entries, in order (csrc/talker_step.cu, talker_frame.cu, cp_loop.cu,
-# quant_matmul.cu, decode_attention.cu, weight_stream.cu, talker_ablate.cu,
+# quant_matmul.cu, quant_gemm.cu, decode_attention.cu, weight_stream.cu, talker_ablate.cu,
 # hbm_read.cu, attn_forms.cu, int4_repack.cu, kv_append.cu, cpk_probes.cu)
 _ARGTYPES = {
     "qt_quant_gemv": [I, I, I, I, I, P, P, P, P, P, I, P],  # O I bits group x_bf16 x w s b y rpw stream
+    "qt_quant_gemm": [
+        I, I, I, I, I, I,  # M O I bits group x_bf16
+        P, P, P, P, P, I, I, P,  # x w s b y row_tiles slices stream
+    ],
+    "qt_quant_gemm_tiles": [I, I, I, I],  # M I bits group
     "qt_decode_attention": [
         I, I, I, I, I, F, I,  # NQ NKV D T pos scale NC
         P, P, P, P, P, P, P, P,  # q k v part_ml part_acc counters out stream

@@ -19,9 +19,11 @@ Two formats:
   because the mask drops the sign-extended bits.
 
 K4: ``quant_gemv`` is the dequant-in-matmul for one row (replaces
-``quant_matmul_pallas``); ``quant_matmul`` is its plain version and the
-multi-row path. On a CUDA tensor ``quant_gemv`` launches the kernel in
-csrc/quant_matmul.cu or raises; on a CPU tensor it runs ``quant_matmul``.
+``quant_matmul_pallas``); ``quant_gemm`` computes the same function at M
+rows (csrc/quant_gemm.cu; in the JAX package XLA's ``quant_matmul`` does).
+``quant_matmul`` is the plain version of both. On a CUDA tensor each wrapper
+launches its kernel or raises; on a CPU tensor it runs ``quant_matmul``.
+``packed_supported`` says whether both take a packed weight's shapes.
 """
 
 from __future__ import annotations
@@ -132,9 +134,60 @@ def dequantize(packed, scales, biases, bits: int = 4, group: int = 64) -> torch.
 
 def quant_matmul(x: torch.Tensor, packed, scales, biases, bits: int = 4, group: int = 64):
     """y = x @ dequant(w).T for x [..., I], packed [O, I/pw]: dequantize,
-    then an f32 matmul. Returns float32 [..., O]. The plain version of K4."""
+    then an f32 matmul. Returns float32 [..., O]. The plain version of K4
+    and of ``quant_gemm``."""
     w = dequantize(packed, scales, biases, bits, group)  # [O, I] f32
     return torch.matmul(x.float(), w.transpose(-1, -2))
+
+
+def _packed_error(packed, scales, biases, bits: int, group: int) -> str | None:
+    """Why K4 and ``quant_gemm`` do not take a packed weight (int32 words
+    [..., O, W], scales and biases [..., O, I/group]), or None if they do."""
+    per_word = 32 // bits if bits in (4, 8) else 1
+    O, W = packed.shape[-2:]
+    I = W * per_word
+    if bits not in (4, 8) or group % per_word or I % group:
+        return f"bits {bits} / group {group} not supported at width {I}"
+    if W % 4:
+        return f"{W} words per row is not a multiple of 4 (16-byte loads)"
+    if group % (4 * per_word):
+        return (f"a group of {group} does not hold whole 16-byte chunks "
+                f"({4 * per_word} values at {bits} bits)")
+    ng = I // group
+    if packed.dtype != torch.int32 or scales.shape[-2:] != (O, ng) or biases.shape[-2:] != (O, ng):
+        return "packed must be int32 [O, W], scales/biases [O, I/group]"
+    if scales.dtype != torch.float32 or biases.dtype != torch.float32:
+        return "scales and biases must be float32"
+    if packed.data_ptr() % 16:
+        return "packed rows must be 16-byte aligned"
+    return None
+
+
+def packed_supported(w) -> bool:
+    """Whether every matmul on ``w`` runs a kernel on the card: a
+    :class:`PackedLinear` whose shapes K4 (one row) and ``quant_gemm`` (more
+    rows) both take."""
+    return isinstance(w, PackedLinear) and _packed_error(
+        w.q, w.scales, w.biases, w.bits, w.group) is None
+
+
+def _kernel_operands(what: str, x, packed, scales, biases, bits: int, group: int, rows: str):
+    """Check a CUDA call's operands; returns (x contiguous and 16-byte
+    aligned, O, I). ``rows`` names x's rows in the message ("1" or "M")."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    err = _packed_error(packed, scales, biases, bits, group)
+    if err is not None:
+        raise ValueError(f"{what}: {err}")
+    O, W = packed.shape
+    I = W * (32 // bits)
+    if (x.dim() != 2 or x.shape[1] != I or x.shape[0] < 1 or (rows == "1" and x.shape[0] != 1)
+            or x.dtype not in (torch.bfloat16, torch.float32)):
+        raise ValueError(f"{what}: x must be bf16 or f32 [{rows}, {I}], got {x.dtype} {tuple(x.shape)}")
+    x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernels read x 16 bytes a load
+        x = x.clone()
+    return x, O, I
 
 
 def quant_gemv(x: torch.Tensor, packed, scales, biases, bits: int = 4, group: int = 64, *,
@@ -147,32 +200,9 @@ def quant_gemv(x: torch.Tensor, packed, scales, biases, bits: int = 4, group: in
     kernel choose from O, as every call of the port does."""
     if x.device.type == "cpu":
         return quant_matmul(x, packed, scales, biases, bits, group)
-    if x.device.type != "cuda":
-        raise ValueError(f"quant_gemv: unsupported device {x.device}")
-    per_word = 32 // bits
-    O, W = packed.shape
-    I = W * per_word
-    if bits not in (4, 8) or group % per_word or I % group:
-        raise ValueError(f"quant_gemv: bits {bits} / group {group} not supported at width {I}")
-    if W % 4:
-        raise ValueError(f"quant_gemv: {W} words per row is not a multiple of 4 (16-byte loads)")
-    if group % (4 * per_word):
-        raise ValueError(f"quant_gemv: a group of {group} does not hold whole 16-byte chunks "
-                         f"({4 * per_word} values at {bits} bits)")
-    if x.shape != (1, I) or x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"quant_gemv: x must be bf16 or f32 [1, {I}], got {x.dtype} {tuple(x.shape)}")
-    ng = I // group
-    if packed.dtype != torch.int32 or scales.shape != (O, ng) or biases.shape != (O, ng):
-        raise ValueError("quant_gemv: packed must be int32 [O, W], scales/biases [O, I/group]")
-    if scales.dtype != torch.float32 or biases.dtype != torch.float32:
-        raise ValueError("quant_gemv: scales and biases must be float32")
-    if packed.data_ptr() % 16:
-        raise ValueError("quant_gemv: packed rows must be 16-byte aligned")
+    x, O, I = _kernel_operands("quant_gemv", x, packed, scales, biases, bits, group, "1")
     if rows_per_warp not in (0, 1, 2, 4, 8):
         raise ValueError(f"quant_gemv: rows_per_warp {rows_per_warp} is not 0, 1, 2, 4 or 8")
-    x = x.contiguous()
-    if x.data_ptr() % 16:  # the kernel reads x 16 bytes a load
-        x = x.clone()
     y = torch.empty(1, O, dtype=torch.float32, device=x.device)
     lib = _cuda.library()
     with _cuda.on_device(x.device) as stream:
@@ -186,6 +216,42 @@ def quant_gemv(x: torch.Tensor, packed, scales, biases, bits: int = 4, group: in
 
 
 quant_gemv.launches = 0  # kernel launches (CUDA calls), not plain runs
+
+
+def quant_gemm(x: torch.Tensor, packed, scales, biases, bits: int = 4, group: int = 64, *,
+               row_tiles: int = 0, slices: int = 0):
+    """K4's function at M rows: y [M, O] = x [M, I] @ dequant(w).T in
+    float32, without an [O, I] matrix in memory; x is bf16 or f32 (an f32 x
+    keeps its precision). A CPU tensor runs the plain :func:`quant_matmul`;
+    a CUDA tensor launches csrc/quant_gemm.cu or raises on a shape the
+    kernel does not take. The port sends one row to K4 (``quant_gemv``).
+    ``row_tiles`` and ``slices`` (timing only): 16-row tiles a block (1, 2
+    or 4) and blocks over the rows of x; 0 lets the kernel choose from M and
+    O, as every call of the port does."""
+    if x.device.type == "cpu":
+        return quant_matmul(x, packed, scales, biases, bits, group)
+    x, O, I = _kernel_operands("quant_gemm", x, packed, scales, biases, bits, group, "M")
+    if row_tiles not in (0, 1, 2, 4) or slices < 0:
+        raise ValueError(f"quant_gemm: row_tiles {row_tiles} is not 0, 1, 2 or 4, or slices "
+                         f"{slices} < 0")
+    M = x.shape[0]
+    y = torch.empty(M, O, dtype=torch.float32, device=x.device)
+    lib = _cuda.library()
+    with _cuda.on_device(x.device) as stream:
+        if lib.qt_quant_gemm_tiles(M, I, bits, group) == 0:
+            raise ValueError(f"quant_gemm: 16 rows of width {I} at {bits} bits do not fit the "
+                             f"device's shared memory")
+        rc = lib.qt_quant_gemm(
+            M, O, I, bits, group, int(x.dtype == torch.bfloat16),
+            *(_cuda.ptr(t) for t in (x, packed, scales, biases, y)), int(row_tiles), int(slices),
+            stream,
+        )
+    _cuda.check(rc, "quant_gemm")
+    quant_gemm.launches += 1
+    return y
+
+
+quant_gemm.launches = 0  # kernel launches (CUDA calls), not plain runs
 
 
 def embed_lookup(table: PackedLinear, ids) -> torch.Tensor:

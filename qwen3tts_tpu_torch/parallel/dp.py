@@ -15,9 +15,10 @@ does (its ``shard_map`` over "dp"):
   - every per-sequence buffer (prompts, lengths, caps, the KV cache's batch
     rows, the sampling table) split into B/dp rows a shard;
   - each shard runs the port's UNMODIFIED single-device functions of
-    models/batch_generate.py on its rows, so K1 and K2 serve every
-    lockstep frame of every shard at the shard's B/dp rows, or the call
-    raises (``batch_generate._require_kernels``). Shards on distinct
+    models/batch_generate.py on its rows, so K1 and K2 (or, on packed
+    weights, K4 and ``quant_gemm``) serve every lockstep frame of every
+    shard at the shard's B/dp rows, or the call raises
+    (``batch_generate._require_kernels``). Shards on distinct
     devices run at once, each in a host thread of its own under
     ``torch.cuda.device`` (the lockstep loop reads its device back once a
     frame, so one host thread would run them one after another); shards

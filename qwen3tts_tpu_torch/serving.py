@@ -15,7 +15,8 @@ One shared trailing-text bucket, one ``max_frames`` codes buffer and one
 cache for the life of a server (``ContinuousBatcher.run`` makes one a
 call). On CUDA every lockstep frame runs K1 and K2 at B = slots
 (``_require_kernels``: 1..256 rows of a fused layout) and every admission's
-first frame K2 at B = 1. The host keeps a per-slot sampling table
+first frame K2 at B = 1; on packed weights every matmul runs K4 (one row)
+or ``quant_gemm`` (more), and K1 and K2 never. The host keeps a per-slot sampling table
 (``samp`` [B, 4] numpy) and ``batch_generate`` hands it to the kernels'
 per-row sampler once a call, in both sampling modes: ``sampling.per_request``
 only decides whether a request may override the service's values. Values

@@ -1,10 +1,11 @@
 """One of chip_smoke.py's later phases alone, without the phases before it:
-``v`` (multi-GPU) or ``w`` (the CLI and the activation profiler).
+``v`` (multi-GPU), ``w`` (the CLI and the activation profiler) or ``y``
+(the lockstep batch and the service on the packed model).
 
 Imports ``chip_smoke`` from the current directory and calls its own setup
 and phase function. Run it from the root of a checkout,
 
-    python3 qwen3tts_tpu_torch/tools/phase_alone.py v   # or w
+    python3 qwen3tts_tpu_torch/tools/phase_alone.py v   # or w, y
 
 * ``v``: ``weights_06b`` and ``custom_voice_model`` (the 0.6B CustomVoice
   model with int8 fused weights from ``host_init``, a random vocoder, the
@@ -14,6 +15,8 @@ and phase function. Run it from the root of a checkout,
 * ``w``: the 0.6B int4 (group 64) checkpoint written to a temporary
   directory (``checkpoint_arrays``, ``write_checkpoint``, ~40 s), then
   ``phase_w``.
+* ``y``: the same checkpoint loaded with ``from_pretrained(...,
+  keep_packed=True)`` and the stub tokenizer, then ``phase_y``.
 
 The phase's checks raise as in chip_smoke; the numbers it prints carry the
 card's name and power limit.
@@ -37,8 +40,8 @@ from qwen3tts_tpu_torch.tools._card import card, require_cuda  # noqa: E402
 
 def main() -> None:
     phase = sys.argv[1] if len(sys.argv) > 1 else ""
-    if phase not in ("v", "w"):
-        raise SystemExit("usage: phase_alone.py v|w")
+    if phase not in ("v", "w", "y"):
+        raise SystemExit("usage: phase_alone.py v|w|y")
     dev = require_cuda("phase_alone")
     torch.backends.cuda.matmul.allow_tf32 = False  # as chip_smoke's main
     torch.backends.cudnn.allow_tf32 = False
@@ -57,8 +60,18 @@ def main() -> None:
         with tempfile.TemporaryDirectory(prefix="qt_ckpt_") as ckpt:
             chip_smoke.write_checkpoint(
                 ckpt, chip_smoke.checkpoint_arrays(chip_smoke.talker_json(cfg)), packed_group=64)
-            t0 = time.time()
-            chip_smoke.phase_w(dev, smi, cfg, ckpt)
+            if phase == "w":
+                t0 = time.time()
+                chip_smoke.phase_w(dev, smi, cfg, ckpt)
+            else:
+                from synthetic_ckpt import StubTokenizer
+
+                from qwen3tts_tpu_torch.tts import Qwen3TTSModel
+
+                packed = Qwen3TTSModel.from_pretrained(ckpt, keep_packed=True)
+                packed.tokenizer = StubTokenizer(cfg.text_vocab_size)
+                t0 = time.time()
+                print(chip_smoke.phase_y(dev, smi, cfg, packed), flush=True)
     print(f"phase {phase} alone took {time.time() - t0:.1f} s  [{smi}]", flush=True)
 
 

@@ -293,7 +293,8 @@ class Qwen3TTSModel:
         the CPU).
 
         ``keep_packed=True`` keeps MLX int4/int8 weights packed: the
-        low-memory mode, whose single-row matmuls run through K4.
+        low-memory mode, whose matmuls run through K4 at one row and
+        ``quant_gemm`` at more, in ``generate`` and the batched entry points.
         ``quantize='int8'`` requantizes the talker and code-predictor
         matmuls to weight-only int8 with fused q/k/v and gate/up (int4
         checkpoints are dequantized first), the layout K1 and K2 serve.
@@ -1124,9 +1125,13 @@ class Qwen3TTSModel:
         On CUDA the decode runs through K1 and K2, which take either fused
         layout: int8 (``from_pretrained(..., quantize='int8')``, the default
         for a quantized checkpoint) or dense bf16 (the default load of an
-        unquantized checkpoint), at 0.6B and 1.7B: other weights (packed,
-        unfused talker, float32) raise ``Qwen3TTSError``; an unfused int8
-        code predictor runs through K2.
+        unquantized checkpoint), at 0.6B and 1.7B; an unfused int8 code
+        predictor runs through K2. Packed weights
+        (``from_pretrained(..., keep_packed=True)``) decode through the plain
+        lockstep, as the JAX package decodes them, with every packed matmul
+        on a kernel: K4 at one row, ``quant_gemm`` at more. Other weights
+        (unfused dense talker, float32, a mixed tree) raise
+        ``Qwen3TTSError``.
 
         ``dp_mesh``: a tp=1 ("dp", "tp") mesh (``parallel.mesh.make_mesh(devices,
         tp=1)``): the weights are replicated on each of its devices and each
@@ -1162,7 +1167,8 @@ class Qwen3TTSModel:
                 "generate_batch on CUDA runs through K1 and K2, which take a fused layout: "
                 "int8 (from_pretrained(..., quantize='int8')) or dense bf16 (the default "
                 "from_pretrained of an unquantized checkpoint with dtype bf16); K2 also an "
-                "unfused int8 code predictor"
+                "unfused int8 code predictor; or, on packed weights (from_pretrained(..., "
+                "keep_packed=True), every matmul packed), through K4 and quant_gemm"
             )
         sampling = self._sampling(temperature, top_k, top_p, repetition_penalty)
         t0 = time.time()
@@ -1277,7 +1283,8 @@ class Qwen3TTSModel:
         slot's streams of the lockstep generator (as in ``serve``). Returns
         one waveform per text, in order (an
         empty one for a text that sampled EOS on its first frame). On CUDA
-        the decode runs through K1 and K2 (slots <= 256, a fused layout).
+        the decode runs through K1 and K2 (slots <= 256, a fused layout), or
+        on packed weights through K4 and ``quant_gemm`` (``generate_batch``).
         ``dp_mesh`` (a tp=1 mesh): the slots are split over its replicas,
         slot s on shard s // (slots/dp), each shard's admissions and chunks
         on its own device (at most 256 slots a shard); the model must be
@@ -1349,7 +1356,8 @@ class Qwen3TTSModel:
         service keeps a per-slot table and K1 and K2 read each row's values,
         where the TPU turned both kernels off for per-request sampling.
         Values that are not finite, or a repetition_penalty <= 0, raise.
-        On CUDA ``slots`` must be 1..256 (K1 and K2's batch), or 1..256 a
+        On CUDA ``slots`` must be 1..256 (K1 and K2's batch, or the packed
+        lockstep's, whose admissions run K4 at one row), or 1..256 a
         shard under ``dp_mesh``: a tp=1 mesh whose replicas each own
         slots/dp slots (the least-loaded shard takes the next request) and
         decode them on their own device; the model must be loaded without

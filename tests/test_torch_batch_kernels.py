@@ -190,19 +190,41 @@ def test_kernel_limits_come_from_the_header():
     assert (lim["HEAD_DIM"], lim["ATTN_MAX_GROUP"], STREAMS_PER_ROW) == (128, 4, 16)
 
 
+@pytest.fixture(scope="module")
+def packed_trees():
+    """KCFG's talker and CPC's code predictor with every matmul packed (int4,
+    group 64, the host_init packer), as from_pretrained(keep_packed=True)."""
+    from qwen3tts_tpu_torch.utils import host_init as thi
+
+    tp = thi.pack_linear_params(thi.host_init_talker_params(0, KCFG))
+    cp = thi.pack_linear_params(thi.host_init_cp_params(1, CPC, KCFG.hidden_size))
+    return thi.to_device(tp, torch.float32, "cpu"), thi.to_device(cp, torch.float32, "cpu")
+
+
 @pytest.mark.parametrize("batch,fused,takes", [
     (1, True, True), (64, True, True), (65, True, True), (128, True, True), (256, True, True),
-    (257, True, False), (8, False, False),
+    (257, True, False), (8, False, False), (8, "packed", True),
 ])
-def test_lockstep_on_cuda_takes_only_the_kernels(k1_params, k2_setup, batch, fused, takes):
-    """K1 and K2 take 1..256 rows of the fused int8 layout. On a CUDA device
-    the lockstep decode raises for any other batch or layout (no plain loop
-    on the card), naming the bound; on the CPU it takes them all."""
+def test_lockstep_on_cuda_takes_only_the_kernels(k1_params, k2_setup, packed_trees, batch, fused,
+                                                 takes):
+    """K1 and K2 take 1..256 rows of the fused int8 layout; a packed tree
+    (every matmul a PackedLinear) takes the plain lockstep on K4 and
+    quant_gemm. On a CUDA device the lockstep decode raises for any other
+    batch or layout (no plain matmul on the card), naming the bound; on the
+    CPU it takes them all."""
     from qwen3tts_tpu_torch.models import batch_generate as tbg
 
     _, tp = k1_params
     _, _, cp, _ = k2_setup
-    if not fused:  # a dense qkv projection
+    if fused == "packed":
+        tp, cp = packed_trees
+        assert not tbg.kernels_take(tp, cp, KCFG, CPC, 257, True)
+        # a mixed tree (one dense matmul) is neither layout
+        mixed = dict(tp, codec_head=torch.zeros(KCFG.hidden_size, KCFG.vocab_size))
+        assert not tbg.kernels_take(mixed, cp, KCFG, CPC, batch, True)
+        with pytest.raises(ValueError, match=r"keep_packed=True\), every matmul packed"):
+            tbg._require_kernels(mixed, cp, KCFG, CPC, torch.device("cuda"), batch, False)
+    elif not fused:  # a dense qkv projection
         tp = dict(tp, layers=dict(tp["layers"], qkv_proj=tp["layers"]["qkv_proj"].q.float()))
     assert tbg.kernels_take(tp, cp, KCFG, CPC, batch, True) == takes
     args = (tp, cp, KCFG, CPC)

@@ -12,7 +12,10 @@ scaled max|a - b| / max(1, max|b|) < 0.05 for K1/K2's bf16 outputs (same
 rounding points, f32 sums in another order), codes equal unless a logit
 near-tie within twice the observed logit error explains the difference;
 K4 (f32 out) <= 1e-4 scaled (at the seven packed 0.6B shapes in every
-rows-a-warp form too); K1's persistent B = 1 step (csrc/talker_frame.cu)
+rows-a-warp form too), and so ``quant_gemm``, K4's function at M rows, at
+every packed 0.6B and 1.7B shape, M 2-4096, bits 4 and 8, groups 32 and
+64, bf16 and f32 x, with the packed lockstep and every batched entry
+point of a packed model on it (K1 and K2 never launched); K1's persistent B = 1 step (csrc/talker_frame.cu)
 in every mode it takes, at short and long prefixes, with its weights copied
 ahead or read in place (bit-equal), and its faults raising; K3 (bf16 out)
 <= 1e-2 scaled, also against
@@ -281,15 +284,147 @@ def test_k4_matches_plain(dev, bits, group, O, I):
 
 
 def test_k4_unsupported_single_row_raises(dev):
-    """6 words per row (48 int4 values) are not a multiple of the kernel's
-    16-byte loads: one packed row raises on the card instead of taking the
-    plain path; more rows take the plain path by design."""
+    """6 words per row (48 int4 values) are not a multiple of the kernels'
+    16-byte loads: one packed row (K4) and three (quant_gemm) raise on the
+    card instead of taking the plain path; three rows at a shape the kernel
+    takes run it, once."""
     w = _packed_weight(dev, 64, 48, 4, 16)
     x = torch.randn(1, 1, 48, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 4"):
         tk._dense(x, w)
-    assert tk._dense(x.expand(1, 3, 48), w).shape == (1, 3, 64)  # multi-row: plain
+    with pytest.raises(ValueError, match="quant_gemm: 6 words per row is not a multiple of 4"):
+        tk._dense(x.expand(1, 3, 48), w)
+    w = _packed_weight(dev, 64, 256, 4, 64)
+    x = torch.randn(1, 3, 256, device=dev, dtype=torch.bfloat16)
+    before = q.quant_gemm.launches
+    y = tk._dense(x, w)
+    assert q.quant_gemm.launches == before + 1 and y.shape == (1, 3, 64)
+    ref = q.quant_matmul(x, w.q, w.scales, w.biases, 4, 64).to(torch.bfloat16)
+    assert scaled(y, ref) <= 1e-2
 
+
+# every (O, I) of the packed 0.6B and 1.7B trees: the talker's and the CP's
+# projections, the codec head, the CP's lm_head and the 1.7B projection
+GEMM_SHAPES = [(2048, 1024), (1024, 1024), (1024, 2048), (3072, 1024), (1024, 3072),
+               (2048, 2048), (6144, 2048), (2048, 6144), (3072, 2048)]
+GEMM_ROWS = (2, 8, 17, 64, 65, 256, 512, 4096)
+
+
+@pytest.mark.parametrize("bits,group", [(4, 64), (4, 32), (8, 64), (8, 32)])
+@pytest.mark.parametrize("O,I", GEMM_SHAPES)
+def test_quant_gemm_matches_plain(dev, bits, group, O, I):
+    """quant_gemm (csrc/quant_gemm.cu) against quant_matmul within K4's
+    1e-4 scaled, one launch a call, at every row count the port sends it
+    (the lockstep's 2-256 and the CP's 2 B, prefill's thousands), on bf16
+    and f32 x."""
+    w = _packed_weight(dev, O, I, bits, group, seed=O + I + bits)
+    g = torch.Generator(device=dev).manual_seed(group)
+    for M in GEMM_ROWS:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(M, I, generator=g, device=dev).to(dtype)
+            before = q.quant_gemm.launches
+            y = q.quant_gemm(x, w.q, w.scales, w.biases, bits, group)
+            assert q.quant_gemm.launches == before + 1
+            ref = q.quant_matmul(x, w.q, w.scales, w.biases, bits, group)
+            assert y.dtype == torch.float32 and y.shape == (M, O)
+            assert scaled(y, ref) <= 1e-4, (M, dtype)
+
+
+def test_quant_gemm_forms_agree(dev):
+    """Every row-tile form, with the rows of x in one block or split over
+    blocks, within 1e-5 scaled of the automatic call; at the automatic form
+    a split gives its sums bit for bit (a row's slices meet in one order)."""
+    w = _packed_weight(dev, 3072, 1024, 4, 64)
+    x = torch.randn(300, 1024, device=dev, dtype=torch.bfloat16)
+    base = q.quant_gemm(x, w.q, w.scales, w.biases, 4, 64)
+    auto = q._cuda.library().qt_quant_gemm_tiles(300, 1024, 4, 64)
+    assert auto == 4
+    for tiles in (1, 2, 4):
+        for slices in (0, 1, 3):
+            y = q.quant_gemm(x, w.q, w.scales, w.biases, 4, 64, row_tiles=tiles, slices=slices)
+            assert scaled(y, base) <= 1e-5, (tiles, slices)
+            if tiles == auto:
+                assert torch.equal(y, base), (tiles, slices)
+    assert scaled(q.quant_gemm(x[:7], w.q, w.scales, w.biases, 4, 64), base[:7]) <= 1e-5
+
+
+def test_packed_lockstep_runs_quant_gemm_only(dev):
+    """``generate_codes_batch`` at B = 4 on packed trees (host_init packer,
+    int4, group 64) is the plain lockstep with every matmul on quant_gemm
+    (4-row steps, the CP's 8-row first position, the prefill): F x (7 L + 1
+    + 15 (7 Lc + 1)) launches for F frames, K4 none (no one-row matmul), K1
+    and K2 none; the codes lie in the vocabularies."""
+    tp = hi.to_device(hi.pack_linear_params(hi.host_init_talker_params(0, CFG)), torch.bfloat16, dev)
+    cp = hi.to_device(hi.pack_linear_params(hi.host_init_cp_params(1, CPC, CFG.hidden_size)),
+                      torch.bfloat16, dev)
+    assert bg.kernels_take(tp, cp, CFG, CPC, 4, False)
+    B, F = 4, 6
+    g = torch.Generator(device=dev).manual_seed(5)
+    n4, nm = q.quant_gemv.launches, q.quant_gemm.launches
+    n1, n2 = tkk.talker_decode_step.launches, cpk.predict_codes_fused.launches
+    res = bg.generate_codes_batch(
+        tp, cp, talker_cfg=CFG, cp_cfg=CPC,
+        sampling=gen.SamplingConfig(0.9, 50, 1.0, 1.05, forbid_eos=True),
+        prefill_embeds=torch.randn(B, 16, 256, generator=g, device=dev).mul(0.1).bfloat16(),
+        prefill_lens=[16, 9, 12, 5], trailing_embeds=torch.zeros(B, 4, 256, device=dev).bfloat16(),
+        trailing_lens=[4, 2, 0, 3], tts_pad_embed=torch.zeros(256, device=dev).bfloat16(),
+        cache=tk.make_cache(CFG, B, 64, torch.bfloat16, dev), max_steps=[F] * B, max_frames=F,
+        seed=3)
+    L, Lc = CFG.num_hidden_layers, CPC.num_hidden_layers
+    assert q.quant_gemm.launches - nm == F * (7 * L + 1 + 15 * (7 * Lc + 1))
+    assert q.quant_gemv.launches == n4
+    assert tkk.talker_decode_step.launches == n1 and cpk.predict_codes_fused.launches == n2
+    assert res.n_frames.tolist() == [F] * B
+    codes = res.codes.cpu()
+    assert (codes[..., 0] < CFG.vocab_size).all() and (codes[..., 1:] < CPC.vocab_size).all()
+    assert (codes >= 0).all()
+
+
+
+def test_packed_model_batched_entry_points_on_the_card(dev, tmp_path):
+    """A ``keep_packed=True`` model on the card (an int4 group-32 checkpoint
+    at CLI_TALKER's widths, whose CP is narrower than its talker, so its
+    packed projection runs too): ``generate_batch``,
+    ``generate_batch_continuous``, ``serve(slots=2)`` and ``generate_batch``
+    over a dp mesh of cuda:0 named twice decode with K1 and K2 never
+    launched and quant_gemm launched; every waveform finite and of whole
+    frames."""
+    from qwen3tts_tpu_torch.parallel.mesh import make_mesh
+    from qwen3tts_tpu_torch.tools import ckpt_layout
+    from qwen3tts_tpu_torch.tts import Qwen3TTSModel
+
+    d = ckpt_layout.write_checkpoint(
+        str(tmp_path / "ckpt"), quantize=True,
+        config=dict(ckpt_layout.SYNTHETIC_CONFIG, talker_config=CLI_TALKER))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        m = Qwen3TTSModel.from_pretrained(d, keep_packed=True)
+    m.tokenizer = ckpt_layout.StubTokenizer()
+    assert m.device.type == "cuda"
+    assert isinstance(m.cp_params["small_to_mtp_projection"]["w"], q.PackedLinear)
+    texts, speakers = ["The packed lockstep on the card.", "A second row.", "Three."], [
+        "aiden", "vivian", "aiden"]
+    kw = dict(language="english", max_tokens=6, seed=2)
+
+    def served():
+        with m.serve(slots=2, chunk_frames=3, max_frames=16, prompt_bucket=64,
+                     trailing_bucket=16) as svc:
+            futs = [svc.submit(t, speaker=s, language="english", max_tokens=6)
+                    for t, s in zip(texts, speakers)]
+            return [f.result() for f in futs]
+
+    runs = (lambda: m.generate_batch(texts, speakers=speakers, **kw),
+            lambda: m.generate_batch_continuous(texts, speakers=speakers, slots=2, **kw),
+            served,
+            lambda: m.generate_batch(texts[:2], speakers=speakers[:2],
+                                     dp_mesh=make_mesh(["cuda:0", "cuda:0"], tp=1), **kw))
+    for run in runs:
+        tkk.talker_decode_step.launches = cpk.predict_codes_fused.launches = 0
+        n = q.quant_gemm.launches
+        wavs = run()
+        assert tkk.talker_decode_step.launches == 0 and cpk.predict_codes_fused.launches == 0
+        assert q.quant_gemm.launches > n
+        assert wavs and all(np.isfinite(w).all() and len(w) % 1920 == 0 for w in wavs)
 
 def _k3_case(dev, T, pos, layered):
     g = torch.Generator(device=dev).manual_seed(pos)
