@@ -232,10 +232,11 @@ kernels from csrc/, and runs, in order:
      scaled).
   y. (run after 11) the lockstep batch and the service on phase 9's
      packed model: quant_gemm (csrc/quant_gemm.cu, K4's function at M
-     rows) against quant_matmul at the packed 0.6B shapes, M = 2, 8, 64,
-     65 and 256, bits 4 and 8, bf16 and f32 x (1e-4 scaled), each case
-     queued beside its bound, the plain version and (int4)
-     ``torch._weight_int4pack_mm``; ``generate_batch`` of 8 texts at 12
+     rows, in its rows, stream and staged forms) against quant_matmul at
+     the packed 0.6B shapes, M = 2, 4, 8, 16, 64 and 65 (the bf16
+     crossover), 24 and 25 (the f32 one), 256 and 4096, bits 4 and 8, bf16
+     and f32 x (1e-4 scaled), each case queued beside its bound, the plain
+     version and (int4) ``torch._weight_int4pack_mm``; ``generate_batch`` of 8 texts at 12
      frames and ``serve(slots=4)`` with 4 requests, K1 and K2 never
      launched and quant_gemm / K4 launches by formula; the B = 8 and 64
      lockstep's ms a frame and codec tokens/s (``phase_y``).
@@ -904,9 +905,11 @@ def phase_y(dev, smi, cfg, packed) -> dict:
 
     1. ``quant_gemm`` against its plain version ``quant_matmul`` at the five
        distinct (O, I) of the seven packed 0.6B matmuls (the codec head has
-       gate/up's shape, the CP's lm_head q's), M = 2, 8, 64, 65 and 256,
-       bits 4 and 8 (group 64), bf16 and f32 x: the scaled error (bound
-       1e-4, K4's), the time queued behind a spin kernel over copies of the
+       gate/up's shape, the CP's lm_head q's), M = 2, 4, 8, 16, 24, 25, 64,
+       65, 256 and 4096 (every form the kernel picks, each side of both
+       crossovers), bits 4 and 8 (group 64), bf16 and f32 x: the form, the
+       scaled error (bound 1e-4, K4's), the time queued behind a spin kernel
+       over copies of the
        weight that hold 64 MB (no call finds its weight in the 50 MB L2),
        the bound (the words, scales, biases, x and y once over 3.35 TB/s, or
        2 M O I operations, three times that for an f32 x, which the kernel
@@ -925,8 +928,9 @@ def phase_y(dev, smi, cfg, packed) -> dict:
        a lockstep frame and codec tokens/s.
 
     Returns quant_gemm's entry of the kernels line (the time, bound, plain
-    and library time of M = 64 at 3072 x 1024, int4 bf16 x; launches: the
-    generate_batch run). Raises at the first failed check."""
+    and library time of M = 64 at 3072 x 1024, int4 bf16 x, and the same of
+    M = 2 beside them; launches: the generate_batch run). Raises at the
+    first failed check."""
     import numpy as np
     import torch
 
@@ -960,8 +964,8 @@ def phase_y(dev, smi, cfg, packed) -> dict:
     # 1. quant_gemm against quant_matmul, with the times
     shapes = [(2048, 1024, "q; CP lm_head"), (1024, 1024, "k, v"), (1024, 2048, "o"),
               (3072, 1024, "gate, up; codec head"), (1024, 3072, "down")]
-    rows = (2, 8, 64, 65, 256)
-    cases, err_max, abs_max = {}, 0.0, 0.0
+    rows = (2, 4, 8, 16, 24, 25, 64, 65, 256, 4096)
+    cases, err_max, abs_max, forms = {}, 0.0, 0.0, set()
     for bits in (4, 8):
         for O, I, where in shapes:
             w = rs.standard_normal((O, I), dtype=np.float32) / np.float32(np.sqrt(I))
@@ -985,7 +989,7 @@ def phase_y(dev, smi, cfg, packed) -> dict:
                         w4, sz = lib[next(turn_l) % len(lib)]
                         return torch._weight_int4pack_mm(xl, w4, 64, sz)
 
-                    lib_ms = queued_ms(run_l, 2 * len(lib))
+                    lib_ms = queued_ms(run_l, (2 if M < 256 else 1) * len(lib))
                 for xdt in (torch.bfloat16, torch.float32):
                     x = x32.to(xdt)
                     args = (pw.q, pw.scales, pw.biases, bits, 64)
@@ -1007,8 +1011,10 @@ def phase_y(dev, smi, cfg, packed) -> dict:
                     def run_p():
                         return tq.quant_matmul(x, *copies[next(turn) % n_cp])
 
-                    ms = queued_ms(run_k, 2 * n_cp)
+                    ms = queued_ms(run_k, (2 if M < 256 else 1) * n_cp)
                     plain_ms = event_ms(run_p, 5)
+                    form = tq.quant_gemm_form(M, O, I, bits, 64, xdt)
+                    forms.add(form)
                     ops = 2 * M * O * I * (1 if xdt == torch.bfloat16 else 3)
                     t_b = nbytes(pw.q, pw.scales, pw.biases, x, yk) / HBM_BYTES_S * 1e3
                     t_o = ops / 989e12 * 1e3
@@ -1016,7 +1022,8 @@ def phase_y(dev, smi, cfg, packed) -> dict:
                     cases[(bits, O, I, M, xdt)] = dict(ms=ms, plain_ms=plain_ms, bound=bnd,
                                                        lib_ms=lib_ms)
                     log(f"[y] quant_gemm bits {bits} g64 [{O} x {I}] ({where}) M {M} "
-                        f"{str(xdt)[6:]} x: scaled err {err:.3g}; {1000 * ms:.2f} us queued, "
+                        f"{str(xdt)[6:]} x, {form} form: scaled err {err:.3g}; "
+                        f"{1000 * ms:.2f} us queued, "
                         f"bound {1000 * bnd[0]:.2f} us ({bnd[1]}, {bnd[0] / ms:.1%}), plain "
                         f"{1000 * plain_ms:.1f} us, torch._weight_int4pack_mm "
                         f"{'-' if lib_ms is None else f'{1000 * lib_ms:.2f} us'}")
@@ -1033,8 +1040,10 @@ def phase_y(dev, smi, cfg, packed) -> dict:
                                                        row_tiles=4, slices=slices), 50)
         check(scaled(y1, tq.quant_matmul(x, pw.q, pw.scales, pw.biases, 4, 64)) <= 1e-4,
               f"quant_gemm slices={slices}")
+    check(forms == {"rows", "stream", "staged"}, f"quant_gemm forms run: {sorted(forms)}")
     log(f"    quant_gemm: {len(cases)} cases within 1e-4 scaled (max {err_max:.3g}, max abs "
-        f"{abs_max:.3g}) in {time.time() - t_y:.1f} s; at M = 256, 3072 x 1024 int4 bf16 x "
+        f"{abs_max:.3g}), forms {sorted(forms)}, in {time.time() - t_y:.1f} s; at M = 256, "
+        f"3072 x 1024 int4 bf16 x "
         f"(weights in the L2), the rows split over blocks {1000 * once[0]:.2f} us, one block a "
         f"row tile staged once {1000 * once[1]:.2f} us  [{smi}]")
 
@@ -1119,12 +1128,16 @@ def phase_y(dev, smi, cfg, packed) -> dict:
               f"packed lockstep B={B}: launches {n}, frames {c.frames.tolist()}")
     log(f"    phase y took {time.time() - t_y:.1f} s")
     e = cases[(4, 3072, 1024, 64, torch.bfloat16)]
+    e2 = cases[(4, 3072, 1024, 2, torch.bfloat16)]
     return dict(name="quant_gemm (K4's function at M rows; ms: M = 64, 3072 x 1024 int4 g64, "
-                     "bf16 x; launches: the packed generate_batch of 8 texts)",
+                     "bf16 x, the *_m2 keys the same at M = 2; launches: the packed "
+                     "generate_batch of 8 texts)",
                 route="cuda", source="qwen3tts_tpu_torch/csrc/quant_gemm.cu",
                 replaces="qwen3tts_tpu/ops/quant.py:134", launches=gb[3], max_abs_err=abs_max,
                 ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound"][0],
-                bound_by=e["bound"][1], library_ms=e["lib_ms"])
+                bound_by=e["bound"][1], library_ms=e["lib_ms"], ms_m2=e2["ms"],
+                plain_ms_m2=e2["plain_ms"], bound_ms_m2=e2["bound"][0],
+                bound_by_m2=e2["bound"][1], library_ms_m2=e2["lib_ms"])
 
 
 def main() -> None:
@@ -1854,7 +1867,8 @@ def main() -> None:
     for _, a, b in sorted(iv, key=lambda r: r[1]):
         if b > end:
             busy, end = busy + b - max(a, end), b
-    groups = {"K4": ("quant_gemv_kernel",), "quant_gemm": ("quant_gemm_kernel",),
+    groups = {"K4": ("quant_gemv_kernel",),
+              "quant_gemm": ("quant_gemm_rows", "quant_gemm_stream", "quant_gemm_staged"),
               "K3": ("attn_chunk",)}
     dev_ms = {k: [0.0, 0] for k in (*groups, "other")}
     for name, a, b in iv:

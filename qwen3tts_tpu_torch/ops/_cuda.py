@@ -44,6 +44,9 @@ def header_ints(path: Path) -> dict[str, int]:
 LIMITS = header_ints(CSRC / "common.cuh")  # also the persistent B = 1 kernels' PF_* constants
 TALKER_FRAME_LIMITS = header_ints(CSRC / "talker_frame.cu")  # K1's persistent B = 1 step (TF_*)
 MAX_BATCH = LIMITS["MAX_BATCH"]  # rows of one K1 / K2 call
+_GEMM = header_ints(CSRC / "quant_gemm.cu")
+# the most rows quant_gemm's stream form takes in its automatic choice, by x type
+GEMM_CROSS = {torch.bfloat16: _GEMM["QG_CROSS_BF16"], torch.float32: _GEMM["QG_CROSS_F32"]}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qwen3tts_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -62,9 +65,10 @@ _ARGTYPES = {
     "qt_quant_gemv": [I, I, I, I, I, P, P, P, P, P, I, P],  # O I bits group x_bf16 x w s b y rpw stream
     "qt_quant_gemm": [
         I, I, I, I, I, I,  # M O I bits group x_bf16
-        P, P, P, P, P, I, I, P,  # x w s b y row_tiles slices stream
+        P, P, P, P, P, I, I, I, P,  # x w s b y form row_tiles slices stream
     ],
     "qt_quant_gemm_tiles": [I, I, I, I],  # M I bits group
+    "qt_quant_gemm_form": [I, I, I, I, I, I],  # M O I bits group x_bf16
     "qt_decode_attention": [
         I, I, I, I, I, F, I,  # NQ NKV D T pos scale NC
         P, P, P, P, P, P, P, P,  # q k v part_ml part_acc counters out stream

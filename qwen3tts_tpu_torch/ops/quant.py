@@ -20,7 +20,8 @@ Two formats:
 
 K4: ``quant_gemv`` is the dequant-in-matmul for one row (replaces
 ``quant_matmul_pallas``); ``quant_gemm`` computes the same function at M
-rows (csrc/quant_gemm.cu; in the JAX package XLA's ``quant_matmul`` does).
+rows (csrc/quant_gemm.cu, three forms chosen by M; in the JAX package XLA's
+``quant_matmul`` does).
 ``quant_matmul`` is the plain version of both. On a CUDA tensor each wrapper
 launches its kernel or raises; on a CPU tensor it runs ``quant_matmul``.
 ``packed_supported`` says whether both take a packed weight's shapes.
@@ -218,33 +219,49 @@ def quant_gemv(x: torch.Tensor, packed, scales, biases, bits: int = 4, group: in
 quant_gemv.launches = 0  # kernel launches (CUDA calls), not plain runs
 
 
+GEMM_FORMS = ("auto", "stream", "staged", "rows")  # quant_gemm's forms (csrc/quant_gemm.cu)
+
+
 def quant_gemm(x: torch.Tensor, packed, scales, biases, bits: int = 4, group: int = 64, *,
-               row_tiles: int = 0, slices: int = 0):
+               form: str = "auto", row_tiles: int = 0, slices: int = 0):
     """K4's function at M rows: y [M, O] = x [M, I] @ dequant(w).T in
     float32, without an [O, I] matrix in memory; x is bf16 or f32 (an f32 x
     keeps its precision). A CPU tensor runs the plain :func:`quant_matmul`;
     a CUDA tensor launches csrc/quant_gemm.cu or raises on a shape the
     kernel does not take. The port sends one row to K4 (``quant_gemv``).
-    ``row_tiles`` and ``slices`` (timing only): 16-row tiles a block (1, 2
-    or 4) and blocks over the rows of x; 0 lets the kernel choose from M and
-    O, as every call of the port does."""
+
+    ``form`` (timing and tests only): "rows" (K4 on the CUDA cores for one
+    or two rows of a bf16 x), "stream" (the weights straight into registers,
+    tensor cores, for up to a few dozen rows), "staged" (the weights staged
+    in shared memory, for more) or "auto", the kernel's own choice by M, the
+    x type and the width (:func:`quant_gemm_form`), as every call of the
+    port makes.
+    ``row_tiles`` and ``slices`` (timing only) set the staged form's 16-row
+    tiles a block (1, 2 or 4) and blocks over the rows of x; either one
+    non-zero selects the staged form, 0 lets the kernel choose."""
     if x.device.type == "cpu":
         return quant_matmul(x, packed, scales, biases, bits, group)
     x, O, I = _kernel_operands("quant_gemm", x, packed, scales, biases, bits, group, "M")
-    if row_tiles not in (0, 1, 2, 4) or slices < 0:
-        raise ValueError(f"quant_gemm: row_tiles {row_tiles} is not 0, 1, 2 or 4, or slices "
-                         f"{slices} < 0")
+    if form not in GEMM_FORMS or row_tiles not in (0, 1, 2, 4) or slices < 0:
+        raise ValueError(f"quant_gemm: form {form!r} is not one of {GEMM_FORMS}, row_tiles "
+                         f"{row_tiles} is not 0, 1, 2 or 4, or slices {slices} < 0")
+    if row_tiles or slices:
+        if form in ("stream", "rows"):
+            raise ValueError("quant_gemm: row_tiles and slices belong to the staged form")
+        form = "staged"
     M = x.shape[0]
+    if form == "rows" and (M > 2 or x.dtype != torch.bfloat16):
+        raise ValueError("quant_gemm: the rows form takes one or two rows of a bf16 x")
     y = torch.empty(M, O, dtype=torch.float32, device=x.device)
     lib = _cuda.library()
     with _cuda.on_device(x.device) as stream:
-        if lib.qt_quant_gemm_tiles(M, I, bits, group) == 0:
+        if form == "staged" and lib.qt_quant_gemm_tiles(M, I, bits, group) == 0:
             raise ValueError(f"quant_gemm: 16 rows of width {I} at {bits} bits do not fit the "
-                             f"device's shared memory")
+                             f"device's shared memory (the staged form)")
         rc = lib.qt_quant_gemm(
             M, O, I, bits, group, int(x.dtype == torch.bfloat16),
-            *(_cuda.ptr(t) for t in (x, packed, scales, biases, y)), int(row_tiles), int(slices),
-            stream,
+            *(_cuda.ptr(t) for t in (x, packed, scales, biases, y)), GEMM_FORMS.index(form),
+            int(row_tiles), int(slices), stream,
         )
     _cuda.check(rc, "quant_gemm")
     quant_gemm.launches += 1
@@ -252,6 +269,20 @@ def quant_gemm(x: torch.Tensor, packed, scales, biases, bits: int = 4, group: in
 
 
 quant_gemm.launches = 0  # kernel launches (CUDA calls), not plain runs
+
+
+def quant_gemm_form(M: int, O: int, I: int, bits: int = 4, group: int = 64,
+                    x_dtype: torch.dtype = torch.bfloat16, device=None) -> str:
+    """The form ``quant_gemm(form="auto")`` launches on the card at these
+    shapes: "rows", "stream" or "staged" (csrc/quant_gemm.cu's
+    qt_quant_gemm_form); raises on a shape no form takes."""
+    lib = _cuda.library()
+    with _cuda.on_device(torch.device(device or "cuda")):
+        code = lib.qt_quant_gemm_form(M, O, I, bits, group, int(x_dtype == torch.bfloat16))
+    if code == 0:
+        raise ValueError(f"quant_gemm: no form takes M {M}, [{O} x {I}], bits {bits}, "
+                         f"group {group}")
+    return GEMM_FORMS[code]
 
 
 def embed_lookup(table: PackedLinear, ids) -> torch.Tensor:

@@ -50,6 +50,12 @@ yardsticks.
   scale``, both rounded to bf16), beside K4 on the same weights (int4 and
   int8, group 64), by the profiler and queued; where the tree's K4 takes
   it, K4 in each rows-a-warp form.
+- ``qgemm``: ``quant_gemm``, K4's function at M rows, at the five distinct
+  packed 0.6B (O, I), M = 2-4096 (each side of both crossovers), int4 and
+  int8 at group 64, bf16 and f32 x: queued us over 64 MB of weight copies,
+  the scaled error, the bound and (int4, bf16 x)
+  ``torch._weight_int4pack_mm``; where the tree's wrapper takes ``form=``,
+  the chosen form and each form forced up to 65 rows.
 - ``k2b1``: K2 at B = 1 in every mode it takes (0.6B int8 fused and
   unfused in both matmul modes, dense bf16, the 1.7B CP with its
   projection in int8, dyn_int8 and bf16, top-p 0.9, K5's port): queued ms
@@ -66,7 +72,7 @@ read queued (``_card.queued_ms``) or by events, as the profiler records
 none. Needs a CUDA device. Run from a checkout's root:
 
     python -m qwen3tts_tpu_torch.tools.time_k3_k2 [--label L] [--rounds N] \
-        [--parts k3,k2,gemv,k1,k1b1,k2b1,e2e,int4lib] [--out DIR]
+        [--parts k3,k2,gemv,k1,k1b1,k2b1,e2e,int4lib,qgemm] [--out DIR]
 
 It uses only entry points older trees share, so two trees compare on one
 card: copy this file and ``_card.py`` into the other tree's
@@ -677,12 +683,89 @@ def int4lib(dev, emit):
             emit(rec)
 
 
+QGEMM_SHAPES = [(2048, 1024), (1024, 1024), (1024, 2048), (3072, 1024), (1024, 3072)]  # (O, I)
+QGEMM_ROWS = (2, 4, 8, 16, 24, 25, 64, 65, 256, 512, 4096)
+
+
+def qgemm(dev, emit):
+    """``quant_gemm`` (K4's function at M rows) at the five distinct packed
+    0.6B (O, I), M rows, int4 and int8 at group 64, bf16 and f32 x: us a
+    call queued behind a spin kernel over copies of the weight that hold
+    64 MB (no call finds its weight in the 50 MB L2), the scaled error
+    against ``quant_matmul``, the bound (words, scales, biases, x and y once
+    over 3.35 TB/s, or 2 M O I operations, three times that for an f32 x,
+    over 989 TFLOP/s: the larger) and, at int4 with a bf16 x,
+    ``torch._weight_int4pack_mm`` on the same weights and M rows queued the
+    same way. Where the tree's ``quant_gemm`` takes ``form=``, the form it
+    picks, and each form that takes the case forced too up to 65 rows (the
+    crossovers' neighbourhood)."""
+    import inspect
+
+    from ..ops import quant as tq
+    from .exp_int4_repack import int4pack_operands
+
+    forms = "form" in inspect.signature(tq.quant_gemm).parameters
+    rs = np.random.default_rng(19)
+    g = torch.Generator(device=dev).manual_seed(19)
+
+    def nb(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def walk(fn, copies):
+        turn = iter(range(1 << 30))
+        return lambda: fn(copies[next(turn) % len(copies)])
+
+    for bits in (4, 8):
+        for O, I in QGEMM_SHAPES:
+            w = rs.standard_normal((O, I), dtype=np.float32) / np.float32(np.sqrt(I))
+            pw = tq.packed_from_numpy(*tq.pack_quantized(w, bits, 64), bits, 64).to(dev)
+            copies = [(pw.q.clone(), pw.scales.clone(), pw.biases.clone())
+                      for _ in range(-(-(64 << 20) // nb(pw.q, pw.scales, pw.biases)))]
+            lib = None
+            if bits == 4:
+                op = int4pack_operands(dict(packed=pw.q, scales=pw.scales, biases=pw.biases,
+                                            x=torch.zeros(1, I, device=dev)), 64)
+                lib = [(op[1].clone(), op[3].clone())
+                       for _ in range(-(-(64 << 20) // nb(op[1], op[3])))]
+            for M in QGEMM_ROWS:
+                x32 = torch.randn(M, I, generator=g, device=dev)
+                for xdt in (torch.bfloat16, torch.float32):
+                    x = x32.to(xdt)
+                    ref = tq.quant_matmul(x, pw.q, pw.scales, pw.biases, bits, 64)
+                    yk = tq.quant_gemm(x, pw.q, pw.scales, pw.biases, bits, 64)
+                    ops = 2 * M * O * I * (1 if xdt == torch.bfloat16 else 3)
+                    t_b = nb(pw.q, pw.scales, pw.biases, x, yk) / HBM_BYTES_S * 1e3
+                    t_o = ops / PEAK_BF16 * 1e3
+                    rec = dict(kernel="quant_gemm", bits=bits, group=64, O=O, I=I, M=M,
+                               x=str(xdt)[6:], scaled_err=float((yk - ref).abs().max()
+                                                               / max(1.0, float(ref.abs().max()))),
+                               queued_ms=queued_ms(walk(lambda c: tq.quant_gemm(
+                                   x, *c, bits, 64), copies), 2 * len(copies)),
+                               bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else
+                               "operations")
+                    if forms:
+                        rec["form"] = tq.quant_gemm_form(M, O, I, bits, 64, xdt)
+                        if M <= 65:
+                            each = ("stream", "staged") + (
+                                ("rows",) if M <= 2 and xdt == torch.bfloat16 else ())
+                            rec["queued_ms_by_form"] = {f: queued_ms(walk(
+                                lambda c, f=f: tq.quant_gemm(x, *c, bits, 64, form=f), copies),
+                                2 * len(copies)) for f in each}
+                    if lib is not None and xdt == torch.bfloat16:
+                        xl = x.contiguous()
+                        rec["library_queued_ms"] = queued_ms(walk(
+                            lambda c: torch._weight_int4pack_mm(xl, c[0], 64, c[1]), lib),
+                            2 * len(lib))
+                    emit(rec)
+            del copies, lib
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="tree")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--parts", default="k3,k2,gemv",
-                    help="any of k3, k2, gemv, k1, k1b1, k2b1, e2e, int4lib")
+                    help="any of k3, k2, gemv, k1, k1b1, k2b1, e2e, int4lib, qgemm")
     ap.add_argument("--out", default=None, help="a directory for the JSON lines file too")
     args = ap.parse_args()
     parts = args.parts.split(",")
@@ -718,6 +801,8 @@ def main() -> None:
             e2e(dev, emit)
         if "int4lib" in parts:
             int4lib(dev, emit)
+        if "qgemm" in parts:
+            qgemm(dev, emit)
     if out:
         out.close()
 

@@ -307,7 +307,10 @@ def test_k4_unsupported_single_row_raises(dev):
 # projections, the codec head, the CP's lm_head and the 1.7B projection
 GEMM_SHAPES = [(2048, 1024), (1024, 1024), (1024, 2048), (3072, 1024), (1024, 3072),
                (2048, 2048), (6144, 2048), (2048, 6144), (3072, 2048)]
-GEMM_ROWS = (2, 8, 17, 64, 65, 256, 512, 4096)
+# the most rows quant_gemm's stream form takes by itself, by x type
+GEMM_CROSS = q._cuda.GEMM_CROSS
+GEMM_ROWS = tuple(sorted({1, 2, 3, 4, 8, 16, 17, 64, 65, 256, 512, 4096}
+                         | {c + d for c in GEMM_CROSS.values() for d in (-1, 0, 1)}))
 
 
 @pytest.mark.parametrize("bits,group", [(4, 64), (4, 32), (8, 64), (8, 32)])
@@ -331,21 +334,77 @@ def test_quant_gemm_matches_plain(dev, bits, group, O, I):
 
 
 def test_quant_gemm_forms_agree(dev):
-    """Every row-tile form, with the rows of x in one block or split over
-    blocks, within 1e-5 scaled of the automatic call; at the automatic form
-    a split gives its sums bit for bit (a row's slices meet in one order)."""
+    """Each form, forced (the stream form; the staged one in every row-tile
+    form, with the rows of x in one block or split over blocks), within
+    1e-5 scaled of the automatic call at the crossover rows of each x type
+    and at 300; the automatic form is the stream one up to the crossover
+    and the staged one past it, and gives the same bits in two calls; at
+    the automatic row tiles a split gives the staged sums bit for bit (a
+    row's slices meet in one order)."""
     w = _packed_weight(dev, 3072, 1024, 4, 64)
-    x = torch.randn(300, 1024, device=dev, dtype=torch.bfloat16)
-    base = q.quant_gemm(x, w.q, w.scales, w.biases, 4, 64)
-    auto = q._cuda.library().qt_quant_gemm_tiles(300, 1024, 4, 64)
-    assert auto == 4
-    for tiles in (1, 2, 4):
-        for slices in (0, 1, 3):
-            y = q.quant_gemm(x, w.q, w.scales, w.biases, 4, 64, row_tiles=tiles, slices=slices)
-            assert scaled(y, base) <= 1e-5, (tiles, slices)
-            if tiles == auto:
-                assert torch.equal(y, base), (tiles, slices)
-    assert scaled(q.quant_gemm(x[:7], w.q, w.scales, w.biases, 4, 64), base[:7]) <= 1e-5
+    g = torch.Generator(device=dev).manual_seed(19)
+    args = (w.q, w.scales, w.biases, 4, 64)
+    for dtype in (torch.bfloat16, torch.float32):
+        cross = GEMM_CROSS[dtype]
+        for M in (cross - 1, cross, cross + 1, 300):
+            x = torch.randn(M, 1024, generator=g, device=dev).to(dtype)
+            base = q.quant_gemm(x, *args)
+            assert torch.equal(q.quant_gemm(x, *args), base), (M, dtype)
+            want = "stream" if M <= cross else "staged"
+            assert q.quant_gemm_form(M, 3072, 1024, 4, 64, dtype) == want, (M, dtype)
+            assert scaled(q.quant_gemm(x, *args, form="stream"), base) <= 1e-5, (M, dtype)
+            auto = q._cuda.library().qt_quant_gemm_tiles(M, 1024, 4, 64)
+            for tiles in (1, 2, 4):
+                for slices in (0, 1, 3):
+                    y = q.quant_gemm(x, *args, form="staged", row_tiles=tiles, slices=slices)
+                    assert scaled(y, base) <= 1e-5, (M, dtype, tiles, slices)
+                    if tiles == auto and want == "staged":
+                        assert torch.equal(y, base), (M, dtype, tiles, slices)
+    assert q._cuda.library().qt_quant_gemm_tiles(300, 1024, 4, 64) == 4
+    x = torch.randn(300, 1024, generator=g, device=dev).bfloat16()
+    assert scaled(q.quant_gemm(x[:7], *args), q.quant_gemm(x, *args)[:7]) <= 1e-5
+    with pytest.raises(ValueError, match="belong to the staged form"):
+        q.quant_gemm(x, *args, form="stream", slices=2)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_quant_gemm_rows_form(dev, bits):
+    """The rows form (K4 on the CUDA cores for one or two rows of a bf16 x)
+    is the automatic form there (at int4 while a weight row holds at most 64
+    16-byte chunks), gives the same bits in two calls and agrees with the
+    stream and staged forms within 1e-5 scaled; it refuses an f32 x and
+    three rows."""
+    for O, I in ((3072, 1024), (1024, 2048), (1024, 3072)):
+        w = _packed_weight(dev, O, I, bits, 64, seed=O + bits)
+        args = (w.q, w.scales, w.biases, bits, 64)
+        for M in (1, 2):
+            x = torch.randn(M, I, generator=torch.Generator(device=dev).manual_seed(M),
+                            device=dev).bfloat16()
+            want = "rows" if bits == 8 or I // 32 <= 64 else "stream"
+            assert q.quant_gemm_form(M, O, I, bits, 64, torch.bfloat16) == want, (O, I, M)
+            assert q.quant_gemm_form(M, O, I, bits, 64, torch.float32) == "stream"
+            y = q.quant_gemm(x, *args, form="rows")
+            assert torch.equal(q.quant_gemm(x, *args, form="rows"), y)
+            for form in ("stream", "staged"):
+                assert scaled(q.quant_gemm(x, *args, form=form), y) <= 1e-5, (O, I, M, form)
+    with pytest.raises(ValueError, match="one or two rows of a bf16 x"):
+        q.quant_gemm(x.float(), *args, form="rows")
+    with pytest.raises(ValueError, match="one or two rows of a bf16 x"):
+        q.quant_gemm(torch.cat([x, x, x]), *args, form="rows")
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_quant_gemm_wide_f32_small_rows(dev, bits):
+    """The 1.7B (2048, 6144) down projection with an f32 x at the most rows
+    the stream form takes by itself: the widest x a lane streams (its units
+    in several batches and passes), within K4's 1e-4 scaled of quant_matmul."""
+    M = GEMM_CROSS[torch.float32]
+    w = _packed_weight(dev, 2048, 6144, bits, 64, seed=bits)
+    x = torch.randn(M, 6144, generator=torch.Generator(device=dev).manual_seed(bits), device=dev)
+    assert q.quant_gemm_form(M, 2048, 6144, bits, 64, torch.float32) == "stream"
+    y = q.quant_gemm(x, w.q, w.scales, w.biases, bits, 64)
+    ref = q.quant_matmul(x, w.q, w.scales, w.biases, bits, 64)
+    assert y.shape == (M, 2048) and scaled(y, ref) <= 1e-4
 
 
 def test_packed_lockstep_runs_quant_gemm_only(dev):

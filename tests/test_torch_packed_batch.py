@@ -19,8 +19,11 @@ its plain version, ``quant_matmul``). Oracles:
 * one request through ``serve(slots=2)``: the waveform of the same text's
   greedy ``generate_batch``, within the same bound;
 * ``quant_matmul`` (the plain version of K4 and ``quant_gemm``) at M = 2,
-  17 and 64 against the JAX package's, within 1e-5 scaled in f32, and
-  ``quant_gemm`` on a CPU tensor equal to it.
+  3, 16, 17, 64 and 512, four (bits, group) pairs, against the JAX
+  package's, within 1e-5 scaled in f32, and ``quant_gemm`` on a CPU tensor
+  equal to it; a bf16 x the same in f32 and, rounded to bf16 by
+  ``talker._dense``, within one bf16 step of JAX's bf16 result; the packed
+  ``_dense`` on a CPU tensor equal to the plain version.
 """
 
 import dataclasses
@@ -226,11 +229,14 @@ def test_packed_serve_one_request(models):
     assert np.abs(got - want).max() <= WAVE_TOL
 
 
-@pytest.mark.parametrize("M", [2, 17, 64])
+GEMM_GROUPS = ((4, 32), (4, 64), (8, 64), (8, 32))  # (bits, group)
+
+
+@pytest.mark.parametrize("M", [2, 3, 16, 17, 64, 512])
 def test_quant_matmul_rows_match_jax(M):
     """The plain version of K4 and quant_gemm at M rows against the JAX
     package's XLA path, both bit widths and groups of 32 and 64."""
-    for bits, group in ((4, 32), (4, 64), (8, 64)):
+    for bits, group in GEMM_GROUPS:
         w = rand(96, 128, seed=M + bits, scale=0.2)
         packed, scales, biases = tq.pack_quantized(w, bits, group)
         x = rand(M, 128, seed=M)
@@ -242,3 +248,44 @@ def test_quant_matmul_rows_match_jax(M):
         assert yt.shape == yj.shape == (M, 96)
         assert np.abs(yt - yj).max() / max(1.0, np.abs(yj).max()) <= 1e-5, (bits, group)
         assert torch.equal(tq.quant_gemm(torch.from_numpy(x), *args), torch.from_numpy(yt))
+
+
+@pytest.mark.parametrize("bits,group", GEMM_GROUPS)
+@pytest.mark.parametrize("M", [2, 16])
+def test_quant_matmul_bf16_rows_match_jax(M, bits, group):
+    """A bf16 x beside the f32 one: quant_matmul of a bf16 tensor against
+    the JAX package's quant_matmul of the same values in f32 (1e-5 scaled),
+    and ``talker._dense`` on the packed weight (bf16 out) against the JAX
+    path on the bf16 x (bf16 out) within one bf16 step of the scale (2^-7:
+    the two round the same f32 sums, taken in another order)."""
+    w = rand(96, 128, seed=M + bits + group, scale=0.2)
+    packed, scales, biases = tq.pack_quantized(w, bits, group)
+    xb = torch.from_numpy(rand(M, 128, seed=M + 1)).bfloat16()
+    x32 = xb.float().numpy()
+    pw = tq.packed_from_numpy(packed, scales, biases, bits, group)
+    jargs = (jnp.asarray(packed), jnp.asarray(scales), jnp.asarray(biases))
+    yt = tq.quant_matmul(xb, pw.q, pw.scales, pw.biases, bits, group).numpy()
+    yj = np.asarray(jq.quant_matmul(jnp.asarray(x32), *jargs, bits=bits, group=group))
+    assert yt.dtype == np.float32 and yt.shape == yj.shape == (M, 96)
+    assert np.abs(yt - yj).max() / max(1.0, np.abs(yj).max()) <= 1e-5
+    yd = ttk._dense(xb, pw)
+    yjb = jq.quant_matmul(jnp.asarray(x32, jnp.bfloat16), *jargs, bits=bits, group=group)
+    yjb = np.asarray(yjb.astype(jnp.float32))
+    assert yd.dtype == torch.bfloat16
+    assert np.abs(yd.float().numpy() - yjb).max() / max(1.0, np.abs(yjb).max()) <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 2, 5])
+def test_packed_dense_on_cpu_is_the_plain_version(rows, dtype):
+    """On a CPU tensor the packed ``_dense`` (K4 for one row, quant_gemm for
+    more) is the plain quant_matmul rounded to x's dtype, bit for bit, for
+    a batch of rows of any leading shape."""
+    for bits, group in GEMM_GROUPS:
+        w = rand(40, 128, seed=rows + bits, scale=0.2)
+        pw = tq.packed_from_numpy(*tq.pack_quantized(w, bits, group), bits, group)
+        x = torch.from_numpy(rand(1, rows, 128, seed=rows)).to(dtype)
+        y = ttk._dense(x, pw)
+        want = tq.quant_matmul(x.reshape(rows, 128), pw.q, pw.scales, pw.biases, bits, group)
+        assert y.shape == (1, rows, 40) and y.dtype == dtype
+        assert torch.equal(y, want.reshape(1, rows, 40).to(dtype)), (bits, group)
